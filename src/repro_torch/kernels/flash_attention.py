@@ -1,0 +1,192 @@
+"""Flash attention (online softmax) with GQA, causal and sliding-window
+masking: the wrapper of the hand-written CUDA kernel, and its plain version.
+
+Replaces the TPU kernel ``repro.kernels.flash_attention.flash_attention``
+(Pallas, ``_kernel``).  The CUDA source is ``csrc/flash_attention.cu``; it is
+compiled at the first call on a CUDA tensor (``_build.load``) and bound with
+``ctypes``.
+
+What bounds it on an H100: operations, not bytes — q, k, v and o cross device
+memory once each, while the two products cost ``4·B·H·dh`` operations per
+visible (q, k) pair.  The kernel keeps the running max, running sum and the
+f32 accumulator in registers over the whole walk along the keys, stages K/V
+tiles in shared memory indexed at ``h // G`` (no repeat of K/V), and cuts fully
+masked key tiles from its loop bounds.  Both products run in f32 on the FP32
+pipes (the reference keeps the probabilities in f32), so it stays far from the
+tensor-core bound; see the note at the top of the CUDA source.
+
+Accepted shapes: q ``(B, H, Sq, dh)``, k and v ``(B, KVH, Skv, dh)`` with
+``H % KVH == 0``, any ``Sq, Skv >= 1`` (the kernel masks the ragged edge
+itself, so lengths need not be multiples of the tile — a superset of what the
+reference accepts), ``dh`` a multiple of 4 up to 128, f32 or bf16.  The last
+dimension must be contiguous and every row 16-byte aligned; the other
+dimensions may be strided (a ``(B, S, H, dh)`` tensor viewed as
+``(B, H, S, dh)`` is taken as it is).  The output has q's type and q's
+strides.
+
+One difference from the plain version: a query row that sees no key at all
+(possible only with a window and ``Sq > Skv``) comes out as zeros from the
+kernel, as from the TPU kernel, and as the mean of ``v`` from the plain
+version, as from the reference's ``ref.attention``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.runtime import flags
+
+NEG_INF = -1e30
+
+#: tile sizes the CUDA kernel is built for (rows of q, rows of k per tile)
+TILES = (32, 64, 128)
+#: bytes of shared memory one thread block may use on sm_90
+SMEM_LIMIT = 232448
+
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 5
+             + [ctypes.c_float, ctypes.c_void_p])
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """The plain version: materialised logits, f32 math, ``-1e30`` mask.
+
+    q (B,H,Sq,dh) × k,v (B,KVH,Skv,dh) → (B,H,Sq,dh) in q's type."""
+    B, H, Sq, dh = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    G = H // KVH
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / math.sqrt(dh)
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+    return o.to(q.dtype)
+
+
+def padded_head_dim(dh: int) -> int:
+    for w in (16, 32, 64, 128):
+        if dh <= w:
+            return w
+    raise ValueError(f"head_dim {dh} > 128 is not supported by the kernel")
+
+
+def smem_bytes(block_q: int, block_k: int, dh: int) -> int:
+    """Shared memory of one thread block (mirrors the CUDA source)."""
+    dhp = padded_head_dim(dh)
+    return 4 * (block_q * (dhp + 4) + block_k * (dhp + 4) + block_k * dhp
+                + block_q * (block_k + 16))
+
+
+def pick_tiles(block_q: int, block_k: int, dh: int) -> Tuple[int, int]:
+    """The kernel's tile for a requested ``(block_q, block_k)``: each rounded
+    down to a size the kernel is built for (at least 32), then halved — the
+    key tile first — until the tile fits a block's shared memory."""
+    def snap(b: int) -> int:
+        return max([t for t in TILES if t <= b] or [TILES[0]])
+    bq, bk = snap(int(block_q)), snap(int(block_k))
+    while smem_bytes(bq, bk, dh) > SMEM_LIMIT:
+        if bk > TILES[0]:
+            bk //= 2
+        elif bq > TILES[0]:
+            bq //= 2
+        else:
+            raise ValueError(f"no tile fits shared memory at head_dim {dh}")
+    return bq, bk
+
+
+def _check(q, k, v, window) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q, k, v must be (B, H, S, dh)")
+    B, H, Sq, dh = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    if k.shape != (B, KVH, Skv, dh) or v.shape != k.shape:
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if KVH == 0 or H % KVH != 0:
+        raise ValueError(f"H={H} is not a multiple of KVH={KVH}")
+    if min(B, H, Sq, Skv, dh) < 1:
+        raise ValueError("empty dimension")
+    if not (q.dtype == k.dtype == v.dtype) \
+            or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q, k, v must share a dtype, float32 or bfloat16; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v lie on different devices")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def _check_layout(name: str, t: torch.Tensor) -> None:
+    # the kernel moves 4 elements at a time (16 bytes of f32, 8 of bf16)
+    if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
+            or t.data_ptr() % (4 * t.element_size()):
+        raise ValueError(
+            f"{name}: the last dimension must be contiguous and every row "
+            f"aligned to 4 elements; got strides {t.stride()}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """q (B,H,Sq,dh) × k,v (B,KVH,Skv,dh) → (B,H,Sq,dh).
+
+    A CUDA tensor goes through the kernel, or the call raises.  The plain
+    version is taken only for tensors that lie on the CPU, and under
+    ``flags.use_kernels(False)`` (for comparisons)."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu" or not flags.kernels_enabled():
+        return attention_reference(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "the flash-attention kernel has no backward yet (it arrives with "
+            "the training slice); call it under torch.no_grad()")
+    B, H, Sq, dh = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    if dh % 4 or dh > 128:
+        raise ValueError(f"head_dim must be a multiple of 4, at most 128; "
+                         f"got {dh}")
+    o = torch.empty_like(q)  # keeps q's strides
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+        _check_layout(name, t)
+    bq, bk = pick_tiles(block_q, block_k, dh)
+
+    fn = _build.load("flash_attention").flash_attention_forward
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 B, H, KVH, Sq, Skv, dh,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *o.stride()[:3],
+                 int(causal), int(window) if window is not None else 0,
+                 bq, bk, int(q.dtype == torch.bfloat16),
+                 1.0 / math.sqrt(dh),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_forward: CUDA error {err} at launch "
+            f"(shape q {tuple(q.shape)}, k {tuple(k.shape)}, tile {bq}x{bk})")
+    flash_attention.launches += 1
+    return o
+
+
+#: how many times the kernel was launched (and only that: the plain version
+#: does not count)
+flash_attention.launches = 0

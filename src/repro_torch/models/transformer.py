@@ -1,0 +1,185 @@
+"""Model assembly — the dense family.
+
+The model is an ``nn.Module`` (``Transformer``) whose blocks sit in an
+``nn.ModuleList`` and are run by a Python loop, eagerly; the reference stacks
+layer parameters along a leading axis and scans over them.  The functions
+keep the reference's names and argument order, with the module in the place
+of the parameter pytree.
+
+Ported: ``family == "dense"`` without mixture-of-experts.  The other
+families raise ``NotImplementedError`` naming what they wait for.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import logical
+from repro_torch.models import attention as attn
+from repro_torch.models import layers
+
+_WAITS_FOR = {
+    "ssm": "the ssm/hybrid serving slice (models/ssm.py, the ssd_scan kernel)",
+    "hybrid": "the ssm/hybrid serving slice (models/ssm.py, the ssd_scan "
+              "kernel)",
+    "moe": "the mixture-of-experts slice (models/moe.py)",
+    "vlm": "the vision-language slice (apply_mrope, vision embeddings)",
+    "audio": "the audio slice (multi-codebook embedding and heads)",
+}
+
+
+def _require_supported(cfg: ArchConfig) -> None:
+    if cfg.family != "dense" or cfg.moe is not None:
+        what = "moe" if cfg.moe is not None else cfg.family
+        raise NotImplementedError(
+            f"{cfg.name}: family {what!r} is not ported yet; it waits for "
+            f"{_WAITS_FOR.get(what, 'a later slice')}")
+    if cfg.n_input_codebooks != 1 or cfg.n_output_heads != 1 \
+            or cfg.vision_tokens or cfg.m_rope:
+        raise NotImplementedError(
+            f"{cfg.name}: codebooks, vision tokens and M-RoPE are not ported "
+            "yet")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+class DenseBlock(nn.Module):
+    """Pre-norm attention + SwiGLU FFN."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device, generator):
+        super().__init__()
+        self.ln1 = layers.RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
+        self.attn = attn.Attention(cfg, dtype, device, generator)
+        self.ln2 = layers.RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
+        self.ffn = layers.FFN(cfg.d_model, cfg.d_ff, dtype, device, generator)
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg: ArchConfig, device, generator: torch.Generator):
+        super().__init__()
+        _require_supported(cfg)
+        dtype = layers.to_dtype(cfg.param_dtype)
+        self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype,
+                                      device, generator)
+        self.blocks = nn.ModuleList(
+            DenseBlock(cfg, dtype, device, generator)
+            for _ in range(cfg.n_layers))
+        self.final_ln = layers.RMSNorm(cfg.d_model, dtype, device,
+                                       cfg.norm_eps)
+        self.head = None if cfg.tie_embeddings else layers.LMHead(
+            cfg.d_model, cfg.vocab_size, dtype, device, generator)
+
+
+def init_params(cfg: ArchConfig,
+                generator: Optional[torch.Generator] = None, *,
+                device="cuda", seed: int = 0) -> Transformer:
+    """A model with seeded random weights (``N(0, INIT_SCALE²)``, norms at
+    one), made on ``device``.  ``generator`` must live on ``device``; without
+    one, a new generator is seeded with ``seed``."""
+    device = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(seed)
+    return Transformer(cfg, device, generator)
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def param_device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _annotate_resid(h):
+    return logical(h, ("act_batch", "act_seq", "act_embed"))
+
+
+def _dense_block_apply(bp: DenseBlock, h, cfg, positions):
+    a_out, _ = attn.attn_apply(bp.attn, bp.ln1(h), cfg, positions=positions)
+    h = _annotate_resid(h + a_out)
+    h = _annotate_resid(h + bp.ffn(bp.ln2(h)))
+    return h
+
+
+def embed_inputs(model: Transformer, cfg: ArchConfig,
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    _require_supported(cfg)
+    return _annotate_resid(model.embed(batch["tokens"]))
+
+
+def logits_from_hidden(model: Transformer, cfg: ArchConfig,
+                       h: torch.Tensor) -> torch.Tensor:
+    h = model.final_ln(h)
+    if cfg.tie_embeddings:
+        logits = layers.tied_lm_head(model.embed.weight, h)
+    else:
+        logits = model.head(h)
+    return logical(logits, ("act_batch", "act_seq", "act_vocab"))
+
+
+def forward(model: Transformer, cfg: ArchConfig,
+            batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (logits, aux_loss).  Prefill path (full sequence); the auxiliary
+    loss is zero for the dense family."""
+    h = embed_inputs(model, cfg, batch)
+    B, S = h.shape[0], h.shape[1]
+    positions = attn._positions_for(cfg, B, S, device=h.device)
+    for bp in model.blocks:
+        h = _dense_block_apply(bp, h, cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return logits_from_hidden(model, cfg, h), aux
+
+
+# ---------------------------------------------------------------------------
+# Decode (serve_step)
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(cfg: ArchConfig, B: int, max_len: int, dtype=None,
+                      device="cuda") -> Dict[str, Any]:
+    """Per-layer KV caches stacked along a leading axis, ``(L, B, Smax, KVH,
+    dh)``, and the position.
+
+    As in the reference there is ONE position for all ``B`` rows.  It is kept
+    as a host integer, so reading it never waits for the device."""
+    _require_supported(cfg)
+    dtype = dtype or layers.to_dtype(cfg.compute_dtype)
+    shape = (cfg.n_layers,) + attn.cache_shape(cfg, B, max_len)
+    kv = attn.KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                      torch.zeros(shape, dtype=dtype, device=device))
+    return {"pos": 0, "kv": kv}
+
+
+def decode_step(model: Transformer, cfg: ArchConfig, state: Dict[str, Any],
+                tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One-token decode.  tokens (B, 1) -> logits (B, 1, V), new state.
+
+    The KV caches of ``state`` are updated IN PLACE; the returned state
+    shares them and carries the advanced position."""
+    _require_supported(cfg)
+    pos = int(state["pos"])
+    kv = state["kv"]
+    h = _annotate_resid(model.embed(tokens))
+    B = h.shape[0]
+    positions = attn._positions_for(cfg, B, 1, offset=pos, device=h.device)
+    for i, bp in enumerate(model.blocks):
+        a_out, _ = attn.attn_apply(
+            bp.attn, bp.ln1(h), cfg, positions=positions,
+            cache=attn.KVCache(kv.k[i], kv.v[i]), cache_pos=pos)
+        h = _annotate_resid(h + a_out)
+        h = _annotate_resid(h + bp.ffn(bp.ln2(h)))
+    logits = logits_from_hidden(model, cfg, h)
+    return logits, {"pos": pos + 1, "kv": kv}

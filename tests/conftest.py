@@ -72,3 +72,10 @@ def make_drift_stream():
         return SimpleNamespace(pvs=pvs, times=times, keys=keys,
                                weights=w, shift_index=n_pre, shift=shift)
     return _make
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU with nvcc (CUDA kernels have no interpret "
+        "mode); skipped where there is none")
