@@ -1,16 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--seed 0]
+    python3 chip_smoke.py [--out results.json] [--seed 0] [--profile]
 
-Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card, then drives the port's main
-path — the dense serving path of ``llama3.2-3b`` at its full width and depth
-(bf16, random weights made on the device from the seed): prefill steps on
-tokens (4, 2048) and a decode server answering 16 requests — and checks that
-the path really went through the kernels (launch counts).  Every phase prints
-one JSON line; any failure ends the run with a non-zero exit code.  The last
-line is ``{"ok": true, "device": {...}}``.
+Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
+source, all started together), holds each kernel against its plain PyTorch
+version on the card, then drives the port's main paths through the entry
+points a user calls, each with random weights made on the device from the
+seed, and checks that each path really went through its kernels (launch
+counts set to 0 just before the path and read just after):
+
+* the dense serving path of ``llama3.2-3b`` at full width and depth (bf16):
+  prefill steps on tokens (4, 2048) and a decode server answering 16
+  requests — the ``flash_attention`` kernel;
+* the hybrid serving path of ``zamba2-2.7b`` at full width and depth (54
+  Mamba2 layers, one shared attention block applied at 9 sites): the same
+  prefill steps and server — the ``ssd_scan`` and ``flash_attention``
+  kernels;
+* the ssm path of ``mamba2-370m`` (48 layers): one prefill step — the
+  ``ssd_scan`` kernel.
+
+Every phase prints one JSON line; any failure ends the run with a non-zero
+exit code.  The last line is ``{"ok": true, "device": {...}}``.
 
 It needs a GPU (it fails where ``torch.cuda.is_available()`` is false) and
 ``nvcc``; it imports ``torch`` and ``repro_torch`` only.
@@ -39,12 +50,16 @@ from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.runtime import flags, steps  # noqa: E402
 from repro_torch.runtime.server import DecodeServer, Request  # noqa: E402
 
 DEV = "cuda"
 ARCH = "llama3.2-3b"
+HYBRID = "zamba2-2.7b"
+SSM = "mamba2-370m"
 PREFILL_TOKENS = (4, 2048)   # (batch, sequence) of one prefill step
 PREFILL_STEPS = 3
 SERVE = dict(slots=8, max_len=2048, requests=16, max_new=32,
@@ -86,6 +101,28 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # first guess, the H100 gives about 3e-2 while the f32 check holds 1e-4.
 TOL_PREFILL_F32 = 1e-4
 TOL_PREFILL_BF16 = 5e-2
+
+# The reference's own case table for the SSD scan, plus edges: a chunk that
+# is not a multiple of the kernel's 32-row strip, mamba2-370m's d_state at
+# chunk 128, two groups, and the largest chunk at the largest d_state.
+# Bz, H, G, L, P, N, chunk, dtype of x (B and C are f32 unless the case runs
+# in the main path's layout, where they are slices of x's tensor)
+SSD_CASES = [
+    ("ref0", 2, 4, 1, 256, 32, 16, 64, torch.float32),
+    ("ref1_g2", 1, 4, 2, 128, 64, 32, 32, torch.float32),
+    ("ref2", 2, 2, 2, 128, 16, 64, 128, torch.float32),
+    ("ref3_n128", 1, 4, 1, 256, 64, 128, 64, torch.float32),
+    ("ref4_bf16", 2, 4, 1, 256, 32, 16, 64, torch.bfloat16),
+    ("chunk100", 1, 2, 1, 200, 32, 16, 100, torch.float32),
+    ("n128_chunk128", 1, 2, 1, 256, 64, 128, 128, torch.float32),
+    ("g2_h4", 2, 4, 2, 256, 64, 64, 128, torch.bfloat16),
+    ("n128_chunk256", 1, 2, 1, 512, 16, 128, 256, torch.float32),
+]
+# the reference's own tolerances (tests/test_kernels.py): y f32 5e-4, y bf16
+# 3e-2, h_final 5e-4; chunk invariance 1e-4
+SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
+SSD_TOL_H = 5e-4
+SSD_TOL_CHUNKS = 1e-4
 
 LINES = []
 
@@ -223,7 +260,7 @@ def phase_kernel_cases(gen):
 
 
 def phase_kernel_main_shape(cfg, B, S, gen):
-    """flash_attention at the main path's shape: error, times, bound."""
+    """flash_attention at a main path's shape: error, times, bound."""
     H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     dtype = torch.bfloat16
     q, k, v = fa_inputs(B, H, KVH, S, S, dh, dtype, gen)
@@ -266,6 +303,7 @@ def phase_kernel_main_shape(cfg, B, S, gen):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     ms = min(ms_a, ms_b)
     return {
+        "arch": cfg.name,
         "shape": {"B": B, "H": H, "KVH": KVH, "Sq": S, "Skv": S, "dh": dh,
                   "dtype": "bfloat16", "causal": True,
                   "window": cfg.sliding_window,
@@ -282,6 +320,158 @@ def phase_kernel_main_shape(cfg, B, S, gen):
     }
 
 
+# ---------------------------------------------------------------------------
+# the SSD scan
+
+
+def ssd_inputs(Bz, H, G, L, P, N, dtype, gen, as_main_path=True):
+    """x, dt, A, B, C drawn as the reference's tests draw them (x 0.5·N(0,1),
+    dt = softplus(N(0,1)), A = -exp(0.3·N(0,1)), B and C 0.3·N(0,1)).  As the
+    main path hands them over: column slices of one (Bz, L, H·P + 2·G·N)
+    tensor in x's type, viewed as (Bz, H, L, P) / (Bz, G, L, N), and dt a
+    (Bz, L, H) tensor viewed as (Bz, H, L).  Otherwise contiguous, with B and
+    C in f32."""
+    def rn(*shape):
+        return torch.randn(shape, device=DEV, generator=gen)
+    x, Bm, Cm = 0.5 * rn(Bz, L, H, P), 0.3 * rn(Bz, L, G, N), \
+        0.3 * rn(Bz, L, G, N)
+    dt = F.softplus(rn(Bz, L, H)).transpose(1, 2)
+    A = -torch.exp(0.3 * rn(H))
+    if not as_main_path:
+        return (x.transpose(1, 2).contiguous().to(dtype), dt.contiguous(), A,
+                Bm.transpose(1, 2).contiguous(),
+                Cm.transpose(1, 2).contiguous())
+    xbc = torch.cat([t.reshape(Bz, L, -1) for t in (x, Bm, Cm)],
+                    dim=-1).to(dtype)
+    d, gn = H * P, G * N
+    return (xbc[..., :d].reshape(Bz, L, H, P).transpose(1, 2), dt, A,
+            xbc[..., d:d + gn].reshape(Bz, L, G, N).transpose(1, 2),
+            xbc[..., d + gn:].reshape(Bz, L, G, N).transpose(1, 2))
+
+
+def phase_ssd_cases(gen):
+    """ssd_scan against the naive recurrence and its plain version at the
+    case table, in both layouts, and across chunks."""
+    rows = []
+    for (cid, Bz, H, G, L, P, N, chunk, dtype) in SSD_CASES:
+        err = herr = 0.0
+        for main_layout in (False, True):
+            x, dt, A, B, C = ssd_inputs(Bz, H, G, L, P, N, dtype, gen,
+                                        as_main_path=main_layout)
+            y, h = kops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+            torch.cuda.synchronize()
+            for yr, hr in (kref.ssd(x, dt, A, B, C),
+                           ssd.ssd_scan_reference(x, dt, A, B, C,
+                                                  chunk=chunk)):
+                err = max(err, compare(y, yr, SSD_TOL[dtype]))
+                herr = max(herr, compare(h, hr, SSD_TOL_H))
+        rows.append({"case": cid, "Bz": Bz, "H": H, "G": G, "L": L, "P": P,
+                     "N": N, "chunk": chunk,
+                     "dtype": str(dtype).replace("torch.", ""),
+                     "p_block": ssd.pick_p_block(P, N, chunk),
+                     "max_abs_err": err, "tol": SSD_TOL[dtype],
+                     "h_max_abs_err": herr, "h_tol": SSD_TOL_H})
+
+    # chunk invariance: the result must not depend on the chunk
+    x, dt, A, B, C = ssd_inputs(1, 2, 1, 256, 16, 16, torch.float32, gen)
+    outs = [kops.ssd_scan(x, dt, A, B, C, chunk=c)[0]
+            for c in (32, 64, 128, 256)]
+    torch.cuda.synchronize()
+    inv = max(float((outs[0] - o).abs().max()) for o in outs[1:])
+    if not all(torch.allclose(outs[0], o, atol=SSD_TOL_CHUNKS,
+                              rtol=SSD_TOL_CHUNKS) for o in outs[1:]):
+        raise AssertionError(f"chunk invariance broken: {inv:.3e} beyond "
+                             f"{SSD_TOL_CHUNKS:g} abs/rel")
+    emit({"phase": "kernels.ssd.cases", "ok": True, "kernel": "ssd_scan",
+          "layouts": ["contiguous", "main_path_strided"],
+          "against": ["ref.ssd (sequential recurrence)",
+                      "ssd_scan_reference (chunked plain version)"],
+          "cases": rows, "chunk_invariance_max_abs_diff": inv,
+          "chunk_invariance_tol": SSD_TOL_CHUNKS})
+    return rows
+
+
+def phase_ssd_main_shape(cfg, B, S, gen):
+    """ssd_scan at a main path's prefill shape, in the main path's layout,
+    with A as the model makes it: error, times, bound."""
+    s = cfg.ssm
+    H, P, N, G = cfg.ssm_heads, s.head_dim, s.d_state, s.n_groups
+    Q = min(s.chunk, S)
+    dtype = torch.bfloat16
+    x, dt, _, Bm, Cm = ssd_inputs(B, H, G, S, P, N, dtype, gen)
+    A = -torch.linspace(1.0, 16.0, H, device=DEV)
+    y, h = kops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+    torch.cuda.synchronize()
+    yr, hr = ssd.ssd_scan_reference(x, dt, A, Bm, Cm, chunk=Q)
+    err = compare(y, yr, SSD_TOL[dtype])
+    herr = compare(h, hr, SSD_TOL_H)
+    del y, h, yr, hr
+
+    def kernel():
+        kops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+
+    def plain():
+        ssd.ssd_scan_reference(x, dt, A, Bm, Cm, chunk=Q)
+
+    ms_a = time_ms(kernel, 2, 10)
+    plain_ms = time_ms(plain, 1, 3)
+    ms_b = time_ms(kernel, 1, 10)
+
+    # operations as the reference's schedule_props counts them; bytes: each
+    # input read once, each output written once
+    cells = B * H * (S // Q)
+    flops = cells * 2.0 * (Q * Q * N + Q * Q * P + 2 * Q * P * N)
+    nbytes = (2 * x.numel() * x.element_size()           # x in, y out
+              + dt.numel() * 4 + A.numel() * 4
+              + (Bm.numel() + Cm.numel()) * Bm.element_size()
+              + B * H * P * N * 4)                         # h_final out
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    ms = min(ms_a, ms_b)
+    return {
+        "arch": cfg.name,
+        "shape": {"Bz": B, "H": H, "G": G, "L": S, "P": P, "N": N,
+                  "chunk": Q, "dtype": "bfloat16",
+                  "x_strides": list(x.stride()),
+                  "p_block": ssd.pick_p_block(P, N, Q),
+                  "smem_bytes": ssd.smem_bytes(Q, N,
+                                               ssd.pick_p_block(P, N, Q))},
+        "max_abs_err": err, "tol": SSD_TOL[dtype],
+        "h_max_abs_err": herr, "h_tol": SSD_TOL_H,
+        "ms": ms, "kernel_ms": ms, "kernel_ms_runs": [ms_a, ms_b],
+        "plain_ms": plain_ms, "library_ms": None, "library_call": None,
+        "library_note": "no single PyTorch call computes the SSD scan",
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3,
+        "flops": flops, "bytes": nbytes,
+        "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the main paths
+
+KERNELS = {"flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def launches_per_step(cfg) -> dict:
+    """The kernel launches one prefill step of ``cfg`` must make."""
+    if cfg.family == "dense":
+        return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+    sites = cfg.n_layers // cfg.hybrid.attn_every \
+        if cfg.family == "hybrid" else 0
+    return {"flash_attention": sites, "ssd_scan": cfg.n_layers}
+
+
 def rel_frobenius(a, b) -> float:
     num = den = 0.0
     for i in range(a.shape[0]):  # row by row: the f32 copies stay small
@@ -289,6 +479,26 @@ def rel_frobenius(a, b) -> float:
         num += float(((x - y) ** 2).sum())
         den += float((y ** 2).sum())
     return math.sqrt(num / den)
+
+
+def phase_init(cfg, seed):
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, device=DEV, seed=seed)
+    n_params = transformer.param_count(model)
+    if n_params != cfg.n_params():
+        raise AssertionError(f"{n_params} parameters, config says "
+                             f"{cfg.n_params()}")
+    # warm-up (library handles, allocator); not part of the counted run
+    steps.make_prefill_step(cfg)(
+        model, {"tokens": torch.zeros((1, 128), dtype=torch.long,
+                                      device=DEV)})
+    torch.cuda.synchronize()
+    emit({"phase": "init", "ok": True, "arch": cfg.name,
+          "family": cfg.family, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+          "n_params": n_params,
+          "seconds": round(time.perf_counter() - t0, 2)})
+    return model
 
 
 def phase_prefill(cfg, model, B, S, seed, n_steps):
@@ -342,9 +552,11 @@ def phase_serve(cfg, model, seed):
             raise AssertionError(f"request {r.rid}: {len(r.out)} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.out):
             raise AssertionError(f"request {r.rid}: token out of range")
+    if not bool(torch.isfinite(server.last_logits).all()):
+        raise AssertionError("decode logits are not finite")
     toks = sum(len(r.out) for r in done)
-    emit({"phase": "serve", "ok": True, "slots": slots, "max_len": max_len,
-          "requests": n_req, "max_new": max_new,
+    emit({"phase": "serve", "ok": True, "arch": cfg.name, "slots": slots,
+          "max_len": max_len, "requests": n_req, "max_new": max_new,
           "prompt_tokens": int(sum(len(r.prompt) for r in done)),
           "new_tokens": toks, "decode_iterations": len(iters),
           "decode_calls_total": int(server.state["pos"]),
@@ -355,32 +567,131 @@ def phase_serve(cfg, model, seed):
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
 
 
-def phase_decode_equals_prefill(cfg, seed):
-    """f32, full width, 2 layers: a decode_step chain over 64 tokens against
-    forward on the same tokens."""
-    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+def phase_prefill_compare(cfg, model, tokens, logits, times, launched,
+                          n_steps):
+    """The counted run's logits against the plain path's (bf16)."""
+    before = read_launches()
+    with flags.use_kernels(False):
+        plain_logits = steps.make_prefill_step(cfg)(model,
+                                                    {"tokens": tokens})
+    if read_launches() != before:
+        raise AssertionError("the plain path launched a kernel")
+    rel = rel_frobenius(logits, plain_logits)
+    ms = float(np.median(times))
+    B, S = tokens.shape
+    emit({"phase": "prefill", "ok": rel <= TOL_PREFILL_BF16,
+          "arch": cfg.name, "tokens": [B, S],
+          "logits": {"shape": list(logits.shape),
+                     "dtype": str(logits.dtype).replace("torch.", ""),
+                     "held": "whole tensor, finite"},
+          "steps": n_steps, "ms_per_step": times,
+          "ms_per_step_median": ms, "tokens_per_s": B * S / (ms * 1e-3),
+          "launches": launched, "launches_per_step": launches_per_step(cfg),
+          "rel_frobenius_vs_plain": rel, "tol": TOL_PREFILL_BF16})
+    if not rel <= TOL_PREFILL_BF16:
+        raise AssertionError(f"prefill kernel vs plain (bf16): relative "
+                             f"Frobenius error {rel:.3e} > "
+                             f"{TOL_PREFILL_BF16:g}")
+
+
+def phase_prefill_compare_f32(cfg, model, tokens, logits):
+    """The same model and tokens in f32: here the two paths must agree
+    closely, which shows that the bf16 figure is rounding.  Casts ``model``
+    to f32 in place."""
+    model.float()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    step32 = steps.make_prefill_step(cfg32)
+    before = read_launches()
+    k_logits = step32(model, {"tokens": tokens})
+    after = read_launches()
+    launched = {n: after[n] - before[n] for n in after}
+    with flags.use_kernels(False):
+        p_logits = step32(model, {"tokens": tokens})
+    rel32 = rel_frobenius(k_logits, p_logits)
+    emit({"phase": "prefill.f32", "ok": rel32 <= TOL_PREFILL_F32,
+          "arch": cfg.name, "tokens": list(tokens.shape),
+          "n_layers": cfg32.n_layers, "launches": launched,
+          "rel_frobenius_vs_plain": rel32, "tol": TOL_PREFILL_F32,
+          # how far bf16 itself moves the logits: the scale against which
+          # the bf16 kernel-vs-plain figure is to be read
+          "bf16_step_vs_f32_step_rel_frobenius":
+              rel_frobenius(logits, k_logits)})
+    if launched != launches_per_step(cfg32) or not rel32 <= TOL_PREFILL_F32:
+        raise AssertionError(f"prefill kernel vs plain (f32): relative "
+                             f"Frobenius error {rel32:.3e} > "
+                             f"{TOL_PREFILL_F32:g}, launches {launched}")
+
+
+def phase_decode_equals_prefill(cfg, seed, n_layers):
+    """f32, full width, ``n_layers`` layers: a decode_step chain over 64
+    tokens against forward on the same tokens."""
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers, param_dtype="float32",
                                compute_dtype="float32")
     model = transformer.init_params(cfg2, device=DEV, seed=seed + 1)
     B, T = 2, 64
     rng = np.random.default_rng(seed + 1)
     tokens = torch.from_numpy(
         rng.integers(0, cfg2.vocab_size, (B, T))).to(DEV)
-    before = fa.flash_attention.launches
+    before = read_launches()
     with torch.no_grad():
         full, _ = transformer.forward(model, cfg2, {"tokens": tokens})
-        launched = fa.flash_attention.launches - before
+        after = read_launches()
         state = transformer.init_decode_state(cfg2, B, T, device=DEV)
         worst = 0.0
         for t in range(T):
             logits, state = transformer.decode_step(model, cfg2, state,
                                                     tokens[:, t:t + 1])
             worst = max(worst, float((logits[:, 0] - full[:, t]).abs().max()))
-    if launched != cfg2.n_layers:
-        raise AssertionError(f"forward launched the kernel {launched} times")
+    launched = {n: after[n] - before[n] for n in after}
+    if launched != launches_per_step(cfg2):
+        raise AssertionError(f"forward launched {launched}")
     if not worst <= 1e-3:
         raise AssertionError(f"decode chain vs forward: {worst:.3e} > 1e-3")
-    emit({"phase": "decode_equals_prefill", "ok": True, "dtype": "float32",
-          "n_layers": 2, "tokens": T, "max_abs_err": worst, "tol": 1e-3})
+    emit({"phase": "decode_equals_prefill", "ok": True, "arch": cfg.name,
+          "dtype": "float32", "n_layers": n_layers, "tokens": T,
+          "max_abs_err": worst, "tol": 1e-3})
+
+
+def drive_path(cfg, args, serve: bool, decode_layers: int) -> dict:
+    """One main path: init, the counted prefill steps (and server run) with
+    the launch counts set to 0 just before and read just after, then the
+    comparisons against the plain path.  Returns the counts."""
+    (B, S), n_steps = PREFILL_TOKENS, (PREFILL_STEPS if serve else 1)
+    name = cfg.name
+    with phase(f"{name}:init"):
+        model = phase_init(cfg, args.seed)
+
+    # ---- the main path, with the launch counts set to 0 just before -------
+    reset_launches()
+    with phase(f"{name}:prefill.run"):
+        tokens, logits, times = phase_prefill(cfg, model, B, S, args.seed,
+                                              n_steps)
+    if serve:
+        with phase(f"{name}:serve.run"):
+            phase_serve(cfg, model, args.seed)
+    launched = read_launches()
+    # ---- read just after ---------------------------------------------------
+    want = {n: k * n_steps for n, k in launches_per_step(cfg).items()}
+    if launched != want:
+        raise AssertionError(
+            f"{name}: kernel launches on the main path {launched}, expected "
+            f"{want} ({n_steps} prefill steps, none from the decode path)")
+
+    with phase(f"{name}:prefill.compare"):
+        phase_prefill_compare(cfg, model, tokens, logits, times, launched,
+                              n_steps)
+    if args.profile and serve:
+        with phase(f"{name}:profile"):
+            phase_profile(cfg, model, tokens, args.seed)
+    with phase(f"{name}:prefill.compare_f32"):
+        phase_prefill_compare_f32(cfg, model, tokens, logits)
+    del model, tokens, logits
+    torch.cuda.empty_cache()
+    with phase(f"{name}:decode_equals_prefill"):
+        phase_decode_equals_prefill(cfg, args.seed, decode_layers)
+    torch.cuda.empty_cache()
+    return launched
 
 
 def _profile(fn, calls: int):
@@ -430,8 +741,21 @@ def phase_profile(cfg, model, tokens, seed):
         server.submit(Request(rid=rid, prompt=prompt, max_new=64))
     server._refill()
     dec = _profile(server.step, 5)
-    emit({"phase": "profile", "ok": True, "prefill_step": pre,
-          "decode_iteration": dec})
+    emit({"phase": "profile", "ok": True, "arch": cfg.name,
+          "prefill_step": pre, "decode_iteration": dec})
+
+
+def kernel_entry(name, source, replaces, launched, rows, cases):
+    """One kernel of the ``kernels`` line: the first main-path shape's
+    numbers at the top, every timed shape under ``shapes``."""
+    total = sum(n for n in launched.values())
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": total,
+            "launches_by_path": launched,
+            **rows[0],
+            "max_abs_err": max(r["max_abs_err"] for r in rows + cases),
+            "max_abs_err_over_cases": max(c["max_abs_err"] for c in cases),
+            "shapes": rows, "cases": cases}
 
 
 def main() -> int:
@@ -439,7 +763,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one prefill step and a few decode "
-                         "iterations with torch.profiler")
+                         "iterations of each served path with torch.profiler")
     ap.add_argument("--out", default=None,
                     help="also write every phase line to this JSON file")
     args = ap.parse_args()
@@ -456,116 +780,48 @@ def main() -> int:
         phase_build()
 
     gen = torch.Generator(DEV).manual_seed(args.seed)
-    cfg = get_arch(ARCH)
-    (B, S), n_steps = PREFILL_TOKENS, PREFILL_STEPS
+    dense, hybrid, pure = get_arch(ARCH), get_arch(HYBRID), get_arch(SSM)
+    B, S = PREFILL_TOKENS
 
     with phase("kernels.cases"):
-        cases = phase_kernel_cases(gen)
+        fa_cases = phase_kernel_cases(gen)
+    with phase("kernels.ssd.cases"):
+        ssd_cases = phase_ssd_cases(gen)
 
-    with phase("init"):
-        t0 = time.perf_counter()
-        model = transformer.init_params(cfg, device=DEV, seed=args.seed)
-        n_params = transformer.param_count(model)
-        if n_params != cfg.n_params():
-            raise AssertionError(f"{n_params} parameters, config says "
-                                 f"{cfg.n_params()}")
-        # warm-up (library handles, allocator); not part of the counted run
-        steps.make_prefill_step(cfg)(
-            model, {"tokens": torch.zeros((1, 128), dtype=torch.long,
-                                          device=DEV)})
-        torch.cuda.synchronize()
-        emit({"phase": "init", "ok": True, "arch": cfg.name,
-              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-              "dtype": cfg.param_dtype, "n_params": n_params,
-              "seconds": round(time.perf_counter() - t0, 2)})
-
-    # ---- the main path, with the launch counts set to 0 just before -------
-    fa.flash_attention.launches = 0
-    with phase("prefill.run"):
-        tokens, logits, times = phase_prefill(cfg, model, B, S, args.seed,
-                                              n_steps)
-    with phase("serve.run"):
-        phase_serve(cfg, model, args.seed)
-    launched_fa = fa.flash_attention.launches
-    # ---- read just after ---------------------------------------------------
-    if launched_fa != n_steps * cfg.n_layers:
-        raise AssertionError(
-            f"flash_attention was launched {launched_fa} times on the main "
-            f"path, expected {n_steps} prefill steps x {cfg.n_layers} layers")
-
-    with phase("prefill.compare"):
-        with flags.use_kernels(False):
-            plain_logits = steps.make_prefill_step(cfg)(model,
-                                                        {"tokens": tokens})
-        if fa.flash_attention.launches != launched_fa:
-            raise AssertionError("the plain path launched the kernel")
-        rel = rel_frobenius(logits, plain_logits)
-        ms = float(np.median(times))
-        emit({"phase": "prefill", "ok": rel <= TOL_PREFILL_BF16,
-              "tokens": [B, S],
-              "logits": {"shape": list(logits.shape),
-                         "dtype": str(logits.dtype).replace("torch.", ""),
-                         "held": "whole tensor, finite"},
-              "steps": n_steps, "ms_per_step": times,
-              "ms_per_step_median": ms, "tokens_per_s": B * S / (ms * 1e-3),
-              "flash_attention_launches": launched_fa,
-              "launches_per_step": launched_fa // n_steps,
-              "rel_frobenius_vs_plain": rel, "tol": TOL_PREFILL_BF16})
-        if not rel <= TOL_PREFILL_BF16:
-            raise AssertionError(f"prefill kernel vs plain (bf16): relative "
-                                 f"Frobenius error {rel:.3e} > "
-                                 f"{TOL_PREFILL_BF16:g}")
-        del plain_logits
-
-    if args.profile:
-        with phase("profile"):
-            phase_profile(cfg, model, tokens, args.seed)
-
-    with phase("prefill.compare_f32"):
-        # the same model and tokens in f32: here the two paths must agree
-        # closely, which shows that the bf16 figure above is rounding
-        model = model.float()
-        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                    compute_dtype="float32")
-        step32 = steps.make_prefill_step(cfg32)
-        before = fa.flash_attention.launches
-        k_logits = step32(model, {"tokens": tokens})
-        launched = fa.flash_attention.launches - before
-        with flags.use_kernels(False):
-            p_logits = step32(model, {"tokens": tokens})
-        rel32 = rel_frobenius(k_logits, p_logits)
-        emit({"phase": "prefill.f32", "ok": rel32 <= TOL_PREFILL_F32,
-              "tokens": [B, S], "n_layers": cfg32.n_layers,
-              "flash_attention_launches": launched,
-              "rel_frobenius_vs_plain": rel32, "tol": TOL_PREFILL_F32,
-              # how far bf16 itself moves the logits: the scale against
-              # which the bf16 kernel-vs-plain figure is to be read
-              "bf16_step_vs_f32_step_rel_frobenius":
-                  rel_frobenius(logits, k_logits)})
-        if launched != cfg32.n_layers or not rel32 <= TOL_PREFILL_F32:
-            raise AssertionError(f"prefill kernel vs plain (f32): relative "
-                                 f"Frobenius error {rel32:.3e} > "
-                                 f"{TOL_PREFILL_F32:g}, {launched} launches")
-        del k_logits, p_logits, tokens, logits
-
-    del model
-    torch.cuda.empty_cache()
-    with phase("decode_equals_prefill"):
-        phase_decode_equals_prefill(cfg, args.seed)
-    torch.cuda.empty_cache()
+    # the main paths; each resets the launch counts just before it runs and
+    # reads them just after
+    launched = {ARCH: drive_path(dense, args, serve=True, decode_layers=2),
+                HYBRID: drive_path(hybrid, args, serve=True,
+                                   decode_layers=hybrid.hybrid.attn_every),
+                SSM: drive_path(pure, args, serve=False, decode_layers=2)}
 
     with phase("kernels.main_shape"):
-        row = phase_kernel_main_shape(cfg, B, S, gen)
-    kernels = {"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:116",
-        "launches": launched_fa,
-        "launches_per_prefill_step": launched_fa // n_steps,
-        **row,
-        "max_abs_err_over_cases": max(c["max_abs_err"] for c in cases),
-        "cases": cases,
-    }]}
+        fa_rows = [phase_kernel_main_shape(cfg, B, S, gen)
+                   for cfg in (dense, hybrid)]
+        emit({"phase": "kernels.main_shape", "ok": True,
+              "kernel": "flash_attention", "shapes": fa_rows})
+    torch.cuda.empty_cache()
+    with phase("kernels.ssd.main_shape"):
+        ssd_rows = [phase_ssd_main_shape(cfg, B, S, gen)
+                    for cfg in (hybrid, pure)]
+        emit({"phase": "kernels.ssd.main_shape", "ok": True,
+              "kernel": "ssd_scan", "shapes": ssd_rows})
+
+    kernels = {"kernels": [
+        kernel_entry("flash_attention",
+                     "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:116",
+                     {a: n["flash_attention"] for a, n in launched.items()},
+                     fa_rows, fa_cases),
+        kernel_entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:97",
+                     {a: n["ssd_scan"] for a, n in launched.items()},
+                     ssd_rows, ssd_cases),
+    ]}
+    for k in kernels["kernels"]:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} was never launched on a "
+                                 "main path")
 
     total = round(time.perf_counter() - t_start, 1)
     emit({"phase": "total", "ok": True, "seconds": total})

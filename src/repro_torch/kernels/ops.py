@@ -8,17 +8,20 @@ Model code calls these.  Every wrapper accepts ``block_sizes``:
     (``kernels/autotune.py``, ``core/kernelmodel.py``) and raises
     ``NotImplementedError``.
 
-Block sizes are requests: the kernel serves them with the nearest tile it is
-built for (``flash_attention.pick_tiles``).  The reference's ``interpret=``
+Block sizes are requests: flash attention serves them with the nearest tile
+it is built for (``flash_attention.pick_tiles``); the SSD scan takes its
+``chunk`` as given (it changes the result only by rounding) and picks its own
+P slice (``ssd_scan.pick_p_block``).  The reference's ``interpret=``
 has no counterpart: a CUDA kernel has no interpret mode.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Union
+from typing import Mapping, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssd_scan as _ssd
 
 BlockSizes = Union[None, str, Mapping[str, int]]
 
@@ -51,3 +54,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                block_q=blocks["block_q"],
                                block_k=blocks["block_k"])
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
+             block_sizes: BlockSizes = None, model=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: x (Bz,H,L,P), dt (Bz,H,L), A (H,), B/C (Bz,G,L,N) ->
+    (y (Bz,H,L,P), h_final (Bz,H,P,N) f32).
+
+    ``model`` names the cost model the autotuner would score through; it has
+    no use until ``block_sizes="auto"`` is ported."""
+    blocks = _resolve_blocks("ssd_scan", block_sizes, {"chunk": chunk})
+    return _ssd.ssd_scan(x, dt, A, B, C, chunk=blocks["chunk"])

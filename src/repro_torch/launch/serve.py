@@ -2,6 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --requests 8 --max-new 24
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --reduced --device cpu
+
+Serves the dense (llama3.2-3b, smollm-360m, ...), ssm (mamba2-370m) and
+hybrid (zamba2-2.7b) families; the others raise ``NotImplementedError``.
 
 Runs on the GPU unless ``--device cpu`` is given; weights are random, made on
 the device from ``--seed``.  The supervise / fault-plan / SLO options of the

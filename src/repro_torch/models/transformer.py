@@ -1,4 +1,4 @@
-"""Model assembly — the dense family.
+"""Model assembly — the dense, ssm and hybrid families.
 
 The model is an ``nn.Module`` (``Transformer``) whose blocks sit in an
 ``nn.ModuleList`` and are run by a Python loop, eagerly; the reference stacks
@@ -6,8 +6,14 @@ layer parameters along a leading axis and scans over them.  The functions
 keep the reference's names and argument order, with the module in the place
 of the parameter pytree.
 
-Ported: ``family == "dense"`` without mixture-of-experts.  The other
-families raise ``NotImplementedError`` naming what they wait for.
+Families:
+  dense  : pre-norm attention + FFN blocks
+  ssm    : Mamba2 (SSD) blocks
+  hybrid : Zamba2 — SSD blocks + one *shared* attention+MLP block applied
+           after every ``attn_every``-th SSD layer
+
+Mixture-of-experts, vision-language and audio raise ``NotImplementedError``
+naming what they wait for.
 """
 from __future__ import annotations
 
@@ -19,12 +25,9 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import logical
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 
 _WAITS_FOR = {
-    "ssm": "the ssm/hybrid serving slice (models/ssm.py, the ssd_scan kernel)",
-    "hybrid": "the ssm/hybrid serving slice (models/ssm.py, the ssd_scan "
-              "kernel)",
     "moe": "the mixture-of-experts slice (models/moe.py)",
     "vlm": "the vision-language slice (apply_mrope, vision embeddings)",
     "audio": "the audio slice (multi-codebook embedding and heads)",
@@ -32,7 +35,7 @@ _WAITS_FOR = {
 
 
 def _require_supported(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None:
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.moe is not None:
         what = "moe" if cfg.moe is not None else cfg.family
         raise NotImplementedError(
             f"{cfg.name}: family {what!r} is not ported yet; it waits for "
@@ -60,6 +63,15 @@ class DenseBlock(nn.Module):
         self.ffn = layers.FFN(cfg.d_model, cfg.d_ff, dtype, device, generator)
 
 
+class SSMBlock(nn.Module):
+    """Pre-norm Mamba2 mixer."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device, generator):
+        super().__init__()
+        self.ln = layers.RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
+        self.mixer = ssm.SSM(cfg, dtype, device, generator)
+
+
 class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, device, generator: torch.Generator):
         super().__init__()
@@ -67,9 +79,16 @@ class Transformer(nn.Module):
         dtype = layers.to_dtype(cfg.param_dtype)
         self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype,
                                       device, generator)
+        block = DenseBlock if cfg.family == "dense" else SSMBlock
         self.blocks = nn.ModuleList(
-            DenseBlock(cfg, dtype, device, generator)
-            for _ in range(cfg.n_layers))
+            block(cfg, dtype, device, generator) for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            if cfg.n_layers % cfg.hybrid.attn_every:
+                raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not "
+                                 f"a multiple of attn_every "
+                                 f"{cfg.hybrid.attn_every}")
+            # ONE attention+MLP block, applied at every site
+            self.shared = DenseBlock(cfg, dtype, device, generator)
         self.final_ln = layers.RMSNorm(cfg.d_model, dtype, device,
                                        cfg.norm_eps)
         self.head = None if cfg.tie_embeddings else layers.LMHead(
@@ -105,11 +124,23 @@ def _annotate_resid(h):
     return logical(h, ("act_batch", "act_seq", "act_embed"))
 
 
-def _dense_block_apply(bp: DenseBlock, h, cfg, positions):
-    a_out, _ = attn.attn_apply(bp.attn, bp.ln1(h), cfg, positions=positions)
+def _dense_block_apply(bp: DenseBlock, h, cfg, positions, cache=None,
+                       cache_pos=None):
+    a_out, _ = attn.attn_apply(bp.attn, bp.ln1(h), cfg, positions=positions,
+                               cache=cache, cache_pos=cache_pos)
     h = _annotate_resid(h + a_out)
     h = _annotate_resid(h + bp.ffn(bp.ln2(h)))
     return h
+
+
+def _ssm_block_apply(bp: SSMBlock, h, cfg, state=None):
+    m_out, _ = ssm.ssm_apply(bp.mixer, bp.ln(h), cfg, state=state)
+    return _annotate_resid(h + m_out)
+
+
+def _is_site(cfg, i: int) -> bool:
+    """Does the hybrid's shared block follow SSM layer ``i``?"""
+    return cfg.family == "hybrid" and (i + 1) % cfg.hybrid.attn_every == 0
 
 
 def embed_inputs(model: Transformer, cfg: ArchConfig,
@@ -132,12 +163,17 @@ def forward(model: Transformer, cfg: ArchConfig,
             batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (logits, aux_loss).  Prefill path (full sequence); the auxiliary
-    loss is zero for the dense family."""
+    loss is zero for every ported family."""
     h = embed_inputs(model, cfg, batch)
     B, S = h.shape[0], h.shape[1]
     positions = attn._positions_for(cfg, B, S, device=h.device)
-    for bp in model.blocks:
-        h = _dense_block_apply(bp, h, cfg, positions)
+    for i, bp in enumerate(model.blocks):
+        if cfg.family == "dense":
+            h = _dense_block_apply(bp, h, cfg, positions)
+            continue
+        h = _ssm_block_apply(bp, h, cfg)
+        if _is_site(cfg, i):
+            h = _dense_block_apply(model.shared, h, cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return logits_from_hidden(model, cfg, h), aux
 
@@ -149,17 +185,31 @@ def forward(model: Transformer, cfg: ArchConfig,
 
 def init_decode_state(cfg: ArchConfig, B: int, max_len: int, dtype=None,
                       device="cuda") -> Dict[str, Any]:
-    """Per-layer KV caches stacked along a leading axis, ``(L, B, Smax, KVH,
-    dh)``, and the position.
+    """Decode caches stacked along a leading axis, and the position:
+
+    * ``"kv"``: KV caches ``(n, B, Smax, KVH, dh)``, one per attention layer
+      (dense) or one per application site of the shared block (hybrid,
+      ``n_layers // attn_every`` sites);
+    * ``"ssm"``: ``SSMState(conv (L, B, d_conv-1, conv_dim), h (L, B, H, P,
+      N) f32)``, one per SSM layer (ssm, hybrid).
 
     As in the reference there is ONE position for all ``B`` rows.  It is kept
     as a host integer, so reading it never waits for the device."""
     _require_supported(cfg)
     dtype = dtype or layers.to_dtype(cfg.compute_dtype)
-    shape = (cfg.n_layers,) + attn.cache_shape(cfg, B, max_len)
-    kv = attn.KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                      torch.zeros(shape, dtype=dtype, device=device))
-    return {"pos": 0, "kv": kv}
+    state: Dict[str, Any] = {"pos": 0}
+    if cfg.family != "dense":
+        one = ssm.init_ssm_state(cfg, B, dtype, device=device)
+        state["ssm"] = ssm.SSMState(
+            *(t.new_zeros((cfg.n_layers,) + tuple(t.shape)) for t in one))
+    if cfg.family != "ssm":
+        n = cfg.n_layers if cfg.family == "dense" \
+            else cfg.n_layers // cfg.hybrid.attn_every
+        shape = (n,) + attn.cache_shape(cfg, B, max_len)
+        state["kv"] = attn.KVCache(
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+    return state
 
 
 def decode_step(model: Transformer, cfg: ArchConfig, state: Dict[str, Any],
@@ -167,19 +217,25 @@ def decode_step(model: Transformer, cfg: ArchConfig, state: Dict[str, Any],
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One-token decode.  tokens (B, 1) -> logits (B, 1, V), new state.
 
-    The KV caches of ``state`` are updated IN PLACE; the returned state
-    shares them and carries the advanced position."""
+    The caches of ``state`` (KV and SSM) are updated IN PLACE; the returned
+    state shares them and carries the advanced position."""
     _require_supported(cfg)
     pos = int(state["pos"])
-    kv = state["kv"]
+    kv, st = state.get("kv"), state.get("ssm")
     h = _annotate_resid(model.embed(tokens))
     B = h.shape[0]
     positions = attn._positions_for(cfg, B, 1, offset=pos, device=h.device)
+
+    def cache(site: int) -> attn.KVCache:
+        return attn.KVCache(kv.k[site], kv.v[site])
+
     for i, bp in enumerate(model.blocks):
-        a_out, _ = attn.attn_apply(
-            bp.attn, bp.ln1(h), cfg, positions=positions,
-            cache=attn.KVCache(kv.k[i], kv.v[i]), cache_pos=pos)
-        h = _annotate_resid(h + a_out)
-        h = _annotate_resid(h + bp.ffn(bp.ln2(h)))
+        if cfg.family == "dense":
+            h = _dense_block_apply(bp, h, cfg, positions, cache(i), pos)
+            continue
+        h = _ssm_block_apply(bp, h, cfg, ssm.SSMState(st.conv[i], st.h[i]))
+        if _is_site(cfg, i):
+            h = _dense_block_apply(model.shared, h, cfg, positions,
+                                   cache(i // cfg.hybrid.attn_every), pos)
     logits = logits_from_hidden(model, cfg, h)
-    return logits, {"pos": pos + 1, "kv": kv}
+    return logits, {**state, "pos": pos + 1}

@@ -1,7 +1,8 @@
 """Runtime feature flags (thread-local, context-managed).
 
-``use_kernels(False)`` switches the attention mixer from its hand-written
-CUDA kernel to the plain PyTorch version of the same function.  Kernels are
+``use_kernels(False)`` switches the attention and SSM mixers from their
+hand-written CUDA kernels to the plain PyTorch versions of the same
+functions.  Kernels are
 ON by default.  The flag exists so that tests and ``chip_smoke.py`` can run
 the plain version beside the kernel and compare them; it is not a fallback:
 with kernels enabled, a CUDA tensor goes through the kernel or the call

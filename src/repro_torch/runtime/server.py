@@ -1,9 +1,10 @@
 """Batched decode server: continuous batching over fixed decode slots.
 
-A fixed (slots, max_len) KV state is allocated once; finished sequences free
+A fixed (slots, max_len) decode state — KV caches, SSM conv windows and
+states, as the family has them — is allocated once; finished sequences free
 their slot, which is refilled from the request queue (the new prompt is fed
-through the decode step into that slot's cache rows).  The shapes never
-change, only slot occupancy does.
+through the decode step into that slot's rows of the state).  The shapes
+never change, only slot occupancy does.
 
 Ported: ``admission="fifo"``.  Model-scored admission (``admission="model"``,
 ``slo_decode_s``, ``AdmissionScorer``, ``simulate_serving``) waits for
@@ -13,8 +14,9 @@ for ``runtime/faults.py``.  Each raises ``NotImplementedError`` until then.
 Two properties of the reference that are reproduced here on purpose:
 
 * the decode state has ONE position for all slots, so every token fed to one
-  slot during ``_prefill_slot`` advances it and writes a token-0 row into
-  every other slot's cache;
+  slot during ``_prefill_slot`` advances it and feeds a token 0 to every
+  other slot: a token-0 row lands in their KV caches, and their SSM conv
+  windows and states advance by one step;
 * the position only grows, so a server lives for at most ``max_len`` decode
   calls (prompts included).  The reference's cache write clamps at the last
   row beyond that; here the step raises instead.

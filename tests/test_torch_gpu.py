@@ -109,3 +109,115 @@ def test_forward_through_the_kernel_matches_plain_path(name, cuda):
         with flags.use_kernels(False):
             b, _ = transformer.forward(model, cfg, {"tokens": tok})
     torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+SSD_CASES = [
+    # Bz, H, G, L, P, N, chunk, dtype (the reference's table, then edges)
+    (2, 4, 1, 256, 32, 16, 64, "float32"),
+    (1, 4, 2, 128, 64, 32, 32, "float32"),
+    (2, 2, 2, 128, 16, 64, 128, "float32"),
+    (1, 4, 1, 256, 64, 128, 64, "float32"),
+    (2, 4, 1, 256, 32, 16, 64, "bfloat16"),
+    (1, 2, 1, 200, 32, 16, 100, "float32"),    # chunk not a tile multiple
+    (1, 2, 1, 256, 64, 128, 128, "float32"),   # mamba2-370m's d_state
+    (1, 2, 1, 256, 16, 128, 256, "float32"),   # the largest chunk at N 128
+]
+
+
+def _ssd_inputs(case, device, seed=42, main_layout=False):
+    """numpy inputs; with ``main_layout`` x, B, C are column slices of one
+    (Bz, L, width) tensor viewed as (Bz, H, L, P) / (Bz, G, L, N), as
+    ``ssm_apply`` hands them over."""
+    Bz, H, G, L, P, N, _, dtype = case
+    rng = np.random.default_rng(seed)
+    x = (0.5 * rng.standard_normal((Bz, L, H, P))).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((Bz, L, H)))).astype(np.float32)
+    A = -np.exp(0.3 * rng.standard_normal(H)).astype(np.float32)
+    B = (0.3 * rng.standard_normal((Bz, L, G, N))).astype(np.float32)
+    C = (0.3 * rng.standard_normal((Bz, L, G, N))).astype(np.float32)
+    xdt = getattr(torch, dtype)
+    if main_layout:
+        cat = np.concatenate([a.reshape(Bz, L, -1) for a in (x, B, C)], -1)
+        xbc = torch.from_numpy(cat).to(device=device, dtype=xdt)
+        d = H * P
+        xt = xbc[..., :d].reshape(Bz, L, H, P).transpose(1, 2)
+        Bt = xbc[..., d:d + G * N].reshape(Bz, L, G, N).transpose(1, 2)
+        Ct = xbc[..., d + G * N:].reshape(Bz, L, G, N).transpose(1, 2)
+    else:
+        def t(a, dtype=torch.float32):
+            return torch.from_numpy(np.ascontiguousarray(
+                a.swapaxes(1, 2))).to(device=device, dtype=dtype)
+        xt, Bt, Ct = t(x, xdt), t(B), t(C)
+    dtt = torch.from_numpy(dt).to(device).transpose(1, 2)
+    return xt, dtt, torch.from_numpy(A).to(device), Bt, Ct
+
+
+@pytest.mark.parametrize("main_layout", [False, True],
+                         ids=["contiguous", "strided"])
+@pytest.mark.parametrize("case", SSD_CASES,
+                         ids=[f"ssd{i}" for i in range(len(SSD_CASES))])
+def test_ssd_kernel_matches_recurrence_and_plain_version(case, main_layout,
+                                                          cuda):
+    from repro_torch.kernels import ref, ssd_scan
+    x, dt, A, B, C = _ssd_inputs(case, cuda, main_layout=main_layout)
+    chunk, dtype = case[6], case[7]
+    before = ssd_scan.ssd_scan.launches
+    y, h = kops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_scan.launches == before + 1
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert h.dtype == torch.float32
+    yr, hr = ref.ssd(x, dt, A, B, C)
+    yp, hp = ssd_scan.ssd_scan_reference(x, dt, A, B, C, chunk=chunk)
+    # the reference's own tolerances: f32 5e-4, bf16 3e-2, state 5e-4
+    tol = 3e-2 if dtype == "bfloat16" else 5e-4
+    for r in (yr, yp):
+        torch.testing.assert_close(y.float(), r.float(), atol=tol, rtol=tol)
+    for r in (hr, hp):
+        torch.testing.assert_close(h, r, atol=5e-4, rtol=5e-4)
+
+
+def test_ssd_chunk_invariance(cuda):
+    x, dt, A, B, C = _ssd_inputs((1, 2, 1, 256, 16, 16, 0, "float32"), cuda)
+    outs = [kops.ssd_scan(x, dt, A, B, C, chunk=c)[0]
+            for c in (32, 64, 128, 256)]
+    for o in outs[1:]:
+        torch.testing.assert_close(outs[0], o, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_output_keeps_the_inputs_layout(cuda):
+    case = (2, 4, 1, 128, 32, 16, 64, "bfloat16")
+    x, dt, A, B, C = _ssd_inputs(case, cuda, main_layout=True)
+    y, _ = kops.ssd_scan(x, dt, A, B, C, chunk=64)
+    assert y.transpose(1, 2).is_contiguous()  # (B, L, H, P) in memory
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                      B, C, chunk=64)
+    with pytest.raises(ValueError, match="chunk"):
+        kops.ssd_scan(x, dt, A, B, C, chunk=48)
+
+
+def test_ssd_kernel_refuses_autograd(cuda):
+    x, dt, A, B, C = _ssd_inputs((1, 2, 1, 64, 16, 16, 64, "float32"), cuda)
+    with pytest.raises(NotImplementedError, match="backward"):
+        kops.ssd_scan(x.requires_grad_(), dt, A, B, C, chunk=64)
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-2.7b"])
+def test_ssm_forward_through_the_kernels_matches_plain_path(name, cuda):
+    from repro_torch.kernels import ssd_scan
+    cfg = dataclasses.replace(ARCHS[name].reduced(), param_dtype="float32",
+                              compute_dtype="float32")
+    model = transformer.init_params(cfg, seed=0)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda)
+    before = ssd_scan.ssd_scan.launches
+    with torch.no_grad():
+        a, _ = transformer.forward(model, cfg, {"tokens": tok})
+        assert ssd_scan.ssd_scan.launches == before + cfg.n_layers
+        with flags.use_kernels(False):
+            b, _ = transformer.forward(model, cfg, {"tokens": tok})
+    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)

@@ -37,9 +37,11 @@ def test_package_layout():
                  "distributed/sharding.py", "models/layers.py",
                  "models/attention.py", "models/transformer.py",
                  "models/convert.py", "obs/metrics.py", "obs/report.py",
-                 "obs/trace.py", "launch/serve.py"):
+                 "obs/trace.py", "launch/serve.py", "models/ssm.py",
+                 "kernels/ssd_scan.py"):
         assert need in names, need
-    assert (PKG / "kernels" / "csrc" / "flash_attention.cu").exists()
+    for src in ("flash_attention.cu", "ssd_scan.cu"):
+        assert (PKG / "kernels" / "csrc" / src).exists(), src
     assert len(list((PKG / "configs").glob("*.py"))) == 12
 
 

@@ -1,5 +1,7 @@
-"""The serving slice as a whole against the JAX package, on the CPU at
-reduced size: prefill step, greedy serve-step chain, and the decode server.
+"""The serving slices as a whole against the JAX package, on the CPU at
+reduced size: prefill step, greedy serve-step chain, and the decode server,
+for the dense family and for the ssm (mamba2-370m) and hybrid (zamba2-2.7b)
+families.
 
 Sampling differs between the frameworks (``torch.multinomial`` against
 ``jax.random.categorical``), so logits and greedy chains are compared, never
@@ -49,7 +51,10 @@ def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-@pytest.mark.parametrize("name", ["llama3.2-3b", "smollm-360m"])
+SERVED = ["llama3.2-3b", "smollm-360m", "mamba2-370m", "zamba2-2.7b"]
+
+
+@pytest.mark.parametrize("name", SERVED)
 def test_prefill_step_logits(name):
     jc, tc, params, model = _setup(name)
     tok = np.random.default_rng(1).integers(0, tc.vocab_size, (2, 32))
@@ -60,7 +65,7 @@ def test_prefill_step_logits(name):
     np.testing.assert_allclose(_np(logits), _np(ref), **TOL)
 
 
-@pytest.mark.parametrize("name", ["llama3.2-3b", "smollm-360m"])
+@pytest.mark.parametrize("name", SERVED)
 def test_greedy_serve_chain_gives_the_same_tokens(name):
     jc, tc, params, model = _setup(name)
     B, T = 2, 16
@@ -142,6 +147,47 @@ def test_server_first_decode_logits_match_reference_server():
     np.testing.assert_allclose(_np(ts.last_logits), _np(seen[-1]), **TOL)
     np.testing.assert_allclose(_np(ts.state["kv"].k), _np(js.state["kv"].k),
                                **TOL)
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-2.7b"])
+def test_ssm_server_first_decode_logits_and_state_match_reference_server(
+        name):
+    """Whole decode state after two prompts fed token by token: every token
+    fed to one slot also advances the other slot's conv window and SSM
+    state (one position for all slots, the reference's design)."""
+    jc, tc, params, model = _setup(name)
+    ts = tsrv.DecodeServer(tc, model, slots=2, max_len=64, seed=0,
+                           device="cpu")
+    js = jserver.DecodeServer(jc, params, slots=2, max_len=64, seed=0)
+    for r in _requests(tsrv.Request):
+        ts.submit(r)
+    for r in _requests(jserver.Request):
+        js.submit(r)
+    seen = []
+    inner = js._decode
+
+    def recording(p, s, t):
+        logits, state = inner(p, s, t)
+        seen.append(logits)
+        return logits, state
+
+    js._decode = recording
+    ts._refill()
+    ts.step()
+    js._refill()
+    js.step()
+    assert len(seen) == 2 * 6 + 1
+    assert ts.state["pos"] == int(js.state["pos"]) == 13
+    np.testing.assert_allclose(_np(ts.last_logits), _np(seen[-1]), **TOL)
+    for key in ("conv", "h"):
+        np.testing.assert_allclose(_np(getattr(ts.state["ssm"], key)),
+                                   _np(getattr(js.state["ssm"], key)), **TOL)
+    assert ("kv" in ts.state) == ("kv" in js.state) == (name == "zamba2-2.7b")
+    if "kv" in js.state:
+        np.testing.assert_allclose(_np(ts.state["kv"].k),
+                                   _np(js.state["kv"].k), **TOL)
+        np.testing.assert_allclose(_np(ts.state["kv"].v),
+                                   _np(js.state["kv"].v), **TOL)
 
 
 def test_evict_slot_requeues_at_the_front():
@@ -230,3 +276,11 @@ def test_launcher_runs_reduced_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "[serve] 3 requests" in out and "device=cpu" in out
     assert trace.exists() and mets.exists()
+
+
+def test_launcher_runs_the_hybrid_reduced_on_cpu(capsys):
+    tserve.main(["--arch", "zamba2-2.7b", "--reduced", "--device", "cpu",
+                 "--requests", "3", "--slots", "2", "--max-new", "3",
+                 "--max-len", "64"])
+    out = capsys.readouterr().out
+    assert "[serve] 3 requests" in out and "device=cpu" in out
