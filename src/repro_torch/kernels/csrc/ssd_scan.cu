@@ -30,7 +30,7 @@
 // the columns j < end of strip, those at or below the diagonal), turns it
 // into 32 rows of y, and moves on; C is loaded one strip at a time.  N is
 // padded to 16/32/64/128 with zeros; the P slice per block (64, 32 or 16) is
-// the largest that fits (`pick_p_block` in ssd_scan.py mirrors the sizes).
+// the largest that fits (`pick_p_block` below; `ssd_scan_tile` reports it).
 // Any chunk from 1 to 256 is taken: rows beyond the chunk are zero-filled
 // and masked.
 //
@@ -74,7 +74,7 @@ __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
 }
 
-// Floats of shared memory for one block (ssd_scan.smem_bytes mirrors it).
+// Floats of shared memory for one block.
 __host__ __device__ constexpr size_t smem_floats(int Qa, int NP, int PB) {
   return static_cast<size_t>(Qa) * (NP + 4)        // B of the chunk
          + static_cast<size_t>(Qa) * PB            // x of the chunk
@@ -422,15 +422,51 @@ cudaError_t launch_pb(const Params& p, int p_block, cudaStream_t stream) {
   }
 }
 
+// N padded to the widths the kernel is built for.
+int padded_state(int N) {
+  return N <= 16 ? 16 : (N <= 32 ? 32 : (N <= 64 ? 64 : 128));
+}
+
+// The P slice one block owns: the smallest of 16/32/64 that covers P (64 for
+// larger P), halved until the block's tiles fit shared memory; 0 if none
+// fits (never at chunk <= 256 and N <= 128: a slice of 16 then takes at most
+// 214 KB).
+int pick_p_block(int P, int N, int chunk) {
+  int pb = P <= 16 ? 16 : (P <= 32 ? 32 : 64);
+  while (sizeof(float) * smem_floats(round_up(chunk, 64), padded_state(N),
+                                     pb) > kSmemLimit) {
+    if (pb == 16) return 0;
+    pb /= 2;
+  }
+  return pb;
+}
+
+bool shape_ok(int P, int N, int chunk) {
+  return P > 0 && N > 0 && chunk > 0 && chunk <= 256 && N <= 128 &&
+         N % 4 == 0 && P % 4 == 0 && pick_p_block(P, N, chunk) != 0;
+}
+
 }  // namespace
+
+// The tile ssd_scan_forward launches for (P, N, chunk): the P slice one block
+// owns and the bytes of shared memory that block uses.  Returns
+// cudaErrorInvalidValue for a shape the kernel does not take.
+extern "C" int ssd_scan_tile(int P, int N, int chunk, int* p_block,
+                             long long* smem_bytes) {
+  if (!shape_ok(P, N, chunk)) return static_cast<int>(cudaErrorInvalidValue);
+  *p_block = pick_p_block(P, N, chunk);
+  *smem_bytes = static_cast<long long>(
+      sizeof(float) *
+      smem_floats(round_up(chunk, 64), padded_state(N), *p_block));
+  return 0;
+}
 
 // Launches on `stream`, allocates nothing, does not synchronise.  Returns the
 // CUDA error code of the launch (0 = success).  chunk in [1, 256] dividing L;
-// N at most 128 and P any size, both multiples of 4; p_block in {16, 32, 64}
-// (a tile that exceeds the shared memory of one block is refused with
-// cudaErrorInvalidValue); every row of x, B, C and y (pointer and strides)
-// 16-byte aligned for f32, 8-byte for bf16; dt and A f32, dt strided, A
-// contiguous; h_out contiguous f32 (Bz, H, P, N).
+// N at most 128 and P any size, both multiples of 4; every row of x, B, C and
+// y (pointer and strides) 16-byte aligned for f32, 8-byte for bf16; dt and A
+// f32, dt strided, A contiguous; h_out contiguous f32 (Bz, H, P, N).  The
+// tile is the one ssd_scan_tile reports.
 extern "C" int ssd_scan_forward(
     const void* x, const void* dt, const void* A, const void* B,
     const void* C, void* y, void* h_out, int Bz, int H, int G, int L, int P,
@@ -438,10 +474,9 @@ extern "C" int ssd_scan_forward(
     long long dt_sb, long long dt_sh, long long dt_sl, long long b_sb,
     long long b_sg, long long b_sl, long long c_sb, long long c_sg,
     long long c_sl, long long y_sb, long long y_sh, long long y_sl,
-    int p_block, int x_bf16, int bc_bf16, void* stream) {
-  if (Bz <= 0 || H <= 0 || G <= 0 || L <= 0 || P <= 0 || N <= 0 ||
-      chunk <= 0 || chunk > 256 || L % chunk != 0 || H % G != 0 ||
-      N > 128 || N % 4 != 0 || P % 4 != 0 || H > 65535 || Bz > 65535) {
+    int x_bf16, int bc_bf16, void* stream) {
+  if (Bz <= 0 || H <= 0 || G <= 0 || L <= 0 || !shape_ok(P, N, chunk) ||
+      L % chunk != 0 || H % G != 0 || H > 65535 || Bz > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -456,10 +491,13 @@ extern "C" int ssd_scan_forward(
   p.y_sb = y_sb; p.y_sh = y_sh; p.y_sl = y_sl;
   p.x_bf16 = x_bf16; p.bc_bf16 = bc_bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int p_block = pick_p_block(P, N, chunk);
   cudaError_t err;
-  if (N <= 16) err = launch_pb<16>(p, p_block, s);
-  else if (N <= 32) err = launch_pb<32>(p, p_block, s);
-  else if (N <= 64) err = launch_pb<64>(p, p_block, s);
-  else err = launch_pb<128>(p, p_block, s);
+  switch (padded_state(N)) {
+    case 16: err = launch_pb<16>(p, p_block, s); break;
+    case 32: err = launch_pb<32>(p, p_block, s); break;
+    case 64: err = launch_pb<64>(p, p_block, s); break;
+    default: err = launch_pb<128>(p, p_block, s); break;
+  }
   return static_cast<int>(err);
 }

@@ -10,9 +10,11 @@ Model code calls these.  Every wrapper accepts ``block_sizes``:
 
 Block sizes are requests: flash attention serves them with the nearest tile
 it is built for (``flash_attention.pick_tiles``); the SSD scan takes its
-``chunk`` as given (it changes the result only by rounding) and picks its own
-P slice (``ssd_scan.pick_p_block``).  The reference's ``interpret=``
-has no counterpart: a CUDA kernel has no interpret mode.
+``chunk`` as given (it changes the result only by rounding), and its CUDA
+source picks the P slice (``ssd_scan.tile`` reports it).  The reference's
+``model=`` (the cost model the autotuner scores through) comes with
+``"auto"``; its ``interpret=`` has no counterpart: a CUDA kernel has no
+interpret mode.
 """
 from __future__ import annotations
 
@@ -58,12 +60,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
-             block_sizes: BlockSizes = None, model=None
+             block_sizes: BlockSizes = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD: x (Bz,H,L,P), dt (Bz,H,L), A (H,), B/C (Bz,G,L,N) ->
-    (y (Bz,H,L,P), h_final (Bz,H,P,N) f32).
-
-    ``model`` names the cost model the autotuner would score through; it has
-    no use until ``block_sizes="auto"`` is ported."""
+    (y (Bz,H,L,P), h_final (Bz,H,P,N) f32)."""
     blocks = _resolve_blocks("ssd_scan", block_sizes, {"chunk": chunk})
     return _ssd.ssd_scan(x, dt, A, B, C, chunk=blocks["chunk"])

@@ -46,15 +46,9 @@ NEG_INF = -1e30
 
 #: the longest chunk the kernel takes
 MAX_CHUNK = 256
-#: P slices a thread block may own
-P_BLOCKS = (16, 32, 64)
-#: query rows of the weight matrix built per pass (the CUDA source's kStrip)
-STRIP = 32
-#: bytes of shared memory one thread block may use on sm_90
-SMEM_LIMIT = 232448
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-             + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 3
+             + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 2
              + [ctypes.c_void_p])
 
 
@@ -64,6 +58,9 @@ def ssd_scan_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version: the chunked math of the Pallas body in the
     kernel's layout, f32, vectorised over (batch, head), a loop over chunks.
+    It is also the model's plain path, the counterpart of the reference's
+    ``_ssd_chunked`` (which forms ``C Bᵀ`` in the input type; here, as in
+    the kernels, it is f32).
 
     -> (y (Bz,H,L,P) in x's type, h_final (Bz,H,P,N) f32)."""
     Bz, H, L, P = x.shape
@@ -98,32 +95,20 @@ def ssd_scan_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.cat(ys, dim=2).to(x.dtype), h
 
 
-def padded_state_dim(N: int) -> int:
-    for w in (16, 32, 64, 128):
-        if N <= w:
-            return w
-    raise ValueError(f"d_state {N} > 128 is not supported by the kernel")
-
-
-def smem_bytes(chunk: int, N: int, p_block: int) -> int:
-    """Shared memory of one thread block (mirrors the CUDA source)."""
-    qa = -(-chunk // 64) * 64
-    nps = padded_state_dim(N) + 4
-    return 4 * (qa * nps + qa * p_block + STRIP * nps + STRIP * (qa + 4)
-                + padded_state_dim(N) * p_block + 4 * qa + 32)
-
-
-def pick_p_block(P: int, N: int, chunk: int) -> int:
-    """The P slice one thread block owns: the smallest of ``P_BLOCKS`` that
-    covers P (64 for larger P), halved until the block's tiles fit shared
-    memory."""
-    pb = next((b for b in P_BLOCKS if P <= b), P_BLOCKS[-1])
-    while smem_bytes(chunk, N, pb) > SMEM_LIMIT:
-        if pb == P_BLOCKS[0]:
-            raise ValueError(f"no tile fits shared memory at chunk {chunk}, "
-                             f"d_state {N}")
-        pb //= 2
-    return pb
+def tile(P: int, N: int, chunk: int) -> Tuple[int, int]:
+    """The tile the kernel launches for (P, N, chunk), as the CUDA source
+    chooses it: (P slice one thread block owns, bytes of shared memory of
+    that block).  Builds the source if need be; needs ``nvcc``."""
+    fn = _build.load("ssd_scan").ssd_scan_tile
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int),
+                                            ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+    pb, nbytes = ctypes.c_int(), ctypes.c_longlong()
+    if fn(P, N, chunk, ctypes.byref(pb), ctypes.byref(nbytes)) != 0:
+        raise ValueError(f"the kernel takes no tile for P={P}, N={N}, "
+                         f"chunk={chunk}")
+    return pb.value, nbytes.value
 
 
 def _check(x, dt, A, B, C) -> None:
@@ -189,9 +174,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if chunk > MAX_CHUNK:
         raise ValueError(f"chunk {chunk} > {MAX_CHUNK} is not supported by "
                          "the kernel")
-    if N % 4 or P % 4:
-        raise ValueError(f"P and N must be multiples of 4; got P={P}, N={N}")
-    pb = pick_p_block(P, N, chunk)
+    if N > 128 or N % 4 or P % 4:
+        raise ValueError(f"P and N must be multiples of 4, N at most 128; "
+                         f"got P={P}, N={N}")
     y = torch.empty_like(x)  # x's dimension order: (B, L, H, P) in memory
     h = torch.empty((Bz, H, P, N), dtype=torch.float32, device=x.device)
     A = A.contiguous()
@@ -207,14 +192,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  Bz, H, G, L, P, N, chunk,
                  *x.stride()[:3], *dt.stride(), *B.stride()[:3],
                  *C.stride()[:3], *y.stride()[:3],
-                 pb, int(x.dtype == torch.bfloat16),
+                 int(x.dtype == torch.bfloat16),
                  int(B.dtype == torch.bfloat16),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"ssd_scan_forward: CUDA error {err} at launch (x "
-            f"{tuple(x.shape)}, B {tuple(B.shape)}, chunk {chunk}, "
-            f"P slice {pb})")
+            f"{tuple(x.shape)}, B {tuple(B.shape)}, chunk {chunk})")
     ssd_scan.launches += 1
     return y, h
 

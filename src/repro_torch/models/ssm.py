@@ -1,10 +1,11 @@
 """Mamba2 mixer: chunked SSD (state-space duality) for prefill, linear in the
 sequence length, and an O(1) recurrence for decode.
 
-Prefill goes through the hand-written SSD-scan kernel
-(``repro_torch.kernels.ssd_scan``); ``_ssd_chunked`` is the model's plain path
-of the same function, taken under ``flags.use_kernels(False)``.  Decode is
-plain tensor code, as in the reference (which has no decode kernel either).
+Prefill goes through ``kops.ssd_scan``: the hand-written SSD-scan kernel on a
+CUDA tensor, and its plain chunked version (``ssd_scan_reference``, the
+reference's ``_ssd_chunked`` in the kernel's layout) on a CPU tensor or under
+``flags.use_kernels(False)``; the wrapper makes that choice.  Decode is plain
+tensor code, as in the reference (which has no decode kernel either).
 
 Layouts follow the reference: ``conv_w`` is ``(d_conv, conv_dim)`` and used as
 ``w[j]`` per tap; ``A_log``, ``D`` and ``dt_bias`` stay f32 whatever the
@@ -29,7 +30,6 @@ from torch import nn
 from repro_torch.distributed.sharding import logical
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
-from repro_torch.runtime import flags
 
 
 class SSMState(NamedTuple):
@@ -81,57 +81,6 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b)
 
 
-def _ssd_chunked(x, dt, A, Bm, Cm, chunk: int,
-                 h0: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD, the plain path.
-
-    x  (B, L, H, P)    dt (B, L, H)      A (H,) negative
-    Bm (B, L, G, N)    Cm (B, L, G, N)   h0 optional (B, H, P, N)
-    Returns (y (B,L,H,P) in x's type, h_final (B,H,P,N) f32).  G | H."""
-    Bsz, L, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    if L % chunk:
-        raise ValueError(f"sequence length {L} is not a multiple of the SSD "
-                         f"chunk {chunk} (the reference asserts the same)")
-    nc, Q = L // chunk, chunk
-    rep = H // G
-
-    dA = dt * A  # (B, L, H), <= 0
-    xc = x.reshape(Bsz, nc, Q, H, P)
-    dtc = dt.reshape(Bsz, nc, Q, H)
-    Bc = Bm.reshape(Bsz, nc, Q, G, N).repeat_interleave(rep, dim=3)
-    Cc = Cm.reshape(Bsz, nc, Q, G, N).repeat_interleave(rep, dim=3)
-    cum = torch.cumsum(dA.reshape(Bsz, nc, Q, H), dim=2)  # (B,nc,Q,H)
-    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-
-    h = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device) \
-        if h0 is None else h0
-    ys = []
-    for c in range(nc):
-        xq, dtq, cumq = xc[:, c], dtc[:, c], cum[:, c]
-        Bq, Cq = Bc[:, c], Cc[:, c]
-        # --- intra-chunk: decay L[i,j] = exp(cum[i]-cum[j]) for i >= j ---
-        diff = cumq[:, :, None, :] - cumq[:, None, :, :]  # (B,Q,Q,H)
-        # mask the exponent: above the diagonal it would overflow
-        diff = torch.where(tri[None, :, :, None], diff, -1e30)
-        Lmat = torch.exp(diff)
-        CB = torch.einsum("bihn,bjhn->bijh", Cq, Bq)  # (B,Q,Q,H)
-        W = CB * Lmat * dtq[:, None, :, :]  # weight of x_j in y_i
-        y_intra = torch.einsum("bijh,bjhp->bihp", W, xq.float())
-        # --- inter-chunk: contribution of h_prev ---
-        y_inter = torch.einsum("bihn,bhpn->bihp",
-                               Cq * torch.exp(cumq)[..., None], h)
-        # --- state update ---
-        decay_to_end = torch.exp(cumq[:, -1:, :] - cumq)  # (B,Q,H)
-        S_c = torch.einsum("bjhn,bjhp->bhpn",
-                           Bq * (dtq * decay_to_end)[..., None], xq.float())
-        h = h * torch.exp(cumq[:, -1])[:, :, None, None] + S_c
-        ys.append((y_intra + y_inter).to(x.dtype))
-    y = torch.stack(ys, dim=1).reshape(Bsz, L, H, P)
-    return y, h
-
-
 def ssm_apply(p: SSM, x: torch.Tensor, cfg, *,
               state: Optional[SSMState] = None
               ) -> Tuple[torch.Tensor, Optional[SSMState]]:
@@ -160,16 +109,13 @@ def ssm_apply(p: SSM, x: torch.Tensor, cfg, *,
             raise ValueError(
                 f"prefill length {S} is not a multiple of the SSD chunk "
                 f"{chunk} (the reference asserts the same)")
-        if flags.kernels_enabled():
-            # (B, H, S, ·) views, no copies.  The reference asks the
-            # autotuner for the chunk here; until it is ported the
-            # configuration's chunk is used.
-            y, _ = kops.ssd_scan(xin.transpose(1, 2), dt.transpose(1, 2), A,
-                                 Bm.transpose(1, 2), Cm.transpose(1, 2),
-                                 chunk=chunk)
-            y = y.transpose(1, 2)
-        else:
-            y, _ = _ssd_chunked(xin, dt, A, Bm, Cm, chunk)
+        # (B, H, S, ·) views, no copies.  The reference asks the autotuner
+        # for the chunk here; until it is ported the configuration's chunk
+        # is used.
+        y, _ = kops.ssd_scan(xin.transpose(1, 2), dt.transpose(1, 2), A,
+                             Bm.transpose(1, 2), Cm.transpose(1, 2),
+                             chunk=chunk)
+        y = y.transpose(1, 2)
         new_state = None
     else:
         # ---- single-step decode (S == 1) ----

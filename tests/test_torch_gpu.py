@@ -201,6 +201,22 @@ def test_ssd_output_keeps_the_inputs_layout(cuda):
         kops.ssd_scan(x, dt, A, B, C, chunk=48)
 
 
+@pytest.mark.parametrize("P,N,chunk,want", [
+    (64, 64, 128, 64),    # zamba2-2.7b: two blocks share an SM
+    (64, 128, 128, 64),   # mamba2-370m
+    (64, 128, 256, 16),   # the largest chunk at the largest state
+    (16, 16, 256, 16),    # the reduced configs' P
+    (32, 16, 100, 32),    # a chunk that is not a tile multiple
+])
+def test_ssd_tile_fits_shared_memory(P, N, chunk, want, cuda):
+    from repro_torch.kernels import ssd_scan
+    pb, nbytes = ssd_scan.tile(P, N, chunk)
+    assert pb == want
+    assert nbytes <= 227 * 1024  # what one block may use on sm_90
+    with pytest.raises(ValueError, match="no tile"):
+        ssd_scan.tile(P, 132, chunk)
+
+
 def test_ssd_kernel_refuses_autograd(cuda):
     x, dt, A, B, C = _ssd_inputs((1, 2, 1, 64, 16, 16, 64, "float32"), cuda)
     with pytest.raises(NotImplementedError, match="backward"):

@@ -133,33 +133,34 @@ def test_ssd_wrapper_on_cpu_matches_pallas_interpret_and_oracle(case):
         np.testing.assert_allclose(_np(h), _np(rh), **TOL_SSD)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ssd_chunked_matches_reference_chunked(dtype):
-    (x, dt, A, B, C), (jx, jdt, jA, jB, jC) = _ssd_inputs(
-        2, 4, 2, 128, 16, 32, dtype)
-    y, h = tssm._ssd_chunked(x.transpose(1, 2), dt.transpose(1, 2), A,
-                             B.transpose(1, 2), C.transpose(1, 2), 32)
+@pytest.mark.parametrize("case", SSD_CASES + [
+    (1, 2, 1, 200, 32, 16, 100, "float32")],  # chunk not a tile multiple
+    ids=SSD_IDS + ["chunk100"])
+def test_ssd_chunked_matches_reference_chunked(case):
+    """The port's chunked plain path (the model's, under
+    ``use_kernels(False)`` or on the CPU) against the reference's XLA path
+    ``_ssd_chunked``, in the model's (B, L, H, ·) layout handed over as
+    views."""
+    chunk, dtype = case[6], case[7]
+    (x, dt, A, B, C), (jx, jdt, jA, jB, jC) = _ssd_inputs(*case[:6], dtype)
+    xm, dtm, Bm, Cm = (t.transpose(1, 2).contiguous() for t in (x, dt, B, C))
+    y, h = tssd.ssd_scan_reference(xm.transpose(1, 2), dtm.transpose(1, 2),
+                                   A, Bm.transpose(1, 2), Cm.transpose(1, 2),
+                                   chunk=chunk)
     yr, hr = jssm._ssd_chunked(jx.transpose(0, 2, 1, 3),
                                jdt.transpose(0, 2, 1), jA,
                                jB.transpose(0, 2, 1, 3),
-                               jC.transpose(0, 2, 1, 3), 32)
-    assert y.dtype == x.dtype
-    np.testing.assert_allclose(_np(y), _np(yr), **_ssd_tol(dtype))
-    np.testing.assert_allclose(_np(h), _np(hr), **TOL_SSD)
-    # the model's plain path and the kernel's plain version agree
-    yk, hk = tssd.ssd_scan_reference(x, dt, A, B, C, chunk=32)
-    np.testing.assert_allclose(_np(y.transpose(1, 2)), _np(yk),
+                               jC.transpose(0, 2, 1, 3), chunk)
+    assert y.dtype == x.dtype and h.dtype == torch.float32
+    np.testing.assert_allclose(_np(y.transpose(1, 2)), _np(yr),
                                **_ssd_tol(dtype))
-    np.testing.assert_allclose(_np(h), _np(hk), **TOL_SSD)
+    np.testing.assert_allclose(_np(h), _np(hr), **TOL_SSD)
 
 
 def test_ssd_chunk_invariance():
     (x, dt, A, B, C), _ = _ssd_inputs(1, 2, 1, 256, 16, 16, "float32")
     outs = [tssd.ssd_scan_reference(x, dt, A, B, C, chunk=c)[0]
             for c in (32, 64, 128, 256)]
-    outs += [tssm._ssd_chunked(x.transpose(1, 2), dt.transpose(1, 2), A,
-                               B.transpose(1, 2), C.transpose(1, 2), c)[0]
-             .transpose(1, 2) for c in (32, 256)]
     for o in outs[1:]:
         np.testing.assert_allclose(_np(outs[0]), _np(o), atol=1e-4,
                                    rtol=1e-4)
@@ -215,19 +216,15 @@ def test_ssd_wrapper_on_a_cuda_tensor_without_a_card_raises():
                             torch.float32)  # device defaults to "cuda"
 
 
-@pytest.mark.parametrize("P,N,chunk,want", [
-    (64, 64, 128, 64),    # zamba2-2.7b: two blocks share an SM
-    (64, 128, 128, 64),   # mamba2-370m
-    (64, 128, 256, 16),   # the largest chunk at the largest state
-    (16, 16, 256, 16),    # the reduced configs' P
-    (32, 16, 100, 32),    # a chunk that is not a tile multiple
-])
-def test_pick_p_block_fits_shared_memory(P, N, chunk, want):
-    got = tssd.pick_p_block(P, N, chunk)
-    assert got == want and got in tssd.P_BLOCKS
-    assert tssd.smem_bytes(chunk, N, got) <= tssd.SMEM_LIMIT
-    if got < tssd.P_BLOCKS[-1] and got < P:
-        assert tssd.smem_bytes(chunk, N, 2 * got) > tssd.SMEM_LIMIT
+def test_ssd_wrapper_takes_no_cost_model_argument():
+    """``model=`` of the reference's wrapper comes with the autotuner; until
+    then an argument that nothing reads is refused, as for flash
+    attention."""
+    (x, dt, A, B, C), _ = _ssd_inputs(1, 2, 1, 64, 16, 16, "float32")
+    for fn, args in ((tops.ssd_scan, (x, dt, A, B, C)),
+                     (tops.flash_attention, (x, x, x))):
+        with pytest.raises(TypeError, match="model"):
+            fn(*args, model="gpu-h100")
 
 
 def test_kernel_source_is_in_the_package_and_not_built_on_import():
