@@ -18,7 +18,14 @@ counts set to 0 just before the path and read just after):
   prefill steps and server — the ``ssd_scan`` and ``flash_attention``
   kernels;
 * the ssm path of ``mamba2-370m`` (48 layers): one prefill step — the
-  ``ssd_scan`` kernel.
+  ``ssd_scan`` kernel;
+* the paper's calibration loop on the card: ``python -m
+  repro_torch.calibration --device gpu-h100 --scale gpu`` (launch overhead,
+  the 9 measurement classes timed under the 30-run/drop-4 protocol with
+  their properties extracted from ATen graphs, the fit, the registry), then
+  the held-out step: the model loaded back by name predicts the 4 held-out
+  kernels, which are timed beside it — the ``matmul`` kernel (``mm_tiled``,
+  ``skinny_mm``) and the ``transpose`` kernel (the tiled transpose).
 
 Every phase prints one JSON line; any failure ends the run with a non-zero
 exit code.  The last line is ``{"ok": true, "device": {...}}``.
@@ -31,12 +38,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -46,12 +55,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.calibration import __main__ as calib_cli  # noqa: E402
+from repro_torch.calibration import registry  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.core import extract, measure, mkernels, tkernels  # noqa: E402
+from repro_torch.core import properties as props  # noqa: E402
+from repro_torch.core.model import geomean, relative_error  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.kernels import transpose as tr  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.runtime import flags, steps  # noqa: E402
 from repro_torch.runtime.server import DecodeServer, Request  # noqa: E402
@@ -67,6 +83,7 @@ SERVE = dict(slots=8, max_len=2048, requests=16, max_new=32,
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates).
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12      # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 # The reference's own case table for flash attention, plus edges the CUDA
@@ -126,6 +143,39 @@ SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
 SSD_TOL_H = 5e-4
 SSD_TOL_CHUNKS = 1e-4
 
+# The reference's case table for matmul (tests/test_kernels.py MM_CASES),
+# plus the paper's 16³ tile, ragged M/N/K and a ragged bf16 case.
+# M, K, N, block, dtype
+MM_CASES = [
+    ("ref0", 256, 384, 512, 128, torch.float32),
+    ("ref1", 128, 128, 128, 128, torch.float32),
+    ("ref2", 512, 256, 256, 64, torch.float32),
+    ("ref3_skinny", 256, 2048, 256, 128, torch.float32),
+    ("ref4_bf16", 256, 256, 256, 128, torch.bfloat16),
+    ("tile16", 256, 256, 256, 16, torch.float32),
+    ("ragged_tile16", 100, 77, 53, 16, torch.float32),
+    ("ragged_tile128", 1000, 333, 257, 128, torch.float32),
+    ("bf16_ragged_tile64", 129, 65, 191, 64, torch.bfloat16),
+]
+# the reference's own tolerances: IEEE f32 products (TF32 would miss them)
+MM_TOL = {torch.float32: (1e-3, 1e-5), torch.bfloat16: (1.0, 3e-2)}
+# the reference's three transpose cases, then block 16, bf16 and ragged;
+# the result must be exact (a copy of bits)
+TR_CASES = [
+    ("ref0", (256, 256), 128, torch.float32),
+    ("ref1", (512, 256), 128, torch.float32),
+    ("ref2", (128, 384), 64, torch.float32),
+    ("block16", (256, 512), 16, torch.float32),
+    ("bf16", (384, 256), 32, torch.bfloat16),
+    ("ragged_block16", (100, 77), 16, torch.float32),
+    ("bf16_ragged_block256", (333, 1000), 256, torch.bfloat16),
+]
+CALIB_DEVICE = "gpu-h100"    # the registry name of the fitted model
+CALIB_SCALE = "gpu"
+# the cases whose timing goes through a hand-written kernel
+KERNEL_TIMED = {"mm_tiled_": "matmul", "skinny_mm_": "matmul",
+                "transpose_tiled_": "transpose"}
+
 LINES = []
 
 
@@ -182,14 +232,17 @@ def fa_inputs(B, H, KVH, Sq, Skv, dh, dtype, gen, as_main_path=True):
     return mk(Sq, H), mk(Skv, KVH), mk(Skv, KVH)
 
 
-def compare(o, r, tol) -> float:
+def compare(o, r, tol, rtol=None) -> float:
+    """Max abs error of o against r; raises beyond ``tol`` abs + ``rtol``
+    (default ``tol``) relative."""
+    rtol = tol if rtol is None else rtol
     o, r = o.float(), r.float()
     err = (o - r).abs()
-    bad = err > tol + tol * r.abs()
+    bad = err > tol + rtol * r.abs()
     if not torch.isfinite(o).all() or bool(bad.any()):
         raise AssertionError(
             f"kernel disagrees with its plain version: max abs err "
-            f"{float(err.max()):.3e}, tolerance {tol:g} abs/rel, "
+            f"{float(err.max()):.3e}, tolerance {tol:g} abs / {rtol:g} rel, "
             f"{int(bad.sum())} of {bad.numel()} values out")
     return float(err.max())
 
@@ -202,12 +255,16 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60
     ).stdout.strip().splitlines()[0].strip()
+    # f32 products in IEEE f32 everywhere: mxu:32 means what it means in
+    # the reference, and the library yardsticks compute what the kernels do
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "device", "ok": True, "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
     return smi
 
 
@@ -450,9 +507,304 @@ def phase_ssd_main_shape(cfg, B, S, gen):
 
 
 # ---------------------------------------------------------------------------
+# matmul and transpose, and the calibration path that runs them
+
+
+def phase_matmul_cases(gen):
+    """matmul against its plain version at the case table."""
+    rows = []
+    for (cid, M, K, N, blk, dtype) in MM_CASES:
+        a = torch.randn((M, K), device=DEV, generator=gen).to(dtype)
+        b = torch.randn((K, N), device=DEV, generator=gen).to(dtype)
+        o = kops.matmul(a, b, block_m=blk, block_n=blk, block_k=blk)
+        torch.cuda.synchronize()
+        atol, rtol = MM_TOL[dtype]
+        err = compare(o, mm.matmul_reference(a, b), atol, rtol)
+        rows.append({"case": cid, "M": M, "K": K, "N": N, "block": blk,
+                     "dtype": str(dtype).replace("torch.", ""),
+                     "tile": list(mm.tile(M, N, K, blk, blk, blk)[:3]),
+                     "max_abs_err": err, "atol": atol, "rtol": rtol})
+    emit({"phase": "kernels.matmul.cases", "ok": True, "kernel": "matmul",
+          "cases": rows})
+    return rows
+
+
+def phase_transpose_cases(gen):
+    """transpose against its plain version at the case table: exact."""
+    rows = []
+    for (cid, shape, blk, dtype) in TR_CASES:
+        x = torch.randn(shape, device=DEV, generator=gen).to(dtype)
+        o = kops.transpose(x, block=blk)
+        torch.cuda.synchronize()
+        if not torch.equal(o, tr.transpose_reference(x)):
+            raise AssertionError(f"transpose {cid}: not equal to x.t()")
+        rows.append({"case": cid, "shape": list(shape), "block": blk,
+                     "dtype": str(dtype).replace("torch.", ""),
+                     "tile": tr.tile(blk, dtype)[0], "max_abs_err": 0.0,
+                     "tol": "exact"})
+    emit({"phase": "kernels.transpose.cases", "ok": True,
+          "kernel": "transpose", "cases": rows})
+    return rows
+
+
+def largest_tiled(key: str) -> int:
+    """n of the calibration's largest tiled case of a class (t = 3)."""
+    return 2 ** (mkernels._P[CALIB_SCALE][key] + 3)
+
+
+def phase_matmul_main_shape(gen):
+    """matmul at the calibration's largest mm_tiled case, 16³ tile, f32."""
+    n, g = largest_tiled("mm"), mkernels.GSIZE
+    a = mkernels._rand(gen, (n, n), DEV)
+    b = mkernels._rand(gen, (n, n), DEV)
+    o = kops.matmul(a, b, block_m=g, block_n=g, block_k=g)
+    torch.cuda.synchronize()
+    atol, rtol = MM_TOL[torch.float32]
+    err = compare(o, mm.matmul_reference(a, b), atol, rtol)
+    del o
+
+    def kernel():
+        kops.matmul(a, b, block_m=g, block_n=g, block_k=g)
+
+    def plain():
+        mm.matmul_reference(a, b)
+
+    def library():  # the yardstick, timed here only: torch.matmul, no TF32
+        torch.matmul(a, b)
+
+    def tile128():
+        kops.matmul(a, b, block_m=128, block_n=128, block_k=128)
+
+    ms_a = time_ms(kernel, 1, 5)
+    plain_ms = time_ms(plain, 2, 10)
+    library_ms = time_ms(library, 2, 10)
+    tile128_ms = time_ms(tile128, 1, 5)
+    ms_b = time_ms(kernel, 1, 5)
+    flops = 2.0 * n ** 3
+    nbytes = 3 * n * n * a.element_size()
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    ms = min(ms_a, ms_b)
+    bm, bn, bk, smem = mm.tile(n, n, n, g, g, g)
+    return {
+        "shape": {"M": n, "K": n, "N": n, "dtype": "float32",
+                  "block": [g, g, g], "tile": [bm, bn, bk],
+                  "smem_bytes": smem},
+        "max_abs_err": err, "atol": atol, "rtol": rtol,
+        "ms": ms, "kernel_ms": ms, "kernel_ms_runs": [ms_a, ms_b],
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_call": "torch.matmul (allow_tf32=False)",
+        "tile128_ms": tile128_ms,
+        "tile128": list(mm.tile(n, n, n, 128, 128, 128)[:3]),
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3,
+        "flops": flops, "bytes": nbytes,
+        "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+        "tile128_tflops": flops / (tile128_ms * 1e-3) / 1e12,
+    }
+
+
+def phase_transpose_main_shape(gen):
+    """transpose at the calibration's largest tiled transpose, 16² tile."""
+    n, g = largest_tiled("transpose"), mkernels.GSIZE
+    x = mkernels._rand(gen, (n, n), DEV)
+    o = kops.transpose(x, block=g)
+    torch.cuda.synchronize()
+    if not torch.equal(o, tr.transpose_reference(x)):
+        raise AssertionError("transpose at the main shape: not x.t()")
+    del o
+
+    def kernel():
+        kops.transpose(x, block=g)
+
+    def plain():
+        tr.transpose_reference(x)
+
+    def library():  # the yardstick, timed here only
+        x.t().contiguous()
+
+    def tile64():
+        kops.transpose(x, block=64)
+
+    ms_a = time_ms(kernel, 2, 10)
+    plain_ms = time_ms(plain, 2, 10)
+    library_ms = time_ms(library, 2, 10)
+    tile64_ms = time_ms(tile64, 2, 10)
+    ms_b = time_ms(kernel, 2, 10)
+    nbytes = 2 * n * n * x.element_size()
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    ms = min(ms_a, ms_b)
+    return {
+        "shape": {"M": n, "N": n, "dtype": "float32", "block": g,
+                  "tile": tr.tile(g)[0]},
+        "max_abs_err": 0.0, "tol": "exact",
+        "ms": ms, "kernel_ms": ms, "kernel_ms_runs": [ms_a, ms_b],
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_call": "x.t().contiguous()", "tile64_ms": tile64_ms,
+        "bound_ms": t_bytes * 1e3, "bound_by": "bytes", "bytes": nbytes,
+        "achieved_tb_per_s": nbytes / (ms * 1e-3) / 1e12,
+    }
+
+
+def kernel_of(case: str):
+    """The hand-written kernel a measurement or held-out case is timed
+    through, or None."""
+    return next((k for pre, k in KERNEL_TIMED.items()
+                 if case.startswith(pre)), None)
+
+
+@contextlib.contextmanager
+def counted_timing(records: list):
+    """Wrap every ``measure.time_kernel`` call: count the calls the timing
+    makes of its callable and the kernel launches they make."""
+    orig = measure.time_kernel
+
+    def timed(fn, **kw):
+        calls = [0]
+
+        def counted():
+            calls[0] += 1
+            return fn()
+        before = read_launches()
+        res = orig(counted, **kw)
+        after = read_launches()
+        records.append({"calls": calls[0], "min_s": res.min_s,
+                        "launches": {k: after[k] - before[k]
+                                     for k in after}})
+        return res
+    measure.time_kernel = timed
+    yield
+    measure.time_kernel = orig
+
+
+def check_counts(name: str, rec: dict) -> dict:
+    """A kernel-timed case launches its kernel once per call of the timing,
+    and nothing else; every other case launches no kernel of the port."""
+    k = kernel_of(name)
+    want = {n: (rec["calls"] if n == k else 0) for n in rec["launches"]}
+    if rec["launches"] != want:
+        raise AssertionError(f"{name}: launches {rec['launches']}, "
+                             f"{rec['calls']} calls of the timing")
+    return {"case": name, "kernel": k, "calls": rec["calls"],
+            "launches": rec["launches"].get(k, 0) if k else 0}
+
+
+def phase_calibrate(out_dir: str):
+    """The CLI, as a user runs it, on the card; returns its result."""
+    captured, records = {}, []
+    orig = calib_cli.calibrate
+
+    def capture(*a, **kw):
+        captured["result"] = orig(*a, **kw)
+        return captured["result"]
+    calib_cli.calibrate = capture
+    with counted_timing(records):
+        rc = calib_cli.main(["--device", CALIB_DEVICE, "--scale",
+                             CALIB_SCALE, "--out", out_dir])
+    calib_cli.calibrate = orig
+    res = captured["result"]
+    if rc != 0 or len(records) != 1 + len(res.labels):
+        raise AssertionError(f"calibration exit {rc}, {len(records)} timings "
+                             f"for {len(res.labels)} kernels")
+    counts = [check_counts(n, r) for n, r in zip(res.labels, records[1:])]
+    w = res.model.weights
+    if not np.isfinite(w).all():
+        raise AssertionError("non-finite fitted weight")
+    emit({"phase": "calibrate", "ok": True, "device": CALIB_DEVICE,
+          "scale": CALIB_SCALE, "n_kernels": len(res.labels),
+          "runs": res.model.meta["runs"], "drop": res.model.meta["drop"],
+          "launch_overhead_us": res.launch_overhead_s * 1e6,
+          "fit_geomean_rel_err": res.report["geomean_rel_err"],
+          "fit_max_rel_err": res.report["max_rel_err"],
+          "wall_s": res.wall_s,
+          "weights": dict(zip(res.model.keys, [float(x) for x in w])),
+          "times_s": {r["label"]: r["actual_s"] for r in res.report["rows"]},
+          "kernel_timed": [c for c in counts if c["kernel"]]})
+    return res
+
+
+def phase_heldout(out_dir: str, res):
+    """The held-out step: the model loaded back by name predicts the 16
+    test cases, which are timed under the same protocol."""
+    loaded = registry.load_model(CALIB_DEVICE, out_dir)
+    if loaded.keys != res.model.keys \
+            or not np.array_equal(loaded.weights, res.model.weights):
+        raise AssertionError("the registered model differs from the fitted")
+    rows, records = [], []
+    with counted_timing(records), torch.no_grad():
+        for c in tkernels.test_cases(CALIB_SCALE, device=DEV):
+            pv = c.properties()
+            pred = loaded.predict(pv)
+            if pred != res.model.predict(pv) or not math.isfinite(pred):
+                raise AssertionError(f"{c.name}: prediction {pred!r} not "
+                                     "bit-identical to the fitted model's")
+            t = measure.time_kernel(
+                c.jitted(), min_time_s=4 * res.launch_overhead_s).min_s
+            count = check_counts(c.name, records[-1])
+            rows.append({"case": c.name, "class": c.klass, "actual_s": t,
+                         "predicted_s": pred,
+                         "rel_err": relative_error(pred, t),
+                         "calls": count["calls"],
+                         "launches": count["launches"]})
+            del c
+    classes = sorted({r["class"] for r in rows})
+    per_class = {k: geomean(r["rel_err"] for r in rows if r["class"] == k)
+                 for k in classes}
+    emit({"phase": "heldout", "ok": True, "device": CALIB_DEVICE,
+          "cases": rows, "geomean_rel_err_by_class": per_class,
+          "geomean_rel_err": geomean(r["rel_err"] for r in rows),
+          "paper_geomeans": {"Titan X": 0.16, "C2070": 0.14, "K40": 0.06,
+                             "R9 Fury": 0.42}})
+    return rows
+
+
+def phase_closed_form():
+    """A few property vectors at ``gpu`` scale against their closed forms
+    (traced on meta stand-ins: nothing is allocated)."""
+    P = mkernels._P[CALIB_SCALE]
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+    n = 2 ** (P["s1"] + 8)
+    pv = extract.extract_graph(mkernels._copy, meta(n))
+    want = {props.mem_key("load", 32, "s1"): n,
+            props.mem_key("store", 32, "s1"): n}
+    m = 2 ** (P["naive"] + 3)
+    pv_mm = extract.extract_graph(mkernels._naive_mm, meta(m, m), meta(m, m))
+    v = 2 ** (P["vsa"] + 6)
+    pv_vsa = extract.extract_graph(
+        functools.partial(mkernels._vsa, s=2, lim=2 * v), meta(2 * v),
+        meta(2 * v))
+    got = {"s1_copy": {k: pv.get(k) for k in want},
+           "mm_naive": pv_mm.get(props.mxu_key(32)),
+           "vsa_s2": pv_vsa.get(props.mem_key("load", 32, "s2_1/2"))}
+    if got["s1_copy"] != want or got["mm_naive"] != 2.0 * m ** 3 \
+            or got["vsa_s2"] != 2.0 * v:
+        raise AssertionError(f"closed-form counts: {got}")
+    emit({"phase": "extract.closed_form", "ok": True, "scale": CALIB_SCALE,
+          "counts": got, "n": {"s1_copy": n, "mm_naive": m, "vsa_s2": v}})
+
+
+def phase_calibration_profile(seed: int):
+    """Optional (--profile): device idle share of the multi-op cases (arith:
+    64 steps of ~8 ops; conv: 49 taps) at both ends of the ladder."""
+    P, Q = mkernels._P[CALIB_SCALE], tkernels._P[CALIB_SCALE]
+    arith = [c for c in mkernels._arith_cases(P["arith"], DEV)
+             if c.meta["kind"] == "exp"]
+    conv = tkernels._conv_cases(Q["conv"], mkernels._generator(seed, DEV),
+                                DEV)
+    out = {}
+    with torch.no_grad():
+        for c in (arith[0], arith[-1], conv[0], conv[-1]):
+            out[c.name] = _profile(c.jitted(), 3)
+    emit({"phase": "calibrate.profile", "ok": True, "cases": out})
+
+
+# ---------------------------------------------------------------------------
 # the main paths
 
-KERNELS = {"flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan}
+KERNELS = {"flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan,
+           "matmul": mm.matmul, "transpose": tr.transpose}
 
 
 def reset_launches() -> None:
@@ -467,10 +819,12 @@ def read_launches() -> dict:
 def launches_per_step(cfg) -> dict:
     """The kernel launches one prefill step of ``cfg`` must make."""
     if cfg.family == "dense":
-        return {"flash_attention": cfg.n_layers, "ssd_scan": 0}
+        return {"flash_attention": cfg.n_layers, "ssd_scan": 0,
+                "matmul": 0, "transpose": 0}
     sites = cfg.n_layers // cfg.hybrid.attn_every \
         if cfg.family == "hybrid" else 0
-    return {"flash_attention": sites, "ssd_scan": cfg.n_layers}
+    return {"flash_attention": sites, "ssd_scan": cfg.n_layers,
+            "matmul": 0, "transpose": 0}
 
 
 def rel_frobenius(a, b) -> float:
@@ -765,7 +1119,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one prefill step and a few decode "
-                         "iterations of each served path with torch.profiler")
+                         "iterations of each served path, and the multi-op "
+                         "calibration cases, with torch.profiler")
     ap.add_argument("--out", default=None,
                     help="also write every phase line to this JSON file")
     args = ap.parse_args()
@@ -808,6 +1163,39 @@ def main() -> int:
                     for cfg in (hybrid, pure)]
         emit({"phase": "kernels.ssd.main_shape", "ok": True,
               "kernel": "ssd_scan", "shapes": ssd_rows})
+    torch.cuda.empty_cache()
+
+    with phase("kernels.matmul.cases"):
+        mm_cases = phase_matmul_cases(gen)
+    with phase("kernels.transpose.cases"):
+        tr_cases = phase_transpose_cases(gen)
+    with phase("extract.closed_form"):
+        phase_closed_form()
+
+    # the calibration path (measure -> extract -> fit -> register, then the
+    # held-out predictions), with the launch counts set to 0 just before it
+    # and read just after
+    with tempfile.TemporaryDirectory(prefix="registry-") as reg_dir:
+        reset_launches()
+        with phase("calibrate"):
+            res = phase_calibrate(reg_dir)
+        with phase("heldout"):
+            phase_heldout(reg_dir, res)
+        launched["calibration"] = read_launches()
+    torch.cuda.empty_cache()
+    if args.profile:
+        with phase("calibrate.profile"):
+            phase_calibration_profile(args.seed)
+
+    with phase("kernels.matmul.main_shape"):
+        mm_row = phase_matmul_main_shape(gen)
+        emit({"phase": "kernels.matmul.main_shape", "ok": True,
+              "kernel": "matmul", "shapes": [mm_row]})
+    torch.cuda.empty_cache()
+    with phase("kernels.transpose.main_shape"):
+        tr_row = phase_transpose_main_shape(gen)
+        emit({"phase": "kernels.transpose.main_shape", "ok": True,
+              "kernel": "transpose", "shapes": [tr_row]})
 
     kernels = {"kernels": [
         kernel_entry("flash_attention",
@@ -819,6 +1207,15 @@ def main() -> int:
                      "src/repro/kernels/ssd_scan.py:97",
                      {a: n["ssd_scan"] for a, n in launched.items()},
                      ssd_rows, ssd_cases),
+        kernel_entry("matmul", "src/repro_torch/kernels/csrc/matmul.cu",
+                     "src/repro/kernels/matmul.py:50",
+                     {a: n["matmul"] for a, n in launched.items()},
+                     [mm_row], mm_cases),
+        kernel_entry("transpose",
+                     "src/repro_torch/kernels/csrc/transpose.cu",
+                     "src/repro/kernels/transpose.py:30",
+                     {a: n["transpose"] for a, n in launched.items()},
+                     [tr_row], tr_cases),
     ]}
     for k in kernels["kernels"]:
         if k["launches"] == 0:

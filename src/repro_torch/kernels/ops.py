@@ -11,7 +11,9 @@ Model code calls these.  Every wrapper accepts ``block_sizes``:
 Block sizes are requests: flash attention serves them with the nearest tile
 it is built for (``flash_attention.pick_tiles``); the SSD scan takes its
 ``chunk`` as given (it changes the result only by rounding), and its CUDA
-source picks the P slice (``ssd_scan.tile`` reports it).  The reference's
+source picks the P slice (``ssd_scan.tile`` reports it); the CUDA sources of
+``matmul`` and ``transpose`` serve a request with the nearest tile they are
+built for (``matmul.tile``, ``transpose.tile`` report it).  The reference's
 ``model=`` (the cost model the autotuner scores through) comes with
 ``"auto"``; its ``interpret=`` has no counterpart: a CUDA kernel has no
 interpret mode.
@@ -23,7 +25,9 @@ from typing import Mapping, Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import transpose as _tr
 
 BlockSizes = Union[None, str, Mapping[str, int]]
 
@@ -66,3 +70,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (y (Bz,H,L,P), h_final (Bz,H,P,N) f32)."""
     blocks = _resolve_blocks("ssd_scan", block_sizes, {"chunk": chunk})
     return _ssd.ssd_scan(x, dt, A, B, C, chunk=blocks["chunk"])
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
+           block_n: int = 128, block_k: int = 128,
+           block_sizes: BlockSizes = None) -> torch.Tensor:
+    """(M, K) @ (K, N) with f32 sums, in the inputs' type."""
+    blocks = _resolve_blocks(
+        "matmul", block_sizes,
+        {"block_m": block_m, "block_n": block_n, "block_k": block_k})
+    return _mm.matmul(a, b, block_m=blocks["block_m"],
+                      block_n=blocks["block_n"], block_k=blocks["block_k"])
+
+
+def transpose(x: torch.Tensor, *, block: int = 256,
+              block_sizes: BlockSizes = None) -> torch.Tensor:
+    """(M, N) -> (N, M), contiguous."""
+    blocks = _resolve_blocks("transpose", block_sizes, {"block": block})
+    return _tr.transpose(x, block=blocks["block"])

@@ -2,9 +2,9 @@
 
 Deliberately naive — O(S²) attention with materialised logits, the O(L)
 sequential SSD recurrence — so they are independent of the kernels and of the
-chunked paths in ``repro_torch.models``.  The plain version of attention
-lives beside its kernel's wrapper and is re-exported here under the
-reference's name; ``matmul`` and ``transpose`` arrive with their kernels.
+chunked paths in ``repro_torch.models``.  The plain versions of attention
+and matmul live beside their kernels' wrappers and are re-exported here
+under the reference's names.
 """
 from __future__ import annotations
 
@@ -14,8 +14,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import \
     attention_reference as attention
+from repro_torch.kernels.matmul import matmul_reference as matmul
 
-__all__ = ["attention", "ssd"]
+__all__ = ["attention", "matmul", "ssd", "transpose"]
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
@@ -42,3 +43,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         h = h * dA[..., None, None] + upd
         ys.append(torch.einsum("bhn,bhpn->bhp", Cf[:, :, t], h))
     return torch.stack(ys, dim=2).to(x.dtype), h
+
+
+def transpose(x: torch.Tensor) -> torch.Tensor:
+    """``x.T`` as a view, as the reference's oracle returns it."""
+    return x.t()

@@ -237,3 +237,120 @@ def test_ssm_forward_through_the_kernels_matches_plain_path(name, cuda):
         with flags.use_kernels(False):
             b, _ = transformer.forward(model, cfg, {"tokens": tok})
     torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# matmul and transpose
+# ---------------------------------------------------------------------------
+
+MM_CASES = [
+    # M, K, N, block, dtype: the reference's table, then the paper's 16³
+    # tile, ragged edges, and bf16 ragged
+    (256, 384, 512, 128, "float32"),
+    (128, 128, 128, 128, "float32"),
+    (512, 256, 256, 64, "float32"),
+    (256, 2048, 256, 128, "float32"),   # skinny (n = l = m/8)
+    (256, 256, 256, 128, "bfloat16"),
+    (256, 256, 256, 16, "float32"),
+    (100, 77, 53, 16, "float32"),
+    (1000, 333, 257, 128, "float32"),
+    (129, 65, 191, 64, "bfloat16"),
+]
+
+
+def _mm_inputs(case, device, seed=0):
+    M, K, N, _, dtype = case
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(device=device, dtype=dt) for s in ((M, K), (K, N))]
+
+
+@pytest.mark.parametrize("case", MM_CASES,
+                         ids=[f"mm{i}" for i in range(len(MM_CASES))])
+def test_matmul_kernel_matches_plain_version(case, cuda):
+    from repro_torch.kernels import matmul as mm
+    a, b = _mm_inputs(case, cuda)
+    blk, dtype = case[3], case[4]
+    before = mm.matmul.launches
+    o = kops.matmul(a, b, block_m=blk, block_n=blk, block_k=blk)
+    torch.cuda.synchronize()
+    assert mm.matmul.launches == before + 1
+    r = mm.matmul_reference(a, b)
+    assert o.dtype == a.dtype and o.shape == r.shape and o.is_contiguous()
+    # the reference's own tolerances: f32 atol 1e-3 / rtol 1e-5 (IEEE f32
+    # products; TF32 would miss it), bf16 atol 1.0 / rtol 3e-2
+    tol = dict(atol=1.0, rtol=3e-2) if dtype == "bfloat16" \
+        else dict(atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(o.float(), r.float(), **tol)
+
+
+def test_matmul_takes_a_leading_stride_and_refuses_columns(cuda):
+    from repro_torch.kernels import matmul as mm
+    a, b = _mm_inputs((64, 96, 80, 16, "float32"), cuda)
+    wide = torch.zeros(64, 128, device=cuda)
+    wide[:, :96] = a
+    o = kops.matmul(wide[:, :96], b, block_m=16, block_n=16, block_k=16)
+    torch.testing.assert_close(o, mm.matmul_reference(a, b), atol=1e-3,
+                               rtol=1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.matmul(a.t().contiguous().t(), b)
+    with pytest.raises(TypeError):
+        kops.matmul(a.half(), b.half())
+    with pytest.raises(NotImplementedError, match="backward"):
+        kops.matmul(a.requires_grad_(), b)
+
+
+@pytest.mark.parametrize("req,want", [
+    ((16, 16, 16), (16, 16, 16)),     # the paper's tile, served exactly
+    ((128, 128, 128), (128, 128, 32)),
+    ((64, 64, 64), (64, 64, 16)),
+    ((32, 32, 32), (16, 16, 16)),     # between two tiles: the smaller
+    ((256, 256, 256), (128, 128, 32)),
+])
+def test_matmul_tile_reports(req, want, cuda):
+    from repro_torch.kernels import matmul as mm
+    bm, bn, bk, smem = mm.tile(4096, 4096, 4096, *req)
+    assert (bm, bn, bk) == want
+    assert smem <= 227 * 1024
+    # a block clipped to a small dimension gets the small tile
+    assert mm.tile(16, 16, 4096, 128, 128, 128)[:3] == (16, 16, 16)
+    with pytest.raises(ValueError, match="no tile"):
+        mm.tile(0, 16, 16)
+
+
+TR_CASES = [
+    # (M, N), block, dtype: the reference's three, then the paper's 16, bf16,
+    # ragged
+    ((256, 256), 128, "float32"),
+    ((512, 256), 128, "float32"),
+    ((128, 384), 64, "float32"),
+    ((256, 512), 16, "float32"),
+    ((384, 256), 32, "bfloat16"),
+    ((100, 77), 16, "float32"),
+    ((333, 1000), 256, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", TR_CASES,
+                         ids=[f"tr{i}" for i in range(len(TR_CASES))])
+def test_transpose_kernel_is_exact(case, cuda):
+    from repro_torch.kernels import transpose as tr
+    shape, blk, dtype = case
+    x = torch.randn(shape, device=cuda).to(getattr(torch, dtype))
+    before = tr.transpose.launches
+    o = kops.transpose(x, block=blk)
+    torch.cuda.synchronize()
+    assert tr.transpose.launches == before + 1
+    assert o.is_contiguous() and torch.equal(o, tr.transpose_reference(x))
+
+
+@pytest.mark.parametrize("block,want", [(16, 16), (32, 32), (64, 64),
+                                        (256, 64), (8, 16)])
+def test_transpose_tile_reports(block, want, cuda):
+    from repro_torch.kernels import transpose as tr
+    edge, smem = tr.tile(block)
+    assert edge == want and smem == want * (want + 1) * 4
+    assert tr.tile(block, torch.bfloat16)[1] == want * (want + 1) * 2
+    with pytest.raises(ValueError, match="no tile"):
+        tr.tile(0)

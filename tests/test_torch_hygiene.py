@@ -38,9 +38,16 @@ def test_package_layout():
                  "models/attention.py", "models/transformer.py",
                  "models/convert.py", "obs/metrics.py", "obs/report.py",
                  "obs/trace.py", "launch/serve.py", "models/ssm.py",
-                 "kernels/ssd_scan.py"):
+                 "kernels/ssd_scan.py", "kernels/matmul.py",
+                 "kernels/transpose.py", "core/properties.py",
+                 "core/model.py", "core/fit.py", "core/predictor.py",
+                 "core/measure.py", "core/extract.py", "core/mkernels.py",
+                 "core/tkernels.py", "calibration/seeds.py",
+                 "calibration/registry.py", "calibration/calibrate.py",
+                 "calibration/__main__.py", "calibration/__init__.py"):
         assert need in names, need
-    for src in ("flash_attention.cu", "ssd_scan.cu"):
+    for src in ("flash_attention.cu", "ssd_scan.cu", "matmul.cu",
+                "transpose.cu"):
         assert (PKG / "kernels" / "csrc" / src).exists(), src
     assert len(list((PKG / "configs").glob("*.py"))) == 12
 

@@ -1,7 +1,10 @@
-"""The port's flash-attention wrapper and plain version against the JAX
-package: ``repro.kernels.ref.attention`` and the Pallas kernel in interpret
-mode, on the same numpy inputs.  Tolerances are the reference's own (f32
-3e-5, bf16 2e-2).  The CUDA kernel itself has no interpret mode: it is held
+"""The port's kernel wrappers and plain versions against the JAX package:
+flash attention against ``repro.kernels.ref.attention`` and the Pallas kernel
+in interpret mode, matmul and transpose against ``ref.matmul``/``ref.
+transpose`` and ``ops.matmul``/``ops.transpose`` in interpret mode, on the
+same numpy inputs.  Tolerances are the reference's own (attention f32 3e-5,
+bf16 2e-2; matmul f32 atol 1e-3 / rtol 1e-5, bf16 atol 1.0 / rtol 3e-2;
+transpose exact).  The CUDA kernel itself has no interpret mode: it is held
 against the plain version on a card by ``tests/test_torch_gpu.py`` and by
 ``chip_smoke.py``.
 """
@@ -12,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_fa
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import matmul as tmm
+from repro_torch.kernels import transpose as ttr
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -152,3 +158,98 @@ def test_kernel_source_is_in_the_package_and_not_built_on_import():
     assert "flash_attention" in _build.sources()
     assert (_build.CSRC / "flash_attention.cu").exists()
     assert _build._libs == {} or not torch.cuda.is_available()
+
+
+# ---------------------------------------------------------------------------
+# matmul and transpose
+# ---------------------------------------------------------------------------
+
+MM_CASES = [
+    # M, K, N, block, dtype (the reference's table)
+    (256, 384, 512, 128, "float32"),
+    (128, 128, 128, 128, "float32"),
+    (512, 256, 256, 64, "float32"),
+    (256, 2048, 256, 128, "float32"),   # skinny (n = l = m/8)
+    (256, 256, 256, 128, "bfloat16"),
+]
+
+
+def _mm_tol(dtype):
+    return dict(atol=1.0, rtol=3e-2) if dtype == "bfloat16" \
+        else dict(atol=1e-3, rtol=1e-5)
+
+
+def _mm_inputs(case, seed=7):
+    M, K, N, _, dtype = case
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal((K, N)).astype(np.float32)
+    t = [torch.from_numpy(x).to(getattr(torch, dtype)) for x in (a, b)]
+    j = [jnp.asarray(x).astype(getattr(jnp, dtype)) for x in (a, b)]
+    return t, j
+
+
+@pytest.mark.parametrize("case", MM_CASES,
+                         ids=[f"mm{i}" for i in range(len(MM_CASES))])
+def test_matmul_plain_version_matches_reference(case):
+    (a, b), (ja, jb) = _mm_inputs(case)
+    blk, dtype = case[3], case[4]
+    before = tmm.matmul.launches
+    o = tops.matmul(a, b, block_m=blk, block_n=blk, block_k=blk)
+    assert tmm.matmul.launches == before  # plain version: no launch
+    assert o.dtype == a.dtype and tuple(o.shape) == (case[0], case[2])
+    assert tref.matmul is tmm.matmul_reference
+    for r in (jref.matmul(ja, jb),
+              jops.matmul(ja, jb, block_m=blk, block_n=blk, block_k=blk,
+                          interpret=True)):
+        np.testing.assert_allclose(_np(o), _np(r), **_mm_tol(dtype))
+
+
+@pytest.mark.parametrize("shape,blk", [((256, 256), 128), ((512, 256), 128),
+                                       ((128, 384), 64)])
+def test_transpose_plain_version_matches_reference(shape, blk):
+    x = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+    o = tops.transpose(torch.from_numpy(x), block=blk)
+    assert o.is_contiguous()
+    np.testing.assert_array_equal(o.numpy(), np.asarray(
+        jops.transpose(jnp.asarray(x), block=blk, interpret=True)))
+    np.testing.assert_array_equal(tref.transpose(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jref.transpose(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("kernel", ["matmul", "transpose"])
+def test_matmul_and_transpose_block_sizes(kernel):
+    a = torch.randn(32, 48)
+    if kernel == "matmul":
+        def call(**kw):
+            return tops.matmul(a, a.t().contiguous(), **kw)
+        mapping = {"block_m": 16}
+    else:
+        def call(**kw):
+            return tops.transpose(a, **kw)
+        mapping = {"block": 16}
+    assert torch.equal(call(block_sizes=mapping), call())
+    with pytest.raises(NotImplementedError, match="autotun"):
+        call(block_sizes="auto")
+    with pytest.raises(TypeError):
+        call(block_sizes=7)
+
+
+@pytest.mark.parametrize("bad", ["inner", "dtype", "mixed", "rank", "empty"])
+def test_matmul_and_transpose_reject_what_the_kernels_do_not_take(bad):
+    a, b = torch.zeros(8, 4), torch.zeros(4, 6)
+    if bad == "inner":
+        b = torch.zeros(5, 6)
+    elif bad == "dtype":
+        a, b = a.half(), b.half()
+    elif bad == "mixed":
+        b = b.bfloat16()
+    elif bad == "rank":
+        a = a[None]
+    elif bad == "empty":
+        a = torch.zeros(0, 4)
+    with pytest.raises((ValueError, TypeError)):
+        tmm.matmul(a, b)
+    if bad in ("dtype", "rank", "empty"):
+        with pytest.raises((ValueError, TypeError)):
+            ttr.transpose(a)

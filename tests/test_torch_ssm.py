@@ -167,7 +167,8 @@ def test_ssd_chunk_invariance():
 
 
 def test_ref_module_exports_the_oracles():
-    assert set(tref.__all__) == {"attention", "ssd"}
+    # every oracle of the reference's kernels/ref.py
+    assert set(tref.__all__) == {"attention", "ssd", "matmul", "transpose"}
 
 
 def test_ssd_block_sizes_auto_waits_for_autotuner_and_mapping_works():
