@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json] [--seed 0] [--profile]
+    python3 chip_smoke.py --only fa-cases|fa    # flash attention alone
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
 source, all started together), holds each kernel against its plain PyTorch
@@ -12,7 +13,8 @@ counts set to 0 just before the path and read just after):
 
 * the dense serving path of ``llama3.2-3b`` at full width and depth (bf16):
   prefill steps on tokens (4, 2048) and a decode server answering 16
-  requests — the ``flash_attention`` kernel;
+  requests — the ``flash_attention`` kernel (bf16: its tensor-core kernel;
+  the FP32 kernel serves the f32 comparisons);
 * the hybrid serving path of ``zamba2-2.7b`` at full width and depth (54
   Mamba2 layers, one shared attention block applied at 9 sites): the same
   prefill steps and server — the ``ssd_scan`` and ``flash_attention``
@@ -28,7 +30,10 @@ counts set to 0 just before the path and read just after):
   ``skinny_mm``) and the ``transpose`` kernel (the tiled transpose).
 
 Every phase prints one JSON line; any failure ends the run with a non-zero
-exit code.  The last line is ``{"ok": true, "device": {...}}``.
+exit code.  The last line is ``{"ok": true, "device": {...}}``.  With
+``--only`` it builds, holds flash attention against its plain version at the
+case table and (``fa``) times it at the main paths' shapes, runs no main
+path, and says so in its last line.
 
 It needs a GPU (it fails where ``torch.cuda.is_available()`` is false) and
 ``nvcc``; it imports ``torch`` and ``repro_torch`` only.
@@ -104,12 +109,30 @@ FA_CASES = [
     ("dh16", 2, 4, 2, 40, 40, 16, True, None, torch.float32),
     ("bf16_ragged_dh128", 1, 6, 2, 333, 333, 128, True, None,
      torch.bfloat16),
+    # bf16 twins of the f32 cases: every branch of the tensor-core kernel
+    # (GQA, MHA, MQA, window, Sq != Skv without a mask, ragged lengths,
+    # dh below 64, between 64 and 128, and the reduced configs' 16)
+    ("bf16_mha", 1, 4, 4, 128, 128, 32, True, None, torch.bfloat16),
+    ("bf16_mqa", 1, 8, 1, 128, 128, 64, True, None, torch.bfloat16),
+    ("bf16_swa64", 2, 8, 2, 256, 256, 64, True, 64, torch.bfloat16),
+    ("bf16_noncausal_sq_ne_skv", 1, 2, 1, 128, 256, 64, False, None,
+     torch.bfloat16),
+    ("bf16_ragged_noncausal_dh48", 1, 4, 2, 100, 77, 48, False, None,
+     torch.bfloat16),
+    ("bf16_ragged_swa_dh80", 2, 6, 3, 203, 203, 80, True, 50,
+     torch.bfloat16),
+    ("bf16_dh16", 2, 4, 2, 40, 40, 16, True, None, torch.bfloat16),
+    # zamba2-2.7b's head layout: dh 80, 32 heads, MHA, at a ragged length
+    ("bf16_zamba2_dh80", 1, 32, 32, 333, 333, 80, True, None,
+     torch.bfloat16),
 ]
 # bf16: the reference's own tolerance.  f32: the reference's 3e-5 loosened
 # to 1e-4 because the kernel sums the products in another order (4-wide
 # partial sums over head_dim, online rescaling over key tiles) than the
 # plain version's matrix products.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the kernel each input type goes to
+VARIANT = {torch.bfloat16: "wgmma+tma bf16", torch.float32: "fp32 fma"}
 
 # A whole prefill step, kernel path against plain path, relative Frobenius
 # error of the logits.  f32: the two paths differ by summation order only.
@@ -268,24 +291,59 @@ def phase_device():
     return smi
 
 
+def ptxas_entries(log: str) -> list:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: mangled name,
+    registers, spill bytes (stores, loads)."""
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        out.append({"function": name,
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_store_bytes": int(spill.group(1)) if spill else None,
+                    "spill_load_bytes": int(spill.group(2)) if spill else None})
+    return out
+
+
+def wgmma_ptxas(entries: list) -> list:
+    """The bf16 tensor-core kernel's instances among ``ptxas_entries``."""
+    return [e for e in entries if "fa_wgmma_kernel" in e["function"]]
+
+
 def phase_build():
     t0 = time.perf_counter()
     logs = _build.build_all(extra_flags=("-Xptxas", "-v"), force=True)
     for name in _build.sources():
         _build.load(name)
-    info = {}
+    info, entries = {}, {}
     for name, log in logs.items():
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+        entries[name] = ptxas_entries(log)
+        regs = [e["registers"] for e in entries[name]
+                if e["registers"] is not None]
+        spills = [e["spill_store_bytes"] for e in entries[name]
+                  if e["spill_store_bytes"] is not None]
         with open(_build.build_dir() / f"{name}.nvcc.log", "w") as f:
             f.write(log)
-        info[name] = {"kernels_compiled": len(regs),
+        info[name] = {"kernels_compiled": len(entries[name]),
                       "max_registers": max(regs, default=None),
                       "max_spill_store_bytes": max(spills, default=None)}
+    wg = wgmma_ptxas(entries.get("flash_attention", []))
+    # ptxas's notes that it serialised the bf16 kernel's products
+    serialised = sorted({m.group(1) for m in re.finditer(
+        r"\((C75\d\d)\) Potential Performance Loss.*fa_wgmma_kernel",
+        logs.get("flash_attention", ""))})
+    if not wg or any(e["spill_store_bytes"] or e["spill_load_bytes"]
+                     for e in wg):
+        raise AssertionError(f"the bf16 flash-attention kernel spills or "
+                             f"was not compiled: {wg}")
     emit({"phase": "build", "ok": True,
           "seconds": round(time.perf_counter() - t0, 2),
           "build_dir": os.path.relpath(_build.build_dir(), ROOT),
-          "sources": info})
+          "sources": info, "flash_attention_wgmma_ptxas": wg,
+          "flash_attention_wgmma_serialised": serialised})
+    return wg
 
 
 def phase_kernel_cases(gen):
@@ -300,7 +358,9 @@ def phase_kernel_cases(gen):
             torch.cuda.synchronize()
             r = fa.attention_reference(q, k, v, causal=causal, window=window)
             err = compare(o, r, TOL[dtype])
-        rows.append({"case": cid, "max_abs_err": err, "tol": TOL[dtype]})
+        rows.append({"case": cid, "dtype": str(dtype).replace("torch.", ""),
+                     "variant": VARIANT[dtype], "max_abs_err": err,
+                     "tol": TOL[dtype]})
 
     # tile-shape invariance: the result must not depend on the tiling
     q, k, v = fa_inputs(1, 2, 2, 256, 256, 64, torch.float32, gen)
@@ -365,8 +425,10 @@ def phase_kernel_main_shape(cfg, B, S, gen):
         "arch": cfg.name,
         "shape": {"B": B, "H": H, "KVH": KVH, "Sq": S, "Skv": S, "dh": dh,
                   "dtype": "bfloat16", "causal": True,
-                  "window": cfg.sliding_window,
-                  "tile": list(fa.pick_tiles(128, 128, dh))},
+                  "window": cfg.sliding_window},
+        "variant": VARIANT[dtype],
+        "tile": dict(zip(("block_q", "block_k", "stages", "smem_bytes"),
+                         fa.tile(dh))),
         "max_abs_err": err, "tol": TOL[dtype],
         "ms": ms, "kernel_ms": ms, "kernel_ms_runs": [ms_a, ms_b],
         "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1101,17 +1163,53 @@ def phase_profile(cfg, model, tokens, seed):
           "prefill_step": pre, "decode_iteration": dec})
 
 
-def kernel_entry(name, source, replaces, launched, rows, cases):
+def kernel_entry(name, source, replaces, launched, rows, cases, **extra):
     """One kernel of the ``kernels`` line: the first main-path shape's
     numbers at the top, every timed shape under ``shapes``."""
     total = sum(n for n in launched.values())
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": total,
             "launches_by_path": launched,
-            **rows[0],
+            **rows[0], **extra,
             "max_abs_err": max(r["max_abs_err"] for r in rows + cases),
             "max_abs_err_over_cases": max(c["max_abs_err"] for c in cases),
             "shapes": rows, "cases": cases}
+
+
+def fa_extra(wg_ptxas: list) -> dict:
+    """The flash_attention fields beyond the common ones: which kernel
+    serves which type, and the bf16 kernel's registers and spills per
+    instance (padded head width), from the build log."""
+    return {"variants": {str(t).replace("torch.", ""): v
+                         for t, v in VARIANT.items()},
+            "ptxas": [{"head_dim_padded": int(m.group(1)) if m else None,
+                       **{k: e[k] for k in ("registers", "spill_store_bytes",
+                                            "spill_load_bytes")}}
+                      for e in wg_ptxas
+                      for m in [re.search(r"ILi(\d+)E", e["function"])]]}
+
+
+def attention_only(args, smi) -> int:
+    """``--only fa-cases`` / ``--only fa``: the build, the flash-attention
+    case table, and (``fa``) its timings at the main paths' shapes; no main
+    path runs, so the last line says so."""
+    with phase("build"):
+        wg = phase_build()
+    gen = torch.Generator(DEV).manual_seed(args.seed)
+    with phase("kernels.cases"):
+        phase_kernel_cases(gen)
+    if args.only == "fa":
+        with phase("kernels.main_shape"):
+            B, S = PREFILL_TOKENS
+            rows = [phase_kernel_main_shape(get_arch(a), B, S, gen)
+                    for a in (ARCH, HYBRID)]
+            emit({"phase": "kernels.main_shape", "ok": True,
+                  "kernel": "flash_attention", "shapes": rows,
+                  **fa_extra(wg)})
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "scope": f"--only {args.only}",
+                      "main_paths": "not run"}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1123,6 +1221,9 @@ def main() -> int:
                          "calibration cases, with torch.profiler")
     ap.add_argument("--out", default=None,
                     help="also write every phase line to this JSON file")
+    ap.add_argument("--only", choices=("fa-cases", "fa"), default=None,
+                    help="build, then only the flash-attention cases "
+                         "(fa-cases) or the cases and timings (fa)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1133,8 +1234,10 @@ def main() -> int:
     t_start = time.perf_counter()
     with phase("device"):
         smi = phase_device()
+    if args.only:
+        return attention_only(args, smi)
     with phase("build"):
-        phase_build()
+        wg_ptxas = phase_build()
 
     gen = torch.Generator(DEV).manual_seed(args.seed)
     dense, hybrid, pure = get_arch(ARCH), get_arch(HYBRID), get_arch(SSM)
@@ -1202,7 +1305,7 @@ def main() -> int:
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:116",
                      {a: n["flash_attention"] for a, n in launched.items()},
-                     fa_rows, fa_cases),
+                     fa_rows, fa_cases, **fa_extra(wg_ptxas)),
         kernel_entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:97",
                      {a: n["ssd_scan"] for a, n in launched.items()},

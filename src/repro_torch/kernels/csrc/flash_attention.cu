@@ -6,55 +6,96 @@
 // (no repeat of K/V), causal and sliding-window masks, running max / running
 // sum / f32 accumulator carried over the walk along the keys, NEG_INF = -1e30,
 // final divide by max(l, 1e-20), fully masked (q-tile, k-tile) pairs never
-// visited.  f32 or bf16 in, all arithmetic in f32 (both products and the
-// probabilities), out in q's type.
+// visited, out in q's type.  In both kernels one thread block owns one
+// (b, h, q-tile), the last q-tiles (which see the most keys under a causal
+// mask) start first, and the block loops over the k-tiles itself with the
+// running max, running sum and output accumulator in registers, so nothing
+// but q, k, v (read once per block) and o (written once) touches device
+// memory.  Masked k-tiles are cut from the loop bounds (causal: upper bound,
+// window: lower bound); the ragged edge (Sq or Skv not a multiple of the
+// tile, dh below the padded width) is masked inside, so any Sq, Skv >= 1 is
+// accepted.  A query row that sees no key comes out as zeros, as from the TPU
+// kernel.
 //
-// What differs from the TPU kernel.  There the walk along the keys is the
-// innermost, sequential grid dimension and the running state sits in VMEM
-// scratch between grid steps.  Here one thread block owns one (b, h, q-tile)
-// and loops over the k-tiles itself; the running max, running sum and the
-// output accumulator stay in registers for the whole loop, so nothing but
-// q, k, v (read) and o (written) touches device memory.  Masked k-tiles are cut
-// from the loop bounds (causal: upper bound, window: lower bound) instead of
-// being predicated, and the ragged edge (Sq or Skv not a multiple of the tile,
-// dh below the padded width) is masked here, so any Sq, Skv >= 1 is accepted.
+// What bounds it on this card: operations, not bytes.  At B=4, H=24,
+// S=2048, dh=128 (causal) q, k, v and o move 0.13 GB while the two products
+// cost 1.0e11 operations: 0.104 ms at the 989 TFLOP/s of the bf16 tensor
+// cores against 0.040 ms for the bytes.
 //
-// Layout of the work.  256 threads form a 16 x 16 grid (ty, tx).  For the
-// logits tile S = Q K^T (BQ x BK) thread (ty, tx) owns rows ty + 16 i and
-// columns tx + 16 j; for the output tile (BQ x dh) it owns the same rows and
-// float4 column chunks strided by 16.  A row is therefore held by the 16
-// lanes of one half-warp: row maxima and row sums are four xor-shuffles, the
-// rescale factor of the accumulator is known locally, and the probability
-// tile written to shared memory is read back only by the half-warp that wrote
-// it (a __syncwarp, not a block barrier).  Q, K, V tiles are staged in shared
-// memory as f32 (row strides padded so that the 128-bit reads of a quarter
-// warp fall on distinct banks), K/V indexed at h / G.
+// bf16 (fa_wgmma_kernel, every bf16 call): the products run on the tensor
+// cores, in the FA3 shape.
+//   * S = Q K^T is a chain of wgmma.mma_async m64n128k16 with Q and K read
+//     from shared memory through descriptors (K-major, 128-byte swizzle).
+//     P is rounded to bf16 in registers and fed back as the A operand of
+//     O += P V (m64nNk16, N = 16..64 per 64-column chunk of the head), V the
+//     B operand read MN-major from its (keys, dh) tile through the transpose
+//     bit.  Accumulators are f32 in registers; the softmax uses ex2.approx
+//     with the scale folded into scale * log2(e).
+//   * Tiles of 128 queries x 128 keys.  A block is three warpgroups: one
+//     producer (one thread issues every copy) and two consumers of 64 query
+//     rows each (while one runs its softmax, the other's products can hold
+//     the tensor cores).  The producer loads Q once and
+//     streams K/V through a ring of two stages in shared memory with TMA
+//     (cp.async.bulk.tensor, 4-D tensor maps over (dh, S, H, B) with the
+//     caller's strides, so strided views need no copy), signalled by
+//     mbarriers (full: bytes arrived; empty, for K and V apart: the eight
+//     consumer warps are done with them).  setmaxnreg hands the producer's
+//     registers to the consumers (24 / 240).
+//   * Up to a head of 80 a consumer also overlaps within itself: P V of one
+//     tile is in flight while S and the softmax of the next run (FA3's
+//     intra-warpgroup pipelining).  Wider heads do not fit S, P and O in 240
+//     registers at once, and run the tile's steps in order.
+//   * A row of a 64-column chunk is 128 bytes, the swizzle span; a head
+//     wider than 64 is two chunks (two TMA boxes).  Columns past dh and rows
+//     past Sq / Skv are TMA's out-of-bounds zeros, and the products run only
+//     over dh rounded up to 16 (zamba2's dh 80: 5 k-steps for Q K^T, N = 64
+//     + 16 for P V), so no product is padded to 128.
+//   * Masks are evaluated only on tiles that need them: the diagonal tiles
+//     under a causal mask, the edge tiles of a window and the ragged last
+//     k-tile, each judged per consumer warpgroup.  A fully visible tile runs
+//     no mask arithmetic.
+//   Shared memory: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) at dh > 64 (half
+//   that at dh <= 64), one block per SM.  TMA needs a 16-byte-aligned base
+//   and strides that are multiples of 16 bytes; the wrapper refuses other
+//   layouts.
 //
-// What bounds it on this card.  The function is bound by operations, not
-// bytes (at B=4, H=24, S=2048, dh=128 the q, k, v, o traffic is ~0.1 GB against
-// ~1e11 floating-point operations).  Because the reference keeps the
-// probabilities in f32 for p.v and f32 inputs must hold a 1e-4 tolerance, the
-// products here run on the FP32 pipes (fused multiply-adds on register
-// micro-tiles), whose peak is 67 TFLOP/s against 989 TFLOP/s of the bf16
-// tensor cores that the bound is stated for.  The design answers with register
-// tiling (up to 8 x 8 outputs per thread per operand fetch) and 128-bit
-// shared-memory reads; moving the bf16 case onto mma/wgmma with TMA-fed tiles
-// is the next step and is left out of this first version on purpose.
+// f32 (fa_fwd_kernel): f32 inputs must hold a 1e-4 tolerance, which bf16
+// tensor cores cannot give, and no main path runs attention in f32, so both
+// products run in f32 on the FP32 pipes (67 TFLOP/s): 256 threads form a
+// 16 x 16 grid, each owning a register micro-tile of the logits (rows
+// ty + 16 i, columns tx + 16 j) and of the output; a row is held by the 16
+// lanes of one half-warp, so row maxima and sums are four xor-shuffles.  Q, K,
+// V tiles are staged in shared memory as f32 with padded row strides.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;            // 16 x 16
 constexpr size_t kSmemLimit = 232448;    // bytes one block may use on sm_90
 
+__device__ __forceinline__ bool visible(int r, int c, int Skv, int causal,
+                                        int window) {
+  bool ok = c < Skv;
+  if (causal) ok = ok && (r >= c);
+  if (window > 0) ok = ok && (r - c < window);
+  return ok;
+}
+
+// ===========================================================================
+// f32: FP32 pipes
+// ===========================================================================
+
+constexpr int kThreads = 256;            // 16 x 16
+
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   int B, H, KVH, Sq, Skv, dh;
   // strides in elements; the last (dh) dimension has stride 1
   long long q_sb, q_sh, q_ss;
@@ -63,59 +104,20 @@ struct Params {
   long long o_sb, o_sh, o_ss;
   int causal;
   int window;   // <= 0: no window
-  int is_bf16;
   float scale;
 };
-
-__device__ __forceinline__ float4 load4(const void* base, long long off,
-                                        bool bf16) {
-  if (bf16) {
-    const uint2 u = *reinterpret_cast<const uint2*>(
-        static_cast<const __nv_bfloat16*>(base) + off);
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-    const float2 fa = __bfloat1622float2(a);
-    const float2 fb = __bfloat1622float2(b);
-    return make_float4(fa.x, fa.y, fb.x, fb.y);
-  }
-  return *reinterpret_cast<const float4*>(static_cast<const float*>(base) +
-                                          off);
-}
-
-__device__ __forceinline__ void store4(void* base, long long off, float4 val,
-                                       bool bf16) {
-  if (bf16) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(val.x, val.y);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(val.z, val.w);
-    uint2 u;
-    u.x = *reinterpret_cast<const unsigned int*>(&a);
-    u.y = *reinterpret_cast<const unsigned int*>(&b);
-    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(base) + off) = u;
-  } else {
-    *reinterpret_cast<float4*>(static_cast<float*>(base) + off) = val;
-  }
-}
-
-__device__ __forceinline__ void store1(void* base, long long off, float val,
-                                       bool bf16) {
-  if (bf16) {
-    static_cast<__nv_bfloat16*>(base)[off] = __float2bfloat16_rn(val);
-  } else {
-    static_cast<float*>(base)[off] = val;
-  }
-}
 
 __device__ __forceinline__ float component(const float4& x, int i) {
   return i == 0 ? x.x : (i == 1 ? x.y : (i == 2 ? x.z : x.w));
 }
 
-// Copies ROWS x DHP values into shared memory as f32, rows beyond `n_rows`
-// and columns beyond `dh` filled with zeros.
+// Copies ROWS x DHP values into shared memory, rows beyond `n_rows` and
+// columns beyond `dh` filled with zeros.
 template <int ROWS, int DHP, int STRIDE>
-__device__ __forceinline__ void load_tile(float* dst, const void* src,
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long base, long long row_stride,
                                           int row0, int n_rows, int dh,
-                                          bool bf16, int tid) {
+                                          int tid) {
   constexpr int V4 = DHP / 4;
   for (int idx = tid; idx < ROWS * V4; idx += kThreads) {
     const int r = idx / V4;
@@ -123,19 +125,11 @@ __device__ __forceinline__ void load_tile(float* dst, const void* src,
     const int gr = row0 + r;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (gr < n_rows && c < dh) {
-      val = load4(src, base + static_cast<long long>(gr) * row_stride + c,
-                  bf16);
+      val = *reinterpret_cast<const float4*>(
+          src + base + static_cast<long long>(gr) * row_stride + c);
     }
     *reinterpret_cast<float4*>(dst + r * STRIDE + c) = val;
   }
-}
-
-__device__ __forceinline__ bool visible(int r, int c, int Skv, int causal,
-                                        int window) {
-  bool ok = c < Skv;
-  if (causal) ok = ok && (r >= c);
-  if (window > 0) ok = ok && (r - c < window);
-  return ok;
 }
 
 template <int BQ, int BK, int DHP>
@@ -163,14 +157,13 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KVH);
   const int q0 = qt * BQ;
-  const bool bf16 = p.is_bf16 != 0;
 
   const long long q_base = b * p.q_sb + h * p.q_sh;
   const long long o_base = b * p.o_sb + h * p.o_sh;
   const long long k_base = b * p.k_sb + kvh * p.k_sh;
   const long long v_base = b * p.v_sb + kvh * p.v_sh;
 
-  load_tile<BQ, DHP, QS>(Qs, p.q, q_base, p.q_ss, q0, p.Sq, p.dh, bf16, tid);
+  load_tile<BQ, DHP, QS>(Qs, p.q, q_base, p.q_ss, q0, p.Sq, p.dh, tid);
 
   float m_run[TM], l_run[TM], acc[TM][TD];
 #pragma unroll
@@ -192,10 +185,8 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<BK, DHP, KS>(Ks, p.k, k_base, p.k_ss, k0, p.Skv, p.dh, bf16,
-                           tid);
-    load_tile<BK, DHP, VS>(Vs, p.v, v_base, p.v_ss, k0, p.Skv, p.dh, bf16,
-                           tid);
+    load_tile<BK, DHP, KS>(Ks, p.k, k_base, p.k_ss, k0, p.Skv, p.dh, tid);
+    load_tile<BK, DHP, VS>(Vs, p.v, v_base, p.v_ss, k0, p.Skv, p.dh, tid);
     __syncthreads();
 
     // ---- S = Q K^T on a TM x TN register tile --------------------------
@@ -311,19 +302,18 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
       for (int ch = 0; ch < TD / 4; ++ch) {
         const int col = (ch * 16 + tx) * 4;
         if (col < p.dh) {
-          store4(p.o, row + col,
-                 make_float4(acc[i][ch * 4 + 0] / denom,
-                             acc[i][ch * 4 + 1] / denom,
-                             acc[i][ch * 4 + 2] / denom,
-                             acc[i][ch * 4 + 3] / denom),
-                 bf16);
+          *reinterpret_cast<float4*>(p.o + row + col) =
+              make_float4(acc[i][ch * 4 + 0] / denom,
+                          acc[i][ch * 4 + 1] / denom,
+                          acc[i][ch * 4 + 2] / denom,
+                          acc[i][ch * 4 + 3] / denom);
         }
       }
     } else {
 #pragma unroll
       for (int t = 0; t < TD; ++t) {
         const int col = tx * TD + t;
-        if (col < p.dh) store1(p.o, row + col, acc[i][t] / denom, bf16);
+        if (col < p.dh) p.o[row + col] = acc[i][t] / denom;
       }
     }
   }
@@ -366,33 +356,736 @@ cudaError_t launch_bk(const Params& p, int block_k, cudaStream_t stream) {
   }
 }
 
+
+// ===========================================================================
+// bf16: wgmma tensor cores, TMA-fed K/V ring, warp specialisation
+// ===========================================================================
+
+constexpr int kBQ = 128;           // query rows of a block (2 x 64)
+constexpr int kBK = 128;           // keys of a tile
+constexpr int kStages = 2;         // K/V ring
+constexpr int kWgThreads = 384;    // producer warpgroup + 2 consumers
+constexpr int kChunkCols = 64;     // bf16 columns of one 128-byte row chunk
+constexpr int kRowBytes = 128;     // = the 128-byte swizzle span
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+template <int DHP>
+struct Tile {
+  static constexpr int kChunks = (DHP + kChunkCols - 1) / kChunkCols;
+  // Overlap P V of one tile with S and the softmax of the next: needs S, P
+  // and O in registers at once, which fits the consumers' 240 registers up
+  // to a head of 80 (at 96 and above ptxas spills and serialises the
+  // products).
+  static constexpr bool kOverlap = DHP <= 80;
+  static constexpr int kQBytes = kChunks * kBQ * kRowBytes;
+  static constexpr int kKVBytes = kChunks * kBK * kRowBytes;  // one stage
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
+  // 1024 bytes of slack to align the tiles to the swizzle atom
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (1 + 4 * kStages);
+};
+
+struct BParams {
+  __nv_bfloat16* o;
+  long long o_sb, o_sh, o_ss;   // elements; the last dimension has stride 1
+  int H, KVH, Sq, Skv, dh;
+  int causal;
+  int window;                   // <= 0: no window
+  float scale_log2;             // softmax scale * log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.  A wait of more
+// than 2^34 cycles (seconds; a tile takes microseconds) can only be a fault
+// of the ring: it traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > (1LL << 34)) __trap();
+  } while (!done);
+}
+
+// One box of a 4-D tensor map (dh, S, H, B) into shared memory; completion
+// is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major tiles (Q, K):
+// 8-row groups 1024 bytes apart (SBO), the leading offset unused.  MN-major
+// tiles (V read as the B operand through the transpose bit): 8-key groups
+// 1024 bytes apart (SBO); every product stays inside one 64-column chunk, so
+// the leading offset (between chunks along N) is never stepped.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(1) << 16)                 // LBO: 16 B
+         | (static_cast<uint64_t>(1024 >> 4) << 32)         // SBO: 1024 B
+         | (static_cast<uint64_t>(1) << 62);                // 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous products that write them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D (64 x 128, f32) (+)= A (64 x 16) B (16 x 128), A and B in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x N, f32) += A (64 x 16, bf16 in registers) B (16 x N), B read
+// MN-major from shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n48(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64, "N per chunk");
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 48) wgmma_rs_n48(d, a, db);
+  else wgmma_rs_n64(d, a, db);
+}
+
+// Fragment layout of an m64nN f32 accumulator (and of P): thread t of a
+// consumer warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (elements 0, 1 of
+// each 8-column block) and that row + 8 (elements 2, 3), at columns
+// 8 j + 2 (t % 4) + {0, 1} of block j.  A row lives in the four lanes of a
+// quad.
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// A descriptor the compiler cannot see through: the descriptors of the
+// k-steps are then formed next to each product instead of being hoisted out
+// of the loop into registers that stay live.
+__device__ __forceinline__ uint64_t opaque(uint64_t desc) {
+  uint64_t out;
+  asm volatile("mov.b64 %0, %1;\n" : "=l"(out) : "l"(desc));
+  return out;
+}
+
+// A descriptor moved `bytes` further into shared memory (the address field
+// counts 16-byte units).
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+// S (64 x 128) = Q K^T over this warpgroup's 64 rows: one committed group.
+// `qd`, `kd`: descriptors of the Q rows and the K stage.  The caller fences
+// the registers (wgmma_fence) before the first product of a pipeline stage.
+template <int DHP>
+__device__ __forceinline__ void issue_qk(float* sc, uint64_t qd,
+                                         uint64_t kd) {
+#pragma unroll
+  for (int kk = 0; kk < DHP / 16; ++kk) {
+    const uint32_t col = (kk & 3) * 32;     // 16 columns = 32 bytes
+    wgmma_ss_n128(sc, desc_at(qd, (kk >> 2) * kBQ * kRowBytes + col),
+                  desc_at(kd, (kk >> 2) * kBK * kRowBytes + col), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O (64 x DHP) += P V with P in registers: one committed group.  `vd`: the
+// descriptor of the V stage.
+template <int DHP>
+__device__ __forceinline__ void issue_pv(float* o, const uint32_t (*pa)[4],
+                                         uint64_t vd) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint32_t row = kk * 16 * kRowBytes;  // 16 keys
+    if constexpr (Tile<DHP>::kChunks == 2) {
+      wgmma_rs<kChunkCols>(o, pa[kk], desc_at(vd, row));
+      wgmma_rs<DHP - kChunkCols>(o + kChunkCols / 2, pa[kk],
+                                 desc_at(vd, row + kBK * kRowBytes));
+    } else {
+      wgmma_rs<DHP>(o, pa[kk], desc_at(vd, row));
+    }
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Running max and sum of the rows r0 and r0 + 8 of a thread (the sum is
+// this thread's part; the quad's parts are added at the end).
+struct Rows {
+  float m0, m1, l0, l1;
+};
+
+// The online-softmax step of one tile: masks S where `edge` says a pair may
+// be hidden, updates the running max and sum, overwrites S with P (f32), and
+// returns the factors by which O is to be rescaled.
+__device__ __forceinline__ float2 softmax_tile(float* sc, Rows& st, bool edge,
+                                               int r0, int c0,
+                                               const BParams& p) {
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!visible(r0 + (e >> 1) * 8, c0 + 8 * j + (e & 1), p.Skv,
+                     p.causal, p.window))
+          sc[4 * j + e] = kNegInf;
+  }
+  float mx0 = st.m0, mx1 = st.m1;
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float c2 = p.scale_log2;
+  const float2 alpha = make_float2(fast_exp2((st.m0 - mx0) * c2),
+                                   fast_exp2((st.m1 - mx1) * c2));
+  st.m0 = mx0;
+  st.m1 = mx1;
+  // a row that has seen no visible key yet keeps p = 0 (exp2 of -1e30)
+  const float mc0 = mx0 == kNegInf ? 0.f : mx0 * c2;
+  const float mc1 = mx1 == kNegInf ? 0.f : mx1 * c2;
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    sc[4 * j] = fast_exp2(fmaf(sc[4 * j], c2, -mc0));
+    sc[4 * j + 1] = fast_exp2(fmaf(sc[4 * j + 1], c2, -mc0));
+    sc[4 * j + 2] = fast_exp2(fmaf(sc[4 * j + 2], c2, -mc1));
+    sc[4 * j + 3] = fast_exp2(fmaf(sc[4 * j + 3], c2, -mc1));
+    s0 += sc[4 * j] + sc[4 * j + 1];
+    s1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  st.l0 = st.l0 * alpha.x + s0;
+  st.l1 = st.l1 * alpha.y + s1;
+  return alpha;
+}
+
+// P (f32, in the accumulator layout of S) to bf16 A fragments of P V: the
+// two 8-column blocks of a 16-key step are one m64k16 fragment.
+__device__ __forceinline__ void pack_p(const float* sc, uint32_t (*pa)[4]) {
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+template <int DHP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const BParams p) {
+  using T = Tile<DHP>;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* q_s = smem;
+  uint8_t* k_s = smem + T::kQBytes;               // stage s at s * kKVBytes
+  uint8_t* v_s = k_s + kStages * T::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + T::kBarOffset);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
+
+  // the last q-tiles see the most keys under a causal mask: start them first
+  const int qt = static_cast<int>(gridDim.x) - 1 - static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (p.H / p.KVH);
+  const int q0 = qt * kBQ;
+
+  // k-tiles that hold at least one visible (q, k) pair for this q-tile
+  int k_end = p.Skv;
+  if (p.causal) k_end = min(k_end, min(q0 + kBQ, p.Sq));
+  const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int kt_begin = k_begin / kBK;
+  const int n_tiles = max(0, (k_end + kBK - 1) / kBK - kt_begin);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, 8);   // one arrival per consumer warp
+      mbar_init(v_empty + s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer warpgroup: one thread issues every copy ---------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (tid == 0 && n_tiles > 0) {
+      mbar_expect_tx(q_full, T::kQBytes);
+#pragma unroll
+      for (int c = 0; c < T::kChunks; ++c)
+        tma_load(q_s + c * kBQ * kRowBytes, &tm_q, q_full, c * kChunkCols,
+                 q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const uint32_t parity = ((i / kStages) & 1) ^ 1;
+        const int k0 = (kt_begin + i) * kBK;
+        // K and V of a stage are released apart: K once S is formed, V once
+        // P V is, so the next K is in flight while P V still runs
+        if (i >= kStages) mbar_wait(k_empty + s, parity);
+        mbar_expect_tx(k_full + s, T::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < T::kChunks; ++c)
+          tma_load(k_s + s * T::kKVBytes + c * kBK * kRowBytes, &tm_k,
+                   k_full + s, c * kChunkCols, k0, kvh, b);
+        if (i >= kStages) mbar_wait(v_empty + s, parity);
+        mbar_expect_tx(v_full + s, T::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < T::kChunks; ++c)
+          tma_load(v_s + s * T::kKVBytes + c * kBK * kRowBytes, &tm_v,
+                   v_full + s, c * kChunkCols, k0, kvh, b);
+      }
+    }
+  } else {
+    // ---- two consumer warpgroups of 64 query rows each --------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kConsumerRegs));
+    const int ct = tid - 128;
+    const int cw = ct >> 7;                  // which consumer warpgroup
+    const int lane = ct & 31;
+    const int wq_lo = q0 + cw * 64;          // this warpgroup's query rows
+    const int wq_hi = wq_lo + 63;
+    const int r0 = wq_lo + ((ct >> 5) & 3) * 16 + (lane >> 2);  // and r0 + 8
+    const int cq = 2 * (lane & 3);
+    const uint64_t q_desc = smem_desc(smem_u32(q_s) + cw * 64 * kRowBytes);
+    const uint64_t k_desc = smem_desc(smem_u32(k_s));
+    const uint64_t v_desc = smem_desc(smem_u32(v_s));
+
+    // masks only where a pair of this warpgroup may be hidden
+    auto edge = [&](int k0) {
+      return (k0 + kBK > p.Skv) || (p.causal && k0 + kBK - 1 > wq_lo)
+             || (p.window > 0 && wq_hi - k0 >= p.window);
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);   // this warp is done with the stage
+    };
+
+    float o[DHP / 2];
+#pragma unroll
+    for (int i = 0; i < DHP / 2; ++i) o[i] = 0.f;
+    Rows st = {kNegInf, kNegInf, 0.f, 0.f};
+    float sc[kBK / 2];          // S, then P in f32
+    uint32_t pa[kBK / 16][4];   // P in bf16: the A fragments of P V
+
+    auto parity = [](int i) { return static_cast<uint32_t>(i / kStages) & 1; };
+    // the start of a pipeline stage: no register of a product in flight is
+    // touched by anything but the products from here to their wait
+    auto fence_all = [&]() {
+      fence_regs<kBK / 2>(sc);
+      fence_regs<DHP / 2>(o);
+      fence_regs<kBK / 4>(&pa[0][0]);
+      wgmma_fence();
+    };
+    auto qk = [&](int s) {
+      issue_qk<DHP>(sc, opaque(q_desc),
+                    opaque(desc_at(k_desc, s * T::kKVBytes)));
+    };
+    auto pv = [&](int s) {
+      issue_pv<DHP>(o, pa, opaque(desc_at(v_desc, s * T::kKVBytes)));
+    };
+    auto softmax = [&](int i) {
+      const int k0 = (kt_begin + i) * kBK;
+      return softmax_tile(sc, st, edge(k0), r0, k0 + cq, p);
+    };
+    auto rescale_and_pack = [&](float2 alpha) {
+#pragma unroll
+      for (int j = 0; j < DHP / 8; ++j) {
+        o[4 * j] *= alpha.x;
+        o[4 * j + 1] *= alpha.x;
+        o[4 * j + 2] *= alpha.y;
+        o[4 * j + 3] *= alpha.y;
+      }
+      pack_p(sc, pa);
+    };
+
+    if (n_tiles > 0) mbar_wait(q_full, 0);
+    if constexpr (T::kOverlap) {
+      // P V of tile i - 1 in flight beside S and the softmax of tile i
+      if (n_tiles > 0) {
+        mbar_wait(k_full, 0);
+        fence_all();
+        qk(0);
+        wgmma_wait<0>();
+        fence_regs<kBK / 2>(sc);
+        release(k_empty);
+        rescale_and_pack(softmax(0));        // O is still 0
+      }
+      for (int i = 1; i < n_tiles; ++i) {
+        const int s = i % kStages, sp = (i - 1) % kStages;
+        mbar_wait(k_full + s, parity(i));
+        mbar_wait(v_full + sp, parity(i - 1));
+        fence_all();
+        qk(s);
+        pv(sp);
+        wgmma_wait<1>();                       // S of tile i is in
+        fence_regs<kBK / 2>(sc);
+        release(k_empty + s);
+        const float2 alpha = softmax(i);
+        wgmma_wait<0>();                       // P V of tile i - 1 is in
+        fence_regs<DHP / 2>(o);
+        fence_regs<kBK / 4>(&pa[0][0]);
+        release(v_empty + sp);
+        rescale_and_pack(alpha);
+      }
+      if (n_tiles > 0) {
+        const int sp = (n_tiles - 1) % kStages;
+        mbar_wait(v_full + sp, parity(n_tiles - 1));
+        fence_all();
+        pv(sp);
+        wgmma_wait<0>();
+        fence_regs<DHP / 2>(o);
+      }
+    } else {
+      // S, softmax, P V of a tile in order
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        mbar_wait(k_full + s, parity(i));
+        fence_all();
+        qk(s);
+        wgmma_wait<0>();
+        fence_regs<kBK / 2>(sc);
+        release(k_empty + s);
+        rescale_and_pack(softmax(i));
+        mbar_wait(v_full + s, parity(i));
+        fence_all();
+        pv(s);
+        wgmma_wait<0>();
+        fence_regs<DHP / 2>(o);
+        release(v_empty + s);
+      }
+    }
+
+    // ---- o = acc / max(l, 1e-20) ------------------------------------------
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      st.l0 += __shfl_xor_sync(0xffffffffu, st.l0, off);
+      st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, off);
+    }
+    const float d0 = fmaxf(st.l0, 1e-20f);
+    const float d1 = fmaxf(st.l1, 1e-20f);
+    __nv_bfloat16* row0 = p.o + b * p.o_sb + h * p.o_sh
+                          + static_cast<long long>(r0) * p.o_ss;
+    __nv_bfloat16* row1 = row0 + 8 * p.o_ss;
+#pragma unroll
+    for (int j = 0; j < DHP / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col < p.dh) {
+        if (r0 < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(row0 + col) =
+              __floats2bfloat162_rn(o[4 * j] / d0, o[4 * j + 1] / d0);
+        if (r0 + 8 < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(row1 + col) =
+              __floats2bfloat162_rn(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so
+// the library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+    }
+  }
+  return fn;
+}
+
+// Byte stride of one dimension for a tensor map: a multiple of 16 below
+// 2^40.  A dimension of extent 1 is never stepped; its stride is replaced.
+bool tma_stride(long long elems, int extent, int dh, cuuint64_t* out) {
+  if (extent == 1) {
+    *out = static_cast<cuuint64_t>((dh * 2 + 15) / 16 * 16);
+    return true;
+  }
+  const long long bytes = elems * 2;
+  if (bytes <= 0 || bytes % 16 != 0 || bytes >= (1LL << 40)) return false;
+  *out = static_cast<cuuint64_t>(bytes);
+  return true;
+}
+
+// The 4-D map (dh, S, H, B) of a bf16 tensor: boxes of 64 columns x `rows`
+// rows of one (b, h), 128-byte swizzle, zeros out of bounds.
+cudaError_t encode_map(CUtensorMap* map, const void* base, int B, int H,
+                       int S, int dh, long long sb, long long sh,
+                       long long ss, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
+                        static_cast<cuuint64_t>(S),
+                        static_cast<cuuint64_t>(H),
+                        static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3];
+  if (!tma_stride(ss, S, dh, &strides[0]) || !tma_stride(sh, H, dh, &strides[1])
+      || !tma_stride(sb, B, dh, &strides[2]))
+    return cudaErrorMisalignedAddress;
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(kChunkCols),
+                       static_cast<cuuint32_t>(rows), 1, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DHP>
+cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
+                         const CUtensorMap& tv, const BParams& p, int B,
+                         cudaStream_t stream) {
+  constexpr int bytes = Tile<DHP>::kSmem;
+  static_assert(bytes <= kSmemLimit, "the bf16 tile must fit one block");
+  auto kern = fa_wgmma_kernel<DHP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
+  kern<<<grid, kWgThreads, bytes, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
+int padded16(int dh) { return (dh + 15) / 16 * 16; }
+
+int smem_of(int dhp) {
+  switch (dhp) {
+    case 16: return Tile<16>::kSmem;
+    case 32: return Tile<32>::kSmem;
+    case 48: return Tile<48>::kSmem;
+    case 64: return Tile<64>::kSmem;
+    case 80: return Tile<80>::kSmem;
+    case 96: return Tile<96>::kSmem;
+    case 112: return Tile<112>::kSmem;
+    case 128: return Tile<128>::kSmem;
+    default: return -1;
+  }
+}
+
 }  // namespace
 
-// Launches on `stream`, allocates nothing, does not synchronise.  Returns the
-// CUDA error code of the launch (0 = success).  block_q, block_k in
-// {32, 64, 128}; a tile that exceeds the shared memory of one block is
-// refused with cudaErrorInvalidValue.  dh must be a multiple of 4, at most
-// 128, and every row (pointer and strides) 16-byte aligned for f32, 8-byte
-// for bf16.
+// The f32 kernel: launches on `stream`, allocates nothing, does not
+// synchronise.  Returns the CUDA error code of the launch (0 = success).
+// block_q, block_k in {32, 64, 128}; a tile that exceeds the shared memory of
+// one block is refused with cudaErrorInvalidValue.  dh must be a multiple of
+// 4, at most 128, and every row (pointer and strides) 16-byte aligned.
 extern "C" int flash_attention_forward(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KVH, int Sq, int Skv, int dh, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, int causal, int window, int block_q,
-    int block_k, int is_bf16, float scale, void* stream) {
+    int block_k, float scale, void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || Sq <= 0 || Skv <= 0 || dh <= 0 ||
       dh > 128 || dh % 4 != 0 || H % KVH != 0 || H > 65535 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
   p.B = B; p.H = H; p.KVH = KVH; p.Sq = Sq; p.Skv = Skv; p.dh = dh;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
-  p.causal = causal; p.window = window; p.is_bf16 = is_bf16;
+  p.causal = causal; p.window = window;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -401,6 +1094,65 @@ extern "C" int flash_attention_forward(
     case 64: err = launch_bk<64>(p, block_k, s); break;
     case 128: err = launch_bk<128>(p, block_k, s); break;
     default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The bf16 kernel's tile for head width dh: query rows and keys of a tile,
+// stages of the K/V ring, bytes of shared memory of one block.  Returns
+// cudaErrorInvalidValue for a dh the kernel does not take.
+extern "C" int flash_attention_tile(int dh, int* block_q, int* block_k,
+                                    int* stages, long long* smem_bytes) {
+  if (dh <= 0 || dh > 128 || dh % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *block_q = kBQ;
+  *block_k = kBK;
+  *stages = kStages;
+  *smem_bytes = smem_of(padded16(dh));
+  return 0;
+}
+
+// The bf16 kernel: launches on `stream`, allocates nothing, does not
+// synchronise; encodes the three tensor maps on the host for every call.
+// Returns the CUDA error code (0 = success): cudaErrorMisalignedAddress when
+// a base pointer is not 16-byte aligned or a stride (elements) of a dimension
+// of extent > 1 is not a multiple of 8, cudaErrorInvalidValue for a shape
+// the kernel does not take.  Strides in elements; o's last dimension has
+// stride 1 and its rows are 4-byte aligned.
+extern "C" int flash_attention_forward_bf16(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int KVH, int Sq, int Skv, int dh, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+    long long o_sh, long long o_ss, int causal, int window, float scale,
+    void* stream) {
+  if (B <= 0 || H <= 0 || KVH <= 0 || Sq <= 0 || Skv <= 0 || dh <= 0 ||
+      dh > 128 || dh % 4 != 0 || H % KVH != 0 || H > 65535 || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode_map(&tq, q, B, H, Sq, dh, q_sb, q_sh, q_ss, kBQ);
+  if (err == cudaSuccess)
+    err = encode_map(&tk, k, B, KVH, Skv, dh, k_sb, k_sh, k_ss, kBK);
+  if (err == cudaSuccess)
+    err = encode_map(&tv, v, B, KVH, Skv, dh, v_sb, v_sh, v_ss, kBK);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  BParams p;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
+  p.H = H; p.KVH = KVH; p.Sq = Sq; p.Skv = Skv; p.dh = dh;
+  p.causal = causal; p.window = window;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (padded16(dh)) {
+    case 16: err = launch_wgmma<16>(tq, tk, tv, p, B, s); break;
+    case 32: err = launch_wgmma<32>(tq, tk, tv, p, B, s); break;
+    case 48: err = launch_wgmma<48>(tq, tk, tv, p, B, s); break;
+    case 64: err = launch_wgmma<64>(tq, tk, tv, p, B, s); break;
+    case 80: err = launch_wgmma<80>(tq, tk, tv, p, B, s); break;
+    case 96: err = launch_wgmma<96>(tq, tk, tv, p, B, s); break;
+    case 112: err = launch_wgmma<112>(tq, tk, tv, p, B, s); break;
+    default: err = launch_wgmma<128>(tq, tk, tv, p, B, s); break;
   }
   return static_cast<int>(err);
 }

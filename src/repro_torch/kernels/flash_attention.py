@@ -8,21 +8,27 @@ compiled at the first call on a CUDA tensor (``_build.load``) and bound with
 
 What bounds it on an H100: operations, not bytes — q, k, v and o cross device
 memory once each, while the two products cost ``4·B·H·dh`` operations per
-visible (q, k) pair.  The kernel keeps the running max, running sum and the
-f32 accumulator in registers over the whole walk along the keys, stages K/V
-tiles in shared memory indexed at ``h // G`` (no repeat of K/V), and cuts fully
-masked key tiles from its loop bounds.  Both products run in f32 on the FP32
-pipes (the reference keeps the probabilities in f32), so it stays far from the
-tensor-core bound; see the note at the top of the CUDA source.
+visible (q, k) pair.  The CUDA source holds two kernels, chosen by the input
+type alone.  bf16 goes to a Hopper kernel whose products run on the bf16
+tensor cores (``wgmma``), fed from shared memory by TMA through a two-stage
+K/V ring, with a producer warpgroup and two consumer warpgroups of 64 query
+rows; its tile is chosen in the CUDA source (``tile``).  f32 goes to a kernel
+whose products run on the FP32 pipes, since f32 must hold 1e-4, which bf16
+tensor cores cannot give.  Both keep the running max, running sum and f32
+accumulator in registers over the whole walk along the keys, read K/V at
+``h // G`` (no repeat of K/V), and cut fully masked key tiles from their loop
+bounds; see the note at the top of the CUDA source.
 
 Accepted shapes: q ``(B, H, Sq, dh)``, k and v ``(B, KVH, Skv, dh)`` with
 ``H % KVH == 0``, any ``Sq, Skv >= 1`` (the kernel masks the ragged edge
 itself, so lengths need not be multiples of the tile — a superset of what the
 reference accepts), ``dh`` a multiple of 4 up to 128, f32 or bf16.  The last
-dimension must be contiguous and every row 16-byte aligned; the other
-dimensions may be strided (a ``(B, S, H, dh)`` tensor viewed as
-``(B, H, S, dh)`` is taken as it is).  The output has q's type and q's
-strides.
+dimension must be contiguous; the other dimensions may be strided (a
+``(B, S, H, dh)`` tensor viewed as ``(B, H, S, dh)`` is taken as it is).
+f32: every row 16-byte aligned.  bf16 (TMA's rule, ``check_tma_layout``): a
+16-byte-aligned base and, for every dimension of extent above 1, a stride of
+a multiple of 16 bytes; the layouts the models hand over meet it whenever
+``dh`` is a multiple of 8.  The output has q's type and q's strides.
 
 One difference from the plain version: a query row that sees no key at all
 (possible only with a window and ``Sq > Skv``) comes out as zeros from the
@@ -42,14 +48,17 @@ from repro_torch.runtime import flags
 
 NEG_INF = -1e30
 
-#: tile sizes the CUDA kernel is built for (rows of q, rows of k per tile)
+#: tile sizes the f32 kernel is built for (rows of q, rows of k per tile)
 TILES = (32, 64, 128)
 #: bytes of shared memory one thread block may use on sm_90
 SMEM_LIMIT = 232448
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 5
-             + [ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES_F32 = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4
+                 + [ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES_BF16 = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                  + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+                  + [ctypes.c_float, ctypes.c_void_p])
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -77,6 +86,47 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.to(q.dtype)
 
 
+def tile(dh: int) -> Tuple[int, int, int, int]:
+    """The bf16 kernel's tile at head width ``dh``, as the CUDA source
+    chooses it: (query rows, keys, stages of the K/V ring, bytes of shared
+    memory of one block).  Builds the source if need be; needs ``nvcc``."""
+    fn = _build.load("flash_attention").flash_attention_tile
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3 \
+            + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+    bq, bk, stages = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    nbytes = ctypes.c_longlong()
+    if fn(dh, ctypes.byref(bq), ctypes.byref(bk), ctypes.byref(stages),
+          ctypes.byref(nbytes)) != 0:
+        raise ValueError(f"the bf16 kernel takes no head_dim {dh}")
+    return bq.value, bk.value, stages.value, nbytes.value
+
+
+def check_tma_layout(name: str, shape, strides, data_ptr: int,
+                     dtype: torch.dtype) -> None:
+    """The bf16 kernel's layout rule, a function of shape, strides (in
+    elements), base address and type alone: TMA reads a ``(B, H, S, dh)``
+    tensor through a 4-D map whose base is 16-byte aligned and whose strides
+    are multiples of 16 bytes below 2**40.  A dimension of extent 1 is never
+    stepped, so its stride does not matter.  Raises ``ValueError`` with the
+    reason."""
+    if strides[3] != 1:
+        raise ValueError(f"{name}: the last dimension must be contiguous; "
+                         f"got strides {tuple(strides)}")
+    if data_ptr % 16:
+        raise ValueError(f"{name}: TMA needs a 16-byte-aligned base; the "
+                         f"tensor starts {data_ptr % 16} bytes past it")
+    nbytes = torch.finfo(dtype).bits // 8
+    for dim, extent, stride in zip("BHS", shape[:3], strides[:3]):
+        if extent > 1 and (stride * nbytes % 16 or stride <= 0
+                           or stride * nbytes >= 2 ** 40):
+            raise ValueError(
+                f"{name}: TMA needs strides that are positive multiples of "
+                f"16 bytes; dimension {dim} has {stride} elements "
+                f"({stride * nbytes} bytes), strides {tuple(strides)}")
+
+
 def padded_head_dim(dh: int) -> int:
     for w in (16, 32, 64, 128):
         if dh <= w:
@@ -85,14 +135,15 @@ def padded_head_dim(dh: int) -> int:
 
 
 def smem_bytes(block_q: int, block_k: int, dh: int) -> int:
-    """Shared memory of one thread block (mirrors the CUDA source)."""
+    """Shared memory of one block of the f32 kernel (mirrors the CUDA
+    source)."""
     dhp = padded_head_dim(dh)
     return 4 * (block_q * (dhp + 4) + block_k * (dhp + 4) + block_k * dhp
                 + block_q * (block_k + 16))
 
 
 def pick_tiles(block_q: int, block_k: int, dh: int) -> Tuple[int, int]:
-    """The kernel's tile for a requested ``(block_q, block_k)``: each rounded
+    """The f32 kernel's tile for a requested ``(block_q, block_k)``: each rounded
     down to a size the kernel is built for (at least 32), then halved — the
     key tile first — until the tile fits a block's shared memory."""
     def snap(b: int) -> int:
@@ -144,9 +195,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """q (B,H,Sq,dh) × k,v (B,KVH,Skv,dh) → (B,H,Sq,dh).
 
-    A CUDA tensor goes through the kernel, or the call raises.  The plain
-    version is taken only for tensors that lie on the CPU, and under
-    ``flags.use_kernels(False)`` (for comparisons)."""
+    A CUDA tensor goes through a kernel, or the call raises: bf16 through
+    the tensor-core kernel, whose tile the CUDA source chooses (``tile``),
+    f32 through the FP32 kernel, which serves ``block_q``/``block_k`` with
+    the nearest tile it is built for (``pick_tiles``); the block sizes apply
+    to the f32 kernel only.  The plain version is taken only for tensors that
+    lie on the CPU, and under ``flags.use_kernels(False)`` (for
+    comparisons)."""
     _check(q, k, v, window)
     if q.device.type == "cpu" or not flags.kernels_enabled():
         return attention_reference(q, k, v, causal=causal, window=window)
@@ -163,30 +218,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head_dim must be a multiple of 4, at most 128; "
                          f"got {dh}")
     o = torch.empty_like(q)  # keeps q's strides
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
-        _check_layout(name, t)
-    bq, bk = pick_tiles(block_q, block_k, dh)
-
-    fn = _build.load("flash_attention").flash_attention_forward
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_tma_layout(name, t.shape, t.stride(), t.data_ptr(),
+                             t.dtype)
+        fn = _build.load("flash_attention").flash_attention_forward_bf16
+        argtypes, tiles, what = _ARGTYPES_BF16, (), "bf16 tile"
+    else:
+        for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+            _check_layout(name, t)
+        fn = _build.load("flash_attention").flash_attention_forward
+        argtypes = _ARGTYPES_F32
+        tiles = pick_tiles(block_q, block_k, dh)
+        what = f"tile {tiles[0]}x{tiles[1]}"
     if fn.argtypes is None:
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  B, H, KVH, Sq, Skv, dh,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *o.stride()[:3],
                  int(causal), int(window) if window is not None else 0,
-                 bq, bk, int(q.dtype == torch.bfloat16),
-                 1.0 / math.sqrt(dh),
+                 *tiles, 1.0 / math.sqrt(dh),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
-            f"flash_attention_forward: CUDA error {err} at launch "
-            f"(shape q {tuple(q.shape)}, k {tuple(k.shape)}, tile {bq}x{bk})")
+            f"flash_attention: CUDA error {err} at launch (shape q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}, {what})")
     flash_attention.launches += 1
     return o
 
 
-#: how many times the kernel was launched (and only that: the plain version
+#: how many times a kernel was launched (and only that: the plain version
 #: does not count)
 flash_attention.launches = 0

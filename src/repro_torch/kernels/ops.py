@@ -8,8 +8,10 @@ Model code calls these.  Every wrapper accepts ``block_sizes``:
     (``kernels/autotune.py``, ``core/kernelmodel.py``) and raises
     ``NotImplementedError``.
 
-Block sizes are requests: flash attention serves them with the nearest tile
-it is built for (``flash_attention.pick_tiles``); the SSD scan takes its
+Block sizes are requests: flash attention's f32 kernel serves them with the
+nearest tile it is built for (``flash_attention.pick_tiles``), its bf16
+kernel ignores them (its CUDA source picks the tile; ``flash_attention.tile``
+reports it); the SSD scan takes its
 ``chunk`` as given (it changes the result only by rounding), and its CUDA
 source picks the P slice (``ssd_scan.tile`` reports it); the CUDA sources of
 ``matmul`` and ``transpose`` serve a request with the nearest tile they are

@@ -34,6 +34,15 @@ FA_CASES = [
     (1, 4, 2, 256, 256, 128, True, 128, "bfloat16"),
     (1, 4, 2, 100, 77, 48, False, None, "float32"),   # ragged, padded dh
     (2, 4, 2, 40, 40, 16, True, None, "float32"),     # the reduced configs' dh
+    # bf16 twins: the tensor-core kernel
+    (1, 4, 4, 128, 128, 32, True, None, "bfloat16"),   # MHA
+    (1, 8, 1, 128, 128, 64, True, None, "bfloat16"),   # MQA
+    (2, 8, 2, 256, 256, 64, True, 64, "bfloat16"),     # SWA
+    (1, 2, 1, 128, 256, 64, False, None, "bfloat16"),  # cross/bidir
+    (1, 4, 2, 100, 77, 48, False, None, "bfloat16"),   # ragged, dh 48
+    (2, 6, 3, 203, 203, 80, True, 50, "bfloat16"),     # ragged SWA, dh 80
+    (2, 4, 2, 40, 40, 16, True, None, "bfloat16"),     # the reduced configs' dh
+    (1, 32, 32, 333, 333, 80, True, None, "bfloat16"),  # zamba2's heads
 ]
 
 
@@ -96,19 +105,49 @@ def test_kernel_refuses_autograd(cuda):
         kops.flash_attention(q, k, k)
 
 
-@pytest.mark.parametrize("name", ["llama3.2-3b", "smollm-360m"])
-def test_forward_through_the_kernel_matches_plain_path(name, cuda):
-    cfg = dataclasses.replace(ARCHS[name].reduced(), param_dtype="float32",
-                              compute_dtype="float32")
+@pytest.mark.parametrize(
+    "name,dtype",
+    [("llama3.2-3b", "float32"), ("smollm-360m", "float32"),
+     ("llama3.2-3b", "bfloat16"), ("zamba2-2.7b", "bfloat16")],
+    ids=["llama3.2-3b", "smollm-360m", "llama3.2-3b-bf16", "zamba2-2.7b-bf16"])
+def test_forward_through_the_kernel_matches_plain_path(name, dtype, cuda):
+    cfg = dataclasses.replace(ARCHS[name].reduced(), param_dtype=dtype,
+                              compute_dtype=dtype)
     model = transformer.init_params(cfg, seed=0)  # device defaults to cuda
     tok = torch.randint(0, cfg.vocab_size, (2, 48), device=cuda)
+    sites = cfg.n_layers // cfg.hybrid.attn_every \
+        if cfg.family == "hybrid" else cfg.n_layers
     before = fa.flash_attention.launches
     with torch.no_grad():
         a, _ = transformer.forward(model, cfg, {"tokens": tok})
-        assert fa.flash_attention.launches == before + cfg.n_layers
+        assert fa.flash_attention.launches == before + sites
         with flags.use_kernels(False):
             b, _ = transformer.forward(model, cfg, {"tokens": tok})
-    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    if dtype == "float32":
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    else:
+        # the whole step's tolerance of chip_smoke.py (TOL_PREFILL_BF16)
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        assert rel <= 5e-2, rel
+
+
+@pytest.mark.parametrize("dh", [16, 48, 64, 80, 128])
+def test_bf16_tile_fits_shared_memory(dh, cuda):
+    bq, bk, stages, nbytes = fa.tile(dh)
+    assert (bq, bk) == (128, 128) and stages >= 2
+    assert nbytes <= 232448  # what one block may use on sm_90
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.tile(132)
+
+
+def test_bf16_kernel_refuses_a_layout_tma_cannot_read(cuda):
+    q = torch.randn(1, 2, 64, 64, device=cuda, dtype=torch.bfloat16)
+    wide = torch.zeros(1, 2, 64, 68, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        kops.flash_attention(wide[..., :64], q, q)   # row stride 136 bytes
+    flat = torch.zeros(2 * 64 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        kops.flash_attention(flat[1:].view(1, 2, 64, 64), q, q)
 
 
 # ---------------------------------------------------------------------------

@@ -153,6 +153,61 @@ def test_pick_tiles_fits_shared_memory(req, dh, want):
     assert got[0] in tfa.TILES and got[1] in tfa.TILES
 
 
+def _attention_configs():
+    from repro_torch.configs.registry import ARCHS
+    out = []
+    for name, cfg in ARCHS.items():
+        if cfg.n_heads:
+            out += [(f"{name}", cfg, 2048), (f"{name}-reduced", cfg.reduced(),
+                                             48)]
+    return out
+
+
+ATTN_CONFIGS = _attention_configs()
+
+
+def _main_path_views(cfg, S, offset=0):
+    """q, k, v as ``attn_apply`` hands them over: (B, S, H, dh) tensors seen
+    through ``.transpose(1, 2)``, on the meta device (nothing allocated);
+    ``offset`` elements past the start of their storage."""
+    B, H, KVH, dh = 2, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    views = []
+    for heads in (H, KVH, KVH):
+        n = B * S * heads * dh
+        flat = torch.empty(n + offset, device="meta", dtype=torch.bfloat16)
+        views.append(flat[offset:].view(B, S, heads, dh).transpose(1, 2))
+    return views
+
+
+def _tma_rule(name, t):
+    # a meta tensor has no address: its base is the storage offset, from an
+    # allocation that is itself aligned
+    tfa.check_tma_layout(name, t.shape, t.stride(),
+                         t.storage_offset() * t.element_size(), t.dtype)
+
+
+@pytest.mark.parametrize("name,cfg,S", ATTN_CONFIGS,
+                         ids=[c[0] for c in ATTN_CONFIGS])
+def test_bf16_layout_rule_accepts_every_models_views(name, cfg, S):
+    for n, t in zip("qkv", _main_path_views(cfg, S)):
+        _tma_rule(n, t)
+
+
+@pytest.mark.parametrize("name,cfg,S", ATTN_CONFIGS,
+                         ids=[c[0] for c in ATTN_CONFIGS])
+def test_bf16_layout_rule_refuses_misaligned_views(name, cfg, S):
+    q = _main_path_views(cfg, S, offset=1)[0]   # base 2 bytes past 16
+    with pytest.raises(ValueError, match="aligned"):
+        _tma_rule("q", q)
+    dh = cfg.head_dim_                            # rows of dh + 4 values
+    wide = torch.empty(2, S, cfg.n_heads, dh + 4, device="meta",
+                       dtype=torch.bfloat16)[..., :dh].transpose(1, 2)
+    with pytest.raises(ValueError, match="16 bytes"):
+        _tma_rule("q", wide)
+    with pytest.raises(ValueError, match="contiguous"):
+        _tma_rule("q", q.transpose(2, 3))
+
+
 def test_kernel_source_is_in_the_package_and_not_built_on_import():
     from repro_torch.kernels import _build
     assert "flash_attention" in _build.sources()
