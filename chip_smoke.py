@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--out results.json] [--seed 0] [--profile]
     python3 chip_smoke.py --only fa-cases|fa    # flash attention alone
+    python3 chip_smoke.py --only mm-cases|mm    # matmul alone
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
 source, all started together), holds each kernel against its plain PyTorch
@@ -31,9 +32,11 @@ counts set to 0 just before the path and read just after):
 
 Every phase prints one JSON line; any failure ends the run with a non-zero
 exit code.  The last line is ``{"ok": true, "device": {...}}``.  With
-``--only`` it builds, holds flash attention against its plain version at the
-case table and (``fa``) times it at the main paths' shapes, runs no main
-path, and says so in its last line.
+``--only`` it builds, holds one kernel (flash attention: ``fa``; matmul:
+``mm``) against its plain version at its case table and (without
+``-cases``) times it at the main paths' shapes, runs no main path, and says
+so in its last line.  The ``kernels`` line gives each matmul kernel
+(``paper16``, ``fma128``, ``wgmma``) with its tile, registers and spills.
 
 It needs a GPU (it fails where ``torch.cuda.is_available()`` is false) and
 ``nvcc``; it imports ``torch`` and ``repro_torch`` only.
@@ -167,18 +170,45 @@ SSD_TOL_H = 5e-4
 SSD_TOL_CHUNKS = 1e-4
 
 # The reference's case table for matmul (tests/test_kernels.py MM_CASES),
-# plus the paper's 16³ tile, ragged M/N/K and a ragged bf16 case.
-# M, K, N, block, dtype
+# plus the paper's 16³ tile, ragged M/N/K, and layouts that send a call to
+# each copy path and each kernel: a base one element past a 16-byte boundary
+# (offset: wide[:, 1:]), leading strides not a multiple of 4 (stride: cols +
+# 3), K not a multiple of 4, leading strides padded to a multiple of 8 with
+# a ragged K (pad8), and bf16 on the tensor cores (wgmma) or, where TMA
+# cannot read it, on the FP32 pipes (fma128).
+# id, M, K, N, block, dtype, layout of a and b, kernel that must serve it
 MM_CASES = [
-    ("ref0", 256, 384, 512, 128, torch.float32),
-    ("ref1", 128, 128, 128, 128, torch.float32),
-    ("ref2", 512, 256, 256, 64, torch.float32),
-    ("ref3_skinny", 256, 2048, 256, 128, torch.float32),
-    ("ref4_bf16", 256, 256, 256, 128, torch.bfloat16),
-    ("tile16", 256, 256, 256, 16, torch.float32),
-    ("ragged_tile16", 100, 77, 53, 16, torch.float32),
-    ("ragged_tile128", 1000, 333, 257, 128, torch.float32),
-    ("bf16_ragged_tile64", 129, 65, 191, 64, torch.bfloat16),
+    ("ref0", 256, 384, 512, 128, torch.float32, "contig", "fma128"),
+    ("ref1", 128, 128, 128, 128, torch.float32, "contig", "fma128"),
+    ("ref2", 512, 256, 256, 64, torch.float32, "contig", "fma128"),
+    ("ref3_skinny", 256, 2048, 256, 128, torch.float32, "contig", "fma128"),
+    ("ref4_bf16", 256, 256, 256, 128, torch.bfloat16, "contig", "wgmma"),
+    ("tile16", 256, 256, 256, 16, torch.float32, "contig", "paper16"),
+    ("ragged_tile16", 100, 77, 53, 16, torch.float32, "contig", "paper16"),
+    ("ragged_tile128", 1000, 333, 257, 128, torch.float32, "contig",
+     "fma128"),
+    ("bf16_ragged_tile64", 129, 65, 191, 64, torch.bfloat16, "contig",
+     "fma128"),
+    ("offset4_tile16", 200, 96, 144, 16, torch.float32, "offset", "paper16"),
+    ("offset4_tile128", 300, 160, 200, 128, torch.float32, "offset",
+     "fma128"),
+    ("ld_not4_tile16", 130, 70, 90, 16, torch.float32, "stride", "paper16"),
+    ("ld_not4_tile128", 260, 150, 270, 128, torch.float32, "stride",
+     "fma128"),
+    ("k_not4_tile16", 64, 61, 48, 16, torch.float32, "contig", "paper16"),
+    ("k_not4_tile128", 256, 61, 256, 128, torch.float32, "contig", "fma128"),
+    ("k_ragged_pad8_tile16", 48, 62, 40, 16, torch.float32, "pad8",
+     "paper16"),
+    ("n_ragged_pad8_tile128", 200, 100, 150, 128, torch.float32, "pad8",
+     "fma128"),
+    ("bf16_wgmma_ragged", 300, 200, 264, 128, torch.bfloat16, "contig",
+     "wgmma"),
+    ("bf16_wgmma_pad8_k77", 333, 77, 150, 128, torch.bfloat16, "pad8",
+     "wgmma"),
+    ("bf16_offset_fma128", 200, 96, 136, 128, torch.bfloat16, "offset",
+     "fma128"),
+    ("bf16_offset_tile16", 100, 40, 72, 16, torch.bfloat16, "offset",
+     "paper16"),
 ]
 # the reference's own tolerances: IEEE f32 products (TF32 would miss them)
 MM_TOL = {torch.float32: (1e-3, 1e-5), torch.bfloat16: (1.0, 3e-2)}
@@ -312,6 +342,41 @@ def wgmma_ptxas(entries: list) -> list:
     return [e for e in entries if "fa_wgmma_kernel" in e["function"]]
 
 
+# the matmul kernels by the name of their entry function
+MM_KERNELS = {"mm16_kernel": "paper16", "mm128_kernel": "fma128",
+              "mm_wgmma_kernel": "wgmma"}
+
+
+def mm_ptxas(entries: list) -> list:
+    """Every matmul kernel instance among ``ptxas_entries``: its variant,
+    input type, how it reads A and B (16-byte or element copies, TMA), its
+    k step and stages where they are template arguments, registers and
+    spills."""
+    out = []
+    for e in entries:
+        fn = e["function"]
+        variant = next((v for k, v in MM_KERNELS.items() if k in fn), None)
+        if variant is None:
+            continue
+        row = {"variant": variant,
+               "dtype": "bfloat16" if "bfloat16" in fn
+               or variant == "wgmma" else "float32"}
+        m = re.search(r"Li(\d+)ELi(\d+)ELb([01])ELb([01])E", fn)
+        if variant == "wgmma":
+            row.update(a_copies="tma", b_copies="tma")
+        elif m:   # fma128<T, BK, STAGES, VA, VB>
+            row.update(bk=int(m.group(1)), stages=int(m.group(2)),
+                       a_copies="16-byte" if m.group(3) == "1" else "element",
+                       b_copies="16-byte" if m.group(4) == "1" else "element")
+        else:     # paper16<T, VA>; B is always copied element by element
+            row.update(a_copies="16-byte" if "Lb1E" in fn else "element",
+                       b_copies="element")
+        out.append({**row, **{k: e[k] for k in (
+            "registers", "spill_store_bytes", "spill_load_bytes",
+            "function")}})
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     logs = _build.build_all(extra_flags=("-Xptxas", "-v"), force=True)
@@ -338,12 +403,21 @@ def phase_build():
                      for e in wg):
         raise AssertionError(f"the bf16 flash-attention kernel spills or "
                              f"was not compiled: {wg}")
+    mmx = mm_ptxas(entries.get("matmul", []))
+    if {e["variant"] for e in mmx} != set(MM_KERNELS.values()) or any(
+            e["spill_store_bytes"] or e["spill_load_bytes"] for e in mmx):
+        raise AssertionError(f"a matmul kernel spills or was not compiled: "
+                             f"{mmx}")
+    mm_serialised = sorted({m.group(1) for m in re.finditer(
+        r"\((C75\d\d)\) Potential Performance Loss.*mm_wgmma_kernel",
+        logs.get("matmul", ""))})
     emit({"phase": "build", "ok": True,
           "seconds": round(time.perf_counter() - t0, 2),
           "build_dir": os.path.relpath(_build.build_dir(), ROOT),
           "sources": info, "flash_attention_wgmma_ptxas": wg,
-          "flash_attention_wgmma_serialised": serialised})
-    return wg
+          "flash_attention_wgmma_serialised": serialised,
+          "matmul_ptxas": mmx, "matmul_wgmma_serialised": mm_serialised})
+    return {"flash_attention": wg, "matmul": mmx}
 
 
 def phase_kernel_cases(gen):
@@ -572,19 +646,36 @@ def phase_ssd_main_shape(cfg, B, S, gen):
 # matmul and transpose, and the calibration path that runs them
 
 
+def mm_operand(rows, cols, dtype, layout, gen):
+    """A (rows, cols) operand laid out as ``layout`` says (see
+    ``MM_CASES``)."""
+    extra = {"contig": 0, "offset": 1, "stride": 3,
+             "pad8": -cols % 8 + 8}[layout]
+    wide = torch.randn((rows, cols + extra), device=DEV,
+                       generator=gen).to(dtype)
+    return wide[:, 1:] if layout == "offset" else wide[:, :cols]
+
+
 def phase_matmul_cases(gen):
-    """matmul against its plain version at the case table."""
+    """matmul against its plain version at the case table, each case served
+    by the kernel the table names."""
     rows = []
-    for (cid, M, K, N, blk, dtype) in MM_CASES:
-        a = torch.randn((M, K), device=DEV, generator=gen).to(dtype)
-        b = torch.randn((K, N), device=DEV, generator=gen).to(dtype)
+    for (cid, M, K, N, blk, dtype, layout, want) in MM_CASES:
+        a = mm_operand(M, K, dtype, layout, gen)
+        b = mm_operand(K, N, dtype, layout, gen)
+        t = mm.tile_for(a, b, blk, blk, blk)
+        if t.variant != want:
+            raise AssertionError(f"matmul {cid}: served by {t.variant}, "
+                                 f"expected {want}")
         o = kops.matmul(a, b, block_m=blk, block_n=blk, block_k=blk)
         torch.cuda.synchronize()
         atol, rtol = MM_TOL[dtype]
         err = compare(o, mm.matmul_reference(a, b), atol, rtol)
         rows.append({"case": cid, "M": M, "K": K, "N": N, "block": blk,
                      "dtype": str(dtype).replace("torch.", ""),
-                     "tile": list(mm.tile(M, N, K, blk, blk, blk)[:3]),
+                     "layout": layout, "lda": a.stride(0),
+                     "ldb": b.stride(0), "variant": t.variant,
+                     "tile": [t.bm, t.bn, t.bk], "stages": t.stages,
                      "max_abs_err": err, "atol": atol, "rtol": rtol})
     emit({"phase": "kernels.matmul.cases", "ok": True, "kernel": "matmul",
           "cases": rows})
@@ -615,55 +706,65 @@ def largest_tiled(key: str) -> int:
 
 
 def phase_matmul_main_shape(gen):
-    """matmul at the calibration's largest mm_tiled case, 16³ tile, f32."""
+    """matmul at the calibration's largest mm_tiled case: the paper's 16³
+    tile in f32 (the main path's), the 128 tile in f32, and bf16 on the
+    tensor cores, each against its bound, the plain version and
+    ``torch.matmul`` on the same inputs."""
     n, g = largest_tiled("mm"), mkernels.GSIZE
-    a = mkernels._rand(gen, (n, n), DEV)
-    b = mkernels._rand(gen, (n, n), DEV)
-    o = kops.matmul(a, b, block_m=g, block_n=g, block_k=g)
-    torch.cuda.synchronize()
-    atol, rtol = MM_TOL[torch.float32]
-    err = compare(o, mm.matmul_reference(a, b), atol, rtol)
-    del o
+    a32 = mkernels._rand(gen, (n, n), DEV)
+    b32 = mkernels._rand(gen, (n, n), DEV)
+    rows = []
+    for (label, a, b, blk) in (
+            ("paper16 f32", a32, b32, g), ("fma128 f32", a32, b32, 128),
+            ("wgmma bf16", a32.bfloat16(), b32.bfloat16(), 128)):
+        t = mm.tile_for(a, b, blk, blk, blk)
+        o = kops.matmul(a, b, block_m=blk, block_n=blk, block_k=blk)
+        torch.cuda.synchronize()
+        atol, rtol = MM_TOL[a.dtype]
+        err = compare(o, mm.matmul_reference(a, b), atol, rtol)
+        del o
 
-    def kernel():
-        kops.matmul(a, b, block_m=g, block_n=g, block_k=g)
+        def kernel():
+            kops.matmul(a, b, block_m=blk, block_n=blk, block_k=blk)
 
-    def plain():
-        mm.matmul_reference(a, b)
+        def plain():
+            mm.matmul_reference(a, b)
 
-    def library():  # the yardstick, timed here only: torch.matmul, no TF32
-        torch.matmul(a, b)
+        def library():  # the yardstick, timed here only (no TF32 for f32)
+            torch.matmul(a, b)
 
-    def tile128():
-        kops.matmul(a, b, block_m=128, block_n=128, block_k=128)
-
-    ms_a = time_ms(kernel, 1, 5)
-    plain_ms = time_ms(plain, 2, 10)
-    library_ms = time_ms(library, 2, 10)
-    tile128_ms = time_ms(tile128, 1, 5)
-    ms_b = time_ms(kernel, 1, 5)
-    flops = 2.0 * n ** 3
-    nbytes = 3 * n * n * a.element_size()
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    ms = min(ms_a, ms_b)
-    bm, bn, bk, smem = mm.tile(n, n, n, g, g, g)
-    return {
-        "shape": {"M": n, "K": n, "N": n, "dtype": "float32",
-                  "block": [g, g, g], "tile": [bm, bn, bk],
-                  "smem_bytes": smem},
-        "max_abs_err": err, "atol": atol, "rtol": rtol,
-        "ms": ms, "kernel_ms": ms, "kernel_ms_runs": [ms_a, ms_b],
-        "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_call": "torch.matmul (allow_tf32=False)",
-        "tile128_ms": tile128_ms,
-        "tile128": list(mm.tile(n, n, n, 128, 128, 128)[:3]),
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3,
-        "flops": flops, "bytes": nbytes,
-        "achieved_tflops": flops / (ms * 1e-3) / 1e12,
-        "tile128_tflops": flops / (tile128_ms * 1e-3) / 1e12,
-    }
+        reps = 5 if t.variant == "paper16" else 20
+        ms_a = time_ms(kernel, 1, reps)
+        plain_ms = time_ms(plain, 2, 10)
+        library_ms = time_ms(library, 2, 20)
+        ms_b = time_ms(kernel, 1, reps)
+        flops = 2.0 * n ** 3
+        nbytes = 3 * n * n * a.element_size()
+        peak = PEAK_BF16_FLOPS if a.dtype == torch.bfloat16 \
+            else PEAK_FP32_FLOPS
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+        ms = min(ms_a, ms_b)
+        rows.append({
+            "label": label,
+            "shape": {"M": n, "K": n, "N": n,
+                      "dtype": str(a.dtype).replace("torch.", ""),
+                      "block": [blk, blk, blk]},
+            "variant": t.variant, "tile": [t.bm, t.bn, t.bk],
+            "stages": t.stages, "smem_bytes": t.smem,
+            "max_abs_err": err, "atol": atol, "rtol": rtol,
+            "ms": ms, "kernel_ms": ms, "kernel_ms_runs": [ms_a, ms_b],
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "torch.matmul"
+                            + (" (allow_tf32=False)"
+                               if a.dtype == torch.float32 else ""),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3,
+            "flops": flops, "bytes": nbytes,
+            "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+            "library_tflops": flops / (library_ms * 1e-3) / 1e12,
+        })
+    return rows
 
 
 def phase_transpose_main_shape(gen):
@@ -849,8 +950,12 @@ def phase_closed_form():
 
 def phase_calibration_profile(seed: int):
     """Optional (--profile): device idle share of the multi-op cases (arith:
-    64 steps of ~8 ops; conv: 49 taps) at both ends of the ladder."""
+    64 steps of ~8 ops; conv: 49 taps) at both ends of the ladder, and of
+    the smallest ``mm_tiled`` case (one launch of the 16³ kernel, timed by
+    events: the profiler recorded no device time for it)."""
     P, Q = mkernels._P[CALIB_SCALE], tkernels._P[CALIB_SCALE]
+    gen = mkernels._generator(seed, DEV)
+    mm_small = mkernels._mm_cases(True, P["mm"], gen, DEV)[0]
     arith = [c for c in mkernels._arith_cases(P["arith"], DEV)
              if c.meta["kind"] == "exp"]
     conv = tkernels._conv_cases(Q["conv"], mkernels._generator(seed, DEV),
@@ -859,7 +964,26 @@ def phase_calibration_profile(seed: int):
     with torch.no_grad():
         for c in (arith[0], arith[-1], conv[0], conv[-1]):
             out[c.name] = _profile(c.jitted(), 3)
+        out[mm_small.name] = _idle_by_events(mm_small.jitted(), 30)
     emit({"phase": "calibrate.profile", "ok": True, "cases": out})
+
+
+def _idle_by_events(fn, calls: int) -> dict:
+    """Device idle share of a one-kernel call as the calibration times it
+    (the call, then a synchronise): its device time from CUDA events over
+    back-to-back calls, against the median host time of a synchronised
+    call."""
+    device_ms = time_ms(fn, 3, 50)
+    wall = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = float(np.median(wall))
+    return {"wall_ms": wall_ms, "device_busy_ms": device_ms,
+            "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+            "timed_by": "CUDA events (device), host clock (wall)"}
 
 
 # ---------------------------------------------------------------------------
@@ -1189,15 +1313,30 @@ def fa_extra(wg_ptxas: list) -> dict:
                       for m in [re.search(r"ILi(\d+)E", e["function"])]]}
 
 
-def attention_only(args, smi) -> int:
-    """``--only fa-cases`` / ``--only fa``: the build, the flash-attention
-    case table, and (``fa``) its timings at the main paths' shapes; no main
-    path runs, so the last line says so."""
+def mm_extra(mm_ptx: list) -> dict:
+    """The matmul fields beyond the common ones: the kernels and the
+    registers and spills of each instance, from the build log."""
+    return {"variants": {"16³ request": "paper16",
+                         "128 request, f32": "fma128",
+                         "128 request, bf16 TMA can read": "wgmma",
+                         "128 request, other bf16": "fma128"},
+            "ptxas": [{k: e[k] for k in e if k != "function"}
+                      for e in mm_ptx]}
+
+
+def kernel_only(args, smi) -> int:
+    """``--only fa-cases|fa|mm-cases|mm``: the build, one kernel's case
+    table, and (``fa``, ``mm``) its timings at the main paths' shapes; no
+    main path runs, so the last line says so."""
     with phase("build"):
-        wg = phase_build()
+        ptx = phase_build()
     gen = torch.Generator(DEV).manual_seed(args.seed)
-    with phase("kernels.cases"):
-        phase_kernel_cases(gen)
+    if args.only.startswith("fa"):
+        with phase("kernels.cases"):
+            phase_kernel_cases(gen)
+    else:
+        with phase("kernels.matmul.cases"):
+            phase_matmul_cases(gen)
     if args.only == "fa":
         with phase("kernels.main_shape"):
             B, S = PREFILL_TOKENS
@@ -1205,7 +1344,12 @@ def attention_only(args, smi) -> int:
                     for a in (ARCH, HYBRID)]
             emit({"phase": "kernels.main_shape", "ok": True,
                   "kernel": "flash_attention", "shapes": rows,
-                  **fa_extra(wg)})
+                  **fa_extra(ptx["flash_attention"])})
+    elif args.only == "mm":
+        with phase("kernels.matmul.main_shape"):
+            emit({"phase": "kernels.matmul.main_shape", "ok": True,
+                  "kernel": "matmul", "shapes": phase_matmul_main_shape(gen),
+                  **mm_extra(ptx["matmul"])})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "scope": f"--only {args.only}",
                       "main_paths": "not run"}), flush=True)
@@ -1221,9 +1365,11 @@ def main() -> int:
                          "calibration cases, with torch.profiler")
     ap.add_argument("--out", default=None,
                     help="also write every phase line to this JSON file")
-    ap.add_argument("--only", choices=("fa-cases", "fa"), default=None,
-                    help="build, then only the flash-attention cases "
-                         "(fa-cases) or the cases and timings (fa)")
+    ap.add_argument("--only", choices=("fa-cases", "fa", "mm-cases", "mm"),
+                    default=None,
+                    help="build, then only the flash-attention (fa) or "
+                         "matmul (mm) cases (-cases) or the cases and "
+                         "timings")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1235,9 +1381,9 @@ def main() -> int:
     with phase("device"):
         smi = phase_device()
     if args.only:
-        return attention_only(args, smi)
+        return kernel_only(args, smi)
     with phase("build"):
-        wg_ptxas = phase_build()
+        ptx = phase_build()
 
     gen = torch.Generator(DEV).manual_seed(args.seed)
     dense, hybrid, pure = get_arch(ARCH), get_arch(HYBRID), get_arch(SSM)
@@ -1291,9 +1437,9 @@ def main() -> int:
             phase_calibration_profile(args.seed)
 
     with phase("kernels.matmul.main_shape"):
-        mm_row = phase_matmul_main_shape(gen)
+        mm_rows = phase_matmul_main_shape(gen)
         emit({"phase": "kernels.matmul.main_shape", "ok": True,
-              "kernel": "matmul", "shapes": [mm_row]})
+              "kernel": "matmul", "shapes": mm_rows})
     torch.cuda.empty_cache()
     with phase("kernels.transpose.main_shape"):
         tr_row = phase_transpose_main_shape(gen)
@@ -1305,7 +1451,8 @@ def main() -> int:
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:116",
                      {a: n["flash_attention"] for a, n in launched.items()},
-                     fa_rows, fa_cases, **fa_extra(wg_ptxas)),
+                     fa_rows, fa_cases,
+                     **fa_extra(ptx["flash_attention"])),
         kernel_entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:97",
                      {a: n["ssd_scan"] for a, n in launched.items()},
@@ -1313,7 +1460,7 @@ def main() -> int:
         kernel_entry("matmul", "src/repro_torch/kernels/csrc/matmul.cu",
                      "src/repro/kernels/matmul.py:50",
                      {a: n["matmul"] for a, n in launched.items()},
-                     [mm_row], mm_cases),
+                     mm_rows, mm_cases, **mm_extra(ptx["matmul"])),
         kernel_entry("transpose",
                      "src/repro_torch/kernels/csrc/transpose.cu",
                      "src/repro/kernels/transpose.py:30",

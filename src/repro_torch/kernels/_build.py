@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``<build dir>/lib<name>.so``, a shared library with a plain C interface (no
 PyTorch headers, so a build takes seconds).  Nothing is built when this
 module is imported: ``load(name)`` builds at first use, and again when the
-source is newer than the library.  ``build_all()`` starts one ``nvcc`` per
-source at once and waits for all of them.
+source, or any header ``csrc/*.cuh`` (they are shared by the sources), is
+newer than the library.  ``build_all()`` starts one ``nvcc`` per source at
+once and waits for all of them.
 
 The build directory is ``build/`` at the root of the checkout, or
 ``$REPRO_TORCH_BUILD_DIR``.  A failed build raises; nothing here falls back
@@ -62,8 +63,12 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    src, lib = CSRC / f"{name}.cu", _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    """No library yet, or one older than its source or any header."""
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    inputs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def _start(name: str, extra_flags: Sequence[str]):

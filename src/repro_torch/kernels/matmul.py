@@ -1,5 +1,5 @@
-"""Tiled matrix product: the wrapper of the hand-written CUDA kernel, and its
-plain version.
+"""Tiled matrix product: the wrapper of the hand-written CUDA kernels, and
+their plain version.
 
 Replaces the TPU kernel ``repro.kernels.matmul.matmul`` (Pallas,
 ``_kernel``), the paper's tiled *Matrix Multiplication* measurement kernel.
@@ -7,29 +7,40 @@ The CUDA source is ``csrc/matmul.cu``; it is compiled at the first call on a
 CUDA tensor (``_build.load``) and bound with ``ctypes``.
 
 What bounds it on an H100: operations.  f32 inputs must give IEEE f32
-products (the reference's f32 tolerance rules out TF32), so the bound is
-``2·M·N·K`` operations on the FP32 pipes (67 TFLOP/s); the bytes, each input
-read once and the product written once, take far less at the calibration's
-shapes.  One thread block owns a tile of the product and walks K in steps,
-with the A and B tiles staged in shared memory (double buffered, one barrier
-per step) and the f32 sums in registers — the loop inside the block that
-replaces the Pallas kernel's VMEM accumulator carried over its "arbitrary" k
-axis.  The tiles built are 16×16×16 (the paper's kernel, one output per
-thread), 64×64×16 and 128×128×32; the CUDA source serves each request with
-the nearest (``tile`` reports which).  The 16³ tile reads both operands of
-every multiply-add from shared memory and stays far below the bound; see the
-note at the top of the CUDA source.
+products (the reference's f32 tolerance rules out TF32), so the f32 bound is
+``2·M·N·K`` operations on the FP32 pipes (67 TFLOP/s); bf16 runs on the
+tensor cores (989 TFLOP/s).  The bytes, each input read once and the product
+written once, take far less at the calibration's shapes.  One thread block
+owns a tile of the product and walks K itself, the tiles of the coming k
+steps in flight into a ring of shared-memory stages, its f32 sums in
+registers — the loop inside the block that replaces the Pallas kernel's
+VMEM accumulator carried over its "arbitrary" k axis.  Three kernels, which
+the CUDA source chooses among (``tile`` and ``tile_for`` report the choice,
+``VARIANTS`` names them):
+
+* ``paper16``: the paper's 16×16×16 tile, one output per thread, one barrier
+  per 16-deep k step (what ``mm_tiled`` and ``skinny_mm`` declare), fed by
+  ``cp.async`` through a 4-stage ring with 16-byte shared reads;
+* ``fma128``: a warp-tiled 128×128 tile on the FP32 pipes (8×8 outputs per
+  thread), for f32 and for bf16 that TMA cannot read;
+* ``wgmma``: bf16 on the tensor cores (``wgmma``), a 128×256 tile, A and B
+  through a TMA ring, for bf16 whose base addresses are 16-byte aligned and
+  whose leading strides are multiples of 8 elements.
+
+A request nearer the 16 tile than the 128 tile (on a log scale, the block
+first clipped to M and N) gets ``paper16``; see the note at the top of the
+CUDA source.
 
 Accepted: a ``(M, K)`` and b ``(K, N)``, any ``M, N, K >= 1`` (ragged edges
-are masked by the kernel, a superset of the reference, which asserts that
+are masked by the kernels, a superset of the reference, which asserts that
 the blocks divide the shape), both f32 or both bf16, each row-major (last
-dimension contiguous, any leading stride).  The product is ``(M, N)``,
-contiguous, in the inputs' type, summed in f32.
+dimension contiguous, any leading stride and base address).  The product is
+``(M, N)``, contiguous, in the inputs' type, summed in f32.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,24 +57,59 @@ def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() @ b.float()).to(a.dtype)
 
 
+#: the kernels of the CUDA source, by the code ``matmul_tile`` reports
+VARIANTS = ("paper16", "fma128", "wgmma")
+
+
+class Tile(NamedTuple):
+    """What one call launches: the tile (bm, bn, bk), the bytes of shared
+    memory of one block, the kernel (one of ``VARIANTS``) and the stages of
+    its ring."""
+    bm: int
+    bn: int
+    bk: int
+    smem: int
+    variant: str
+    stages: int
+
+
 def tile(M: int, N: int, K: int, block_m: int = 128, block_n: int = 128,
-         block_k: int = 128) -> Tuple[int, int, int, int]:
-    """The tile the kernel launches for this request, as the CUDA source
-    chooses it: (BM, BN, BK, bytes of shared memory of one block).  The same
-    for f32 and bf16 (the tiles are staged in f32).  Builds the source if
-    need be; needs ``nvcc``."""
+         block_k: int = 128, *, dtype: torch.dtype = torch.float32,
+         lda: Optional[int] = None, ldb: Optional[int] = None,
+         a_ptr: int = 0, b_ptr: int = 0) -> Tile:
+    """The kernel and tile a call launches, as the CUDA source chooses them,
+    for inputs of type ``dtype`` with leading strides ``lda``/``ldb``
+    (default: contiguous) at base addresses ``a_ptr``/``b_ptr`` (only their
+    alignment matters).  Builds the source if need be; needs ``nvcc``."""
     fn = _build.load("matmul").matmul_tile
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_ulonglong] * 2
+                       + [ctypes.c_longlong] * 2
+                       + [ctypes.POINTER(ctypes.c_int)] * 5
                        + [ctypes.POINTER(ctypes.c_longlong)])
         fn.restype = ctypes.c_int
-    bm, bn, bk = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    out = [ctypes.c_int() for _ in range(5)]
     smem = ctypes.c_longlong()
-    if fn(M, N, K, block_m, block_n, block_k, ctypes.byref(bm),
-          ctypes.byref(bn), ctypes.byref(bk), ctypes.byref(smem)) != 0:
+    lda = K if lda is None else lda
+    ldb = N if ldb is None else ldb
+    if fn(M, N, K, block_m, block_n, block_k, int(dtype == torch.bfloat16),
+          a_ptr, b_ptr, lda, ldb, *(ctypes.byref(o) for o in out),
+          ctypes.byref(smem)) != 0:
         raise ValueError(f"the kernel takes no tile for M={M}, N={N}, K={K}, "
-                         f"blocks {block_m}x{block_n}x{block_k}")
-    return bm.value, bn.value, bk.value, smem.value
+                         f"blocks {block_m}x{block_n}x{block_k}, lda={lda}, "
+                         f"ldb={ldb}")
+    bm, bn, bk, stages, variant = (o.value for o in out)
+    return Tile(bm, bn, bk, smem.value, VARIANTS[variant], stages)
+
+
+def tile_for(a: torch.Tensor, b: torch.Tensor, block_m: int = 128,
+             block_n: int = 128, block_k: int = 128) -> Tile:
+    """The kernel and tile ``matmul(a, b, ...)`` launches for these
+    tensors."""
+    _check(a, b)
+    return tile(a.shape[0], b.shape[1], a.shape[1], block_m, block_n,
+                block_k, dtype=a.dtype, lda=a.stride(0), ldb=b.stride(0),
+                a_ptr=a.data_ptr(), b_ptr=b.data_ptr())
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:

@@ -283,26 +283,56 @@ def test_ssm_forward_through_the_kernels_matches_plain_path(name, cuda):
 # ---------------------------------------------------------------------------
 
 MM_CASES = [
-    # M, K, N, block, dtype: the reference's table, then the paper's 16³
-    # tile, ragged edges, and bf16 ragged
-    (256, 384, 512, 128, "float32"),
-    (128, 128, 128, 128, "float32"),
-    (512, 256, 256, 64, "float32"),
-    (256, 2048, 256, 128, "float32"),   # skinny (n = l = m/8)
-    (256, 256, 256, 128, "bfloat16"),
-    (256, 256, 256, 16, "float32"),
-    (100, 77, 53, 16, "float32"),
-    (1000, 333, 257, 128, "float32"),
-    (129, 65, 191, 64, "bfloat16"),
+    # M, K, N, block, dtype, layout of a and b, the kernel that serves it:
+    # the reference's table, then the paper's 16³ tile, ragged edges, bf16
+    # ragged, and the layouts of each copy path and each kernel (as in
+    # chip_smoke.py MM_CASES)
+    (256, 384, 512, 128, "float32", "contig", "fma128"),
+    (128, 128, 128, 128, "float32", "contig", "fma128"),
+    (512, 256, 256, 64, "float32", "contig", "fma128"),
+    (256, 2048, 256, 128, "float32", "contig", "fma128"),   # skinny
+    (256, 256, 256, 128, "bfloat16", "contig", "wgmma"),
+    (256, 256, 256, 16, "float32", "contig", "paper16"),
+    (100, 77, 53, 16, "float32", "contig", "paper16"),
+    (1000, 333, 257, 128, "float32", "contig", "fma128"),
+    (129, 65, 191, 64, "bfloat16", "contig", "fma128"),
+    (200, 96, 144, 16, "float32", "offset", "paper16"),     # base + 4 bytes
+    (300, 160, 200, 128, "float32", "offset", "fma128"),
+    (130, 70, 90, 16, "float32", "stride", "paper16"),      # ld % 4 == 3
+    (260, 150, 270, 128, "float32", "stride", "fma128"),
+    (64, 61, 48, 16, "float32", "contig", "paper16"),       # K % 4 != 0
+    (256, 61, 256, 128, "float32", "contig", "fma128"),
+    (48, 62, 40, 16, "float32", "pad8", "paper16"),         # 16-byte, ragged K
+    (200, 100, 150, 128, "float32", "pad8", "fma128"),      # 16-byte, ragged N
+    (300, 200, 264, 128, "bfloat16", "contig", "wgmma"),  # ragged M/N/K
+    (333, 77, 150, 128, "bfloat16", "pad8", "wgmma"),
+    (200, 96, 136, 128, "bfloat16", "offset", "fma128"),   # TMA cannot read
+    (100, 40, 72, 16, "bfloat16", "offset", "paper16"),
 ]
 
 
+def _mm_operand(x, layout):
+    """``x`` copied into the layout a case names: contig, offset (base one
+    element past a 16-byte boundary), stride (leading stride cols + 3),
+    pad8 (leading stride a multiple of 8, 8 past the row)."""
+    rows, cols = x.shape
+    extra = {"contig": 0, "offset": 1, "stride": 3,
+             "pad8": -cols % 8 + 8}[layout]
+    wide = torch.zeros((rows, cols + extra), dtype=x.dtype, device=x.device)
+    view = wide[:, 1:] if layout == "offset" else wide[:, :cols]
+    view.copy_(x)
+    return view
+
+
 def _mm_inputs(case, device, seed=0):
-    M, K, N, _, dtype = case
+    M, K, N, _, dtype = case[:5]
+    layout = case[5] if len(case) > 5 else "contig"
     rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
-    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-            .to(device=device, dtype=dt) for s in ((M, K), (K, N))]
+    return [_mm_operand(torch.from_numpy(rng.standard_normal(s)
+                                         .astype(np.float32))
+                        .to(device=device, dtype=dt), layout)
+            for s in ((M, K), (K, N))]
 
 
 @pytest.mark.parametrize("case", MM_CASES,
@@ -310,7 +340,8 @@ def _mm_inputs(case, device, seed=0):
 def test_matmul_kernel_matches_plain_version(case, cuda):
     from repro_torch.kernels import matmul as mm
     a, b = _mm_inputs(case, cuda)
-    blk, dtype = case[3], case[4]
+    blk, dtype, want = case[3], case[4], case[6]
+    assert mm.tile_for(a, b, blk, blk, blk).variant == want
     before = mm.matmul.launches
     o = kops.matmul(a, b, block_m=blk, block_n=blk, block_k=blk)
     torch.cuda.synchronize()
@@ -340,22 +371,51 @@ def test_matmul_takes_a_leading_stride_and_refuses_columns(cuda):
         kops.matmul(a.requires_grad_(), b)
 
 
-@pytest.mark.parametrize("req,want", [
-    ((16, 16, 16), (16, 16, 16)),     # the paper's tile, served exactly
-    ((128, 128, 128), (128, 128, 32)),
-    ((64, 64, 64), (64, 64, 16)),
-    ((32, 32, 32), (16, 16, 16)),     # between two tiles: the smaller
-    ((256, 256, 256), (128, 128, 32)),
+@pytest.mark.parametrize("req,dtype,want", [
+    ((16, 16, 16), "float32", (16, 16, 16, "paper16")),   # the paper's tile
+    ((16, 16, 16), "bfloat16", (16, 16, 16, "paper16")),
+    ((128, 128, 128), "float32", (128, 128, 32, "fma128")),
+    ((128, 128, 128), "bfloat16", (128, 256, 64, "wgmma")),
+    ((64, 64, 64), "float32", (128, 128, 32, "fma128")),  # nearer 128
+    ((32, 32, 32), "float32", (16, 16, 16, "paper16")),   # nearer 16
+    ((256, 256, 256), "bfloat16", (128, 256, 64, "wgmma")),
 ])
-def test_matmul_tile_reports(req, want, cuda):
+def test_matmul_tile_reports(req, dtype, want, cuda):
     from repro_torch.kernels import matmul as mm
-    bm, bn, bk, smem = mm.tile(4096, 4096, 4096, *req)
-    assert (bm, bn, bk) == want
-    assert smem <= 227 * 1024
+    t = mm.tile(4096, 4096, 4096, *req, dtype=getattr(torch, dtype))
+    assert (t.bm, t.bn, t.bk, t.variant) == want
+    assert 3 <= t.stages <= 4
+    assert 0 < t.smem <= 227 * 1024
     # a block clipped to a small dimension gets the small tile
     assert mm.tile(16, 16, 4096, 128, 128, 128)[:3] == (16, 16, 16)
     with pytest.raises(ValueError, match="no tile"):
         mm.tile(0, 16, 16)
+
+
+@pytest.mark.parametrize("lda,ldb,a_ptr,b_ptr,want", [
+    (4096, 4096, 0, 0, "wgmma"),
+    (4104, 4352, 256, 1024, "wgmma"),   # strided, aligned
+    (4096, 4096, 2, 0, "fma128"),          # base of a off by one element
+    (4096, 4096, 0, 8, "fma128"),          # base of b 8 bytes past 16
+    (4097, 4096, 0, 0, "fma128"),          # rows of a not 16-byte multiples
+    (4096, 4100, 0, 0, "fma128"),          # rows of b not 16-byte multiples
+])
+def test_matmul_bf16_variant_rule(lda, ldb, a_ptr, b_ptr, want, cuda):
+    """bf16 at the large tile takes the tensor-core kernel where TMA can
+    read both inputs, and the FP32-pipe kernel otherwise; f32 and the 16³
+    request never take it."""
+    from repro_torch.kernels import matmul as mm
+    kw = dict(lda=lda, ldb=ldb, a_ptr=a_ptr, b_ptr=b_ptr)
+    assert mm.tile(4096, 4096, 4096, dtype=torch.bfloat16,
+                   **kw).variant == want
+    assert mm.tile(4096, 4096, 4096, **kw).variant == "fma128"
+    # fma128 reads A 16 bytes at a time (k steps of 32) where its layout
+    # allows, else one element at a time (k steps of 16)
+    assert mm.tile(4096, 4096, 4096, **kw).bk == (32 if lda % 4 == 0
+                                                  and a_ptr % 16 == 0
+                                                  else 16)
+    assert mm.tile(4096, 4096, 4096, 16, 16, 16, dtype=torch.bfloat16,
+                   **kw).variant == "paper16"
 
 
 TR_CASES = [

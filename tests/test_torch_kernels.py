@@ -215,6 +215,35 @@ def test_kernel_source_is_in_the_package_and_not_built_on_import():
     assert _build._libs == {} or not torch.cuda.is_available()
 
 
+@pytest.mark.parametrize("newest,stale", [
+    (None, True),        # no library yet
+    ("lib", False),      # built after its source and every header
+    ("cu", True),        # the source edited since
+    ("cuh", True),       # a shared header edited since
+])
+def test_build_is_stale_when_the_source_or_a_header_is_newer(
+        newest, stale, tmp_path, monkeypatch):
+    """Mtimes only: nothing is compiled."""
+    import os
+    from repro_torch.kernels import _build
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    out.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(out))
+    files = {"cu": csrc / "k.cu", "cuh": csrc / "shared.cuh",
+             "lib": out / "libk.so"}
+    for f in files.values():
+        f.write_text("")
+    if newest is None:
+        files["lib"].unlink()
+    for i, (key, f) in enumerate(sorted(files.items(),
+                                        key=lambda kv: kv[0] == newest)):
+        if f.exists():
+            os.utime(f, (1000 + i, 1000 + i))
+    assert _build._stale("k") is stale
+
+
 # ---------------------------------------------------------------------------
 # matmul and transpose
 # ---------------------------------------------------------------------------
