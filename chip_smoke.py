@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--out results.json] [--seed 0] [--profile]
     python3 chip_smoke.py --only fa-cases|fa    # flash attention alone
+    python3 chip_smoke.py --only ssd-cases|ssd  # the SSD scan alone
     python3 chip_smoke.py --only mm-cases|mm    # matmul alone
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
@@ -18,7 +19,8 @@ counts set to 0 just before the path and read just after):
   the FP32 kernel serves the f32 comparisons);
 * the hybrid serving path of ``zamba2-2.7b`` at full width and depth (54
   Mamba2 layers, one shared attention block applied at 9 sites): the same
-  prefill steps and server — the ``ssd_scan`` and ``flash_attention``
+  prefill steps and server — the ``ssd_scan`` (bf16: its tensor-core kernel;
+  the FP32 kernel serves the f32 comparisons) and ``flash_attention``
   kernels;
 * the ssm path of ``mamba2-370m`` (48 layers): one prefill step — the
   ``ssd_scan`` kernel;
@@ -32,11 +34,13 @@ counts set to 0 just before the path and read just after):
 
 Every phase prints one JSON line; any failure ends the run with a non-zero
 exit code.  The last line is ``{"ok": true, "device": {...}}``.  With
-``--only`` it builds, holds one kernel (flash attention: ``fa``; matmul:
-``mm``) against its plain version at its case table and (without
-``-cases``) times it at the main paths' shapes, runs no main path, and says
-so in its last line.  The ``kernels`` line gives each matmul kernel
-(``paper16``, ``fma128``, ``wgmma``) with its tile, registers and spills.
+``--only`` it builds, holds one kernel (flash attention: ``fa``; SSD scan:
+``ssd``; matmul: ``mm``) against its plain version at its case table and
+(without ``-cases``) times it at the main paths' shapes, runs no main path,
+and says so in its last line.  The ``kernels`` line gives each matmul kernel
+(``paper16``, ``fma128``, ``wgmma``) and each SSD-scan kernel (``wgmma``,
+``fma``) with its tile, registers and spills; the build fails if a
+tensor-core instance of any kernel spills.
 
 It needs a GPU (it fails where ``torch.cuda.is_available()`` is false) and
 ``nvcc``; it imports ``torch`` and ``repro_torch`` only.
@@ -148,23 +152,44 @@ TOL_PREFILL_F32 = 1e-4
 TOL_PREFILL_BF16 = 5e-2
 
 # The reference's own case table for the SSD scan, plus edges: a chunk that
-# is not a multiple of the kernel's 32-row strip, mamba2-370m's d_state at
-# chunk 128, two groups, and the largest chunk at the largest d_state.
-# Bz, H, G, L, P, N, chunk, dtype of x (B and C are f32 unless the case runs
-# in the main path's layout, where they are slices of x's tensor)
+# is not a multiple of the FP32 kernel's 32-row strip, mamba2-370m's d_state
+# at chunk 128, two groups, and the largest chunk at the largest d_state; then
+# bf16 cases for the tensor-core kernel (chunk 64 and 128, N 16/64/128, G 2, P
+# 32/64/128, at least 8 chunks so the state carries) and bf16 the variant rule
+# sends to the FP32 kernel.  x is in the case's type; B and C are in the
+# case's B/C type in the contiguous layout, and in x's type in the main
+# path's layout (slices of x's tensor).  The last two fields: the kernel each
+# layout must land on (contiguous, main path's).
+# Bz, H, G, L, P, N, chunk, dtype of x, of B/C, variants
+F32, BF16 = torch.float32, torch.bfloat16
 SSD_CASES = [
-    ("ref0", 2, 4, 1, 256, 32, 16, 64, torch.float32),
-    ("ref1_g2", 1, 4, 2, 128, 64, 32, 32, torch.float32),
-    ("ref2", 2, 2, 2, 128, 16, 64, 128, torch.float32),
-    ("ref3_n128", 1, 4, 1, 256, 64, 128, 64, torch.float32),
-    ("ref4_bf16", 2, 4, 1, 256, 32, 16, 64, torch.bfloat16),
-    ("chunk100", 1, 2, 1, 200, 32, 16, 100, torch.float32),
-    ("n128_chunk128", 1, 2, 1, 256, 64, 128, 128, torch.float32),
-    ("g2_h4", 2, 4, 2, 256, 64, 64, 128, torch.bfloat16),
-    ("n128_chunk256", 1, 2, 1, 512, 16, 128, 256, torch.float32),
+    ("ref0", 2, 4, 1, 256, 32, 16, 64, F32, F32, ("fma", "fma")),
+    ("ref1_g2", 1, 4, 2, 128, 64, 32, 32, F32, F32, ("fma", "fma")),
+    ("ref2", 2, 2, 2, 128, 16, 64, 128, F32, F32, ("fma", "fma")),
+    ("ref3_n128", 1, 4, 1, 256, 64, 128, 64, F32, F32, ("fma", "fma")),
+    ("ref4_bf16", 2, 4, 1, 256, 32, 16, 64, BF16, F32, ("fma", "wgmma")),
+    ("chunk100", 1, 2, 1, 200, 32, 16, 100, F32, F32, ("fma", "fma")),
+    ("n128_chunk128", 1, 2, 1, 256, 64, 128, 128, F32, F32, ("fma", "fma")),
+    ("g2_h4", 2, 4, 2, 256, 64, 64, 128, BF16, F32, ("fma", "wgmma")),
+    ("n128_chunk256", 1, 2, 1, 512, 16, 128, 256, F32, F32, ("fma", "fma")),
+    ("wg_q128_n64_g2", 2, 4, 2, 1024, 64, 64, 128, BF16, BF16,
+     ("wgmma", "wgmma")),
+    ("wg_q64_n16_p32_g2", 2, 4, 2, 512, 32, 16, 64, BF16, BF16,
+     ("wgmma", "wgmma")),
+    ("wg_q128_n128", 1, 4, 1, 1024, 64, 128, 128, BF16, BF16,
+     ("wgmma", "wgmma")),
+    ("wg_q64_n128_g2", 1, 4, 2, 512, 64, 128, 64, BF16, BF16,
+     ("wgmma", "wgmma")),
+    ("wg_q128_n16_p32", 2, 2, 2, 1024, 32, 16, 128, BF16, BF16,
+     ("wgmma", "wgmma")),
+    ("wg_p128_two_slices", 1, 2, 1, 1024, 128, 64, 128, BF16, BF16,
+     ("wgmma", "wgmma")),
+    ("bf16_chunk32", 1, 4, 1, 256, 32, 16, 32, BF16, BF16, ("fma", "fma")),
+    ("bf16_p40_n24", 1, 2, 1, 512, 40, 24, 128, BF16, BF16, ("fma", "fma")),
 ]
 # the reference's own tolerances (tests/test_kernels.py): y f32 5e-4, y bf16
-# 3e-2, h_final 5e-4; chunk invariance 1e-4
+# 3e-2, h_final 5e-4; chunk invariance 1e-4 (y of f32 inputs, and h_final of
+# bf16 inputs on the tensor-core kernel, chunk 64 against 128)
 SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
 SSD_TOL_H = 5e-4
 SSD_TOL_CHUNKS = 1e-4
@@ -342,6 +367,27 @@ def wgmma_ptxas(entries: list) -> list:
     return [e for e in entries if "fa_wgmma_kernel" in e["function"]]
 
 
+def ssd_ptxas(entries: list) -> list:
+    """Every SSD-scan kernel instance among ``ptxas_entries``: its variant,
+    template arguments (wgmma: chunk, padded N; fma: padded N, P slice),
+    registers and spills."""
+    out = []
+    for e in entries:
+        fn = e["function"]
+        variant = "wgmma" if "ssd_wgmma_kernel" in fn else \
+            "fma" if "ssd_fwd_kernel" in fn else None
+        if variant is None:
+            continue
+        m = re.search(r"ILi(\d+)ELi(\d+)E", fn)
+        args = [int(g) for g in m.groups()] if m else []
+        keys = ("chunk", "state_padded") if variant == "wgmma" \
+            else ("state_padded", "p_block")
+        out.append({"variant": variant, **dict(zip(keys, args)),
+                    **{k: e[k] for k in ("registers", "spill_store_bytes",
+                                         "spill_load_bytes")}})
+    return out
+
+
 # the matmul kernels by the name of their entry function
 MM_KERNELS = {"mm16_kernel": "paper16", "mm128_kernel": "fma128",
               "mm_wgmma_kernel": "wgmma"}
@@ -411,13 +457,23 @@ def phase_build():
     mm_serialised = sorted({m.group(1) for m in re.finditer(
         r"\((C75\d\d)\) Potential Performance Loss.*mm_wgmma_kernel",
         logs.get("matmul", ""))})
+    ssx = ssd_ptxas(entries.get("ssd_scan", []))
+    ss_wg = [e for e in ssx if e["variant"] == "wgmma"]
+    if len(ss_wg) != 4 or any(e["spill_store_bytes"] or e["spill_load_bytes"]
+                              for e in ss_wg):
+        raise AssertionError(f"an ssd_wgmma_kernel instance spills or was not "
+                             f"compiled: {ss_wg}")
+    ssd_serialised = sorted({m.group(1) for m in re.finditer(
+        r"\((C75\d\d)\) Potential Performance Loss.*ssd_wgmma_kernel",
+        logs.get("ssd_scan", ""))})
     emit({"phase": "build", "ok": True,
           "seconds": round(time.perf_counter() - t0, 2),
           "build_dir": os.path.relpath(_build.build_dir(), ROOT),
           "sources": info, "flash_attention_wgmma_ptxas": wg,
           "flash_attention_wgmma_serialised": serialised,
-          "matmul_ptxas": mmx, "matmul_wgmma_serialised": mm_serialised})
-    return {"flash_attention": wg, "matmul": mmx}
+          "matmul_ptxas": mmx, "matmul_wgmma_serialised": mm_serialised,
+          "ssd_scan_ptxas": ssx, "ssd_scan_wgmma_serialised": ssd_serialised})
+    return {"flash_attention": wg, "matmul": mmx, "ssd_scan": ssx}
 
 
 def phase_kernel_cases(gen):
@@ -519,13 +575,14 @@ def phase_kernel_main_shape(cfg, B, S, gen):
 # the SSD scan
 
 
-def ssd_inputs(Bz, H, G, L, P, N, dtype, gen, as_main_path=True):
+def ssd_inputs(Bz, H, G, L, P, N, dtype, gen, as_main_path=True,
+               bc_dtype=torch.float32):
     """x, dt, A, B, C drawn as the reference's tests draw them (x 0.5·N(0,1),
     dt = softplus(N(0,1)), A = -exp(0.3·N(0,1)), B and C 0.3·N(0,1)).  As the
     main path hands them over: column slices of one (Bz, L, H·P + 2·G·N)
     tensor in x's type, viewed as (Bz, H, L, P) / (Bz, G, L, N), and dt a
     (Bz, L, H) tensor viewed as (Bz, H, L).  Otherwise contiguous, with B and
-    C in f32."""
+    C in ``bc_dtype``."""
     def rn(*shape):
         return torch.randn(shape, device=DEV, generator=gen)
     x, Bm, Cm = 0.5 * rn(Bz, L, H, P), 0.3 * rn(Bz, L, G, N), \
@@ -534,8 +591,8 @@ def ssd_inputs(Bz, H, G, L, P, N, dtype, gen, as_main_path=True):
     A = -torch.exp(0.3 * rn(H))
     if not as_main_path:
         return (x.transpose(1, 2).contiguous().to(dtype), dt.contiguous(), A,
-                Bm.transpose(1, 2).contiguous(),
-                Cm.transpose(1, 2).contiguous())
+                Bm.transpose(1, 2).contiguous().to(bc_dtype),
+                Cm.transpose(1, 2).contiguous().to(bc_dtype))
     xbc = torch.cat([t.reshape(Bz, L, -1) for t in (x, Bm, Cm)],
                     dim=-1).to(dtype)
     d, gn = H * P, G * N
@@ -546,13 +603,22 @@ def ssd_inputs(Bz, H, G, L, P, N, dtype, gen, as_main_path=True):
 
 def phase_ssd_cases(gen):
     """ssd_scan against the naive recurrence and its plain version at the
-    case table, in both layouts, and across chunks."""
+    case table, in both layouts, each layout on the kernel the table names,
+    and across chunks."""
     rows = []
-    for (cid, Bz, H, G, L, P, N, chunk, dtype) in SSD_CASES:
+    for (cid, Bz, H, G, L, P, N, chunk, dtype, bc_dtype, want) in SSD_CASES:
         err = herr = 0.0
-        for main_layout in (False, True):
+        variants = []
+        for main_layout, v_want in zip((False, True), want):
             x, dt, A, B, C = ssd_inputs(Bz, H, G, L, P, N, dtype, gen,
-                                        as_main_path=main_layout)
+                                        as_main_path=main_layout,
+                                        bc_dtype=bc_dtype)
+            t = ssd.tile_for(x, B, C, chunk)
+            if t.variant != v_want:
+                raise AssertionError(
+                    f"ssd {cid} ({'main path' if main_layout else 'contiguous'}"
+                    f" layout): served by {t.variant}, expected {v_want}")
+            variants.append(t._asdict())
             y, h = kops.ssd_scan(x, dt, A, B, C, chunk=chunk)
             torch.cuda.synchronize()
             for yr, hr in (kref.ssd(x, dt, A, B, C),
@@ -563,7 +629,10 @@ def phase_ssd_cases(gen):
         rows.append({"case": cid, "Bz": Bz, "H": H, "G": G, "L": L, "P": P,
                      "N": N, "chunk": chunk,
                      "dtype": str(dtype).replace("torch.", ""),
-                     "p_block": ssd.tile(P, N, chunk)[0],
+                     "bc_dtype_contiguous":
+                         str(bc_dtype).replace("torch.", ""),
+                     "tile": {"contiguous": variants[0],
+                              "main_path": variants[1]},
                      "max_abs_err": err, "tol": SSD_TOL[dtype],
                      "h_max_abs_err": herr, "h_tol": SSD_TOL_H})
 
@@ -571,17 +640,24 @@ def phase_ssd_cases(gen):
     x, dt, A, B, C = ssd_inputs(1, 2, 1, 256, 16, 16, torch.float32, gen)
     outs = [kops.ssd_scan(x, dt, A, B, C, chunk=c)[0]
             for c in (32, 64, 128, 256)]
+    x, dt, A, B, C = ssd_inputs(2, 4, 1, 1024, 64, 64, torch.bfloat16, gen)
+    hs = [kops.ssd_scan(x, dt, A, B, C, chunk=c)[1] for c in (64, 128)]
     torch.cuda.synchronize()
     inv = max(float((outs[0] - o).abs().max()) for o in outs[1:])
+    inv_h = float((hs[0] - hs[1]).abs().max())
     if not all(torch.allclose(outs[0], o, atol=SSD_TOL_CHUNKS,
-                              rtol=SSD_TOL_CHUNKS) for o in outs[1:]):
-        raise AssertionError(f"chunk invariance broken: {inv:.3e} beyond "
+                              rtol=SSD_TOL_CHUNKS) for o in outs[1:]) \
+            or not torch.allclose(hs[0], hs[1], atol=SSD_TOL_CHUNKS,
+                                  rtol=SSD_TOL_CHUNKS):
+        raise AssertionError(f"chunk invariance broken: y (f32) {inv:.3e}, "
+                             f"h_final (bf16, wgmma) {inv_h:.3e} beyond "
                              f"{SSD_TOL_CHUNKS:g} abs/rel")
     emit({"phase": "kernels.ssd.cases", "ok": True, "kernel": "ssd_scan",
           "layouts": ["contiguous", "main_path_strided"],
           "against": ["ref.ssd (sequential recurrence)",
                       "ssd_scan_reference (chunked plain version)"],
           "cases": rows, "chunk_invariance_max_abs_diff": inv,
+          "chunk_invariance_h_bf16_wgmma_max_abs_diff": inv_h,
           "chunk_invariance_tol": SSD_TOL_CHUNKS})
     return rows
 
@@ -608,8 +684,18 @@ def phase_ssd_main_shape(cfg, B, S, gen):
     def plain():
         ssd.ssd_scan_reference(x, dt, A, Bm, Cm, chunk=Q)
 
+    # the FP32 kernel on the same values: B and C in f32 send the call to it
+    # (mixed types), the design this kernel replaces
+    Bf, Cf = Bm.float(), Cm.float()
+
+    def fp32_kernel():
+        kops.ssd_scan(x, dt, A, Bf, Cf, chunk=Q)
+
+    if ssd.tile_for(x, Bf, Cf, Q).variant != "fma":
+        raise AssertionError("mixed types must go to the FP32 kernel")
     ms_a = time_ms(kernel, 2, 10)
     plain_ms = time_ms(plain, 1, 3)
+    fma_ms = time_ms(fp32_kernel, 1, 5)
     ms_b = time_ms(kernel, 1, 10)
 
     # operations as the reference's schedule_props counts them; bytes: each
@@ -622,19 +708,26 @@ def phase_ssd_main_shape(cfg, B, S, gen):
               + B * H * P * N * 4)                         # h_final out
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     ms = min(ms_a, ms_b)
-    p_block, smem = ssd.tile(P, N, Q)
+    t = ssd.tile_for(x, Bm, Cm, Q)
+    if t.variant != "wgmma":
+        raise AssertionError(f"{cfg.name}: the main path's SSD scan is served "
+                             f"by {t.variant}, not the tensor-core kernel")
+    bound = max(t_ops, t_bytes) * 1e3
     return {
         "arch": cfg.name,
         "shape": {"Bz": B, "H": H, "G": G, "L": S, "P": P, "N": N,
                   "chunk": Q, "dtype": "bfloat16",
-                  "x_strides": list(x.stride()),
-                  "p_block": p_block, "smem_bytes": smem},
+                  "x_strides": list(x.stride())},
+        "variant": t.variant, "tile": t._asdict(),
         "max_abs_err": err, "tol": SSD_TOL[dtype],
         "h_max_abs_err": herr, "h_tol": SSD_TOL_H,
         "ms": ms, "kernel_ms": ms, "kernel_ms_runs": [ms_a, ms_b],
         "plain_ms": plain_ms, "library_ms": None, "library_call": None,
         "library_note": "no single PyTorch call computes the SSD scan",
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "fp32_kernel_ms": fma_ms,
+        "fp32_kernel_note": "ssd_fwd_kernel on the same values (B and C in "
+                            "f32), timed in the same run",
+        "bound_ms": bound, "share_of_bound": bound / ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3,
         "flops": flops, "bytes": nbytes,
@@ -1324,16 +1417,29 @@ def mm_extra(mm_ptx: list) -> dict:
                       for e in mm_ptx]}
 
 
+def ssd_extra(ss_ptxas: list) -> dict:
+    """The ssd_scan fields beyond the common ones: the variant rule, and the
+    registers and spills of every instance of both kernels, from the build
+    log."""
+    return {"variants": {"bf16 x, B, C; chunk 64/128; P, N multiples of 16 "
+                         "up to 128; TMA-readable": "wgmma",
+                         "anything else": "fma"},
+            "ptxas": ss_ptxas}
+
+
 def kernel_only(args, smi) -> int:
-    """``--only fa-cases|fa|mm-cases|mm``: the build, one kernel's case
-    table, and (``fa``, ``mm``) its timings at the main paths' shapes; no
-    main path runs, so the last line says so."""
+    """``--only fa-cases|fa|ssd-cases|ssd|mm-cases|mm``: the build, one
+    kernel's case table, and (``fa``, ``ssd``, ``mm``) its timings at the
+    main paths' shapes; no main path runs, so the last line says so."""
     with phase("build"):
         ptx = phase_build()
     gen = torch.Generator(DEV).manual_seed(args.seed)
     if args.only.startswith("fa"):
         with phase("kernels.cases"):
             phase_kernel_cases(gen)
+    elif args.only.startswith("ssd"):
+        with phase("kernels.ssd.cases"):
+            phase_ssd_cases(gen)
     else:
         with phase("kernels.matmul.cases"):
             phase_matmul_cases(gen)
@@ -1345,6 +1451,14 @@ def kernel_only(args, smi) -> int:
             emit({"phase": "kernels.main_shape", "ok": True,
                   "kernel": "flash_attention", "shapes": rows,
                   **fa_extra(ptx["flash_attention"])})
+    elif args.only == "ssd":
+        with phase("kernels.ssd.main_shape"):
+            B, S = PREFILL_TOKENS
+            emit({"phase": "kernels.ssd.main_shape", "ok": True,
+                  "kernel": "ssd_scan",
+                  "shapes": [phase_ssd_main_shape(get_arch(a), B, S, gen)
+                             for a in (HYBRID, SSM)],
+                  **ssd_extra(ptx["ssd_scan"])})
     elif args.only == "mm":
         with phase("kernels.matmul.main_shape"):
             emit({"phase": "kernels.matmul.main_shape", "ok": True,
@@ -1365,11 +1479,12 @@ def main() -> int:
                          "calibration cases, with torch.profiler")
     ap.add_argument("--out", default=None,
                     help="also write every phase line to this JSON file")
-    ap.add_argument("--only", choices=("fa-cases", "fa", "mm-cases", "mm"),
+    ap.add_argument("--only", choices=("fa-cases", "fa", "ssd-cases", "ssd",
+                                       "mm-cases", "mm"),
                     default=None,
-                    help="build, then only the flash-attention (fa) or "
-                         "matmul (mm) cases (-cases) or the cases and "
-                         "timings")
+                    help="build, then only the flash-attention (fa), SSD-scan "
+                         "(ssd) or matmul (mm) cases (-cases) or the cases "
+                         "and timings")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1411,7 +1526,8 @@ def main() -> int:
         ssd_rows = [phase_ssd_main_shape(cfg, B, S, gen)
                     for cfg in (hybrid, pure)]
         emit({"phase": "kernels.ssd.main_shape", "ok": True,
-              "kernel": "ssd_scan", "shapes": ssd_rows})
+              "kernel": "ssd_scan", "shapes": ssd_rows,
+              **ssd_extra(ptx["ssd_scan"])})
     torch.cuda.empty_cache()
 
     with phase("kernels.matmul.cases"):
@@ -1456,7 +1572,7 @@ def main() -> int:
         kernel_entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:97",
                      {a: n["ssd_scan"] for a, n in launched.items()},
-                     ssd_rows, ssd_cases),
+                     ssd_rows, ssd_cases, **ssd_extra(ptx["ssd_scan"])),
         kernel_entry("matmul", "src/repro_torch/kernels/csrc/matmul.cu",
                      "src/repro/kernels/matmul.py:50",
                      {a: n["matmul"] for a, n in launched.items()},

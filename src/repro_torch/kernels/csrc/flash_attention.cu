@@ -397,94 +397,6 @@ struct BParams {
   float scale_log2;             // softmax scale * log2(e)
 };
 
-// D (64 x N, f32) += A (64 x 16, bf16 in registers) B (16 x N), B read
-// MN-major from shared memory (transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n48(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23"
-      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  static_assert(N == 16 || N == 32 || N == 48 || N == 64, "N per chunk");
-  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
-  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
-  else if constexpr (N == 48) wgmma_rs_n48(d, a, db);
-  else wgmma_rs_n64(d, a, db);
-}
-
-
 // S (64 x 128) = Q K^T over this warpgroup's 64 rows: one committed group.
 // `qd`, `kd`: descriptors of the Q rows and the K stage.  The caller fences
 // the registers (wgmma_fence) before the first product of a pipeline stage.
@@ -517,12 +429,6 @@ __device__ __forceinline__ void issue_pv(float* o, const uint32_t (*pa)[4],
     }
   }
   wgmma_commit();
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Running max and sum of the rows r0 and r0 + 8 of a thread (the sum is
@@ -810,48 +716,6 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   }
-}
-
-// Byte stride of one dimension for a tensor map: a multiple of 16 below
-// 2^40.  A dimension of extent 1 is never stepped; its stride is replaced.
-bool tma_stride(long long elems, int extent, int dh, cuuint64_t* out) {
-  if (extent == 1) {
-    *out = static_cast<cuuint64_t>((dh * 2 + 15) / 16 * 16);
-    return true;
-  }
-  const long long bytes = elems * 2;
-  if (bytes <= 0 || bytes % 16 != 0 || bytes >= (1LL << 40)) return false;
-  *out = static_cast<cuuint64_t>(bytes);
-  return true;
-}
-
-// The 4-D map (dh, S, H, B) of a bf16 tensor: boxes of 64 columns x `rows`
-// rows of one (b, h), 128-byte swizzle, zeros out of bounds.
-cudaError_t encode_map(CUtensorMap* map, const void* base, int B, int H,
-                       int S, int dh, long long sb, long long sh,
-                       long long ss, int rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(base) % 16 != 0)
-    return cudaErrorMisalignedAddress;
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
-                        static_cast<cuuint64_t>(S),
-                        static_cast<cuuint64_t>(H),
-                        static_cast<cuuint64_t>(B)};
-  cuuint64_t strides[3];
-  if (!tma_stride(ss, S, dh, &strides[0]) || !tma_stride(sh, H, dh, &strides[1])
-      || !tma_stride(sb, B, dh, &strides[2]))
-    return cudaErrorMisalignedAddress;
-  cuuint32_t box[4] = {static_cast<cuuint32_t>(kChunkCols),
-                       static_cast<cuuint32_t>(rows), 1, 1};
-  cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int DHP>

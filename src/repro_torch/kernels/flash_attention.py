@@ -103,28 +103,37 @@ def tile(dh: int) -> Tuple[int, int, int, int]:
     return bq.value, bk.value, stages.value, nbytes.value
 
 
-def check_tma_layout(name: str, shape, strides, data_ptr: int,
-                     dtype: torch.dtype) -> None:
-    """The bf16 kernel's layout rule, a function of shape, strides (in
-    elements), base address and type alone: TMA reads a ``(B, H, S, dh)``
-    tensor through a 4-D map whose base is 16-byte aligned and whose strides
-    are multiples of 16 bytes below 2**40.  A dimension of extent 1 is never
-    stepped, so its stride does not matter.  Raises ``ValueError`` with the
-    reason."""
+def tma_layout_error(name: str, shape, strides, data_ptr: int,
+                     dtype: torch.dtype) -> Optional[str]:
+    """Why TMA cannot read a 4-D tensor through a map of its own shape and
+    strides (in elements), or None if it can: the last dimension contiguous,
+    a 16-byte-aligned base, and strides that are positive multiples of 16
+    bytes below 2**40.  A dimension of extent 1 is never stepped, so its
+    stride does not matter.  A function of shape, strides, base address and
+    type alone."""
     if strides[3] != 1:
-        raise ValueError(f"{name}: the last dimension must be contiguous; "
-                         f"got strides {tuple(strides)}")
+        return (f"{name}: the last dimension must be contiguous; got strides "
+                f"{tuple(strides)}")
     if data_ptr % 16:
-        raise ValueError(f"{name}: TMA needs a 16-byte-aligned base; the "
-                         f"tensor starts {data_ptr % 16} bytes past it")
+        return (f"{name}: TMA needs a 16-byte-aligned base; the tensor "
+                f"starts {data_ptr % 16} bytes past it")
     nbytes = torch.finfo(dtype).bits // 8
-    for dim, extent, stride in zip("BHS", shape[:3], strides[:3]):
+    for dim, extent, stride in zip("0123", shape[:3], strides[:3]):
         if extent > 1 and (stride * nbytes % 16 or stride <= 0
                            or stride * nbytes >= 2 ** 40):
-            raise ValueError(
-                f"{name}: TMA needs strides that are positive multiples of "
-                f"16 bytes; dimension {dim} has {stride} elements "
-                f"({stride * nbytes} bytes), strides {tuple(strides)}")
+            return (f"{name}: TMA needs strides that are positive multiples "
+                    f"of 16 bytes; dimension {dim} has {stride} elements "
+                    f"({stride * nbytes} bytes), strides {tuple(strides)}")
+    return None
+
+
+def check_tma_layout(name: str, shape, strides, data_ptr: int,
+                     dtype: torch.dtype) -> None:
+    """The bf16 kernel's layout rule (``tma_layout_error``) for a
+    ``(B, H, S, dh)`` tensor: raises ``ValueError`` with the reason."""
+    err = tma_layout_error(name, shape, strides, data_ptr, dtype)
+    if err is not None:
+        raise ValueError(err)
 
 
 def padded_head_dim(dh: int) -> int:

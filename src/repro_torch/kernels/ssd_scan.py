@@ -1,5 +1,5 @@
 """Mamba2 SSD (state-space duality) scan: the wrapper of the hand-written
-CUDA kernel, and its plain version.
+CUDA kernels, and their plain version.
 
 Replaces the TPU kernel ``repro.kernels.ssd_scan.ssd_scan`` (Pallas,
 ``_kernel``).  The CUDA source is ``csrc/ssd_scan.cu``; it is compiled at the
@@ -12,20 +12,36 @@ Per (batch, head, chunk of Q steps)::
     y     = W x + (C ⊙ exp(cum)) h_prevᵀ
     h_new = exp(cum_Q) h_prev + (B ⊙ dt ⊙ exp(cum_Q − cum))ᵀ x
 
-with the (P, N) f32 state carried across chunks.
+with the (P, N) f32 state carried across chunks.  In both kernels one thread
+block owns a (b, h, P slice) and walks the chunks with the state on the chip,
+so the state never goes back to device memory between chunks; B and C are
+read at group ``h // (H/G)``, never repeated.
 
-What bounds it on an H100: bytes at the shapes of the serving path (x in and
-y out dominate; the operations, 2·(Q²N + Q²P + 2QPN) per (b, h, chunk),
-would take less time on the tensor cores).  The kernel runs every product in
-f32 on the FP32 pipes, which put a floor well above that bound; see the note
-at the top of the CUDA source.  One thread block owns a (b, h, P slice) and
-walks the chunks with the state in shared memory, so the state never goes
-back to device memory between chunks; B and C are read at group
-``h // (H/G)``, never repeated.
+What bounds it on an H100: bytes at the shapes of the serving paths (x in and
+y out dominate; the operations, 2·(Q²N + Q²P + 2QPN) per (b, h, chunk), take
+less time on the bf16 tensor cores).  ``pick_variant`` chooses the kernel
+before the launch, from types, shapes, strides and bases alone:
+
+* ``"wgmma"`` (``ssd_wgmma_kernel``): x, B and C all bf16, chunk 64 or 128,
+  P and N multiples of 16 up to 128, and each of x, B, C readable by TMA (a
+  16-byte-aligned base, the last dimension contiguous, the other strides
+  multiples of 16 bytes).  The serving paths of zamba2-2.7b and mamba2-370m
+  hand over exactly that.  Its four products run on the bf16 tensor cores
+  with f32 accumulators, fed by a TMA ring of chunk stages; the f32
+  intermediates W, h and x·w_end enter the products as hi + lo bf16 pairs,
+  so it rounds nothing the f32 plain version does not.  A P slice of 64 per
+  block; the state in registers.
+* ``"fma"`` (``ssd_fwd_kernel``): everything else (f32, mixed types, other
+  chunks, layouts TMA cannot read).  All arithmetic in f32 on the FP32
+  pipes, which alone take about ten times the byte bound; the state in
+  shared memory.
+
+See the note at the top of the CUDA source.  ``tile`` and ``tile_for``
+report the variant, P slice, ring stages and shared memory of a launch.
 
 Accepted shapes: x ``(Bz, H, L, P)``, dt ``(Bz, H, L)`` f32, A ``(H,)`` f32,
 B and C ``(Bz, G, L, N)`` with ``H % G == 0``; ``chunk`` (clipped to L, as in
-the reference) must divide L.  The kernel takes chunks up to 256, N up to 128,
+the reference) must divide L.  The kernels take chunks up to 256, N up to 128,
 P and N multiples of 4; x and B/C each f32 or bf16.  The last dimension of x,
 B and C must be contiguous and every row 16-byte aligned; the other
 dimensions may be strided (``(B, L, H, P)`` views of the conv output, viewed
@@ -35,11 +51,12 @@ order (``torch.empty_like``), h_final is ``(Bz, H, P, N)`` f32.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import tma_layout_error
 from repro_torch.runtime import flags
 
 NEG_INF = -1e30
@@ -47,8 +64,13 @@ NEG_INF = -1e30
 #: the longest chunk the kernel takes
 MAX_CHUNK = 256
 
+#: the kernels of the CUDA source, by the number it takes them by
+VARIANTS = ("fma", "wgmma")
+#: chunks the tensor-core kernel is built for
+WGMMA_CHUNKS = (64, 128)
+
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-             + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 2
+             + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
 
 
@@ -95,20 +117,54 @@ def ssd_scan_reference(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.cat(ys, dim=2).to(x.dtype), h
 
 
-def tile(P: int, N: int, chunk: int) -> Tuple[int, int]:
-    """The tile the kernel launches for (P, N, chunk), as the CUDA source
-    chooses it: (P slice one thread block owns, bytes of shared memory of
-    that block).  Builds the source if need be; needs ``nvcc``."""
+class Tile(NamedTuple):
+    variant: str      # "wgmma" or "fma"
+    p_block: int      # the P slice one thread block owns
+    stages: int       # chunk stages of the TMA ring (1: no ring)
+    smem: int         # bytes of shared memory of one block
+
+
+def pick_variant(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                 chunk: int, bases: Optional[Sequence[int]] = None) -> str:
+    """The kernel a call goes to, from types, shapes, strides and base
+    addresses alone (see the module's note).  ``chunk`` is the chunk after
+    clipping to L.  ``bases``: the byte addresses of x, B, C (default their
+    ``data_ptr()``; for meta tensors the storage offset in bytes)."""
+    if bases is None:
+        bases = [t.data_ptr() for t in (x, B, C)]
+    P, N = x.shape[3], B.shape[3]
+    if any(t.dtype != torch.bfloat16 for t in (x, B, C)) \
+            or chunk not in WGMMA_CHUNKS \
+            or P % 16 or P > 128 or N % 16 or N > 128:
+        return "fma"
+    if any(tma_layout_error(n, t.shape, t.stride(), base, t.dtype)
+           for n, t, base in zip("xBC", (x, B, C), bases)):
+        return "fma"
+    return "wgmma"
+
+
+def tile(P: int, N: int, chunk: int, variant: str = "fma") -> Tile:
+    """The tile ``variant`` launches for (P, N, chunk), as the CUDA source
+    sets it.  Builds the source if need be; needs ``nvcc``."""
     fn = _build.load("ssd_scan").ssd_scan_tile
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int),
-                                            ctypes.POINTER(ctypes.c_longlong)]
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2 \
+            + [ctypes.POINTER(ctypes.c_longlong)]
         fn.restype = ctypes.c_int
-    pb, nbytes = ctypes.c_int(), ctypes.c_longlong()
-    if fn(P, N, chunk, ctypes.byref(pb), ctypes.byref(nbytes)) != 0:
-        raise ValueError(f"the kernel takes no tile for P={P}, N={N}, "
-                         f"chunk={chunk}")
-    return pb.value, nbytes.value
+    pb, stages, nbytes = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    if fn(P, N, chunk, VARIANTS.index(variant), ctypes.byref(pb),
+          ctypes.byref(stages), ctypes.byref(nbytes)) != 0:
+        raise ValueError(f"the {variant} kernel takes no tile for P={P}, "
+                         f"N={N}, chunk={chunk}")
+    return Tile(variant, pb.value, stages.value, nbytes.value)
+
+
+def tile_for(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+             chunk: int) -> Tile:
+    """The tile of the launch ``ssd_scan(x, dt, A, B, C, chunk=chunk)``
+    makes."""
+    chunk = min(int(chunk), x.shape[2])
+    return tile(x.shape[3], B.shape[3], chunk, pick_variant(x, B, C, chunk))
 
 
 def _check(x, dt, A, B, C) -> None:
@@ -153,9 +209,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (Bz,H,L,P), dt (Bz,H,L), A (H,), B/C (Bz,G,L,N) -> (y, h_final).
 
-    A CUDA tensor goes through the kernel, or the call raises.  The plain
-    version is taken only for tensors that lie on the CPU, and under
-    ``flags.use_kernels(False)`` (for comparisons)."""
+    A CUDA tensor goes through the kernel ``pick_variant`` names, or the call
+    raises.  The plain version is taken only for tensors that lie on the
+    CPU, and under ``flags.use_kernels(False)`` (for comparisons)."""
     _check(x, dt, A, B, C)
     Bz, H, L, P = x.shape
     G, N = B.shape[1], B.shape[3]
@@ -180,8 +236,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty_like(x)  # x's dimension order: (B, L, H, P) in memory
     h = torch.empty((Bz, H, P, N), dtype=torch.float32, device=x.device)
     A = A.contiguous()
-    for name, t in (("x", x), ("B", B), ("C", C), ("y", y)):
-        _check_layout(name, t)
+    variant = pick_variant(x, B, C, chunk)
+    if variant == "fma":
+        for name, t in (("x", x), ("B", B), ("C", C), ("y", y)):
+            _check_layout(name, t)
 
     fn = _build.load("ssd_scan").ssd_scan_forward
     if fn.argtypes is None:
@@ -193,12 +251,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  *x.stride()[:3], *dt.stride(), *B.stride()[:3],
                  *C.stride()[:3], *y.stride()[:3],
                  int(x.dtype == torch.bfloat16),
-                 int(B.dtype == torch.bfloat16),
+                 int(B.dtype == torch.bfloat16), VARIANTS.index(variant),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
-            f"ssd_scan_forward: CUDA error {err} at launch (x "
-            f"{tuple(x.shape)}, B {tuple(B.shape)}, chunk {chunk})")
+            f"ssd_scan_forward: CUDA error {err} at launch of the {variant} "
+            f"kernel (x {tuple(x.shape)}, B {tuple(B.shape)}, chunk {chunk})")
     ssd_scan.launches += 1
     return y, h
 

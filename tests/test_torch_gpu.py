@@ -167,10 +167,12 @@ SSD_CASES = [
 ]
 
 
-def _ssd_inputs(case, device, seed=42, main_layout=False):
+def _ssd_inputs(case, device, seed=42, main_layout=False,
+                bc_dtype="float32"):
     """numpy inputs; with ``main_layout`` x, B, C are column slices of one
     (Bz, L, width) tensor viewed as (Bz, H, L, P) / (Bz, G, L, N), as
-    ``ssm_apply`` hands them over."""
+    ``ssm_apply`` hands them over; otherwise contiguous, B and C in
+    ``bc_dtype``."""
     Bz, H, G, L, P, N, _, dtype = case
     rng = np.random.default_rng(seed)
     x = (0.5 * rng.standard_normal((Bz, L, H, P))).astype(np.float32)
@@ -190,7 +192,8 @@ def _ssd_inputs(case, device, seed=42, main_layout=False):
         def t(a, dtype=torch.float32):
             return torch.from_numpy(np.ascontiguousarray(
                 a.swapaxes(1, 2))).to(device=device, dtype=dtype)
-        xt, Bt, Ct = t(x, xdt), t(B), t(C)
+        bdt = getattr(torch, bc_dtype)
+        xt, Bt, Ct = t(x, xdt), t(B, bdt), t(C, bdt)
     dtt = torch.from_numpy(dt).to(device).transpose(1, 2)
     return xt, dtt, torch.from_numpy(A).to(device), Bt, Ct
 
@@ -240,26 +243,123 @@ def test_ssd_output_keeps_the_inputs_layout(cuda):
         kops.ssd_scan(x, dt, A, B, C, chunk=48)
 
 
-@pytest.mark.parametrize("P,N,chunk,want", [
-    (64, 64, 128, 64),    # zamba2-2.7b: two blocks share an SM
-    (64, 128, 128, 64),   # mamba2-370m
-    (64, 128, 256, 16),   # the largest chunk at the largest state
-    (16, 16, 256, 16),    # the reduced configs' P
-    (32, 16, 100, 32),    # a chunk that is not a tile multiple
+@pytest.mark.parametrize("P,N,chunk,variant,want_pb,want_stages", [
+    (64, 64, 128, "fma", 64, 1),       # zamba2-2.7b's shape, FP32 kernel
+    (64, 128, 128, "fma", 64, 1),      # mamba2-370m's
+    (64, 128, 256, "fma", 16, 1),      # the largest chunk at the largest state
+    (16, 16, 256, "fma", 16, 1),       # the reduced configs' P
+    (32, 16, 100, "fma", 32, 1),       # a chunk that is not a tile multiple
+    (64, 64, 128, "wgmma", 64, 3),     # zamba2-2.7b on the tensor cores
+    (64, 128, 128, "wgmma", 64, 2),    # mamba2-370m: 2 stages fit at N 128
+    (128, 128, 64, "wgmma", 64, 3),
+    (32, 16, 64, "wgmma", 64, 3),
 ])
-def test_ssd_tile_fits_shared_memory(P, N, chunk, want, cuda):
+def test_ssd_tile_fits_shared_memory(P, N, chunk, variant, want_pb,
+                                     want_stages, cuda):
     from repro_torch.kernels import ssd_scan
-    pb, nbytes = ssd_scan.tile(P, N, chunk)
-    assert pb == want
-    assert nbytes <= 227 * 1024  # what one block may use on sm_90
+    t = ssd_scan.tile(P, N, chunk, variant)
+    assert (t.variant, t.p_block, t.stages) == (variant, want_pb, want_stages)
+    assert t.smem <= 232448  # what one block may use on sm_90
     with pytest.raises(ValueError, match="no tile"):
-        ssd_scan.tile(P, 132, chunk)
+        ssd_scan.tile(P, 132, chunk, variant)
+    if variant == "wgmma":
+        with pytest.raises(ValueError, match="no tile"):
+            ssd_scan.tile(P, N, 100, variant)
+
+
+WGMMA_CASES = [
+    # Bz, H, G, L, P, N, chunk, dtype: at least 8 chunks, so the state
+    # carries; chunk 64 and 128, N 16/64/128, G 2, P 32/64/128
+    (2, 4, 2, 1024, 64, 64, 128, "bfloat16"),
+    (2, 4, 2, 512, 32, 16, 64, "bfloat16"),
+    (1, 4, 1, 1024, 64, 128, 128, "bfloat16"),
+    (1, 4, 2, 512, 64, 128, 64, "bfloat16"),
+    (1, 2, 1, 1024, 128, 64, 128, "bfloat16"),  # P in two slices
+]
+
+
+@pytest.mark.parametrize("main_layout", [False, True],
+                         ids=["contiguous", "strided"])
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=[f"wg{i}" for i in range(len(WGMMA_CASES))])
+def test_ssd_wgmma_kernel_matches_recurrence_and_plain_version(
+        case, main_layout, cuda):
+    from repro_torch.kernels import ref, ssd_scan
+    x, dt, A, B, C = _ssd_inputs(case, cuda, main_layout=main_layout,
+                                 bc_dtype="bfloat16")
+    chunk = case[6]
+    assert ssd_scan.tile_for(x, B, C, chunk).variant == "wgmma"
+    before = ssd_scan.ssd_scan.launches
+    y, h = kops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_scan.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    # the reference's bf16 tolerances: y 3e-2, state 5e-4
+    for yr, hr in (ref.ssd(x, dt, A, B, C),
+                   ssd_scan.ssd_scan_reference(x, dt, A, B, C, chunk=chunk)):
+        torch.testing.assert_close(y.float(), yr.float(), atol=3e-2,
+                                   rtol=3e-2)
+        torch.testing.assert_close(h, hr, atol=5e-4, rtol=5e-4)
+
+
+def test_ssd_variant_rule_on_the_card(cuda):
+    """bf16 that TMA cannot read (a base 8 bytes past a 16-byte boundary)
+    goes to the FP32 kernel, chosen before the launch, and agrees too."""
+    from repro_torch.kernels import ref, ssd_scan
+    case = (1, 4, 1, 512, 64, 64, 128, "bfloat16")
+    x, dt, A, B, C = _ssd_inputs(case, cuda, main_layout=True)
+    assert ssd_scan.pick_variant(x, B, C, 128) == "wgmma"
+    wide = torch.zeros((1, 4, 512 + 1, 64), dtype=torch.bfloat16,
+                       device=cuda)
+    shifted = wide.view(-1)[4:4 + x.numel()].view(1, 4, 512, 64)
+    shifted.copy_(x)
+    assert ssd_scan.pick_variant(shifted, B, C, 128) == "fma"
+    assert ssd_scan.tile_for(shifted, B, C, 128).variant == "fma"
+    y, h = kops.ssd_scan(shifted, dt, A, B, C, chunk=128)
+    yw, hw = kops.ssd_scan(x, dt, A, B, C, chunk=128)
+    yr, hr = ref.ssd(x, dt, A, B, C)
+    for a, b in ((y, yr), (yw, yr)):
+        torch.testing.assert_close(a.float(), b.float(), atol=3e-2, rtol=3e-2)
+    for a in (h, hw):
+        torch.testing.assert_close(a, hr, atol=5e-4, rtol=5e-4)
+    # f32 and mixed types stay on the FP32 kernel
+    assert ssd_scan.pick_variant(x.float(), B.float(), C.float(), 128) \
+        == "fma"
+    assert ssd_scan.pick_variant(x, B.float(), C.float(), 128) == "fma"
 
 
 def test_ssd_kernel_refuses_autograd(cuda):
     x, dt, A, B, C = _ssd_inputs((1, 2, 1, 64, 16, 16, 64, "float32"), cuda)
     with pytest.raises(NotImplementedError, match="backward"):
         kops.ssd_scan(x.requires_grad_(), dt, A, B, C, chunk=64)
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-2.7b"])
+def test_ssm_bf16_forward_through_the_wgmma_kernel(name, cuda, monkeypatch):
+    """bf16 forward of the reduced configs, widened to P 32, the full d_state
+    and chunk 64 so that every layer's scan lands on the tensor-core kernel,
+    against the plain path: relative Frobenius error of the logits within
+    the whole-step bf16 tolerance of chip_smoke.py (5e-2)."""
+    from repro_torch.kernels import ssd_scan
+    full = ARCHS[name]
+    cfg = ARCHS[name].reduced()
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, head_dim=32, d_state=full.ssm.d_state, chunk=64))
+    model = transformer.init_params(cfg, seed=0)
+    tok = torch.randint(0, cfg.vocab_size, (2, 512), device=cuda)
+    seen, pick = [], ssd_scan.pick_variant
+    monkeypatch.setattr(ssd_scan, "pick_variant",
+                        lambda *a, **k: seen.append(pick(*a, **k)) or seen[-1])
+    before = ssd_scan.ssd_scan.launches
+    with torch.no_grad():
+        a, _ = transformer.forward(model, cfg, {"tokens": tok})
+        assert ssd_scan.ssd_scan.launches == before + cfg.n_layers
+        assert seen == ["wgmma"] * cfg.n_layers
+        with flags.use_kernels(False):
+            b, _ = transformer.forward(model, cfg, {"tokens": tok})
+    assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+    rel = float((a.float() - b.float()).norm() / b.float().norm())
+    assert rel <= 5e-2
 
 
 @pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-2.7b"])

@@ -236,6 +236,155 @@ def test_kernel_source_is_in_the_package_and_not_built_on_import():
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core kernel's variant rule and arithmetic (the kernel itself runs
+# only on a card: tests/test_torch_gpu.py, chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+
+def _main_path_views(cfg, S, *, offset=0, pad=0, dtype=torch.bfloat16):
+    """x, B, C as ``ssm_apply`` hands them to the scan: column slices of the
+    conv output (B, S, d_inner + 2·G·N), viewed as (B, H, S, P) and
+    (B, G, S, N), on the meta device (nothing allocated); ``offset``
+    elements past the start of their storage, rows ``pad`` elements wider."""
+    s = cfg.ssm
+    Bsz, din, G, N = 2, cfg.d_inner, s.n_groups, s.d_state
+    width = din + 2 * G * N
+    flat = torch.empty(Bsz * S * (width + pad) + offset, device="meta",
+                       dtype=dtype)
+    xbc = flat[offset:].view(Bsz, S, width + pad)[..., :width]
+    xin, Bm, Cm = xbc.split([din, G * N, G * N], dim=-1)
+    return (xin.reshape(Bsz, S, cfg.ssm_heads, s.head_dim).transpose(1, 2),
+            Bm.reshape(Bsz, S, G, N).transpose(1, 2),
+            Cm.reshape(Bsz, S, G, N).transpose(1, 2))
+
+
+def _variant(views, chunk):
+    # a meta tensor has no address: its base is the storage offset, from an
+    # allocation that is itself aligned
+    return tssd.pick_variant(*views, chunk, bases=[
+        t.storage_offset() * t.element_size() for t in views])
+
+
+@pytest.mark.parametrize("name", SSM_ARCHS)
+def test_wgmma_variant_rule_takes_the_main_path_views(name):
+    cfg = TARCHS[name]
+    x, B, C = _main_path_views(cfg, 2048)
+    assert x.stride()[2] == cfg.d_inner + 2 * cfg.ssm.n_groups \
+        * cfg.ssm.d_state   # strided rows, handed over without a copy
+    assert _variant((x, B, C), cfg.ssm.chunk) == "wgmma"
+    assert _variant((x, B, C), 64) == "wgmma"
+
+
+@pytest.mark.parametrize("name", SSM_ARCHS)
+@pytest.mark.parametrize("why", ["odd_base", "odd_stride", "float32",
+                                 "mixed", "chunk100", "chunk32",
+                                 "reduced_chunk16"])
+def test_wgmma_variant_rule_sends_the_rest_to_the_fp32_kernel(name, why):
+    cfg = TARCHS[name]
+    chunk = cfg.ssm.chunk
+    if why == "odd_base":        # 8 bytes past a 16-byte boundary
+        views = _main_path_views(cfg, 2048, offset=4)
+    elif why == "odd_stride":    # rows of a multiple of 4 elements, not 8
+        views = _main_path_views(cfg, 2048, pad=4)
+    elif why == "float32":
+        views = _main_path_views(cfg, 2048, dtype=torch.float32)
+    elif why == "mixed":         # x bf16, B and C f32
+        x = _main_path_views(cfg, 2048)[0]
+        views = (x,) + _main_path_views(cfg, 2048, dtype=torch.float32)[1:]
+    elif why == "reduced_chunk16":
+        cfg = cfg.reduced()
+        views, chunk = _main_path_views(cfg, 64), cfg.ssm.chunk
+    else:
+        views = _main_path_views(cfg, 2000 if why == "chunk100" else 2048)
+        chunk = int(why[5:])
+    assert _variant(views, chunk) == "fma"
+
+
+def _bf16_split(v: torch.Tensor):
+    """An f32 tensor as the kernel feeds it to bf16 products: hi = bf16(v),
+    lo = bf16(v - hi), both returned as f32 values."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _emulate_wgmma_kernel(x, dt, A, B, C, chunk):
+    """The tensor-core kernel's arithmetic on the CPU: x, B, C exact in bf16;
+    S = C Bᵀ formed once; W, the state h and x·w_end each fed to a product
+    as hi + lo bf16; every sum in f32; y = exp(cum) (C hᵀ) + W x.  -> (y f32,
+    h_final f32)."""
+    Bz, H, L, P = x.shape
+    rep = H // B.shape[1]
+    xf = x.float()
+    Bf = B.float().repeat_interleave(rep, dim=1)
+    Cf = C.float().repeat_interleave(rep, dim=1)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    h = torch.zeros((Bz, H, P, B.shape[3]))
+    ys = []
+    for c0 in range(0, L, chunk):
+        sl = slice(c0, c0 + chunk)
+        xq, Bq, Cq, dtq = xf[:, :, sl], Bf[:, :, sl], Cf[:, :, sl], \
+            dt[:, :, sl].float()
+        cum = torch.cumsum(dtq * A[None, :, None], dim=-1)
+        diff = torch.where(tri, cum[..., :, None] - cum[..., None, :],
+                           torch.full_like(cum[..., None], -1e30))
+        W = (Cq @ Bq.transpose(-1, -2)) * torch.exp(diff) * dtq[..., None, :]
+        w_hi, w_lo = _bf16_split(W)
+        h_hi, h_lo = _bf16_split(h)
+        y = (Cq @ h_hi.transpose(-1, -2) + Cq @ h_lo.transpose(-1, -2)) \
+            * torch.exp(cum)[..., None] + w_hi @ xq + w_lo @ xq
+        wend = dtq * torch.exp(cum[..., -1:] - cum)
+        xw_hi, xw_lo = _bf16_split(xq * wend[..., None])
+        h = h * torch.exp(cum[..., -1])[..., None, None] \
+            + xw_hi.transpose(-1, -2) @ Bq + xw_lo.transpose(-1, -2) @ Bq
+        ys.append(y)
+    return torch.cat(ys, dim=2), h
+
+
+# the reference's cases the tensor-core kernel takes (chunk 64 or 128, P and
+# N multiples of 16), in bf16: x, B and C rounded to bf16 for both packages
+WGMMA_CASES = [c[:7] for i, c in enumerate(SSD_CASES) if c[6] in (64, 128)]
+WGMMA_IDS = [SSD_IDS[i] for i, c in enumerate(SSD_CASES)
+             if c[6] in (64, 128)]
+
+
+def _bf16_inputs(case):
+    (x, dt, A, B, C), _ = _ssd_inputs(*case[:6], "float32")
+    x, B, C = (t.bfloat16() for t in (x, B, C))
+    j = [jnp.asarray(_np(t)) for t in (x, dt, A, B, C)]
+    j[0] = j[0].astype(jnp.bfloat16)
+    return (x, dt, A, B, C), j
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=WGMMA_IDS)
+def test_wgmma_arithmetic_matches_pallas_interpret_and_oracle(case):
+    """The kernel's rounding (hi + lo bf16 operands) against the reference's
+    Pallas kernel in interpret mode and its sequential oracle, at the
+    reference's bf16 tolerances: y 3e-2, h_final 5e-4."""
+    (x, dt, A, B, C), (jx, jdt, jA, jB, jC) = _bf16_inputs(case)
+    assert tssd.pick_variant(x, B, C, case[6]) == "wgmma"
+    y, h = _emulate_wgmma_kernel(x, dt, A, B, C, case[6])
+    yk, hk = pallas_ssd(jx, jdt, jA, jB, jC, chunk=case[6], interpret=True)
+    yr, hr = jref.ssd(jx, jdt, jA, jB, jC)
+    for ry, rh in ((yk, hk), (yr, hr)):
+        np.testing.assert_allclose(_np(y.bfloat16()), _np(ry), **TOL_BF16)
+        np.testing.assert_allclose(_np(h), _np(rh), **TOL_SSD)
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=WGMMA_IDS)
+def test_wgmma_arithmetic_matches_the_plain_version_in_f32(case):
+    """The same against the port's plain version on the same bf16 values in
+    f32, before any output rounding: 1e-4, the class of f32 arithmetic.  The
+    hi + lo split stays within 7 % of it; a single bf16 rounding of W, h or
+    x·w_end instead misses it by about 70×, 40× and 20× on these cases."""
+    (x, dt, A, B, C), _ = _bf16_inputs(case)
+    y, h = _emulate_wgmma_kernel(x, dt, A, B, C, case[6])
+    yp, hp = tssd.ssd_scan_reference(x.float(), dt, A, B.float(), C.float(),
+                                     chunk=case[6])
+    torch.testing.assert_close(y, yp, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, hp, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
 # the Mamba2 mixer
 # ---------------------------------------------------------------------------
 
