@@ -154,8 +154,9 @@ TOL_PREFILL_BF16 = 5e-2
 # The reference's own case table for the SSD scan, plus edges: a chunk that
 # is not a multiple of the FP32 kernel's 32-row strip, mamba2-370m's d_state
 # at chunk 128, two groups, and the largest chunk at the largest d_state; then
-# bf16 cases for the tensor-core kernel (chunk 64 and 128, N 16/64/128, G 2, P
-# 32/64/128, at least 8 chunks so the state carries) and bf16 the variant rule
+# bf16 cases for the tensor-core kernel (chunk 64 and 128, N 16/32/64/80/128,
+# G 2, P 16/32/48/64/128, at least 8 chunks so the state carries, and one
+# chunk alone) and bf16 the variant rule
 # sends to the FP32 kernel.  x is in the case's type; B and C are in the
 # case's B/C type in the contiguous layout, and in x's type in the main
 # path's layout (slices of x's tensor).  The last two fields: the kernel each
@@ -183,6 +184,14 @@ SSD_CASES = [
     ("wg_q128_n16_p32", 2, 2, 2, 1024, 32, 16, 128, BF16, BF16,
      ("wgmma", "wgmma")),
     ("wg_p128_two_slices", 1, 2, 1, 1024, 128, 64, 128, BF16, BF16,
+     ("wgmma", "wgmma")),
+    # the walk's ends (one chunk), the reduced configs' P, N padded inside
+    # the 64- and 128-wide state
+    ("wg_one_chunk", 2, 4, 1, 128, 64, 64, 128, BF16, BF16,
+     ("wgmma", "wgmma")),
+    ("wg_p16_n32", 1, 4, 1, 512, 16, 32, 64, BF16, BF16,
+     ("wgmma", "wgmma")),
+    ("wg_p48_n80", 1, 2, 1, 1024, 48, 80, 128, BF16, BF16,
      ("wgmma", "wgmma")),
     ("bf16_chunk32", 1, 4, 1, 256, 32, 16, 32, BF16, BF16, ("fma", "fma")),
     ("bf16_p40_n24", 1, 2, 1, 512, 40, 24, 128, BF16, BF16, ("fma", "fma")),

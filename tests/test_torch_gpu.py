@@ -269,12 +269,16 @@ def test_ssd_tile_fits_shared_memory(P, N, chunk, variant, want_pb,
 
 WGMMA_CASES = [
     # Bz, H, G, L, P, N, chunk, dtype: at least 8 chunks, so the state
-    # carries; chunk 64 and 128, N 16/64/128, G 2, P 32/64/128
+    # carries, or one chunk alone; chunk 64 and 128, N 16-128, G 2, P
+    # 16-128
     (2, 4, 2, 1024, 64, 64, 128, "bfloat16"),
     (2, 4, 2, 512, 32, 16, 64, "bfloat16"),
     (1, 4, 1, 1024, 64, 128, 128, "bfloat16"),
     (1, 4, 2, 512, 64, 128, 64, "bfloat16"),
     (1, 2, 1, 1024, 128, 64, 128, "bfloat16"),  # P in two slices
+    (2, 4, 1, 128, 64, 64, 128, "bfloat16"),    # one chunk: the walk's ends
+    (1, 4, 1, 512, 16, 32, 64, "bfloat16"),     # the reduced configs' P
+    (1, 2, 1, 1024, 48, 80, 128, "bfloat16"),   # N 80 inside the 128 state
 ]
 
 
