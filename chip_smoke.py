@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only fa-cases|fa    # flash attention alone
     python3 chip_smoke.py --only ssd-cases|ssd  # the SSD scan alone
     python3 chip_smoke.py --only mm-cases|mm    # matmul alone
+    python3 chip_smoke.py --only tr-cases|tr    # the transpose alone
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
 source, all started together), holds each kernel against its plain PyTorch
@@ -35,12 +36,15 @@ counts set to 0 just before the path and read just after):
 Every phase prints one JSON line; any failure ends the run with a non-zero
 exit code.  The last line is ``{"ok": true, "device": {...}}``.  With
 ``--only`` it builds, holds one kernel (flash attention: ``fa``; SSD scan:
-``ssd``; matmul: ``mm``) against its plain version at its case table and
-(without ``-cases``) times it at the main paths' shapes, runs no main path,
-and says so in its last line.  The ``kernels`` line gives each matmul kernel
-(``paper16``, ``fma128``, ``wgmma``) and each SSD-scan kernel (``wgmma``,
-``fma``) with its tile, registers and spills; the build fails if a
-tensor-core instance of any kernel spills.
+``ssd``; matmul: ``mm``; transpose: ``tr``) against its plain version at its
+case table and (without ``-cases``) times it at the main paths' shapes, runs
+no main path, and says so in its last line.  The ``kernels`` line gives each
+matmul kernel (``paper16``, ``fma128``, ``wgmma``), each SSD-scan kernel
+(``wgmma``, ``fma``) and each transpose kernel (``vec16``, ``scalar``) with
+its tile, registers and spills; the build fails if a tensor-core instance of
+any kernel, or an instance of the transpose's vector kernel, spills.  The
+transpose is timed at the calibration's four sizes beside the empty kernel
+over the same grid (the floor one block per tile sets).
 
 It needs a GPU (it fails where ``torch.cuda.is_available()`` is false) and
 ``nvcc``; it imports ``torch`` and ``repro_torch`` only.
@@ -246,16 +250,43 @@ MM_CASES = [
 ]
 # the reference's own tolerances: IEEE f32 products (TF32 would miss them)
 MM_TOL = {torch.float32: (1e-3, 1e-5), torch.bfloat16: (1.0, 3e-2)}
-# the reference's three transpose cases, then block 16, bf16 and ragged;
-# the result must be exact (a copy of bits)
+# The reference's three transpose cases, then block 16, bf16 and ragged,
+# then layouts that send a call to each kernel: a base one element past a
+# 16-byte boundary (offset), a leading stride not a multiple of one access
+# (stride: cols + 3), a padded aligned stride (pad: cols + 8), ragged edges
+# vec16 masks as whole accesses, the calibration's contiguous n x n; and the
+# two variants vec16 was chosen against, named explicitly.  The result must
+# be exact (a copy of bits).
+# id, (M, N), block, dtype, layout, variant named by the caller (None: the
+# one pick_variant names), the variant pick_variant must name
 TR_CASES = [
-    ("ref0", (256, 256), 128, torch.float32),
-    ("ref1", (512, 256), 128, torch.float32),
-    ("ref2", (128, 384), 64, torch.float32),
-    ("block16", (256, 512), 16, torch.float32),
-    ("bf16", (384, 256), 32, torch.bfloat16),
-    ("ragged_block16", (100, 77), 16, torch.float32),
-    ("bf16_ragged_block256", (333, 1000), 256, torch.bfloat16),
+    ("ref0", (256, 256), 128, F32, "contig", None, "scalar"),
+    ("ref1", (512, 256), 128, F32, "contig", None, "scalar"),
+    ("ref2", (128, 384), 64, F32, "contig", None, "scalar"),
+    ("block16", (256, 512), 16, F32, "contig", None, "vec16"),
+    ("bf16", (384, 256), 32, BF16, "contig", None, "scalar"),
+    ("ragged_block16", (100, 77), 16, F32, "contig", None, "scalar"),
+    ("bf16_ragged_block256", (333, 1000), 256, BF16, "contig", None,
+     "scalar"),
+    ("bf16_block16", (384, 256), 16, BF16, "contig", None, "vec16"),
+    ("m100_block16", (100, 64), 16, F32, "contig", None, "vec16"),
+    ("bf16_m104_n40_block16", (104, 40), 16, BF16, "contig", None, "vec16"),
+    ("offset_block16", (256, 512), 16, F32, "offset", None, "scalar"),
+    ("bf16_offset_block16", (384, 256), 16, BF16, "offset", None, "scalar"),
+    ("stride_block16", (256, 512), 16, F32, "stride", None, "scalar"),
+    ("bf16_stride_block16", (384, 256), 16, BF16, "stride", None, "scalar"),
+    ("pad_block16", (256, 520), 16, F32, "pad", None, "vec16"),
+    ("bf16_pad_block16", (384, 264), 16, BF16, "pad", None, "vec16"),
+    ("calibration_2048", (2048, 2048), 16, F32, "contig", None, "vec16"),
+    ("scalar16_aligned", (256, 512), 16, F32, "contig", "scalar", "vec16"),
+    ("other_width", (104, 40), 16, F32, "contig", "vec16_other_width",
+     "vec16"),
+    ("bf16_other_width", (104, 40), 16, BF16, "contig", "vec16_other_width",
+     "vec16"),
+    ("other_order", (104, 40), 16, F32, "contig", "vec16_other_order",
+     "vec16"),
+    ("bf16_other_order", (384, 256), 16, BF16, "contig",
+     "vec16_other_order", "vec16"),
 ]
 CALIB_DEVICE = "gpu-h100"    # the registry name of the fitted model
 CALIB_SCALE = "gpu"
@@ -432,6 +463,31 @@ def mm_ptxas(entries: list) -> list:
     return out
 
 
+def tr_ptxas(entries: list) -> list:
+    """Every transpose kernel instance among ``ptxas_entries``: its kernel,
+    element type, tile (scalar) or elements an access and grid order (the
+    vector kernel), registers and spills."""
+    out = []
+    for e in entries:
+        fn = e["function"]
+        vec = re.search(r"transpose_vec_kernelI([jt])Li(\d+)ELb([01])E", fn)
+        sca = re.search(r"transpose_kernelI([jt])Li(\d+)E", fn)
+        if vec:
+            row = {"kernel": "transpose_vec_kernel",
+                   "elems_per_access": int(vec.group(2)),
+                   "grid_x_over": "rows" if vec.group(3) == "1"
+                   else "columns"}
+        elif sca:
+            row = {"kernel": "transpose_kernel", "tile": int(sca.group(2))}
+        else:
+            continue
+        row["dtype"] = "float32" if (vec or sca).group(1) == "j" \
+            else "bfloat16"
+        out.append({**row, **{k: e[k] for k in (
+            "registers", "spill_store_bytes", "spill_load_bytes")}})
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     logs = _build.build_all(extra_flags=("-Xptxas", "-v"), force=True)
@@ -475,14 +531,22 @@ def phase_build():
     ssd_serialised = sorted({m.group(1) for m in re.finditer(
         r"\((C75\d\d)\) Potential Performance Loss.*ssd_wgmma_kernel",
         logs.get("ssd_scan", ""))})
+    trx = tr_ptxas(entries.get("transpose", []))
+    tr_vec = [e for e in trx if e["kernel"] == "transpose_vec_kernel"]
+    if len(tr_vec) != 6 or any(e["spill_store_bytes"] or e["spill_load_bytes"]
+                               for e in tr_vec):
+        raise AssertionError(f"a transpose_vec_kernel instance spills or was "
+                             f"not compiled: {tr_vec}")
     emit({"phase": "build", "ok": True,
           "seconds": round(time.perf_counter() - t0, 2),
           "build_dir": os.path.relpath(_build.build_dir(), ROOT),
           "sources": info, "flash_attention_wgmma_ptxas": wg,
           "flash_attention_wgmma_serialised": serialised,
           "matmul_ptxas": mmx, "matmul_wgmma_serialised": mm_serialised,
-          "ssd_scan_ptxas": ssx, "ssd_scan_wgmma_serialised": ssd_serialised})
-    return {"flash_attention": wg, "matmul": mmx, "ssd_scan": ssx}
+          "ssd_scan_ptxas": ssx, "ssd_scan_wgmma_serialised": ssd_serialised,
+          "transpose_ptxas": trx})
+    return {"flash_attention": wg, "matmul": mmx, "ssd_scan": ssx,
+            "transpose": trx}
 
 
 def phase_kernel_cases(gen):
@@ -784,18 +848,47 @@ def phase_matmul_cases(gen):
     return rows
 
 
+def tr_operand(shape, dtype, layout, gen):
+    """An (M, N) input laid out as ``layout`` says (see ``TR_CASES``)."""
+    M, N = shape
+    if layout == "offset":
+        flat = torch.randn(M * N + 1, device=DEV, generator=gen).to(dtype)
+        return flat[1:].view(M, N)
+    extra = {"contig": 0, "stride": 3, "pad": 8}[layout]
+    return torch.randn((M, N + extra), device=DEV,
+                       generator=gen).to(dtype)[:, :N]
+
+
 def phase_transpose_cases(gen):
-    """transpose against its plain version at the case table: exact."""
+    """transpose against its plain version at the case table, each case on
+    the variant the table names: exact.  vec16 named for a layout it cannot
+    read must be refused, not served by another kernel."""
     rows = []
-    for (cid, shape, blk, dtype) in TR_CASES:
-        x = torch.randn(shape, device=DEV, generator=gen).to(dtype)
-        o = kops.transpose(x, block=blk)
+    for (cid, shape, blk, dtype, layout, forced, want) in TR_CASES:
+        x = tr_operand(shape, dtype, layout, gen)
+        if tr.pick_variant(x, blk) != want:
+            raise AssertionError(f"transpose {cid}: pick_variant says "
+                                 f"{tr.pick_variant(x, blk)}, expected {want}")
+        variant = forced or want
+        o = tr.transpose(x, block=blk, variant=forced) if forced \
+            else kops.transpose(x, block=blk)
         torch.cuda.synchronize()
         if not torch.equal(o, tr.transpose_reference(x)):
             raise AssertionError(f"transpose {cid}: not equal to x.t()")
+        if want == "scalar" and blk < 32:
+            try:
+                tr.transpose(x, block=blk, variant="vec16")
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError(f"transpose {cid}: vec16 was not "
+                                     "refused for a layout it cannot read")
+        t = tr.tile(blk, dtype, variant)
         rows.append({"case": cid, "shape": list(shape), "block": blk,
                      "dtype": str(dtype).replace("torch.", ""),
-                     "tile": tr.tile(blk, dtype)[0], "max_abs_err": 0.0,
+                     "layout": layout, "ldx": x.stride(0),
+                     "variant": variant, "tile": t.edge,
+                     "threads": t.threads, "max_abs_err": 0.0,
                      "tol": "exact"})
     emit({"phase": "kernels.transpose.cases", "ok": True,
           "kernel": "transpose", "cases": rows})
@@ -869,46 +962,86 @@ def phase_matmul_main_shape(gen):
     return rows
 
 
-def phase_transpose_main_shape(gen):
-    """transpose at the calibration's largest tiled transpose, 16² tile."""
-    n, g = largest_tiled("transpose"), mkernels.GSIZE
-    x = mkernels._rand(gen, (n, n), DEV)
-    o = kops.transpose(x, block=g)
+def tr_ladder() -> list:
+    """n of the calibration's four tiled transpose cases."""
+    p = mkernels._P[CALIB_SCALE]["transpose"]
+    return [2 ** (p + t) for t in range(4)]
+
+
+def tr_row(label, x, variant, reps, refs):
+    """One timed transpose at the 16 tile: ``variant`` on ``x`` (the
+    main path's own call where it is the variant ``pick_variant`` names),
+    exact against x.t(), beside the empty kernel over the same grid and,
+    with ``refs``, the plain version and ``x.t().contiguous()``."""
+    g = mkernels.GSIZE
+    n_m, n_n = x.shape
+    o = tr.transpose(x, block=g, variant=variant)
     torch.cuda.synchronize()
     if not torch.equal(o, tr.transpose_reference(x)):
-        raise AssertionError("transpose at the main shape: not x.t()")
+        raise AssertionError(f"transpose {label}: not x.t()")
     del o
+    if variant == tr.pick_variant(x, g):
+        def kernel():
+            kops.transpose(x, block=g)
+    else:
+        def kernel():
+            tr.transpose(x, block=g, variant=variant)
 
-    def kernel():
-        kops.transpose(x, block=g)
+    def floor():
+        tr.launch_empty(n_m, n_n, block=g, dtype=x.dtype, variant=variant)
 
-    def plain():
-        tr.transpose_reference(x)
-
-    def library():  # the yardstick, timed here only
-        x.t().contiguous()
-
-    def tile64():
-        kops.transpose(x, block=64)
-
-    ms_a = time_ms(kernel, 2, 10)
-    plain_ms = time_ms(plain, 2, 10)
-    library_ms = time_ms(library, 2, 10)
-    tile64_ms = time_ms(tile64, 2, 10)
-    ms_b = time_ms(kernel, 2, 10)
-    nbytes = 2 * n * n * x.element_size()
-    t_bytes = nbytes / PEAK_HBM_BYTES
+    ms_a = time_ms(kernel, 2, reps)
+    floor_ms = time_ms(floor, 2, reps)
+    plain_ms = library_ms = None
+    if refs:
+        plain_ms = time_ms(lambda: tr.transpose_reference(x), 2, reps)
+        library_ms = time_ms(lambda: x.t().contiguous(), 2, reps)
+    ms_b = time_ms(kernel, 2, reps)
+    nbytes = 2 * x.numel() * x.element_size()
+    bound = nbytes / PEAK_HBM_BYTES * 1e3
     ms = min(ms_a, ms_b)
+    t = tr.tile(g, x.dtype, variant)
     return {
-        "shape": {"M": n, "N": n, "dtype": "float32", "block": g,
-                  "tile": tr.tile(g)[0]},
-        "max_abs_err": 0.0, "tol": "exact",
+        "label": label,
+        "shape": {"M": n_m, "N": n_n,
+                  "dtype": str(x.dtype).replace("torch.", ""), "block": g},
+        "variant": variant, "tile": t.edge, "threads": t.threads,
+        "smem_bytes": t.smem, "max_abs_err": 0.0, "tol": "exact",
         "ms": ms, "kernel_ms": ms, "kernel_ms_runs": [ms_a, ms_b],
         "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_call": "x.t().contiguous()", "tile64_ms": tile64_ms,
-        "bound_ms": t_bytes * 1e3, "bound_by": "bytes", "bytes": nbytes,
+        "library_call": "x.t().contiguous()" if refs else None,
+        "dispatch_floor_ms": floor_ms,
+        "dispatch_floor_note": f"an empty kernel over the same grid "
+                               f"({t.threads} threads a block)",
+        "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
+        "share_of_bound": bound / ms,
         "achieved_tb_per_s": nbytes / (ms * 1e-3) / 1e12,
     }
+
+
+def phase_transpose_main_shape(gen):
+    """transpose at the 16 tile at the calibration's four sizes (n x n f32):
+    the variant the calibration runs (vec16) and the one it replaced
+    (scalar at the 16 tile) on the same inputs; at the largest size also the
+    two variants vec16 was chosen against, and bf16 at both widths."""
+    rows = []
+    ladder = tr_ladder()
+    for n in reversed(ladder):   # the largest (the kernels line's) first
+        x = mkernels._rand(gen, (n, n), DEV)
+        reps = min(500, 20 * (ladder[-1] // n) ** 2)
+        rows.append(tr_row(f"vec16 f32 n{n}", x, "vec16", reps, True))
+        rows.append(tr_row(f"scalar16 f32 n{n}", x, "scalar", reps, False))
+        if n == ladder[-1]:
+            for v in tr.MEASURED_ONLY:
+                rows.append(tr_row(f"{v} f32 n{n}", x, v, reps, False))
+            xb = x.bfloat16()
+            del x
+            rows.append(tr_row(f"vec16 bf16 n{n}", xb, "vec16", reps, True))
+            for v in tr.MEASURED_ONLY:
+                rows.append(tr_row(f"{v} bf16 n{n}", xb, v, reps, False))
+            del xb
+        torch.cuda.empty_cache()
+    return rows
 
 
 def kernel_of(case: str):
@@ -1436,22 +1569,30 @@ def ssd_extra(ss_ptxas: list) -> dict:
             "ptxas": ss_ptxas}
 
 
+def tr_extra(tr_ptx: list) -> dict:
+    """The transpose fields beyond the common ones: the variant rule, and
+    the registers and spills of every instance, from the build log."""
+    return {"variants": {"block < 32; base, leading stride, M, N aligned to "
+                         "one 16-byte access": "vec16",
+                         "anything else": "scalar"},
+            "ptxas": tr_ptx}
+
+
 def kernel_only(args, smi) -> int:
-    """``--only fa-cases|fa|ssd-cases|ssd|mm-cases|mm``: the build, one
-    kernel's case table, and (``fa``, ``ssd``, ``mm``) its timings at the
-    main paths' shapes; no main path runs, so the last line says so."""
+    """``--only fa-cases|fa|ssd-cases|ssd|mm-cases|mm|tr-cases|tr``: the
+    build, one kernel's case table, and (without ``-cases``) its timings at
+    the main paths' shapes; no main path runs, so the last line says so."""
     with phase("build"):
         ptx = phase_build()
     gen = torch.Generator(DEV).manual_seed(args.seed)
-    if args.only.startswith("fa"):
-        with phase("kernels.cases"):
-            phase_kernel_cases(gen)
-    elif args.only.startswith("ssd"):
-        with phase("kernels.ssd.cases"):
-            phase_ssd_cases(gen)
-    else:
-        with phase("kernels.matmul.cases"):
-            phase_matmul_cases(gen)
+    kernel = args.only.split("-")[0]
+    cases = {"fa": ("kernels.cases", phase_kernel_cases),
+             "ssd": ("kernels.ssd.cases", phase_ssd_cases),
+             "mm": ("kernels.matmul.cases", phase_matmul_cases),
+             "tr": ("kernels.transpose.cases", phase_transpose_cases)}
+    name, fn = cases[kernel]
+    with phase(name):
+        fn(gen)
     if args.only == "fa":
         with phase("kernels.main_shape"):
             B, S = PREFILL_TOKENS
@@ -1473,6 +1614,12 @@ def kernel_only(args, smi) -> int:
             emit({"phase": "kernels.matmul.main_shape", "ok": True,
                   "kernel": "matmul", "shapes": phase_matmul_main_shape(gen),
                   **mm_extra(ptx["matmul"])})
+    elif args.only == "tr":
+        with phase("kernels.transpose.main_shape"):
+            emit({"phase": "kernels.transpose.main_shape", "ok": True,
+                  "kernel": "transpose",
+                  "shapes": phase_transpose_main_shape(gen),
+                  **tr_extra(ptx["transpose"])})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "scope": f"--only {args.only}",
                       "main_paths": "not run"}), flush=True)
@@ -1489,11 +1636,11 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="also write every phase line to this JSON file")
     ap.add_argument("--only", choices=("fa-cases", "fa", "ssd-cases", "ssd",
-                                       "mm-cases", "mm"),
+                                       "mm-cases", "mm", "tr-cases", "tr"),
                     default=None,
                     help="build, then only the flash-attention (fa), SSD-scan "
-                         "(ssd) or matmul (mm) cases (-cases) or the cases "
-                         "and timings")
+                         "(ssd), matmul (mm) or transpose (tr) cases (-cases) "
+                         "or the cases and timings")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1567,9 +1714,9 @@ def main() -> int:
               "kernel": "matmul", "shapes": mm_rows})
     torch.cuda.empty_cache()
     with phase("kernels.transpose.main_shape"):
-        tr_row = phase_transpose_main_shape(gen)
+        tr_rows = phase_transpose_main_shape(gen)
         emit({"phase": "kernels.transpose.main_shape", "ok": True,
-              "kernel": "transpose", "shapes": [tr_row]})
+              "kernel": "transpose", "shapes": tr_rows})
 
     kernels = {"kernels": [
         kernel_entry("flash_attention",
@@ -1590,7 +1737,7 @@ def main() -> int:
                      "src/repro_torch/kernels/csrc/transpose.cu",
                      "src/repro/kernels/transpose.py:30",
                      {a: n["transpose"] for a, n in launched.items()},
-                     [tr_row], tr_cases),
+                     tr_rows, tr_cases, **tr_extra(ptx["transpose"])),
     ]}
     for k in kernels["kernels"]:
         if k["launches"] == 0:

@@ -1,5 +1,5 @@
-"""Tiled transpose: the wrapper of the hand-written CUDA kernel, and its plain
-version.
+"""Tiled transpose: the wrapper of the hand-written CUDA kernels, and their
+plain version.
 
 Replaces the TPU kernel ``repro.kernels.transpose.transpose`` (Pallas,
 ``_kernel``), the prefetch variant of the paper's *Transpose* measurement
@@ -8,12 +8,26 @@ first call on a CUDA tensor (``_build.load``) and bound with ``ctypes``.
 
 What bounds it on an H100: bytes — ``2·M·N`` elements cross device memory
 and nothing is computed.  Each thread block passes a T×T tile through shared
-memory, padded by one element per row against bank conflicts, so that both
-the reads of X and the writes of Y are stride 1 (coalesced).  The Pallas
-default ``block=256`` is a VMEM tile that would not fit a block's shared
-memory; the tiles built are 16, 32 and 64: 16 is served exactly (one barrier
-per 16×16 tile, as the measurement class declares), larger requests get the
-largest built tile not above them (``tile`` reports which).
+memory, so that both the reads of X and the writes of Y are stride 1
+(coalesced).  ``pick_variant`` chooses the kernel before the launch, from
+type, shape, strides, base address and the requested ``block`` alone:
+
+* ``"vec16"`` (``transpose_vec_kernel``): a request of the 16 tile (any
+  ``block`` below 32), the base 16-byte aligned, and the leading stride, M
+  and N multiples of one 16-byte access (4 f32 or 8 bf16 elements).  One
+  block of 64 (f32) or 32 (bf16) threads per 16×16 tile, each thread one
+  16-byte load and one 16-byte store, one barrier, a swizzled shared tile
+  without bank conflicts.  The calibration's tiled transpose (n × n f32,
+  ``block=16``) lands here.
+* ``"scalar"`` (``transpose_kernel``): everything else.  One element a
+  thread at the tile the request gets (16: 256 threads, as PR 13 built it;
+  32; 64 — the largest built tile not above the request, so the Pallas
+  default 256 gets 64), any layout, any M, N >= 1.
+
+``MEASURED_ONLY`` holds the two variants vec16's access width and grid order
+were chosen against; only a caller that names them gets them.  ``tile`` and
+``tile_for`` report the variant, tile edge, threads and shared memory of a
+launch, as the CUDA source sets them.
 
 Accepted: x ``(M, N)``, any ``M, N >= 1`` (ragged edges are masked), f32 or
 bf16, row-major (last dimension contiguous, any leading stride).  The result
@@ -22,16 +36,31 @@ is ``(N, M)``, contiguous, bit-for-bit equal to ``x.t()``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.runtime import flags
 
+#: the kernels of the CUDA source, by the number it takes them by
+VARIANTS = ("scalar", "vec16", "vec16_other_width", "vec16_other_order")
+#: vec16 at the access width it does not use for the type (8 bytes), and
+#: with its grid walked over X's rows: timed beside vec16, never picked
+MEASURED_ONLY = VARIANTS[2:]
+#: elements of one vec16 access (16 bytes), as the CUDA source's VecWidth
+VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
+
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
+
+
+class Tile(NamedTuple):
+    variant: str      # one of VARIANTS
+    edge: int         # the tile's edge, 16, 32 or 64
+    threads: int      # threads of one block
+    smem: int         # bytes of shared memory of one block
 
 
 def transpose_reference(x: torch.Tensor) -> torch.Tensor:
@@ -39,35 +68,69 @@ def transpose_reference(x: torch.Tensor) -> torch.Tensor:
     return x.t().contiguous()
 
 
-def tile(block: int = 256, dtype: torch.dtype = torch.float32
-         ) -> Tuple[int, int]:
-    """The tile edge the kernel launches for a requested ``block``, as the
-    CUDA source chooses it, and the bytes of shared memory of one block.
-    Builds the source if need be; needs ``nvcc``."""
+def pick_variant(x: torch.Tensor, block: int,
+                 base: Optional[int] = None) -> str:
+    """The kernel ``transpose(x, block=block)`` goes to, from type, shape,
+    strides and base address alone (see the module's note).  ``base``: the
+    byte address of x (default ``x.data_ptr()``; for meta tensors the
+    storage offset in bytes)."""
+    if base is None:
+        base = x.storage_offset() * x.element_size() if x.is_meta \
+            else x.data_ptr()
+    v = VEC_ELEMS.get(x.dtype)
+    if v is None or block >= 32 or base % (v * x.element_size()) \
+            or x.stride(0) % v or x.shape[0] % v or x.shape[1] % v:
+        return "scalar"
+    return "vec16"
+
+
+def tile(block: int = 256, dtype: torch.dtype = torch.float32,
+         variant: str = "scalar") -> Tile:
+    """The tile ``variant`` launches for a requested ``block``, as the CUDA
+    source sets it.  Builds the source if need be; needs ``nvcc``."""
     fn = _build.load("transpose").transpose_tile
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int),
-                                            ctypes.POINTER(ctypes.c_longlong)]
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2 \
+            + [ctypes.POINTER(ctypes.c_longlong)]
         fn.restype = ctypes.c_int
-    edge, smem = ctypes.c_int(), ctypes.c_longlong()
+    edge, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
     nbytes = torch.empty((), dtype=dtype).element_size()
-    if fn(block, nbytes, ctypes.byref(edge), ctypes.byref(smem)) != 0:
-        raise ValueError(f"the kernel takes no tile for block={block}, "
-                         f"dtype {dtype}")
-    return edge.value, smem.value
+    if variant not in VARIANTS or fn(
+            block, nbytes, VARIANTS.index(variant), ctypes.byref(edge),
+            ctypes.byref(threads), ctypes.byref(smem)) != 0:
+        raise ValueError(f"the {variant} kernel takes no tile for "
+                         f"block={block}, dtype {dtype}")
+    return Tile(variant, edge.value, threads.value, smem.value)
 
 
-def transpose(x: torch.Tensor, *, block: int = 256) -> torch.Tensor:
+def tile_for(x: torch.Tensor, block: int = 256) -> Tile:
+    """The tile of the launch ``transpose(x, block=block)`` makes."""
+    return tile(block, x.dtype, pick_variant(x, block))
+
+
+def _lib_fn(name: str, argtypes):
+    fn = getattr(_build.load("transpose"), name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def transpose(x: torch.Tensor, *, block: int = 256,
+              variant: Optional[str] = None) -> torch.Tensor:
     """(M, N) -> (N, M), contiguous.
 
-    A CUDA tensor goes through the kernel, or the call raises.  The plain
-    version is taken only for tensors that lie on the CPU, and under
-    ``flags.use_kernels(False)`` (for comparisons)."""
+    A CUDA tensor goes through the kernel ``pick_variant`` names (or the one
+    ``variant`` names, which the CUDA source refuses where the layout does
+    not allow it), or the call raises.  The plain version is taken only for
+    tensors that lie on the CPU, and under ``flags.use_kernels(False)`` (for
+    comparisons)."""
     if x.ndim != 2 or min(x.shape) < 1:
         raise ValueError(f"expected a non-empty (M, N) tensor; got "
                          f"{tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16; got {x.dtype}")
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}; got {variant!r}")
     if x.device.type == "cpu" or not flags.kernels_enabled():
         return transpose_reference(x)
     if x.device.type != "cuda":
@@ -82,22 +145,37 @@ def transpose(x: torch.Tensor, *, block: int = 256) -> torch.Tensor:
         raise ValueError(f"x: rows must be contiguous (row-major, any "
                          f"leading stride); got strides {x.stride()}")
     M, N = x.shape
+    variant = variant or pick_variant(x, block)
     y = torch.empty((N, M), dtype=x.dtype, device=x.device)
 
-    fn = _build.load("transpose").transpose_forward
-    if fn.argtypes is None:
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _lib_fn("transpose_forward", _ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), y.data_ptr(), M, N, x.stride(0), y.stride(0),
-                 block, x.element_size(),
+                 block, x.element_size(), VARIANTS.index(variant),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"transpose_forward: CUDA error {err} at launch "
-                           f"(x {tuple(x.shape)}, block {block})")
+                           f"of {variant} (x {tuple(x.shape)}, strides "
+                           f"{x.stride()}, block {block})")
     transpose.launches += 1
     return y
 
 
-#: how many times the kernel was launched (and only that: the plain version
-#: does not count)
+#: how many times a kernel was launched, any variant (and only that: the
+#: plain version does not count)
 transpose.launches = 0
+
+
+def launch_empty(M: int, N: int, *, block: int = 16,
+                 dtype: torch.dtype = torch.float32, variant: str = "vec16",
+                 device: Optional[torch.device] = None) -> None:
+    """Launch an empty kernel over the grid and block shape ``variant``
+    launches for an (M, N) input: the floor that dispatching one block per
+    tile sets (timed beside the kernel; counts no launch of it)."""
+    fn = _lib_fn("transpose_empty", [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    nbytes = torch.empty((), dtype=dtype).element_size()
+    err = fn(M, N, block, nbytes, VARIANTS.index(variant),
+             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"transpose_empty: CUDA error {err} at launch "
+                           f"({variant}, {M}x{N}, block {block})")

@@ -523,37 +523,82 @@ def test_matmul_bf16_variant_rule(lda, ldb, a_ptr, b_ptr, want, cuda):
 
 
 TR_CASES = [
-    # (M, N), block, dtype: the reference's three, then the paper's 16, bf16,
-    # ragged
-    ((256, 256), 128, "float32"),
-    ((512, 256), 128, "float32"),
-    ((128, 384), 64, "float32"),
-    ((256, 512), 16, "float32"),
-    ((384, 256), 32, "bfloat16"),
-    ((100, 77), 16, "float32"),
-    ((333, 1000), 256, "bfloat16"),
+    # (M, N), block, dtype, layout, the variant it lands on: the reference's
+    # three, then the paper's 16, bf16, ragged, and the layouts of each
+    # kernel (as in chip_smoke.py TR_CASES)
+    ((256, 256), 128, "float32", "contig", "scalar"),
+    ((512, 256), 128, "float32", "contig", "scalar"),
+    ((128, 384), 64, "float32", "contig", "scalar"),
+    ((256, 512), 16, "float32", "contig", "vec16"),
+    ((384, 256), 32, "bfloat16", "contig", "scalar"),
+    ((100, 77), 16, "float32", "contig", "scalar"),
+    ((333, 1000), 256, "bfloat16", "contig", "scalar"),
+    ((384, 256), 16, "bfloat16", "contig", "vec16"),
+    ((100, 64), 16, "float32", "contig", "vec16"),      # ragged, whole accesses
+    ((104, 40), 16, "bfloat16", "contig", "vec16"),
+    ((256, 512), 16, "float32", "offset", "scalar"),    # base + 4 bytes
+    ((384, 256), 16, "bfloat16", "offset", "scalar"),
+    ((256, 512), 16, "float32", "stride", "scalar"),    # leading stride N + 3
+    ((256, 512), 16, "float32", "pad", "vec16"),        # leading stride N + 8
+    ((2048, 2048), 16, "float32", "contig", "vec16"),   # the calibration's
 ]
+
+
+def _tr_input(shape, dtype, layout, device):
+    M, N = shape
+    dt = getattr(torch, dtype)
+    if layout == "offset":
+        return torch.randn(M * N + 1, device=device).to(dt)[1:].view(M, N)
+    extra = {"contig": 0, "stride": 3, "pad": 8}[layout]
+    return torch.randn(M, N + extra, device=device).to(dt)[:, :N]
 
 
 @pytest.mark.parametrize("case", TR_CASES,
                          ids=[f"tr{i}" for i in range(len(TR_CASES))])
 def test_transpose_kernel_is_exact(case, cuda):
     from repro_torch.kernels import transpose as tr
-    shape, blk, dtype = case
-    x = torch.randn(shape, device=cuda).to(getattr(torch, dtype))
+    shape, blk, dtype, layout, want = case
+    x = _tr_input(shape, dtype, layout, cuda)
+    assert tr.pick_variant(x, blk) == want == tr.tile_for(x, blk).variant
     before = tr.transpose.launches
     o = kops.transpose(x, block=blk)
     torch.cuda.synchronize()
     assert tr.transpose.launches == before + 1
     assert o.is_contiguous() and torch.equal(o, tr.transpose_reference(x))
+    if want == "scalar" and blk < 32:   # vec16 is refused, not replaced
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            tr.transpose(x, block=blk, variant="vec16")
+        assert tr.transpose.launches == before + 1
 
 
-@pytest.mark.parametrize("block,want", [(16, 16), (32, 32), (64, 64),
-                                        (256, 64), (8, 16)])
-def test_transpose_tile_reports(block, want, cuda):
+@pytest.mark.parametrize("variant", ["scalar", "vec16_other_width",
+                                     "vec16_other_order"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transpose_named_variants_are_exact(variant, dtype, cuda):
     from repro_torch.kernels import transpose as tr
-    edge, smem = tr.tile(block)
-    assert edge == want and smem == want * (want + 1) * 4
-    assert tr.tile(block, torch.bfloat16)[1] == want * (want + 1) * 2
+    x = _tr_input((104, 40), dtype, "contig", cuda)
+    o = tr.transpose(x, block=16, variant=variant)
+    torch.cuda.synchronize()
+    assert torch.equal(o, tr.transpose_reference(x))
+
+
+@pytest.mark.parametrize("block,variant,dtype,want", [
+    (16, "scalar", "float32", (16, 256, 16 * 17 * 4)),
+    (32, "scalar", "float32", (32, 256, 32 * 33 * 4)),
+    (64, "scalar", "float32", (64, 256, 64 * 65 * 4)),
+    (256, "scalar", "float32", (64, 256, 64 * 65 * 4)),
+    (8, "scalar", "bfloat16", (16, 256, 16 * 17 * 2)),
+    (16, "vec16", "float32", (16, 64, 1024)),
+    (16, "vec16", "bfloat16", (16, 32, 512)),
+    (16, "vec16_other_width", "float32", (16, 128, 1024)),
+    (16, "vec16_other_width", "bfloat16", (16, 64, 512)),
+    (16, "vec16_other_order", "float32", (16, 64, 1024)),
+])
+def test_transpose_tile_reports(block, variant, dtype, want, cuda):
+    from repro_torch.kernels import transpose as tr
+    t = tr.tile(block, getattr(torch, dtype), variant)
+    assert t.variant == variant and (t.edge, t.threads, t.smem) == want
     with pytest.raises(ValueError, match="no tile"):
         tr.tile(0)
+    with pytest.raises(ValueError, match="no tile"):
+        tr.tile(32, variant="vec16")   # vec16 is the 16 tile only

@@ -337,3 +337,135 @@ def test_matmul_and_transpose_reject_what_the_kernels_do_not_take(bad):
     if bad in ("dtype", "rank", "empty"):
         with pytest.raises((ValueError, TypeError)):
             ttr.transpose(a)
+
+
+# ---------------------------------------------------------------------------
+# transpose: the choice of kernel, and vec16's thread map
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype=torch.float32, ld=None, offset=0):
+    """A meta (M, N) view with leading stride ``ld`` at a storage offset of
+    ``offset`` elements (nothing allocated)."""
+    M, N = shape
+    ld = N if ld is None else ld
+    flat = torch.empty(offset + M * ld, dtype=dtype, device="meta")
+    return flat[offset:].view(M, ld)[:, :N]
+
+
+@pytest.mark.parametrize("shape,dtype,block,ld,offset,want", [
+    ((256, 512), torch.float32, 16, None, 0, "vec16"),     # aligned f32
+    ((384, 256), torch.bfloat16, 16, None, 0, "vec16"),    # aligned bf16
+    ((16384, 16384), torch.float32, 16, None, 0, "vec16"),  # calibration's
+    ((2048, 2048), torch.float32, 8, None, 0, "vec16"),    # 8 gets tile 16
+    ((256, 512), torch.float32, 16, 520, 4, "vec16"),      # padded, aligned
+    ((256, 512), torch.float32, 16, None, 1, "scalar"),    # base + 4 bytes
+    ((384, 256), torch.bfloat16, 16, None, 2, "scalar"),   # base + 4 bytes
+    ((384, 256), torch.bfloat16, 16, None, 4, "scalar"),   # base + 8 bytes
+    ((256, 512), torch.float32, 16, 515, 0, "scalar"),     # odd stride
+    ((256, 512), torch.float32, 16, 514, 0, "scalar"),     # stride % 4 == 2
+    ((384, 256), torch.bfloat16, 16, 260, 0, "scalar"),    # stride % 8 == 4
+    ((256, 77), torch.float32, 16, None, 0, "scalar"),     # N = 77
+    ((100, 77), torch.float32, 16, None, 0, "scalar"),     # ragged 100 x 77
+    ((100, 64), torch.bfloat16, 16, None, 0, "scalar"),    # M = 100, bf16
+    ((100, 64), torch.float32, 16, None, 0, "vec16"),      # 100 = 25 f32 x 4
+    ((102, 64), torch.float32, 16, None, 0, "scalar"),     # M % 4 == 2
+    ((256, 512), torch.float32, 32, None, 0, "scalar"),    # tile 32
+    ((256, 512), torch.float32, 64, None, 0, "scalar"),    # tile 64
+    ((256, 512), torch.float32, 256, None, 0, "scalar"),   # the default
+])
+def test_transpose_pick_variant(shape, dtype, block, ld, offset, want):
+    x = _meta(shape, dtype, ld, offset)
+    assert ttr.pick_variant(x, block) == want
+    # an explicit base decides alignment alone
+    assert ttr.pick_variant(x, block, base=offset * x.element_size()) == want
+    if want == "vec16":
+        assert ttr.pick_variant(x, block, base=4 * 1024 + 8) == "scalar"
+
+
+def test_transpose_vec_widths_match_the_cuda_source():
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "transpose.cu").read_text()
+    widths = dict(re.findall(r"struct VecWidth<unsigned (\w+), 0> "
+                             r"\{ static constexpr int V = (\d+);", src))
+    assert {torch.float32: int(widths["int"]),
+            torch.bfloat16: int(widths["short"])} == ttr.VEC_ELEMS
+
+
+def _vec_map(esize, V, swizzle=True):
+    """csrc/transpose.cu's VecMap for elements of ``esize`` bytes and
+    accesses of ``V`` elements, emulated: which X element each thread loads
+    and where it lands in shared memory, and which Y element each thread
+    stores.  Returns Y's tile of X element ids (row * 16 + column), how many
+    times each shared and Y element was written, and the bank conflicts
+    (extra wavefronts) of the shared stores and of the gathers."""
+    C, VB = 16 // V, V * esize
+    NC, threads = 128 // VB, 16 * (16 // V)
+
+    def slot(a, c):
+        f = a * C + c
+        return (f & ~(NC - 1)) | ((f & (NC - 1))
+                                  ^ ((2 * (a // V)) if swizzle else 0))
+
+    t = np.arange(threads)
+    row, acc = t // C, t % C
+    smem, s_writes = np.full(256, -1), np.zeros(256, int)
+    store_slots = np.array([slot(r, c) for r, c in zip(row, acc)])
+    for s, r, c in zip(store_slots, row, acc):
+        for i in range(V):
+            smem[s * V + i] = r * 16 + c * V + i
+            s_writes[s * V + i] += 1
+    y, y_writes = np.full((16, 16), -1), np.zeros((16, 16), int)
+    gathers = []   # per k: the shared element index each thread reads
+    for k in range(V):
+        a = acc * V + k
+        idx = np.array([slot(ai, j // V) * V + j % V
+                        for ai, j in zip(a, row)])
+        gathers.append(idx)
+        y[row, a] = smem[idx]
+        y_writes[row, a] += 1
+
+    def extra_wavefronts(words_per_thread, phase_threads):
+        n = 0
+        for p in range(0, threads, phase_threads):
+            banks = {}
+            for words in words_per_thread[p:p + phase_threads]:
+                for w in words:
+                    banks.setdefault(w % 32, set()).add(w)
+            n += max(len(ws) for ws in banks.values()) - 1
+        return n
+
+    # stores: VB bytes a thread, 128 / VB threads a phase; gathers: one
+    # element a thread, the whole warp at once (two threads on one word
+    # share it)
+    store_conf = extra_wavefronts(
+        [range(s * VB // 4, (s + 1) * VB // 4) for s in store_slots],
+        128 // VB)
+    gather_conf = sum(extra_wavefronts([[i * esize // 4] for i in idx],
+                                       32) for idx in gathers)
+    return y, s_writes, y_writes, store_conf, gather_conf
+
+
+@pytest.mark.parametrize("esize,V", [(4, 4), (2, 8), (4, 2), (2, 4)],
+                         ids=["f32_16B", "bf16_16B", "f32_8B", "bf16_8B"])
+def test_transpose_vec16_thread_map(esize, V):
+    y, s_writes, y_writes, store_conf, gather_conf = _vec_map(esize, V)
+    ids = np.arange(256).reshape(16, 16)
+    np.testing.assert_array_equal(y, ids.T)     # every element transposed
+    assert (s_writes == 1).all() and (y_writes == 1).all()  # once each
+    assert (store_conf, gather_conf) == (0, 0)  # as the source's note says
+
+
+def test_transpose_vec16_swizzle_is_what_removes_the_conflicts():
+    """Without the XOR the f32 gathers meet 4 to a bank (3 extra wavefronts
+    per gather and warp: 4 gathers x 2 warps x 3)."""
+    y, *_, store_conf, gather_conf = _vec_map(4, 4, swizzle=False)
+    np.testing.assert_array_equal(y, np.arange(256).reshape(16, 16).T)
+    assert (store_conf, gather_conf) == (0, 24)
+
+
+def test_transpose_variant_argument_on_the_cpu():
+    x = torch.randn(32, 48)
+    assert torch.equal(ttr.transpose(x, block=16, variant="vec16"), x.t())
+    with pytest.raises(ValueError, match="variant"):
+        ttr.transpose(x, variant="vec32")
