@@ -20,7 +20,7 @@ type, shape, strides, base address and the requested ``block`` alone:
   without bank conflicts.  The calibration's tiled transpose (n × n f32,
   ``block=16``) lands here.
 * ``"scalar"`` (``transpose_kernel``): everything else.  One element a
-  thread at the tile the request gets (16: 256 threads, as PR 13 built it;
+  thread at the tile the request gets (16: 256 threads, the first design;
   32; 64 — the largest built tile not above the request, so the Pallas
   default 256 gets 64), any layout, any M, N >= 1.
 
