@@ -254,9 +254,9 @@ MM_TOL = {torch.float32: (1e-3, 1e-5), torch.bfloat16: (1.0, 3e-2)}
 # then layouts that send a call to each kernel: a base one element past a
 # 16-byte boundary (offset), a leading stride not a multiple of one access
 # (stride: cols + 3), a padded aligned stride (pad: cols + 8), ragged edges
-# vec16 masks as whole accesses, the calibration's contiguous n x n; and the
-# two variants vec16 was chosen against, named explicitly.  The result must
-# be exact (a copy of bits).
+# vec16 masks as whole accesses, the calibration's contiguous n x n; and
+# scalar named on a layout vec16 takes.  The result must be exact (a copy of
+# bits).
 # id, (M, N), block, dtype, layout, variant named by the caller (None: the
 # one pick_variant names), the variant pick_variant must name
 TR_CASES = [
@@ -279,14 +279,6 @@ TR_CASES = [
     ("bf16_pad_block16", (384, 264), 16, BF16, "pad", None, "vec16"),
     ("calibration_2048", (2048, 2048), 16, F32, "contig", None, "vec16"),
     ("scalar16_aligned", (256, 512), 16, F32, "contig", "scalar", "vec16"),
-    ("other_width", (104, 40), 16, F32, "contig", "vec16_other_width",
-     "vec16"),
-    ("bf16_other_width", (104, 40), 16, BF16, "contig", "vec16_other_width",
-     "vec16"),
-    ("other_order", (104, 40), 16, F32, "contig", "vec16_other_order",
-     "vec16"),
-    ("bf16_other_order", (384, 256), 16, BF16, "contig",
-     "vec16_other_order", "vec16"),
 ]
 CALIB_DEVICE = "gpu-h100"    # the registry name of the fitted model
 CALIB_SCALE = "gpu"
@@ -465,18 +457,16 @@ def mm_ptxas(entries: list) -> list:
 
 def tr_ptxas(entries: list) -> list:
     """Every transpose kernel instance among ``ptxas_entries``: its kernel,
-    element type, tile (scalar) or elements an access and grid order (the
-    vector kernel), registers and spills."""
+    element type, tile (scalar) or elements an access (the vector kernel),
+    registers and spills."""
     out = []
     for e in entries:
         fn = e["function"]
-        vec = re.search(r"transpose_vec_kernelI([jt])Li(\d+)ELb([01])E", fn)
+        vec = re.search(r"transpose_vec_kernelI([jt])Li(\d+)E", fn)
         sca = re.search(r"transpose_kernelI([jt])Li(\d+)E", fn)
         if vec:
             row = {"kernel": "transpose_vec_kernel",
-                   "elems_per_access": int(vec.group(2)),
-                   "grid_x_over": "rows" if vec.group(3) == "1"
-                   else "columns"}
+                   "elems_per_access": int(vec.group(2))}
         elif sca:
             row = {"kernel": "transpose_kernel", "tile": int(sca.group(2))}
         else:
@@ -533,7 +523,7 @@ def phase_build():
         logs.get("ssd_scan", ""))})
     trx = tr_ptxas(entries.get("transpose", []))
     tr_vec = [e for e in trx if e["kernel"] == "transpose_vec_kernel"]
-    if len(tr_vec) != 6 or any(e["spill_store_bytes"] or e["spill_load_bytes"]
+    if len(tr_vec) != 2 or any(e["spill_store_bytes"] or e["spill_load_bytes"]
                                for e in tr_vec):
         raise AssertionError(f"a transpose_vec_kernel instance spills or was "
                              f"not compiled: {tr_vec}")
@@ -968,11 +958,44 @@ def tr_ladder() -> list:
     return [2 ** (p + t) for t in range(4)]
 
 
-def tr_row(label, x, variant, reps, refs):
-    """One timed transpose at the 16 tile: ``variant`` on ``x`` (the
-    main path's own call where it is the variant ``pick_variant`` names),
-    exact against x.t(), beside the empty kernel over the same grid and,
-    with ``refs``, the plain version and ``x.t().contiguous()``."""
+def graph_ms(fn, calls: int) -> float:
+    """Device milliseconds a call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed, so the host's work per call is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, 1, 5) / calls
+    del graph
+    return ms
+
+
+def host_us(fn, calls: int) -> float:
+    """Host microseconds a call of ``fn`` takes to return: its work on the
+    host and the launch queued, not waited for."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def tr_row(label, x, variant, reps, main_path):
+    """One timed transpose at the 16 tile: ``variant`` on ``x`` through the
+    entry point that names it (the same for every variant), exact against
+    x.t(): CUDA events around back-to-back calls, the device's own time (a
+    CUDA graph of the calls) and the host's per call, beside the empty
+    kernel over the same grid.  With ``main_path`` (the variant
+    ``pick_variant`` names) also the main path's own call
+    (``kops.transpose``), ``pick_variant`` alone, the plain version and
+    ``x.t().contiguous()``."""
     g = mkernels.GSIZE
     n_m, n_n = x.shape
     o = tr.transpose(x, block=g, variant=variant)
@@ -980,22 +1003,38 @@ def tr_row(label, x, variant, reps, refs):
     if not torch.equal(o, tr.transpose_reference(x)):
         raise AssertionError(f"transpose {label}: not x.t()")
     del o
-    if variant == tr.pick_variant(x, g):
-        def kernel():
-            kops.transpose(x, block=g)
-    else:
-        def kernel():
-            tr.transpose(x, block=g, variant=variant)
+
+    def kernel():
+        tr.transpose(x, block=g, variant=variant)
 
     def floor():
         tr.launch_empty(n_m, n_n, block=g, dtype=x.dtype, variant=variant)
 
     ms_a = time_ms(kernel, 2, reps)
     floor_ms = time_ms(floor, 2, reps)
-    plain_ms = library_ms = None
-    if refs:
-        plain_ms = time_ms(lambda: tr.transpose_reference(x), 2, reps)
-        library_ms = time_ms(lambda: x.t().contiguous(), 2, reps)
+    row = {"device_ms": graph_ms(kernel, min(reps, 100)),
+           "host_us": host_us(kernel, min(reps, 200)),
+           "dispatch_floor_device_ms": graph_ms(floor, min(reps, 100)),
+           "plain_ms": None, "library_ms": None, "library_call": None}
+    if main_path:
+        if tr.pick_variant(x, g) != variant:
+            raise AssertionError(f"transpose {label}: the main path picks "
+                                 f"{tr.pick_variant(x, g)}, not {variant}")
+
+        def main_call():
+            kops.transpose(x, block=g)
+        calls = 20000
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            tr.pick_variant(x, g)
+        pick_us = (time.perf_counter() - t0) / calls * 1e6
+        row.update({
+            "main_path_ms": time_ms(main_call, 2, reps),
+            "main_path_host_us": host_us(main_call, min(reps, 200)),
+            "pick_variant_us": pick_us,
+            "plain_ms": time_ms(lambda: tr.transpose_reference(x), 2, reps),
+            "library_ms": time_ms(lambda: x.t().contiguous(), 2, reps),
+            "library_call": "x.t().contiguous()"})
     ms_b = time_ms(kernel, 2, reps)
     nbytes = 2 * x.numel() * x.element_size()
     bound = nbytes / PEAK_HBM_BYTES * 1e3
@@ -1007,9 +1046,7 @@ def tr_row(label, x, variant, reps, refs):
                   "dtype": str(x.dtype).replace("torch.", ""), "block": g},
         "variant": variant, "tile": t.edge, "threads": t.threads,
         "smem_bytes": t.smem, "max_abs_err": 0.0, "tol": "exact",
-        "ms": ms, "kernel_ms": ms, "kernel_ms_runs": [ms_a, ms_b],
-        "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_call": "x.t().contiguous()" if refs else None,
+        "ms": ms, "kernel_ms": ms, "kernel_ms_runs": [ms_a, ms_b], **row,
         "dispatch_floor_ms": floor_ms,
         "dispatch_floor_note": f"an empty kernel over the same grid "
                                f"({t.threads} threads a block)",
@@ -1022,8 +1059,8 @@ def tr_row(label, x, variant, reps, refs):
 def phase_transpose_main_shape(gen):
     """transpose at the 16 tile at the calibration's four sizes (n x n f32):
     the variant the calibration runs (vec16) and the one it replaced
-    (scalar at the 16 tile) on the same inputs; at the largest size also the
-    two variants vec16 was chosen against, and bf16 at both widths."""
+    (scalar at the 16 tile) on the same inputs; at the largest size also
+    vec16 in bf16."""
     rows = []
     ladder = tr_ladder()
     for n in reversed(ladder):   # the largest (the kernels line's) first
@@ -1032,13 +1069,9 @@ def phase_transpose_main_shape(gen):
         rows.append(tr_row(f"vec16 f32 n{n}", x, "vec16", reps, True))
         rows.append(tr_row(f"scalar16 f32 n{n}", x, "scalar", reps, False))
         if n == ladder[-1]:
-            for v in tr.MEASURED_ONLY:
-                rows.append(tr_row(f"{v} f32 n{n}", x, v, reps, False))
             xb = x.bfloat16()
             del x
             rows.append(tr_row(f"vec16 bf16 n{n}", xb, "vec16", reps, True))
-            for v in tr.MEASURED_ONLY:
-                rows.append(tr_row(f"{v} bf16 n{n}", xb, v, reps, False))
             del xb
         torch.cuda.empty_cache()
     return rows

@@ -30,18 +30,13 @@
 //               bf16), so 32 blocks an SM keep 32 KB of loads in flight.
 //               Needs 16-byte-aligned bases, and a leading stride, M and N
 //               that are multiples of one access (4 f32 or 8 bf16 elements):
-//               a ragged edge then masks whole accesses.
-//   2 `vec16_other_width`  vec16 with the access width vec16 does not use
-//               for the type (8 bytes: f32 on 128 threads, bf16 on 64).
-//   3 `vec16_other_order`  vec16 with the grid walked the other way round
-//               (blockIdx.x over X's rows instead of its columns).
-//   Variants 2 and 3 are what vec16's width and order were chosen against;
-//   no main path asks for them.
+//               a ragged edge then masks whole accesses.  The grid's x walks
+//               X's columns, as scalar's does.
 //
 // The TPU kernel's default block of 256 is a VMEM tile: 256 x 257 x 4 bytes
 // would be 263 KB of shared memory, over the 232,448 bytes a block may use;
-// it gets the 64 tile.  The grid's y dimension counts tiles of X's rows
-// (the other order: of X's columns) and is capped at 65535.
+// it gets the 64 tile.  The grid's y dimension counts tiles of X's rows and
+// is capped at 65535.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,23 +115,20 @@ struct VecMap {
   }
 };
 
-// Elements of one vec16 access, by type: f32 16 bytes (4), bf16 16 bytes
-// (8).  `other` = 1 gives the other width (variant 2): 8 bytes.
-template <typename T, int OTHER> struct VecWidth;
-template <> struct VecWidth<unsigned int, 0> { static constexpr int V = 4; };
-template <> struct VecWidth<unsigned int, 1> { static constexpr int V = 2; };
-template <> struct VecWidth<unsigned short, 0> { static constexpr int V = 8; };
-template <> struct VecWidth<unsigned short, 1> { static constexpr int V = 4; };
+// Elements of one vec16 access (16 bytes), by type: f32 4, bf16 8.
+template <typename T> struct VecWidth;
+template <> struct VecWidth<unsigned int> { static constexpr int V = 4; };
+template <> struct VecWidth<unsigned short> { static constexpr int V = 8; };
 
-template <typename T, int V, bool ROWS_ON_X>
+template <typename T, int V>
 __global__ void __launch_bounds__(VecMap<T, V>::THREADS)
     transpose_vec_kernel(const T* __restrict__ x, T* __restrict__ y, int M,
                          int N, long long ldx, long long ldy) {
   using Map = VecMap<T, V>;
   using Vec = typename Map::Vec;
   __shared__ __align__(16) T tile[kTile * kTile];
-  const int c0 = (ROWS_ON_X ? blockIdx.y : blockIdx.x) * kTile;  // X column
-  const int r0 = (ROWS_ON_X ? blockIdx.x : blockIdx.y) * kTile;  // X row
+  const int c0 = blockIdx.x * kTile;      // column of X = row of Y
+  const int r0 = blockIdx.y * kTile;      // row of X = column of Y
   const int row = threadIdx.x / Map::C;   // X's tile row, then Y's
   const int acc = threadIdx.x % Map::C;   // the access within that row
   if (r0 + row < M && c0 + acc * V < N) {
@@ -178,21 +170,19 @@ bool launch_shape(int variant, int block, int M, int N, dim3* grid,
     *smem = static_cast<long long>(tile) * (tile + 1) * sizeof(T);
     return (M + tile - 1) / tile <= 65535;
   }
-  if (variant < 1 || variant > 3 || tile != kTile) return false;
-  const int rows = (M + kTile - 1) / kTile, cols = (N + kTile - 1) / kTile;
-  *grid = variant == 3 ? dim3(rows, cols) : dim3(cols, rows);
-  *threads = dim3(variant == 2 ? VecMap<T, VecWidth<T, 1>::V>::THREADS
-                               : VecMap<T, VecWidth<T, 0>::V>::THREADS);
+  if (variant != 1 || tile != kTile) return false;
+  *grid = dim3((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  *threads = dim3(VecMap<T, VecWidth<T>::V>::THREADS);
   *smem = static_cast<long long>(kTile) * kTile * sizeof(T);
   return grid->y <= 65535;
 }
 
-// vec16's accesses: the bases 16-byte aligned (8 for the other width), the
-// leading strides, M and N multiples of one access.
+// vec16's accesses: the bases 16-byte aligned, the leading strides, M and N
+// multiples of one access.
 template <typename T>
-bool vec_layout_ok(int variant, const void* x, const void* y, int M, int N,
-                   long long ldx, long long ldy) {
-  const int v = variant == 2 ? VecWidth<T, 1>::V : VecWidth<T, 0>::V;
+bool vec_layout_ok(const void* x, const void* y, int M, int N, long long ldx,
+                   long long ldy) {
+  constexpr int v = VecWidth<T>::V;
   const uintptr_t vb = static_cast<uintptr_t>(v) * sizeof(T);
   return reinterpret_cast<uintptr_t>(x) % vb == 0 &&
          reinterpret_cast<uintptr_t>(y) % vb == 0 && ldx % v == 0 &&
@@ -205,37 +195,23 @@ cudaError_t launch(int variant, int block, const void* x, void* y, int M,
   dim3 grid, threads;
   long long smem;
   if (!launch_shape<T>(variant, block, M, N, &grid, &threads, &smem) ||
-      (variant != 0 && !vec_layout_ok<T>(variant, x, y, M, N, ldx, ldy))) {
+      (variant != 0 && !vec_layout_ok<T>(x, y, M, N, ldx, ldy))) {
     return cudaErrorInvalidValue;
   }
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
-  constexpr int V0 = VecWidth<T, 0>::V, V1 = VecWidth<T, 1>::V;
-  switch (variant) {
-    case 0:
-      if (pick_tile(block) == 16) {
-        transpose_kernel<T, 16, 16, 16><<<grid, threads, 0, s>>>(
-            xt, yt, M, N, ldx, ldy);
-      } else if (pick_tile(block) == 32) {
-        transpose_kernel<T, 32, 32, 8><<<grid, threads, 0, s>>>(
-            xt, yt, M, N, ldx, ldy);
-      } else {
-        transpose_kernel<T, 64, 32, 8><<<grid, threads, 0, s>>>(
-            xt, yt, M, N, ldx, ldy);
-      }
-      break;
-    case 1:
-      transpose_vec_kernel<T, V0, false><<<grid, threads, 0, s>>>(
-          xt, yt, M, N, ldx, ldy);
-      break;
-    case 2:
-      transpose_vec_kernel<T, V1, false><<<grid, threads, 0, s>>>(
-          xt, yt, M, N, ldx, ldy);
-      break;
-    default:
-      transpose_vec_kernel<T, V0, true><<<grid, threads, 0, s>>>(
-          xt, yt, M, N, ldx, ldy);
-      break;
+  if (variant == 1) {
+    transpose_vec_kernel<T, VecWidth<T>::V><<<grid, threads, 0, s>>>(
+        xt, yt, M, N, ldx, ldy);
+  } else if (pick_tile(block) == 16) {
+    transpose_kernel<T, 16, 16, 16><<<grid, threads, 0, s>>>(xt, yt, M, N,
+                                                             ldx, ldy);
+  } else if (pick_tile(block) == 32) {
+    transpose_kernel<T, 32, 32, 8><<<grid, threads, 0, s>>>(xt, yt, M, N,
+                                                            ldx, ldy);
+  } else {
+    transpose_kernel<T, 64, 32, 8><<<grid, threads, 0, s>>>(xt, yt, M, N,
+                                                            ldx, ldy);
   }
   return cudaGetLastError();
 }

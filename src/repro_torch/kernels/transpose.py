@@ -24,10 +24,8 @@ type, shape, strides, base address and the requested ``block`` alone:
   32; 64 — the largest built tile not above the request, so the Pallas
   default 256 gets 64), any layout, any M, N >= 1.
 
-``MEASURED_ONLY`` holds the two variants vec16's access width and grid order
-were chosen against; only a caller that names them gets them.  ``tile`` and
-``tile_for`` report the variant, tile edge, threads and shared memory of a
-launch, as the CUDA source sets them.
+``tile`` and ``tile_for`` report the variant, tile edge, threads and shared
+memory of a launch, as the CUDA source sets them.
 
 Accepted: x ``(M, N)``, any ``M, N >= 1`` (ragged edges are masked), f32 or
 bf16, row-major (last dimension contiguous, any leading stride).  The result
@@ -44,10 +42,7 @@ from repro_torch.kernels import _build
 from repro_torch.runtime import flags
 
 #: the kernels of the CUDA source, by the number it takes them by
-VARIANTS = ("scalar", "vec16", "vec16_other_width", "vec16_other_order")
-#: vec16 at the access width it does not use for the type (8 bytes), and
-#: with its grid walked over X's rows: timed beside vec16, never picked
-MEASURED_ONLY = VARIANTS[2:]
+VARIANTS = ("scalar", "vec16")
 #: elements of one vec16 access (16 bytes), as the CUDA source's VecWidth
 VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
 
@@ -77,9 +72,16 @@ def pick_variant(x: torch.Tensor, block: int,
     if base is None:
         base = x.storage_offset() * x.element_size() if x.is_meta \
             else x.data_ptr()
-    v = VEC_ELEMS.get(x.dtype)
-    if v is None or block >= 32 or base % (v * x.element_size()) \
-            or x.stride(0) % v or x.shape[0] % v or x.shape[1] % v:
+    M, N = x.shape
+    return _pick(x.dtype, M, N, x.stride(0), base, block)
+
+
+def _pick(dtype: torch.dtype, M: int, N: int, ld: int, base: int,
+          block: int) -> str:
+    """``pick_variant`` on values the caller has already read (the
+    launch's own, so that choosing costs it no second look at x)."""
+    v = VEC_ELEMS.get(dtype)
+    if v is None or block >= 32 or base % 16 or ld % v or M % v or N % v:
         return "scalar"
     return "vec16"
 
@@ -108,10 +110,15 @@ def tile_for(x: torch.Tensor, block: int = 256) -> Tile:
     return tile(block, x.dtype, pick_variant(x, block))
 
 
+_fns = {}
+
+
 def _lib_fn(name: str, argtypes):
-    fn = getattr(_build.load("transpose"), name)
-    if fn.argtypes is None:
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("transpose"), name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _fns[name] = fn
     return fn
 
 
@@ -127,32 +134,35 @@ def transpose(x: torch.Tensor, *, block: int = 256,
     if x.ndim != 2 or min(x.shape) < 1:
         raise ValueError(f"expected a non-empty (M, N) tensor; got "
                          f"{tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be float32 or bfloat16; got {x.dtype}")
+    dtype, dev = x.dtype, x.device
+    if dtype not in VEC_ELEMS:
+        raise TypeError(f"x must be float32 or bfloat16; got {dtype}")
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}; got {variant!r}")
-    if x.device.type == "cpu" or not flags.kernels_enabled():
+    if dev.type == "cpu" or not flags.kernels_enabled():
         return transpose_reference(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    if torch.is_grad_enabled() and x.requires_grad:
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if x.requires_grad and torch.is_grad_enabled():
         raise NotImplementedError(
             "the transpose kernel has no backward (the TPU kernel has none); "
             "call it under torch.no_grad()")
     if block < 1:
         raise ValueError(f"block must be >= 1, got {block}")
-    if x.stride(1) != 1 or x.stride(0) < x.shape[1]:
-        raise ValueError(f"x: rows must be contiguous (row-major, any "
-                         f"leading stride); got strides {x.stride()}")
     M, N = x.shape
-    variant = variant or pick_variant(x, block)
-    y = torch.empty((N, M), dtype=x.dtype, device=x.device)
+    ld, s1 = x.stride()
+    if s1 != 1 or ld < N:
+        raise ValueError(f"x: rows must be contiguous (row-major, any "
+                         f"leading stride); got strides {(ld, s1)}")
+    xp = x.data_ptr()
+    variant = variant or _pick(dtype, M, N, ld, xp, block)
+    y = torch.empty((N, M), dtype=dtype, device=dev)
 
     fn = _lib_fn("transpose_forward", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), M, N, x.stride(0), y.stride(0),
-                 block, x.element_size(), VARIANTS.index(variant),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(xp, y.data_ptr(), M, N, ld, M, block, x.element_size(),
+                 VARIANTS.index(variant),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"transpose_forward: CUDA error {err} at launch "
                            f"of {variant} (x {tuple(x.shape)}, strides "

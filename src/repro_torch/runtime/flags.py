@@ -13,16 +13,24 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 
-_tls = threading.local()
+
+class _Flags(threading.local):
+    # class-level defaults: a thread that never set a flag reads them
+    # without the caught AttributeError a getattr default costs per call
+    kernels = True
+    attn_stub = False
+
+
+_tls = _Flags()
 
 
 def kernels_enabled() -> bool:
-    return getattr(_tls, "kernels", True)
+    return _tls.kernels
 
 
 @contextmanager
 def use_kernels(enabled: bool = True):
-    prev = getattr(_tls, "kernels", True)
+    prev = _tls.kernels
     _tls.kernels = enabled
     try:
         yield
@@ -31,7 +39,7 @@ def use_kernels(enabled: bool = True):
 
 
 def attention_stubbed() -> bool:
-    return getattr(_tls, "attn_stub", False)
+    return _tls.attn_stub
 
 
 @contextmanager
@@ -39,7 +47,7 @@ def stub_attention(enabled: bool = True):
     """Replace the attention contraction with a free pass-through — used to
     ATTRIBUTE which share of a step's cost is attention (difference of two
     runs)."""
-    prev = getattr(_tls, "attn_stub", False)
+    prev = _tls.attn_stub
     _tls.attn_stub = enabled
     try:
         yield

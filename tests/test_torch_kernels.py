@@ -386,7 +386,7 @@ def test_transpose_vec_widths_match_the_cuda_source():
     import re
     from repro_torch.kernels import _build
     src = (_build.CSRC / "transpose.cu").read_text()
-    widths = dict(re.findall(r"struct VecWidth<unsigned (\w+), 0> "
+    widths = dict(re.findall(r"struct VecWidth<unsigned (\w+)> "
                              r"\{ static constexpr int V = (\d+);", src))
     assert {torch.float32: int(widths["int"]),
             torch.bfloat16: int(widths["short"])} == ttr.VEC_ELEMS
