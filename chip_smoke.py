@@ -25,6 +25,16 @@ counts set to 0 just before the path and read just after):
   kernels;
 * the ssm path of ``mamba2-370m`` (48 layers): one prefill step — the
   ``ssd_scan`` kernel;
+* the training paths of ``llama3.2-3b`` and ``zamba2-2.7b`` at full width
+  and depth (bf16, AdamW, remat ``full``, batch 2 x 4096 from the packed
+  loader): one loss + backward through the kernels against the plain paths
+  in bf16 and in f32 (loss and every gradient), 3 steps through
+  ``Trainer.train``, a step split into forward / backward / optimizer, and,
+  at full width but cut depth, 3 steps with an async save and the exit save
+  and a fresh ``Trainer`` that resumes and replays the last step — the
+  ``flash_attention`` kernel (and ``ssd_scan`` for zamba2) inside their
+  autograd Functions, twice a layer per step (forward and remat recompute),
+  the first also writing the row log-sum-exp the backward reads;
 * the paper's calibration loop on the card: ``python -m
   repro_torch.calibration --device gpu-h100 --scale gpu`` (launch overhead,
   the 9 measurement classes timed under the 30-run/drop-4 protocol with
@@ -84,9 +94,13 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import transpose as tr  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, PackedLoader  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.optim import optimizers as opt  # noqa: E402
 from repro_torch.runtime import flags, steps  # noqa: E402
 from repro_torch.runtime.server import DecodeServer, Request  # noqa: E402
+from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
 
 DEV = "cuda"
 ARCH = "llama3.2-3b"
@@ -96,6 +110,11 @@ PREFILL_TOKENS = (4, 2048)   # (batch, sequence) of one prefill step
 PREFILL_STEPS = 3
 SERVE = dict(slots=8, max_len=2048, requests=16, max_new=32,
              prompt_len=(16, 64))
+# The training paths: the reference's train_4k sequence length; one card
+# holds two sequences of llama3.2-3b with its f32 AdamW state
+TRAIN_TOKENS = (2, 4096)     # (batch, sequence) of one train step
+TRAIN_STEPS = 3
+TRAIN_LR = dict(lr=3e-4, warmup=20, total_steps=1000)  # warmup_cosine
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense rates).
 PEAK_BF16_FLOPS = 989e12
@@ -154,6 +173,20 @@ VARIANT = {torch.bfloat16: "wgmma+tma bf16", torch.float32: "fp32 fma"}
 # far bf16 itself moves the logits (bf16 step against f32 step).
 TOL_PREFILL_F32 = 1e-4
 TOL_PREFILL_BF16 = 5e-2
+# One loss + backward of a whole model, kernels against plain paths.  bf16:
+# the relative difference of the loss; each parameter's gradient, as its
+# relative Frobenius distance to the f32 plain gradient of the same weights,
+# may exceed the bf16 plain path's distance by at most the prefill step's
+# bar.  (bf16 itself puts both paths 7-17 % from the f32 gradient at full
+# depth, so a bar on their distance from each other alone would measure
+# bf16, not the kernels.)  f32: kernels against plain paths, each gradient
+# 1e-3 (sums in other orders through 28 / 54 layers; the kernels' own f32
+# bars are 1e-4 / 5e-4).  A resumed run replays its last step's loss to
+# 1e-5.
+TOL_TRAIN_LOSS = 1e-2
+TOL_TRAIN_GRAD = TOL_PREFILL_BF16
+TOL_TRAIN_F32 = 1e-3
+TOL_REPLAY = 1e-5
 
 # The reference's own case table for the SSD scan, plus edges: a chunk that
 # is not a multiple of the FP32 kernel's 32-row strip, mamba2-370m's d_state
@@ -571,6 +604,36 @@ def phase_kernel_cases(gen):
     return rows
 
 
+def phase_lse_cases(gen):
+    """The row log-sum-exp both attention kernels write (``return_lse``)
+    against the plain version's at the case table, in both layouts; the
+    output with lse asked for must be bit-equal to the output without."""
+    rows = []
+    for (cid, B, H, KVH, Sq, Skv, dh, causal, window, dtype) in FA_CASES:
+        err = 0.0
+        for main_layout in (False, True):
+            q, k, v = fa_inputs(B, H, KVH, Sq, Skv, dh, dtype, gen,
+                                as_main_path=main_layout)
+            o, lse = kops.flash_attention(q, k, v, causal=causal,
+                                          window=window, return_lse=True)
+            o0 = kops.flash_attention(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            _, rlse = fa.attention_reference(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+            err = max(err, compare(lse, rlse, TOL[dtype]))
+            if not torch.equal(o, o0):
+                raise AssertionError(f"{cid}: the output changes when the "
+                                     "kernel also writes lse")
+        rows.append({"case": cid, "dtype": str(dtype).replace("torch.", ""),
+                     "variant": VARIANT[dtype], "lse_max_abs_err": err,
+                     "tol": TOL[dtype]})
+    emit({"phase": "kernels.lse.cases", "ok": True,
+          "kernel": "flash_attention", "against":
+              "attention_reference(return_lse=True)", "cases": rows,
+          "output_with_lse": "bit-equal to the output without"})
+    return rows
+
+
 def phase_kernel_main_shape(cfg, B, S, gen):
     """flash_attention at a main path's shape: error, times, bound."""
     H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -585,6 +648,10 @@ def phase_kernel_main_shape(cfg, B, S, gen):
 
     def kernel():
         kops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+
+    def kernel_lse():   # the training path's call: the row lse written too
+        kops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                             return_lse=True)
 
     def plain():
         fa.attention_reference(q, k, v, causal=True,
@@ -605,8 +672,10 @@ def phase_kernel_main_shape(cfg, B, S, gen):
             F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
 
     ms_a = time_ms(kernel, 2, 10)
+    lse_a = time_ms(kernel_lse, 2, 10)
     plain_ms = time_ms(plain, 1, 3)
     library_ms = time_ms(library, 2, 10)
+    lse_b = time_ms(kernel_lse, 1, 10)
     ms_b = time_ms(kernel, 1, 10)
 
     pairs = visible_pairs(S, S, True, cfg.sliding_window)
@@ -624,6 +693,9 @@ def phase_kernel_main_shape(cfg, B, S, gen):
                          fa.tile(dh))),
         "max_abs_err": err, "tol": TOL[dtype],
         "ms": ms, "kernel_ms": ms, "kernel_ms_runs": [ms_a, ms_b],
+        "lse_ms": min(lse_a, lse_b), "lse_ms_runs": [lse_a, lse_b],
+        "lse_note": "the same call with return_lse=True (the training "
+                    "path's), timed in turns with the one without",
         "plain_ms": plain_ms, "library_ms": library_ms,
         "library_call": "F.scaled_dot_product_attention("
                         + ("enable_gqa=True" if gqa else "k, v repeated") + ")",
@@ -1555,6 +1627,321 @@ def phase_profile(cfg, model, tokens, seed):
           "prefill_step": pre, "decode_iteration": dec})
 
 
+# ---------------------------------------------------------------------------
+# the training paths
+
+
+def train_launches_per_step(cfg) -> dict:
+    """The kernel launches one train step of ``cfg`` must make under remat
+    ``full``: each attention and SSD layer's forward, and again in the
+    backward's recompute."""
+    return {n: 2 * k for n, k in launches_per_step(cfg).items()}
+
+
+def new_trainer(cfg, seed, ckpt_dir=None, save_on_exit=True) -> Trainer:
+    B, S = TRAIN_TOKENS
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                    seed=seed)
+    tc = TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=2, keep_ckpts=2,
+                       seed=seed, save_on_exit=save_on_exit, **TRAIN_LR)
+    return Trainer(cfg, dc, tc, device=DEV)
+
+
+def quiet(step, metrics) -> None:
+    """``Trainer.train``'s per-step callback: the phase lines report."""
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Relative Frobenius difference of one tensor (0 where both are 0)."""
+    num = float((a.float() - b.float()).norm())
+    den = float(b.float().norm())
+    return num / den if den else (0.0 if num == 0.0 else math.inf)
+
+
+def loss_and_grads(cfg, model, batch, events=None):
+    """One ``loss_fn`` + backward (the config's remat), as the train step
+    takes it; ``events``: three CUDA events recorded before the forward,
+    between forward and backward, and after the backward."""
+    params = [p for _, p in model.named_parameters()]
+    if events:
+        events[0].record()
+    loss, _ = transformer.loss_fn(model, cfg, batch)
+    if events:
+        events[1].record()
+    grads = torch.autograd.grad(loss, params)
+    if events:
+        events[2].record()
+    return loss.detach(), grads
+
+
+def checkpoint_bytes(trainer) -> int:
+    """Bytes of one checkpoint: the parameters and AdamW's m and v."""
+    st = trainer.state
+    ts = [*st.params.parameters(), *st.opt_state["m"].values(),
+          *st.opt_state["v"].values()]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def phase_train_init(cfg, seed) -> Trainer:
+    t0 = time.perf_counter()
+    trainer = new_trainer(cfg, seed)
+    n_params = transformer.param_count(trainer.state.params)
+    if n_params != cfg.n_params():
+        raise AssertionError(f"{n_params} parameters, config says "
+                             f"{cfg.n_params()}")
+    torch.cuda.synchronize()
+    emit({"phase": "train.init", "ok": True, "arch": cfg.name,
+          "n_params": n_params, "dtype": cfg.param_dtype,
+          "optimizer": cfg.optimizer, "remat": cfg.remat_policy,
+          "tokens": list(TRAIN_TOKENS), "lr": TRAIN_LR,
+          "memory_allocated_bytes": torch.cuda.memory_allocated(),
+          "checkpoint_bytes": checkpoint_bytes(trainer),
+          "seconds": round(time.perf_counter() - t0, 2)})
+    return trainer
+
+
+def grad_stats(rels: dict) -> dict:
+    worst = max(rels, key=rels.get)
+    return {"max": rels[worst], "worst": worst,
+            "median": float(np.median(list(rels.values())))}
+
+
+def phase_train_compare(cfg, seed) -> dict:
+    """The training path's weights (the trainer's seed) and first batch:
+    one loss + backward through the kernels and one under
+    ``use_kernels(False)`` (attention then takes the reference's chunked
+    path, 4096² > 2048² pairs), in bf16, then both again with the model in
+    f32.  The f32 gradient of the plain path is the yardstick: bf16 itself
+    moves every gradient by several per cent at this depth, the plain path's
+    as much as the kernels', so the bf16 bar holds the kernel path's
+    distance to it within ``TOL_TRAIN_GRAD`` of the plain path's, and the
+    f32 kernel path must match the f32 plain path to ``TOL_TRAIN_F32``.
+    The bf16 kernel path's forward / backward are timed with CUDA events."""
+    B, S = TRAIN_TOKENS
+    model = transformer.init_params(cfg, device=DEV, seed=seed)
+    names = [n for n, _ in model.named_parameters()]
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                    seed=seed)
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in PackedLoader(dc).batch(0).items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    want = train_launches_per_step(cfg)
+
+    def run(cfg_, kernels, events=None):
+        before = read_launches()
+        with flags.use_kernels(kernels):
+            loss, grads = loss_and_grads(cfg_, model, batch, events)
+        torch.cuda.synchronize()
+        after = read_launches()
+        launched = {n: after[n] - before[n] for n in after}
+        if launched != (want if kernels else {n: 0 for n in want}):
+            raise AssertionError(f"{cfg_.name}: loss + backward launched "
+                                 f"{launched} (kernels {kernels})")
+        return float(loss), grads
+
+    loss_k, gk = run(cfg, True, ev[:3])
+    loss_p, gp = run(cfg, False, ev[3:])
+    bf16 = grad_stats({n: rel_diff(a, b) for n, a, b in zip(names, gk, gp)})
+    model.float()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    loss_32, g32 = run(cfg32, False)
+    k_vs_32 = {n: rel_diff(a, b) for n, a, b in zip(names, gk, g32)}
+    p_vs_32 = {n: rel_diff(a, b) for n, a, b in zip(names, gp, g32)}
+    del gk, gp
+    excess = {n: k_vs_32[n] - p_vs_32[n] for n in names}
+    loss_32k, g32k = run(cfg32, True)
+    f32 = grad_stats({n: rel_diff(a, b) for n, a, b in zip(names, g32k, g32)})
+    del g32k, g32, model
+    torch.cuda.empty_cache()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst_excess = max(excess, key=excess.get)
+    ok = (loss_rel <= TOL_TRAIN_LOSS and math.isfinite(loss_k)
+          and excess[worst_excess] <= TOL_TRAIN_GRAD
+          and f32["max"] <= TOL_TRAIN_F32)
+    res = {"phase": "train.compare", "ok": ok, "arch": cfg.name,
+           "tokens": [B, S], "launches": want,
+           "loss": {"bf16_kernels": loss_k, "bf16_plain": loss_p,
+                    "f32_plain": loss_32, "f32_kernels": loss_32k},
+           "loss_rel_diff": loss_rel, "loss_tol": TOL_TRAIN_LOSS,
+           "n_grads": len(names),
+           "grad_bf16_kernels_vs_bf16_plain": bf16,
+           "grad_bf16_kernels_vs_f32": grad_stats(k_vs_32),
+           "grad_bf16_plain_vs_f32": grad_stats(p_vs_32),
+           "grad_bf16_kernel_excess_over_plain": {
+               "max": excess[worst_excess], "worst": worst_excess},
+           "grad_tol": TOL_TRAIN_GRAD,
+           "grad_f32_kernels_vs_f32_plain": f32, "grad_f32_tol": TOL_TRAIN_F32,
+           "kernels_forward_ms": ev[0].elapsed_time(ev[1]),
+           "kernels_backward_ms": ev[1].elapsed_time(ev[2]),
+           "plain_forward_ms": ev[3].elapsed_time(ev[4]),
+           "plain_backward_ms": ev[4].elapsed_time(ev[5]),
+           "timing_note": "first calls of the run (warm-up included)"}
+    emit(res)
+    if not ok:
+        raise AssertionError(
+            f"{cfg.name}: train step kernels vs plain: loss {loss_rel:.3e} "
+            f"(bar {TOL_TRAIN_LOSS:g}); bf16 gradient {worst_excess} "
+            f"{excess[worst_excess]:.3e} farther from f32 than the plain "
+            f"path's (bar {TOL_TRAIN_GRAD:g}); f32 gradient {f32['worst']} "
+            f"{f32['max']:.3e} (bar {TOL_TRAIN_F32:g})")
+    return res
+
+
+def phase_train_steps(cfg, trainer, n_steps) -> list:
+    """The counted train steps through ``Trainer.train``."""
+    torch.cuda.reset_peak_memory_stats()
+    hist = trainer.train(n_steps, on_metrics=quiet)
+    peak = torch.cuda.max_memory_allocated()
+    B, S = TRAIN_TOKENS
+    n = cfg.n_params()
+    steps_out = [{"step": m["step"], "loss": m["loss"],
+                  "grad_norm": m["grad_norm"], "lr": m["lr"],
+                  "seconds": m["time_s"], "tokens_per_s": B * S / m["time_s"],
+                  "mfu_bf16": 6.0 * n * B * S / (m["time_s"]
+                                                 * PEAK_BF16_FLOPS)}
+                 for m in hist]
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in hist):
+        raise AssertionError(f"{cfg.name}: a loss is not finite: {hist}")
+    emit({"phase": "train.steps", "ok": True, "arch": cfg.name,
+          "tokens": [B, S], "steps": steps_out,
+          "losses": [m["loss"] for m in hist],
+          "seconds_median": float(np.median([m["time_s"] for m in hist])),
+          "peak_memory_bytes": peak,
+          "mfu_note": "6 * n_params * tokens / (step seconds * 989e12)"})
+    return hist
+
+
+def resume_config(cfg):
+    """The training path cut in depth for the checkpoint round trip: one
+    checkpoint of llama3.2-3b is 33.6 GiB (zamba2-2.7b 22.6 GiB), and the
+    whole run must write well under 45 GiB to disk, so two saves of each at
+    full depth are out of reach.  Full width; 2 layers (the hybrid: one
+    super-block of ``attn_every`` SSM layers and the shared block)."""
+    n = cfg.hybrid.attn_every if cfg.family == "hybrid" else 2
+    return dataclasses.replace(cfg, n_layers=n)
+
+
+def phase_train_resume(cfg, seed, n_steps):
+    """``n_steps`` steps through ``Trainer.train`` with a checkpoint
+    directory (an async save after step 2 and the exit save), then a fresh
+    Trainer resumes from the async save and replays the last step: the exit
+    save is set aside first (``store.quarantine``), as if the run had been
+    preempted before it landed.  The replayed loss must equal the first
+    run's."""
+    cut = resume_config(cfg)
+    with tempfile.TemporaryDirectory(prefix=f"ckpt-{cfg.name}-") as ckpt_dir:
+        t0 = time.perf_counter()
+        first = new_trainer(cut, seed, ckpt_dir)
+        nbytes = checkpoint_bytes(first)
+        hist = first.train(n_steps, on_metrics=quiet)
+        first_s = time.perf_counter() - t0
+        saved = sorted(int(d[5:]) for d in os.listdir(ckpt_dir)
+                       if d.startswith("step_"))
+        if saved != [n_steps - 1, n_steps]:
+            raise AssertionError(f"checkpoints {saved}, expected the async "
+                                 f"save {n_steps - 1} and the exit save "
+                                 f"{n_steps}")
+        del first
+        store.quarantine(ckpt_dir, n_steps)
+        t0 = time.perf_counter()
+        trainer = new_trainer(cut, seed, ckpt_dir, save_on_exit=False)
+        restore_s = time.perf_counter() - t0
+        if trainer.step != n_steps - 1:
+            raise AssertionError(f"resumed at step {trainer.step}, expected "
+                                 f"{n_steps - 1}")
+        replay = trainer.train(1, on_metrics=quiet)[0]
+        del trainer
+    want = hist[-1]["loss"]
+    rel = abs(replay["loss"] - want) / abs(want)
+    emit({"phase": "train.resume", "ok": rel <= TOL_REPLAY, "arch": cfg.name,
+          "n_layers": cut.n_layers, "d_model": cut.d_model,
+          "checkpoint_bytes": nbytes, "checkpoints_written": saved,
+          "losses": [m["loss"] for m in hist],
+          "resumed_at_step": n_steps - 1, "loss_first_run": want,
+          "loss_replayed": replay["loss"], "rel_diff": rel,
+          "tol": TOL_REPLAY, "first_run_seconds": first_s,
+          "init_and_restore_seconds": restore_s})
+    if not rel <= TOL_REPLAY:
+        raise AssertionError(f"{cfg.name}: replayed loss {replay['loss']} "
+                             f"vs {want} (rel {rel:.3e} > {TOL_REPLAY:g})")
+
+
+def phase_train_split(cfg, trainer) -> dict:
+    """One step as ``make_train_step`` takes it, its three parts timed with
+    CUDA events: forward (``loss_fn``), backward, optimizer (global-norm
+    clip and the AdamW update)."""
+    state = trainer.state
+    model = state.params
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in trainer.loader.batch(state.step).items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(cfg, model, batch, ev[:3])
+    names = [n for n, _ in model.named_parameters()]
+    grads, _ = opt.clip_by_global_norm(dict(zip(names, grads)), 1.0)
+    lr = opt.warmup_cosine(TRAIN_LR["lr"], TRAIN_LR["warmup"],
+                           TRAIN_LR["total_steps"])(state.step)
+    _, opt_state = trainer.optimizer.update(
+        grads, state.opt_state, dict(model.named_parameters()), lr)
+    ev[3].record()
+    trainer.state = steps.TrainState(model, opt_state, state.step + 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = {"forward_ms": ev[0].elapsed_time(ev[1]),
+           "backward_ms": ev[1].elapsed_time(ev[2]),
+           "optimizer_ms": ev[2].elapsed_time(ev[3]), "wall_ms": wall * 1e3}
+    emit({"phase": "train.split", "ok": math.isfinite(float(loss)),
+          "arch": cfg.name, **res,
+          "note": "one further step, its parts timed with CUDA events"})
+    return res
+
+
+def phase_train_profile(cfg, trainer):
+    """Optional (--profile): where one train step spends its time."""
+    emit({"phase": "train.profile", "ok": True, "arch": cfg.name,
+          "train_step": _profile(lambda: trainer.train(1, on_metrics=quiet),
+                                 1)})
+
+
+def drive_train(cfg, args) -> dict:
+    """One training path at full width and depth: the kernels against the
+    plain paths on one batch, the trainer, then the counted steps with the
+    launch counts set to 0 just before and read just after, the split of a
+    step and (--profile) a traced step; then the checkpoint round trip at
+    cut depth (``resume_config``).  Returns the counts."""
+    name = cfg.name
+    with phase(f"{name}:train.compare"):
+        phase_train_compare(cfg, args.seed)
+    with phase(f"{name}:train.init"):
+        trainer = phase_train_init(cfg, args.seed)
+
+    # ---- the main path, with the launch counts set to 0 just before -------
+    reset_launches()
+    with phase(f"{name}:train.steps"):
+        phase_train_steps(cfg, trainer, TRAIN_STEPS)
+    launched = read_launches()
+    # ---- read just after ---------------------------------------------------
+    want = {n: k * TRAIN_STEPS
+            for n, k in train_launches_per_step(cfg).items()}
+    if launched != want:
+        raise AssertionError(f"{name}: kernel launches on the training path "
+                             f"{launched}, expected {want}")
+    with phase(f"{name}:train.split"):
+        phase_train_split(cfg, trainer)
+    if args.profile:
+        with phase(f"{name}:train.profile"):
+            phase_train_profile(cfg, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    with phase(f"{name}:train.resume"):
+        phase_train_resume(cfg, args.seed, TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    return launched
+
+
 def kernel_entry(name, source, replaces, launched, rows, cases, **extra):
     """One kernel of the ``kernels`` line: the first main-path shape's
     numbers at the top, every timed shape under ``shapes``."""
@@ -1626,6 +2013,9 @@ def kernel_only(args, smi) -> int:
     name, fn = cases[kernel]
     with phase(name):
         fn(gen)
+    if kernel == "fa":
+        with phase("kernels.lse.cases"):
+            phase_lse_cases(gen)
     if args.only == "fa":
         with phase("kernels.main_shape"):
             B, S = PREFILL_TOKENS
@@ -1695,6 +2085,8 @@ def main() -> int:
 
     with phase("kernels.cases"):
         fa_cases = phase_kernel_cases(gen)
+    with phase("kernels.lse.cases"):
+        lse_cases = phase_lse_cases(gen)
     with phase("kernels.ssd.cases"):
         ssd_cases = phase_ssd_cases(gen)
 
@@ -1704,16 +2096,21 @@ def main() -> int:
                 HYBRID: drive_path(hybrid, args, serve=True,
                                    decode_layers=hybrid.hybrid.attn_every),
                 SSM: drive_path(pure, args, serve=False, decode_layers=2)}
+    # the training paths, each with its own reset and read of the counts
+    for cfg in (dense, hybrid):
+        launched[f"{cfg.name}:train"] = drive_train(cfg, args)
 
+    TB, TS = TRAIN_TOKENS
     with phase("kernels.main_shape"):
-        fa_rows = [phase_kernel_main_shape(cfg, B, S, gen)
-                   for cfg in (dense, hybrid)]
+        fa_rows = [phase_kernel_main_shape(cfg, b, s, gen)
+                   for b, s in ((B, S), (TB, TS)) for cfg in (dense, hybrid)]
         emit({"phase": "kernels.main_shape", "ok": True,
               "kernel": "flash_attention", "shapes": fa_rows})
     torch.cuda.empty_cache()
     with phase("kernels.ssd.main_shape"):
         ssd_rows = [phase_ssd_main_shape(cfg, B, S, gen)
-                    for cfg in (hybrid, pure)]
+                    for cfg in (hybrid, pure)] \
+            + [phase_ssd_main_shape(hybrid, TB, TS, gen)]
         emit({"phase": "kernels.ssd.main_shape", "ok": True,
               "kernel": "ssd_scan", "shapes": ssd_rows,
               **ssd_extra(ptx["ssd_scan"])})
@@ -1756,7 +2153,7 @@ def main() -> int:
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:116",
                      {a: n["flash_attention"] for a, n in launched.items()},
-                     fa_rows, fa_cases,
+                     fa_rows, fa_cases, lse_cases=lse_cases,
                      **fa_extra(ptx["flash_attention"])),
         kernel_entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:97",

@@ -11,11 +11,19 @@
 // mask) start first, and the block loops over the k-tiles itself with the
 // running max, running sum and output accumulator in registers, so nothing
 // but q, k, v (read once per block) and o (written once) touches device
-// memory.  Masked k-tiles are cut from the loop bounds (causal: upper bound,
+// memory (and, when asked, the row log-sum-exp: see below).  Masked k-tiles
+// are cut from the loop bounds (causal: upper bound,
 // window: lower bound); the ragged edge (Sq or Skv not a multiple of the
 // tile, dh below the padded width) is masked inside, so any Sq, Skv >= 1 is
 // accepted.  A query row that sees no key comes out as zeros, as from the TPU
 // kernel.
+//
+// The row log-sum-exp (lse, (B, H, Sq) f32, written only when its pointer is
+// not null): max(m * scale, -1e4) + ln(max(l, 1e-20)), with m the running
+// max and l the running sum the epilogue already holds — what the reference
+// saves for its chunked backward (`_flash_xla_fwd`, models/attention.py),
+// the running max floored as there (`_M_INIT`).  One f32 store per row: the
+// backward needs no second Q K^T pass to re-derive it.
 //
 // What bounds it on this card: operations, not bytes.  At B=4, H=24,
 // S=2048, dh=128 (causal) q, k, v and o move 0.13 GB while the two products
@@ -79,6 +87,7 @@ namespace {
 using namespace hopper;
 
 constexpr float kNegInf = -1e30f;
+constexpr float kMInit = -1e4f;   // the reference's running-max floor
 
 __device__ __forceinline__ bool visible(int r, int c, int Skv, int causal,
                                         int window) {
@@ -99,6 +108,7 @@ struct Params {
   const float* k;
   const float* v;
   float* o;
+  float* lse;   // (B, H, Sq) or null
   int B, H, KVH, Sq, Skv, dh;
   // strides in elements; the last (dh) dimension has stride 1
   long long q_sb, q_sh, q_ss;
@@ -299,6 +309,10 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
     const int r = q0 + ty + 16 * i;
     if (r >= p.Sq) continue;
     const float denom = fmaxf(l_run[i], 1e-20f);
+    // m and l are the same in the 16 lanes of the row's half-warp
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + r] =
+          fmaxf(m_run[i], kMInit) + logf(denom);
     const long long row = o_base + static_cast<long long>(r) * p.o_ss;
     if constexpr (TD >= 4) {
 #pragma unroll
@@ -390,10 +404,12 @@ struct Tile {
 
 struct BParams {
   __nv_bfloat16* o;
+  float* lse;                   // (B, H, Sq) or null
   long long o_sb, o_sh, o_ss;   // elements; the last dimension has stride 1
   int H, KVH, Sq, Skv, dh;
   int causal;
   int window;                   // <= 0: no window
+  float scale;                  // softmax scale
   float scale_log2;             // softmax scale * log2(e)
 };
 
@@ -700,6 +716,14 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     const float d0 = fmaxf(st.l0, 1e-20f);
     const float d1 = fmaxf(st.l1, 1e-20f);
+    // m (raw logits; the scale is folded into the exponent) and l are the
+    // same in the four lanes of a quad
+    if (p.lse != nullptr && (lane & 3) == 0) {
+      float* lrow = p.lse + (static_cast<long long>(b) * p.H + h) * p.Sq;
+      if (r0 < p.Sq) lrow[r0] = fmaxf(st.m0 * p.scale, kMInit) + logf(d0);
+      if (r0 + 8 < p.Sq)
+        lrow[r0 + 8] = fmaxf(st.m1 * p.scale, kMInit) + logf(d1);
+    }
     __nv_bfloat16* row0 = p.o + b * p.o_sb + h * p.o_sh
                           + static_cast<long long>(r0) * p.o_ss;
     __nv_bfloat16* row1 = row0 + 8 * p.o_ss;
@@ -752,12 +776,14 @@ int smem_of(int dhp) {
 }  // namespace
 
 // The f32 kernel: launches on `stream`, allocates nothing, does not
-// synchronise.  Returns the CUDA error code of the launch (0 = success).
+// synchronise; writes the row log-sum-exp into `lse` ((B, H, Sq) f32,
+// contiguous) unless it is null.  Returns the CUDA error code of the launch (0 = success).
 // block_q, block_k in {32, 64, 128}; a tile that exceeds the shared memory of
 // one block is refused with cudaErrorInvalidValue.  dh must be a multiple of
 // 4, at most 128, and every row (pointer and strides) 16-byte aligned.
 extern "C" int flash_attention_forward(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H,
     int KVH, int Sq, int Skv, int dh, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
@@ -772,6 +798,7 @@ extern "C" int flash_attention_forward(
   p.k = static_cast<const float*>(k);
   p.v = static_cast<const float*>(v);
   p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
   p.B = B; p.H = H; p.KVH = KVH; p.Sq = Sq; p.Skv = Skv; p.dh = dh;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
@@ -805,14 +832,16 @@ extern "C" int flash_attention_tile(int dh, int* block_q, int* block_k,
 }
 
 // The bf16 kernel: launches on `stream`, allocates nothing, does not
-// synchronise; encodes the three tensor maps on the host for every call.
+// synchronise; encodes the three tensor maps on the host for every call;
+// writes the row log-sum-exp as the f32 kernel does.
 // Returns the CUDA error code (0 = success): cudaErrorMisalignedAddress when
 // a base pointer is not 16-byte aligned or a stride (elements) of a dimension
 // of extent > 1 is not a multiple of 8, cudaErrorInvalidValue for a shape
 // the kernel does not take.  Strides in elements; o's last dimension has
 // stride 1 and its rows are 4-byte aligned.
 extern "C" int flash_attention_forward_bf16(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H,
     int KVH, int Sq, int Skv, int dh, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
@@ -831,9 +860,11 @@ extern "C" int flash_attention_forward_bf16(
   if (err != cudaSuccess) return static_cast<int>(err);
   BParams p;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.H = H; p.KVH = KVH; p.Sq = Sq; p.Skv = Skv; p.dh = dh;
   p.causal = causal; p.window = window;
+  p.scale = scale;
   p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (padded16(dh)) {

@@ -30,6 +30,12 @@ f32: every row 16-byte aligned.  bf16 (TMA's rule, ``check_tma_layout``): a
 a multiple of 16 bytes; the layouts the models hand over meet it whenever
 ``dh`` is a multiple of 8.  The output has q's type and q's strides.
 
+With ``return_lse=True`` both kernels also write the row log-sum-exp, lse
+``(B, H, Sq)`` f32, ``max(m, -1e4) + ln(max(l, 1e-20))`` of the scaled
+logits: what the reference's chunked forward saves for its backward
+(``_flash_xla_fwd``).  The training path's ``models.attention._FlashAttention``
+asks for it; the kernels refuse autograd outside that Function.
+
 One difference from the plain version: a query row that sees no key at all
 (possible only with a window and ``Sq > Skv``) comes out as zeros from the
 kernel, as from the TPU kernel, and as the mean of ``v`` from the plain
@@ -47,26 +53,30 @@ from repro_torch.kernels import _build
 from repro_torch.runtime import flags
 
 NEG_INF = -1e30
+#: the running-max floor of the reference's chunked path (``_M_INIT``)
+M_INIT = -1e4
 
 #: tile sizes the f32 kernel is built for (rows of q, rows of k per tile)
 TILES = (32, 64, 128)
 #: bytes of shared memory one thread block may use on sm_90
 SMEM_LIMIT = 232448
 
-_ARGTYPES_F32 = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_ARGTYPES_F32 = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                  + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4
                  + [ctypes.c_float, ctypes.c_void_p])
-_ARGTYPES_BF16 = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_ARGTYPES_BF16 = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                   + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
                   + [ctypes.c_float, ctypes.c_void_p])
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
+                        causal: bool = True, window: Optional[int] = None,
+                        return_lse: bool = False):
     """The plain version: materialised logits, f32 math, ``-1e30`` mask.
 
-    q (B,H,Sq,dh) × k,v (B,KVH,Skv,dh) → (B,H,Sq,dh) in q's type."""
+    q (B,H,Sq,dh) × k,v (B,KVH,Skv,dh) → (B,H,Sq,dh) in q's type; with
+    ``return_lse``, also the row log-sum-exp (B,H,Sq) f32 as the kernels
+    write it (the running max floored at ``M_INIT``)."""
     B, H, Sq, dh = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     G = H // KVH
@@ -82,8 +92,12 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= qpos - kpos < window
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, vf)
-    return o.to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    if not return_lse:
+        return o
+    m = torch.clamp(s.amax(dim=-1), min=M_INIT)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    return o, m + torch.log(torch.clamp(l, min=1e-20))
 
 
 def tile(dh: int) -> Tuple[int, int, int, int]:
@@ -201,8 +215,10 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
-    """q (B,H,Sq,dh) × k,v (B,KVH,Skv,dh) → (B,H,Sq,dh).
+                    block_q: int = 128, block_k: int = 128,
+                    return_lse: bool = False):
+    """q (B,H,Sq,dh) × k,v (B,KVH,Skv,dh) → (B,H,Sq,dh), and with
+    ``return_lse`` also the row log-sum-exp (B,H,Sq) f32.
 
     A CUDA tensor goes through a kernel, or the call raises: bf16 through
     the tensor-core kernel, whose tile the CUDA source chooses (``tile``),
@@ -213,20 +229,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     comparisons)."""
     _check(q, k, v, window)
     if q.device.type == "cpu" or not flags.kernels_enabled():
-        return attention_reference(q, k, v, causal=causal, window=window)
+        return attention_reference(q, k, v, causal=causal, window=window,
+                                   return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
-            "the flash-attention kernel has no backward yet (it arrives with "
-            "the training slice); call it under torch.no_grad()")
+            "the flash-attention kernel is differentiated only through "
+            "repro_torch.models.attention._FlashAttention (its backward is "
+            "the reference's chunked recompute); call the kernel directly "
+            "under torch.no_grad()")
     B, H, Sq, dh = q.shape
     KVH, Skv = k.shape[1], k.shape[2]
     if dh % 4 or dh > 128:
         raise ValueError(f"head_dim must be a multiple of 4, at most 128; "
                          f"got {dh}")
     o = torch.empty_like(q)  # keeps q's strides
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         for name, t in (("q", q), ("k", k), ("v", v)):
@@ -245,6 +266,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr() if return_lse else None,
                  B, H, KVH, Sq, Skv, dh,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *o.stride()[:3],
@@ -256,7 +278,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"flash_attention: CUDA error {err} at launch (shape q "
             f"{tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}, {what})")
     flash_attention.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 #: how many times a kernel was launched (and only that: the plain version

@@ -55,13 +55,15 @@ def _resolve_blocks(kernel: str, block_sizes: BlockSizes,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     block_q: int = 128, block_k: int = 128,
-                    block_sizes: BlockSizes = None) -> torch.Tensor:
-    """q (B,H,Sq,dh) × k,v (B,KVH,Skv,dh) → (B,H,Sq,dh)."""
+                    block_sizes: BlockSizes = None, return_lse: bool = False):
+    """q (B,H,Sq,dh) × k,v (B,KVH,Skv,dh) → (B,H,Sq,dh); with
+    ``return_lse``, ``(o, lse (B,H,Sq) f32)``."""
     blocks = _resolve_blocks("flash_attention", block_sizes,
                              {"block_q": block_q, "block_k": block_k})
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                block_q=blocks["block_q"],
-                               block_k=blocks["block_k"])
+                               block_k=blocks["block_k"],
+                               return_lse=return_lse)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -225,8 +225,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, B, C)):
         raise NotImplementedError(
-            "the SSD-scan kernel has no backward yet (it arrives with the "
-            "training slice); call it under torch.no_grad()")
+            "the SSD-scan kernel is differentiated only through "
+            "repro_torch.models.ssm._SSDScan (its backward recomputes the "
+            "plain chunked math); call the kernel directly under "
+            "torch.no_grad()")
     if chunk > MAX_CHUNK:
         raise ValueError(f"chunk {chunk} > {MAX_CHUNK} is not supported by "
                          "the kernel")

@@ -1,14 +1,20 @@
-"""Attention: GQA, RoPE, sliding window, and KV-cache decode.
+"""Attention: GQA, RoPE, sliding window, the chunked online-softmax path
+with its flash-style backward, and KV-cache decode.
 
-Prefill goes through the hand-written flash-attention kernel
-(``repro_torch.kernels.flash_attention``); ``_plain_attention`` is the
-materialised-logits path of the same contraction, taken under
-``flags.use_kernels(False)``.  Decode over the cache is plain tensor code, as
-in the reference.
+Train and prefill go through the hand-written flash-attention kernel
+(``repro_torch.kernels.flash_attention``) inside ``_FlashAttention``, an
+autograd Function: its forward is the kernel, which also writes the row
+log-sum-exp, and its backward is the reference's ``_flash_xla_bwd`` in torch
+ops (``_flash_bwd``): the tiles of P re-derived from the saved (o, lse) chunk
+by chunk, f32 math.  The JAX package has no backward kernel, so none is
+ported.  Under ``flags.use_kernels(False)``, ``attention_core`` dispatches
+as the reference does: the chunked path (``_chunked_attention`` under the
+same backward, ``_FlashXLA``) above ``CHUNKED_ABOVE`` query-key pairs, the
+materialised-logits ``_plain_attention`` below.  Decode over the cache is
+plain tensor code, as in the reference.
 
-Not ported yet: ``apply_mrope`` (vision-language family), the
-context-parallel branch (multi-device) and the chunked online-softmax path
-with its custom backward (training).
+Not ported yet: ``apply_mrope`` (vision-language family) and the
+context-parallel branch (multi-device).
 """
 from __future__ import annotations
 
@@ -94,6 +100,217 @@ def _plain_attention(q, k, v, q_pos, k_pos, causal, window, scale):
     return o.reshape(B, Sq, H, dh).to(q.dtype)
 
 
+_BIAS_NEG = -1e9   # additive mask bias (finite: keeps exp() well-defined)
+_M_INIT = -1e4     # running-max floor; masked rows renormalise to 0
+
+#: ``attention_core`` takes the chunked path above this many (q, k) pairs
+CHUNKED_ABOVE = 2048 * 2048
+
+
+def _grouped(t: torch.Tensor, KVH: int) -> torch.Tensor:
+    """(B, S, H, d) -> (B, KVH, G, S, d) f32: a head's rows next to those
+    of the other heads of its group, so that one product per (b, kv head)
+    covers the whole group."""
+    B, S, H, d = t.shape
+    return t.float().reshape(B, S, KVH, H // KVH, d).permute(0, 2, 3, 1, 4)
+
+
+def _chunk_needed(q0, q1, k0, k1, causal, window) -> bool:
+    """Does the (q rows q0..q1-1) × (keys k0..k1-1) pair hold a visible
+    pair?  The reference skips the others (``lax.cond``)."""
+    return (not causal or k0 <= q1 - 1) and \
+        (window is None or q0 - (k1 - 1) < window)
+
+
+def _chunk_bias(q0, q1, k0, k1, causal, window, device):
+    """The additive mask of a chunk pair, or None where every pair is
+    visible (adding a bias of 0 changes no value)."""
+    if (not causal or k1 - 1 <= q0) and \
+            (window is None or (q1 - 1) - k0 < window):
+        return None
+    m = _mask(torch.arange(q0, q1, device=device),
+              torch.arange(k0, k1, device=device), causal, window)
+    return torch.where(m, 0.0, _BIAS_NEG)
+
+
+def _chunked_attention(q, k, v, q_offset, causal, window, scale,
+                       chunk_q: int, chunk_kv: int):
+    """Online-softmax double loop over q chunks × kv chunks, f32 math.
+
+    q (B,Sq,H,dh) × k,v (B,Skv,KVH,dh) -> (out (B,Sq,H,dh) in q's type,
+    lse (B,Sq,KVH,G) f32).  Live memory is O(B·H·chunk_q·chunk_kv) logits;
+    fully masked chunk pairs are skipped, the mask is the reference's
+    additive ``_BIAS_NEG`` and the running max is floored at ``_M_INIT``,
+    so fully masked rows stay zero.  ``q_offset`` is the absolute position
+    of q[0].  A length that is not a multiple of its chunk leaves a shorter
+    last chunk (the reference asserts divisibility)."""
+    B, Sq, H, dh = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    qg = _grouped(q, KVH)                      # (B, KVH, G, Sq, dh)
+    kf = k.float().transpose(1, 2)             # (B, KVH, Skv, dh)
+    vf = v.float().transpose(1, 2)
+    out = torch.empty((B, KVH, G, Sq, dh), dtype=torch.float32,
+                      device=q.device)
+    lse = torch.empty((B, KVH, G, Sq), dtype=torch.float32, device=q.device)
+    for q0 in range(0, Sq, chunk_q):
+        q1 = min(q0 + chunk_q, Sq)
+        cq = q1 - q0
+        qb = qg[:, :, :, q0:q1].reshape(B, KVH, G * cq, dh)
+        m_run = torch.full((B, KVH, G * cq, 1), _M_INIT, device=q.device)
+        l_run = torch.zeros((B, KVH, G * cq, 1), device=q.device)
+        acc = torch.zeros((B, KVH, G * cq, dh), device=q.device)
+        for k0 in range(0, Skv, chunk_kv):
+            k1 = min(k0 + chunk_kv, Skv)
+            a0, a1 = q_offset + q0, q_offset + q1
+            if not _chunk_needed(a0, a1, k0, k1, causal, window):
+                continue
+            s = torch.matmul(qb, kf[:, :, k0:k1].transpose(-1, -2)) * scale
+            bias = _chunk_bias(a0, a1, k0, k1, causal, window, q.device)
+            if bias is not None:
+                s = (s.view(B, KVH, G, cq, k1 - k0) + bias).view_as(s)
+            m_new = torch.clamp(torch.maximum(m_run, s.amax(-1, True)),
+                                min=_M_INIT)
+            alpha = torch.exp(m_run - m_new)
+            p = torch.exp(s - m_new)            # masked lanes -> 0
+            l_run = l_run * alpha + p.sum(-1, True)
+            acc = acc * alpha + torch.matmul(p, vf[:, :, k0:k1])
+            m_run = m_new
+        l_run = torch.clamp(l_run, min=1e-20)
+        out[:, :, :, q0:q1] = (acc / l_run).view(B, KVH, G, cq, dh)
+        lse[..., q0:q1] = (m_run + torch.log(l_run)).view(B, KVH, G, cq)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+    return out, lse.permute(0, 3, 1, 2)
+
+
+def _flash_bwd(q, k, v, o, lse, do, q_offset, causal, window, scale,
+               chunk_q: int, chunk_kv: int):
+    """The reference's ``_flash_xla_bwd`` in torch ops: dq, dk, dv from the
+    saved (o, lse), every tile of P re-derived inside the chunk loops.
+
+    q, o, do (B,Sq,H,dh); k, v (B,Skv,KVH,dh); lse (B,H,Sq) f32.  Outer loop
+    over kv chunks, inner over q chunks, fully masked pairs skipped, the
+    additive ``_BIAS_NEG`` mask, ``D = rowsum(do ⊙ o)``; f32 math, the
+    gradients cast to the inputs' types."""
+    B, Sq, H, dh = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    qg, dog = _grouped(q, KVH), _grouped(do, KVH)   # (B, KVH, G, Sq, dh)
+    D = (dog * _grouped(o, KVH)).sum(-1)            # (B, KVH, G, Sq)
+    lseg = lse.float().reshape(B, KVH, G, Sq)
+    kf = k.float().transpose(1, 2)                  # (B, KVH, Skv, dh)
+    vf = v.float().transpose(1, 2)
+    dq = torch.zeros_like(qg)
+    dk = torch.empty_like(kf)
+    dv = torch.empty_like(vf)
+    for k0 in range(0, Skv, chunk_kv):
+        k1 = min(k0 + chunk_kv, Skv)
+        kb, vb = kf[:, :, k0:k1], vf[:, :, k0:k1]
+        dk_blk = torch.zeros_like(kb)
+        dv_blk = torch.zeros_like(vb)
+        for q0 in range(0, Sq, chunk_q):
+            q1 = min(q0 + chunk_q, Sq)
+            cq = q1 - q0
+            a0, a1 = q_offset + q0, q_offset + q1
+            if not _chunk_needed(a0, a1, k0, k1, causal, window):
+                continue
+            qb = qg[:, :, :, q0:q1].reshape(B, KVH, G * cq, dh)
+            dob = dog[:, :, :, q0:q1].reshape(B, KVH, G * cq, dh)
+            s = torch.matmul(qb, kb.transpose(-1, -2)).mul_(scale)
+            bias = _chunk_bias(a0, a1, k0, k1, causal, window, q.device)
+            if bias is not None:
+                s.view(B, KVH, G, cq, k1 - k0).add_(bias)
+            lse_b = lseg[..., q0:q1].reshape(B, KVH, G * cq, 1)
+            p = s.sub_(lse_b).exp_()                # the re-derived tile
+            dv_blk += torch.matmul(p.transpose(-1, -2), dob)
+            dp = torch.matmul(dob, vb.transpose(-1, -2))
+            D_b = D[..., q0:q1].reshape(B, KVH, G * cq, 1)
+            ds = dp.sub_(D_b).mul_(p)
+            dq[:, :, :, q0:q1] += torch.matmul(ds, kb).mul_(scale).view(
+                B, KVH, G, cq, dh)
+            dk_blk += torch.matmul(ds.transpose(-1, -2), qb).mul_(scale)
+        dk[:, :, k0:k1] = dk_blk
+        dv[:, :, k0:k1] = dv_blk
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+    return dq, dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+
+
+class _FlashXLA(torch.autograd.Function):
+    """The reference's ``_flash_xla``: the chunked forward, saving only
+    (o, lse), and the flash-style backward.  q (B,Sq,H,dh), k, v
+    (B,Skv,KVH,dh)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, causal, window, chunk_q, chunk_kv):
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        o, lse = _chunked_attention(q, k, v, q_offset, causal, window, scale,
+                                    chunk_q, chunk_kv)
+        B, Sq, H = q.shape[:3]
+        ctx.save_for_backward(q, k, v, o,
+                              lse.reshape(B, Sq, H).transpose(1, 2))
+        ctx.args = (q_offset, causal, window, scale, chunk_q, chunk_kv)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+class _FlashAttention(_FlashXLA):
+    """Attention through the hand-written kernel, differentiable: the
+    forward is ``kops.flash_attention`` (on a CPU tensor its plain
+    version), asked for the row log-sum-exp only when a gradient will be
+    needed (``grad``: autograd was on at the call); the backward is
+    ``_FlashXLA``'s, from the saved (q, k, v, o, lse).  q (B,Sq,H,dh), k, v
+    (B,Skv,KVH,dh) — the kernel reads them as (B,H,S,dh) views, no copies;
+    causal from position 0."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, chunk_q, chunk_kv, grad):
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        need = grad and any(ctx.needs_input_grad[:3])
+        out = kops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=window, return_lse=need)
+        o, lse = out if need else (out, None)
+        o = o.transpose(1, 2)
+        if need:
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.args = (0, True, window, scale, chunk_q, chunk_kv)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = _FlashXLA.backward(ctx, do)[:3]
+        return dq, dk, dv, None, None, None, None
+
+
+def attention_core(q, k, v, *, causal: bool = True,
+                   window: Optional[int] = None, q_offset: int = 0,
+                   chunk_q: int = 1024, chunk_kv: int = 1024,
+                   force_chunked: bool = False) -> torch.Tensor:
+    """q (B,Sq,H,dh) × k,v (B,Skv,KVH,dh) -> (B,Sq,H,dh), the plain paths.
+
+    ``q_offset``: absolute position of q[0].  Dispatches as the reference
+    does: the chunked path (with its flash-style backward) when ``Sq·Skv``
+    exceeds ``CHUNKED_ABOVE`` (or ``force_chunked``) and both lengths are
+    multiples of 512 with ``Sq > 1``; the materialised-logits path
+    otherwise."""
+    B, Sq, H, dh = q.shape
+    Skv = k.shape[1]
+    big = Sq * Skv > CHUNKED_ABOVE
+    if (big or force_chunked) and Sq % 512 == 0 and Skv % 512 == 0 \
+            and Sq > 1:
+        return _FlashXLA.apply(q, k, v, q_offset, causal, window,
+                               min(chunk_q, Sq), min(chunk_kv, Skv))
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    return _plain_attention(q, k, v, q_pos, k_pos, causal, window,
+                            1.0 / math.sqrt(dh))
+
+
 # ---------------------------------------------------------------------------
 # GQA attention block (parameters + apply, with KV cache support)
 # ---------------------------------------------------------------------------
@@ -162,18 +379,16 @@ def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
         if flags.attention_stubbed():  # cost-attribution mode
             o = v.repeat_interleave(H // KVH, dim=2)
         elif flags.kernels_enabled():
-            # the kernel takes (B, H, S, dh): strided views, no copies.  The
-            # reference asks the autotuner for the tiling here; until that is
-            # ported the kernel's default tiles are used.
-            o = kops.flash_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=True, window=cfg.sliding_window,
-            ).transpose(1, 2)
+            # the kernel, differentiable; its backward chunks as
+            # attention_core's chunked path does.  The reference asks the
+            # autotuner for the tiling here; until that is ported the
+            # kernel's default tiles are used.
+            o = _FlashAttention.apply(q, k, v, cfg.sliding_window,
+                                      min(1024, S), min(1024, S),
+                                      torch.is_grad_enabled())
         else:
-            o = _plain_attention(
-                q, k, v, torch.arange(S, device=x.device),
-                torch.arange(S, device=x.device), True, cfg.sliding_window,
-                1.0 / math.sqrt(dh))
+            o = attention_core(q, k, v, causal=True,
+                               window=cfg.sliding_window)
     else:
         # decode: write into the cache ring/window and attend over it
         Smax = cache.k.shape[1]

@@ -4,8 +4,7 @@ their parameters.
 Weights follow PyTorch's habit, ``(out, in)`` for a dense layer; the
 reference stores ``(in, out)`` and ``models/convert.py`` transposes.  The
 multi-codebook embedding and the multi-head LM head of the audio family are
-not ported yet and raise ``NotImplementedError``.  ``softmax_xent`` arrives
-with training.
+not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -140,3 +139,22 @@ class LMHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return lm_head(self.weight, x)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy; logits (..., V) in any float type (f32 math),
+    labels (...) int; with ``mask`` (...), the mask-weighted mean."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,11 +1,17 @@
-"""Mamba2 mixer: chunked SSD (state-space duality) for prefill, linear in the
-sequence length, and an O(1) recurrence for decode.
+"""Mamba2 mixer: chunked SSD (state-space duality) for train and prefill,
+linear in the sequence length, and an O(1) recurrence for decode.
 
-Prefill goes through ``kops.ssd_scan``: the hand-written SSD-scan kernel on a
-CUDA tensor, and its plain chunked version (``ssd_scan_reference``, the
-reference's ``_ssd_chunked`` in the kernel's layout) on a CPU tensor or under
-``flags.use_kernels(False)``; the wrapper makes that choice.  Decode is plain
-tensor code, as in the reference (which has no decode kernel either).
+Train and prefill go through ``_SSDScan``, an autograd Function around
+``kops.ssd_scan``.  Its forward is always the wrapper: the hand-written
+SSD-scan kernel on a CUDA tensor, and its plain chunked version
+(``ssd_scan_reference``, the reference's ``_ssd_chunked`` in the kernel's
+layout) on a CPU tensor or under ``flags.use_kernels(False)``; the wrapper
+makes that choice, and the forward saves only the inputs.  Its BACKWARD —
+never its forward — recomputes the plain chunked math under autograd and
+returns ``torch.autograd.grad`` of it: the counterpart of ``jax.grad``
+through ``_ssd_chunked``, which is what the reference differentiates (it has
+no backward kernel), one layer at a time.  Decode is plain tensor code, as
+in the reference (which has no decode kernel either).
 
 Layouts follow the reference: ``conv_w`` is ``(d_conv, conv_dim)`` and used as
 ``w[j]`` per tap; ``A_log``, ``D`` and ``dt_bias`` stay f32 whatever the
@@ -29,6 +35,7 @@ from torch import nn
 
 from repro_torch.distributed.sharding import logical
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ssd_scan import ssd_scan_reference
 from repro_torch.models import layers
 
 
@@ -81,6 +88,30 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b)
 
 
+class _SSDScan(torch.autograd.Function):
+    """y of ``kops.ssd_scan`` (the kernel on a CUDA tensor), differentiable
+    through a recompute of ``ssd_scan_reference`` in the backward.  Layouts
+    as the wrapper's: x (Bz,H,L,P), dt (Bz,H,L), A (H,), B/C (Bz,G,L,N)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        y, _ = kops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y, _ = ssd_scan_reference(*inputs, chunk=ctx.chunk)
+        want = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, want, dy))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in inputs), None)
+
+
 def ssm_apply(p: SSM, x: torch.Tensor, cfg, *,
               state: Optional[SSMState] = None
               ) -> Tuple[torch.Tensor, Optional[SSMState]]:
@@ -112,9 +143,8 @@ def ssm_apply(p: SSM, x: torch.Tensor, cfg, *,
         # (B, H, S, ·) views, no copies.  The reference asks the autotuner
         # for the chunk here; until it is ported the configuration's chunk
         # is used.
-        y, _ = kops.ssd_scan(xin.transpose(1, 2), dt.transpose(1, 2), A,
-                             Bm.transpose(1, 2), Cm.transpose(1, 2),
-                             chunk=chunk)
+        y = _SSDScan.apply(xin.transpose(1, 2), dt.transpose(1, 2), A,
+                           Bm.transpose(1, 2), Cm.transpose(1, 2), chunk)
         y = y.transpose(1, 2)
         new_state = None
     else:

@@ -12,20 +12,29 @@ Families:
   hybrid : Zamba2 — SSD blocks + one *shared* attention+MLP block applied
            after every ``attn_every``-th SSD layer
 
+Training: ``loss_fn`` differentiates ``forward`` with torch autograd; the
+kernels sit inside autograd Functions (``attention._FlashAttention``,
+``ssm._SSDScan``).  The reference's ``jax.checkpoint`` remat per block is
+``torch.utils.checkpoint`` (``_remat``): ``full`` keeps only block
+boundaries, ``dots`` also keeps the outputs of the 2-D matrix products.
+
 Mixture-of-experts, vision-language and audio raise ``NotImplementedError``
 naming what they wait for.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import logical
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, ssm
+from repro_torch.runtime import flags
 
 _WAITS_FOR = {
     "moe": "the mixture-of-experts slice (models/moe.py)",
@@ -116,7 +125,50 @@ def param_device(model: nn.Module) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Remat
+# ---------------------------------------------------------------------------
+
+#: the products ``dots`` keeps: 2-D matrix products, as JAX's
+#: ``dots_with_no_batch_dims_saveable`` keeps dots without batch dimensions
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, policy: Optional[str]) -> Callable:
+    """``fn`` under the remat ``policy``: ``none`` runs it as it is;
+    ``full`` keeps only its inputs and recomputes the rest in the backward;
+    ``dots`` also keeps the outputs of its 2-D matrix products.  Without
+    autograd (prefill) there is nothing to keep, and ``fn`` runs as it is.
+
+    The recompute runs inside the backward, which for CUDA tensors runs on
+    autograd's own thread, where the thread-local ``runtime.flags`` are at
+    their defaults: the flags of the forward are captured here and set
+    again around every run of ``fn``, so that the recompute takes the same
+    path (kernel or plain) as the forward it replays."""
+    if policy in (None, "none") or not torch.is_grad_enabled():
+        return fn
+    if policy not in ("full", "nothing", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    kernels, stub = flags.kernels_enabled(), flags.attention_stubbed()
+
+    def run(*args):
+        with flags.use_kernels(kernels), flags.stub_attention(stub):
+            return fn(*args)
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(_ckpt.checkpoint, run, use_reentrant=False,
+                             **kw)
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -160,22 +212,57 @@ def logits_from_hidden(model: Transformer, cfg: ArchConfig,
 
 
 def forward(model: Transformer, cfg: ArchConfig,
-            batch: Dict[str, torch.Tensor]
+            batch: Dict[str, torch.Tensor],
+            remat_policy: Optional[str] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (logits, aux_loss).  Prefill path (full sequence); the auxiliary
-    loss is zero for every ported family."""
+    """-> (logits, aux_loss).  Train/prefill path (full sequence); the
+    auxiliary loss is zero for every ported family.  ``remat_policy``
+    (default ``cfg.remat_policy``) wraps each block — for the hybrid, each
+    super-block of ``attn_every`` SSM layers and the shared block, as the
+    reference's ``super_body`` — in ``_remat``."""
+    policy = remat_policy or cfg.remat_policy
     h = embed_inputs(model, cfg, batch)
     B, S = h.shape[0], h.shape[1]
     positions = attn._positions_for(cfg, B, S, device=h.device)
-    for i, bp in enumerate(model.blocks):
-        if cfg.family == "dense":
-            h = _dense_block_apply(bp, h, cfg, positions)
-            continue
-        h = _ssm_block_apply(bp, h, cfg)
-        if _is_site(cfg, i):
-            h = _dense_block_apply(model.shared, h, cfg, positions)
+    if cfg.family == "dense":
+        for bp in model.blocks:
+            h = _remat(functools.partial(_dense_block_apply, bp, cfg=cfg,
+                                         positions=positions), policy)(h)
+    else:
+        k = cfg.hybrid.attn_every if cfg.family == "hybrid" else 1
+        for i in range(0, cfg.n_layers, k):
+            h = _remat(functools.partial(_super_block_apply, model, cfg,
+                                         range(i, i + k), positions),
+                       policy)(h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return logits_from_hidden(model, cfg, h), aux
+
+
+def _super_block_apply(model: Transformer, cfg, layers_, positions, h):
+    """SSM layers ``layers_`` and, where the hybrid applies it, the shared
+    block after them."""
+    for i in layers_:
+        h = _ssm_block_apply(model.blocks[i], h, cfg)
+        if _is_site(cfg, i):
+            h = _dense_block_apply(model.shared, h, cfg, positions)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def loss_fn(model: Transformer, cfg: ArchConfig,
+            batch: Dict[str, torch.Tensor],
+            remat_policy: Optional[str] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """-> (total, {"ce", "aux"}): the mean (masked) next-token cross-entropy
+    of ``batch["labels"]``.  The mixture-of-experts auxiliary term waits for
+    the MoE slice (``forward`` raises for that family)."""
+    logits, aux = forward(model, cfg, batch, remat_policy)
+    ce = layers.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    return ce, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

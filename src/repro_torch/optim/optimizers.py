@@ -1,0 +1,212 @@
+"""Optimizers, functional as in the reference (no ``torch.optim`` class,
+whose arithmetic differs: AdamW's eps placement, the order of the decoupled
+decay).
+
+- ``adamw``     : f32 m/v (type configurable) + decoupled weight decay.
+- ``adafactor`` : factored second moment (llama3-405b's choice, whose f32
+                  Adam states would not fit).
+- ``sgd``       : momentum SGD (measurement baseline).
+
+Parameters, gradients and states are dictionaries of tensors keyed by the
+parameter's name (``dict(model.named_parameters())``).  Every update is
+computed in f32 and cast back to the parameter's type, one tensor at a time
+so that the f32 temporaries never exceed those of the largest tensor.  Unlike
+the reference, whose arrays are immutable, ``update`` writes the new
+parameters and states IN PLACE (into the same tensors, which the model holds)
+and returns them: a copy of a 3.6e9-parameter model and its states does not
+fit beside them on one card.  The step count is a host integer.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+Tensors = Dict[str, torch.Tensor]
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Tensors], Any]
+    update: Callable[[Tensors, Any, Tensors, float], tuple]
+    # update(grads, state, params, lr) -> (params, state), both updated in
+    # place
+
+
+def _f32(x: float) -> float:
+    """A host scalar rounded to f32, as the reference's f32 scalars are."""
+    return float(np.float32(x))
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+
+def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1,
+          state_dtype: torch.dtype = torch.float32) -> Optimizer:
+    def init(params: Tensors):
+        def zeros(p):
+            return torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+        return {"m": {n: zeros(p) for n, p in params.items()},
+                "v": {n: zeros(p) for n, p in params.items()},
+                "count": 0}
+
+    @torch.no_grad()
+    def update(grads: Tensors, state, params: Tensors, lr: float):
+        count = state["count"] + 1
+        c = np.float32(count)
+        bc1 = _f32(1.0 - np.float32(b1) ** c)
+        bc2 = _f32(1.0 - np.float32(b2) ** c)
+        for n, p in params.items():
+            g = grads[n].float()
+            m, v = state["m"][n], state["v"][n]
+            mf = m.float().mul_(b1).add_(g, alpha=1 - b1)
+            vf = v.float().mul_(b2).add_(g * g, alpha=1 - b2)
+            del g
+            step = (mf / bc1).div_(torch.sqrt(vf / bc2).add_(eps))
+            pf = p.float()
+            step.add_(pf, alpha=weight_decay)
+            p.copy_(pf.sub(step, alpha=_f32(lr)))
+            del step, pf
+            m.copy_(mf)
+            v.copy_(vf)
+        return params, {"m": state["m"], "v": state["v"], "count": count}
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored v; optional bf16 momentum)
+# ---------------------------------------------------------------------------
+
+
+def adafactor(decay: float = 0.8, eps: float = 1e-30,
+              clip_threshold: float = 1.0, momentum: Optional[float] = None,
+              momentum_dtype: torch.dtype = torch.bfloat16) -> Optimizer:
+    def _factored(p):
+        return p.ndim >= 2
+
+    def init(params: Tensors):
+        def one(p):
+            f32, dev = torch.float32, p.device
+            if _factored(p):
+                return {"vr": torch.zeros(p.shape[:-1], dtype=f32, device=dev),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                          dtype=f32, device=dev)}
+            return {"v": torch.zeros(p.shape, dtype=f32, device=dev)}
+
+        st = {"v": {n: one(p) for n, p in params.items()}, "count": 0}
+        if momentum is not None:
+            st["m"] = {n: torch.zeros(p.shape, dtype=momentum_dtype,
+                                      device=p.device)
+                       for n, p in params.items()}
+        return st
+
+    @torch.no_grad()
+    def update(grads: Tensors, state, params: Tensors, lr: float):
+        count = state["count"] + 1
+        beta = _f32(1.0 - (np.float32(count) + np.float32(1.0))
+                    ** np.float32(-decay))
+        for n, p in params.items():
+            g = grads[n].float()
+            g2 = g * g + eps
+            v = state["v"][n]
+            if _factored(p):
+                vr = v["vr"].mul(beta).add_(g2.mean(-1), alpha=1 - beta)
+                vc = v["vc"].mul(beta).add_(g2.mean(-2), alpha=1 - beta)
+                denom = (vr[..., None] * vc[..., None, :]
+                         / torch.clamp(vr.mean(-1, keepdim=True)[..., None],
+                                       min=eps))
+                u = g * torch.rsqrt(denom + eps)
+                del denom
+                v["vr"].copy_(vr)
+                v["vc"].copy_(vc)
+            else:
+                vf = v["v"].mul(beta).add_(g2, alpha=1 - beta)
+                u = g * torch.rsqrt(vf + eps)
+                v["v"].copy_(vf)
+            del g2
+            # update clipping (RMS <= clip_threshold)
+            rms = torch.sqrt(torch.mean(u * u) + eps)
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
+            if momentum is not None:
+                m = state["m"][n]
+                u = momentum * m.float() + (1 - momentum) * u
+                m.copy_(u)
+            p.copy_(p.float() - _f32(lr) * u)
+        new_state = {"v": state["v"], "count": count}
+        if momentum is not None:
+            new_state["m"] = state["m"]
+        return params, new_state
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# SGD + momentum
+# ---------------------------------------------------------------------------
+
+
+def sgd(momentum: float = 0.9) -> Optimizer:
+    def init(params: Tensors):
+        return {"m": {n: torch.zeros(p.shape, dtype=torch.float32,
+                                     device=p.device)
+                      for n, p in params.items()},
+                "count": 0}
+
+    @torch.no_grad()
+    def update(grads: Tensors, state, params: Tensors, lr: float):
+        for n, p in params.items():
+            m = state["m"][n]
+            m.mul_(momentum).add_(grads[n].float())
+            p.copy_(p.float() - _f32(lr) * m)
+        return params, {"m": state["m"], "count": state["count"] + 1}
+
+    return Optimizer(init, update)
+
+
+def get_optimizer(name: str) -> Optimizer:
+    if name == "adamw":
+        return adamw()
+    if name == "adafactor":
+        return adafactor()
+    if name == "sgd":
+        return sgd()
+    raise KeyError(name)
+
+
+# ---------------------------------------------------------------------------
+# LR schedules + grad clipping
+# ---------------------------------------------------------------------------
+
+
+def warmup_cosine(peak: float, warmup: int, total: int, floor: float = 0.1):
+    """step (host int) -> learning rate (host float), in f32 arithmetic as
+    the reference's."""
+    f = np.float32
+
+    def lr(step) -> float:
+        s = f(step)
+        if s < warmup:
+            return float(f(peak) * min(f(1.0), s / f(max(warmup, 1))))
+        t = min(max((s - f(warmup)) / f(max(total - warmup, 1)), f(0.0)),
+                f(1.0))
+        cos = f(np.cos(f(np.pi) * t))
+        return float(f(peak) * (f(floor) + f(1 - floor) * f(0.5)
+                                * (f(1.0) + cos)))
+    return lr
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Tensors, max_norm: float):
+    """Scales the gradients IN PLACE so that their global L2 norm is at most
+    ``max_norm``; returns (grads, norm before clipping as a 0-dim f32
+    tensor).  The sums are f32; no value leaves the device."""
+    g2 = sum(torch.sum(g.float() ** 2) for g in grads.values())
+    norm = torch.sqrt(g2)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    for g in grads.values():
+        g.copy_(g.float() * scale)
+    return grads, norm

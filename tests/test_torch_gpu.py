@@ -598,3 +598,134 @@ def test_transpose_tile_reports(block, variant, dtype, want, cuda):
         tr.tile(0)
     with pytest.raises(ValueError, match="no tile"):
         tr.tile(32, variant="vec16")   # vec16 is the 16 tile only
+
+
+# ---------------------------------------------------------------------------
+# the training path: the row log-sum-exp, the Functions' gradients, a step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", FA_CASES,
+                         ids=[f"fa{i}" for i in range(len(FA_CASES))])
+def test_cuda_kernel_lse_matches_plain_version(case, cuda):
+    """The row log-sum-exp both attention kernels write against the plain
+    version's: f32 1e-4, bf16 2e-2 (the kernels' own output tolerances)."""
+    q, k, v = _qkv(case, cuda)
+    causal, window, dtype = case[6], case[7], case[8]
+    o, lse = kops.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    r, rlse = fa.attention_reference(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, rlse, atol=tol, rtol=tol)
+    torch.testing.assert_close(o.float(), r.float(), atol=tol, rtol=tol)
+
+
+def _rel(a, b) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 96], ids=["causal", "window"])
+def test_flash_attention_function_gradients_match_the_cpu(dtype, window,
+                                                          cuda):
+    """``_FlashAttention`` on the card (the kernel's forward and lse) against
+    the same Function on the CPU (the plain forward): dq, dk, dv, relative
+    Frobenius 1e-5 (f32) / 2e-2 (bf16, the kernel rounds P to bf16)."""
+    from repro_torch.models import attention as attn
+    rng = np.random.default_rng(3)
+    dt = getattr(torch, dtype)
+    shapes = [(2, 512, 8, 64), (2, 512, 2, 64), (2, 512, 2, 64),
+              (2, 512, 8, 64)]
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = {}
+    for dev in ("cpu", cuda):
+        ts = [torch.from_numpy(a).to(device=dev, dtype=dt).requires_grad_()
+              for a in arrs[:3]]
+        before = fa.flash_attention.launches
+        o = attn._FlashAttention.apply(*ts, window, 256, 128, True)
+        o.backward(torch.from_numpy(arrs[3]).to(device=dev, dtype=dt))
+        assert fa.flash_attention.launches == before + (dev != "cpu")
+        grads[str(dev)] = [o] + [t.grad for t in ts]
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for name, a, b in zip(("o", "dq", "dk", "dv"), grads["cuda"],
+                          grads["cpu"]):
+        assert a.dtype == dt
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_function_gradients_match_the_cpu(dtype, cuda):
+    """``_SSDScan`` on the card (the kernel's forward; the backward
+    recomputes the plain chunked math on the card) against the same
+    Function on the CPU: y and the gradients of x, dt, A, B, C, relative
+    Frobenius 1e-5 (f32) / 1e-2 (bf16)."""
+    from repro_torch.models import ssm
+    from repro_torch.kernels import ssd_scan as ssd
+    rng = np.random.default_rng(4)
+    Bz, H, G, L, P, N, chunk = 2, 4, 1, 256, 64, 64, 128
+    dt_ = getattr(torch, dtype)
+    arrs = [rng.standard_normal((Bz, H, L, P)).astype(np.float32),
+            (0.05 + 0.1 * rng.random((Bz, H, L))).astype(np.float32),
+            -(0.5 + rng.random(H)).astype(np.float32),
+            rng.standard_normal((Bz, G, L, N)).astype(np.float32),
+            rng.standard_normal((Bz, G, L, N)).astype(np.float32),
+            rng.standard_normal((Bz, H, L, P)).astype(np.float32)]
+    types = (dt_, torch.float32, torch.float32, dt_, dt_)
+    out = {}
+    for dev in ("cpu", cuda):
+        ts = [torch.from_numpy(a).to(device=dev, dtype=t).requires_grad_()
+              for a, t in zip(arrs[:5], types)]
+        before = ssd.ssd_scan.launches
+        y = ssm._SSDScan.apply(*ts, chunk)
+        y.backward(torch.from_numpy(arrs[5]).to(device=dev, dtype=dt_))
+        assert ssd.ssd_scan.launches == before + (dev != "cpu")
+        out[str(dev)] = [y] + [t.grad for t in ts]
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for name, a, b in zip(("y", "x", "dt", "A", "B", "C"), out["cuda"],
+                          out["cpu"]):
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("name", ["llama3.2-3b", "zamba2-2.7b"])
+def test_train_step_through_the_kernels_matches_the_plain_path(name, cuda):
+    """One ``make_train_step`` (adamw, remat full) at reduced size in f32
+    with the kernels against the same step under ``use_kernels(False)``:
+    loss and gradient norm rtol 1e-4, the updated parameters 1e-5; the
+    kernels launched twice a layer (forward and the remat recompute)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.optim import optimizers as opt
+    from repro_torch.runtime import steps
+    cfg = dataclasses.replace(ARCHS[name].reduced(), param_dtype="float32",
+                              compute_dtype="float32")
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+             .to(cuda) for k in ("tokens", "labels")}
+    results = []
+    for kernels in (True, False):
+        optimizer = opt.adamw()
+        state = steps.init_train_state(
+            cfg, torch.Generator(cuda).manual_seed(0), optimizer, cuda)
+        step = steps.make_train_step(cfg, optimizer)
+        before = (fa.flash_attention.launches, ssd.ssd_scan.launches)
+        with flags.use_kernels(kernels):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        launched = (fa.flash_attention.launches - before[0],
+                    ssd.ssd_scan.launches - before[1])
+        results.append((state, m, launched))
+    (sk, mk, lk), (sp, mp, lp) = results
+    sites = cfg.n_layers // cfg.hybrid.attn_every \
+        if cfg.family == "hybrid" else cfg.n_layers
+    assert lk == (2 * sites, 2 * cfg.n_layers if cfg.family != "dense"
+                  else 0) and lp == (0, 0)
+    np.testing.assert_allclose(float(mk["loss"]), float(mp["loss"]),
+                               rtol=1e-4)
+    np.testing.assert_allclose(float(mk["grad_norm"]), float(mp["grad_norm"]),
+                               rtol=1e-4)
+    for (n, a), b in zip(sk.params.named_parameters(),
+                         sp.params.parameters()):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4, msg=n)

@@ -44,7 +44,11 @@ def test_package_layout():
                  "core/measure.py", "core/extract.py", "core/mkernels.py",
                  "core/tkernels.py", "calibration/seeds.py",
                  "calibration/registry.py", "calibration/calibrate.py",
-                 "calibration/__main__.py", "calibration/__init__.py"):
+                 "calibration/__main__.py", "calibration/__init__.py",
+                 "optim/optimizers.py", "distributed/plan.py",
+                 "data/pipeline.py", "checkpoint/store.py",
+                 "runtime/straggler.py", "runtime/trainer.py",
+                 "launch/train.py"):
         assert need in names, need
     for src in ("flash_attention.cu", "ssd_scan.cu", "matmul.cu",
                 "transpose.cu"):
