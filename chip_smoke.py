@@ -25,6 +25,21 @@ counts set to 0 just before the path and read just after):
   kernels;
 * the ssm path of ``mamba2-370m`` (48 layers): one prefill step — the
   ``ssd_scan`` kernel;
+* the mixture-of-experts serving path of ``mixtral-8x7b`` at full width
+  (8 experts of d_ff 14 336, top-2, GQA 32/8, window 4096) and 16 of its 32
+  layers (the whole model does not fit one card): the same prefill steps
+  and server — the ``flash_attention`` kernel; the MoE dispatch, expert
+  products and combine are einsums, as in the reference.  The share of
+  routing picks that differ between the kernel and plain paths is reported
+  layer by layer; the f32 comparison runs at 8 layers;
+* the vision-language serving path of ``qwen2-vl-7b`` at full size (M-RoPE,
+  qkv bias, a group of 7 query heads a KV head; the prefill batch carries
+  seeded vision embeddings over its first 256 positions), text-only decode
+  — the ``flash_attention`` kernel;
+* the audio path of ``musicgen-medium`` at full size (4 codebooks summed in,
+  4 heads out, MHA at head_dim 64): 3 prefill steps, then decode through
+  ``decode_step`` / ``make_serve_step`` (the server serves one codebook, as
+  the reference's) — the ``flash_attention`` kernel;
 * the training paths of ``llama3.2-3b`` and ``zamba2-2.7b`` at full width
   and depth (bf16, AdamW, remat ``full``, batch 2 x 4096 from the packed
   loader): one loss + backward through the kernels against the plain paths
@@ -96,7 +111,7 @@ from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import transpose as tr  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, PackedLoader  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.optim import optimizers as opt  # noqa: E402
 from repro_torch.runtime import flags, steps  # noqa: E402
 from repro_torch.runtime.server import DecodeServer, Request  # noqa: E402
@@ -106,6 +121,15 @@ DEV = "cuda"
 ARCH = "llama3.2-3b"
 HYBRID = "zamba2-2.7b"
 SSM = "mamba2-370m"
+MOE = "mixtral-8x7b"
+VLM = "qwen2-vl-7b"
+AUDIO = "musicgen-medium"
+# mixtral-8x7b is 46.7e9 parameters, 93 GB in bf16: 16 of its 32 layers
+# (1.451e9 parameters, 2.90 GB each) and the embedding and head come to ~47
+# GB, which leaves the card room for the server's caches and the prefill's
+# expert buffers; its f32 comparison runs at 8 layers (~47 GB in f32)
+MOE_LAYERS = 16
+MOE_F32_LAYERS = 8
 PREFILL_TOKENS = (4, 2048)   # (batch, sequence) of one prefill step
 PREFILL_STEPS = 3
 SERVE = dict(slots=8, max_len=2048, requests=16, max_new=32,
@@ -155,6 +179,12 @@ FA_CASES = [
     # zamba2-2.7b's head layout: dh 80, 32 heads, MHA, at a ragged length
     ("bf16_zamba2_dh80", 1, 32, 32, 333, 333, 80, True, None,
      torch.bfloat16),
+    # qwen2-vl-7b's group of 7 query heads a KV head at dh 128 (no other case
+    # has a ratio between 4 and 8), musicgen-medium's MHA at dh 64
+    ("bf16_gqa7_dh128", 1, 28, 4, 256, 256, 128, True, None, torch.bfloat16),
+    ("gqa7_dh128", 1, 28, 4, 256, 256, 128, True, None, torch.float32),
+    ("bf16_mha_dh64", 1, 24, 24, 256, 256, 64, True, None, torch.bfloat16),
+    ("mha_dh64", 1, 24, 24, 256, 256, 64, True, None, torch.float32),
 ]
 # bf16: the reference's own tolerance.  f32: the reference's 3e-5 loosened
 # to 1e-4 because the kernel sums the products in another order (4-wide
@@ -1343,14 +1373,20 @@ def read_launches() -> dict:
 
 
 def launches_per_step(cfg) -> dict:
-    """The kernel launches one prefill step of ``cfg`` must make."""
-    if cfg.family == "dense":
-        return {"flash_attention": cfg.n_layers, "ssd_scan": 0,
-                "matmul": 0, "transpose": 0}
-    sites = cfg.n_layers // cfg.hybrid.attn_every \
-        if cfg.family == "hybrid" else 0
-    return {"flash_attention": sites, "ssd_scan": cfg.n_layers,
-            "matmul": 0, "transpose": 0}
+    """The kernel launches one prefill step of ``cfg`` must make: one
+    ``flash_attention`` a layer for the attention families (dense, moe, vlm,
+    audio); one ``ssd_scan`` a layer, and one ``flash_attention`` a site of
+    the shared block, for ssm and hybrid."""
+    counts = {"flash_attention": 0, "ssd_scan": 0, "matmul": 0,
+              "transpose": 0}
+    if cfg.family == "hybrid":
+        counts.update(flash_attention=cfg.n_layers // cfg.hybrid.attn_every,
+                      ssd_scan=cfg.n_layers)
+    elif cfg.family == "ssm":
+        counts["ssd_scan"] = cfg.n_layers
+    else:
+        counts["flash_attention"] = cfg.n_layers
+    return counts
 
 
 def rel_frobenius(a, b) -> float:
@@ -1362,6 +1398,100 @@ def rel_frobenius(a, b) -> float:
     return math.sqrt(num / den)
 
 
+def main_batch(cfg, B: int, S: int, seed: int) -> dict:
+    """A main path's prefill batch on the card, from ``seed``: tokens (B, S),
+    (B, S, codebooks) for the audio family; for the vision-language family
+    vision embeddings over the first ``vision_tokens`` positions (seeded
+    N(0, INIT_SCALE²), the token embeddings' scale) and a loss mask that
+    leaves them out, as ``tests/test_smoke_archs.py`` builds them."""
+    rng = np.random.default_rng(seed)
+    shape = (B, S, cfg.n_input_codebooks) if cfg.n_input_codebooks > 1 \
+        else (B, S)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, shape)).to(DEV)}
+    if cfg.vision_tokens:
+        ve = 0.02 * rng.standard_normal((B, cfg.vision_tokens, cfg.d_model),
+                                        dtype=np.float32)
+        batch["vision_embeds"] = torch.from_numpy(ve).to(
+            device=DEV, dtype=getattr(torch, cfg.compute_dtype))
+        mask = torch.ones((B, S), device=DEV)
+        mask[:, :cfg.vision_tokens] = 0.0
+        batch["loss_mask"] = mask
+    return batch
+
+
+def logits_shape(cfg, B: int, S: int) -> tuple:
+    return (B, S, cfg.n_output_heads, cfg.vocab_size) \
+        if cfg.n_output_heads > 1 else (B, S, cfg.vocab_size)
+
+
+@contextlib.contextmanager
+def recorded_routing(log: list):
+    """Appends every MoE layer's routing — (experts, kept, slots) of each
+    pick, (G, t, K) — to ``log`` while the block runs (the routing
+    recomputed from the layer's own input and router; plain tensor code, no
+    kernel)."""
+    orig = moe.moe_apply
+
+    def recording(p, x, cfg):
+        r = moe.routing(p, x, cfg)
+        log.append((r.experts, r.keep, r.slots))
+        return orig(p, x, cfg)
+
+    moe.moe_apply = recording
+    try:
+        yield log
+    finally:
+        moe.moe_apply = orig
+
+
+@contextlib.contextmanager
+def replayed_routing(log: list):
+    """The MoE layers take their discrete decisions — each pick's expert,
+    buffer slot and kept-or-dropped — from ``log`` (one entry a layer, in
+    order, as ``recorded_routing`` writes it), and compute everything
+    continuous (the router's probabilities, the gates, the experts'
+    products) from their own input."""
+    orig = moe.route
+    entries = iter(log)
+
+    def replay(router, xg, top_k, C):
+        experts, keep, slots = next(entries)
+        probs = torch.softmax(xg.float() @ router.float(), dim=-1)
+        gates = torch.gather(probs, -1, experts) * keep
+        return moe.Routing(probs, experts, gates, slots, keep)
+
+    moe.route = replay
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+def routing_flips(a: list, b: list, B: int, S: int):
+    """Two runs' routings, layer by layer -> (per layer: the share of picks
+    whose expert differs, the share of picks whose kept assignment differs —
+    kept in one run only, or kept in both to other experts — and each run's
+    share of dropped picks; (B, S) bool: the tokens whose routing, expert
+    and kept-or-dropped of every pick, agrees in every layer)."""
+    rows = []
+    agree = torch.ones(B * S, dtype=torch.bool, device=DEV)
+    for (ea, ka, _), (eb, kb, _) in zip(a, b):
+        kept = (ka != kb) | (ka & kb & (ea != eb))
+        rows.append({"picks_differ": float((ea != eb).float().mean()),
+                     "kept_differ": float(kept.float().mean()),
+                     "dropped": [float((~ka).float().mean()),
+                                 float((~kb).float().mean())]})
+        agree &= ((ea == eb) & (ka == kb)).all(-1).reshape(-1)
+    return rows, agree.reshape(B, S)
+
+
+def masked_rel_frobenius(a, b, tokens) -> float:
+    """``rel_frobenius`` over the tokens (B, S) marked True."""
+    m = tokens.reshape(tokens.shape + (1,) * (a.ndim - 2))
+    return rel_frobenius(torch.where(m, a, 0), torch.where(m, b, 0))
+
+
 def phase_init(cfg, seed, B, S):
     t0 = time.perf_counter()
     model = transformer.init_params(cfg, device=DEV, seed=seed)
@@ -1371,9 +1501,7 @@ def phase_init(cfg, seed, B, S):
                              f"{cfg.n_params()}")
     # warm-up at the counted steps' shape (library handles, GEMM choices,
     # allocator); not part of the counted run
-    steps.make_prefill_step(cfg)(
-        model, {"tokens": torch.zeros((B, S), dtype=torch.long,
-                                      device=DEV)})
+    steps.make_prefill_step(cfg)(model, main_batch(cfg, B, S, seed + 7))
     torch.cuda.synchronize()
     emit({"phase": "init", "ok": True, "arch": cfg.name,
           "family": cfg.family, "n_layers": cfg.n_layers,
@@ -1384,10 +1512,9 @@ def phase_init(cfg, seed, B, S):
 
 
 def phase_prefill(cfg, model, B, S, seed, n_steps):
-    """The counted prefill steps of the main path; returns the logits."""
-    rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (B, S))).to(DEV)
+    """The counted prefill steps of the main path; returns the batch, the
+    logits and the step times."""
+    batch = main_batch(cfg, B, S, seed)
     step = steps.make_prefill_step(cfg)
     times = []
     logits = None
@@ -1395,14 +1522,14 @@ def phase_prefill(cfg, model, B, S, seed, n_steps):
         del logits
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = step(model, {"tokens": tokens})
+        logits = step(model, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    if tuple(logits.shape) != (B, S, cfg.vocab_size):
+    if tuple(logits.shape) != logits_shape(cfg, B, S):
         raise AssertionError(f"logits shape {tuple(logits.shape)}")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("prefill logits are not finite")
-    return tokens, logits, times
+    return batch, logits, times
 
 
 def phase_serve(cfg, model, seed):
@@ -1449,19 +1576,66 @@ def phase_serve(cfg, model, seed):
           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
 
 
-def phase_prefill_compare(cfg, model, tokens, logits, times, launched,
+def moe_routing_report(step, model, batch, logits, plain_logits):
+    """For the MoE family: both paths once more with their routing
+    recorded, the share of picks that route otherwise layer by layer, the
+    tokens whose routing agrees in every layer and the logits' distance on
+    them; then the plain path with the kernel path's routing replayed (its
+    picks, slots and drops; its gates from its own probabilities) and its
+    distance to the kernel path over every token.  -> (report, that
+    distance)."""
+    kern_r, plain_r = [], []
+    with recorded_routing(kern_r):
+        again = step(model, batch)
+    rerun_equal = bool(torch.equal(again, logits))
+    del again
+    with recorded_routing(plain_r), flags.use_kernels(False):
+        step(model, batch)
+    with replayed_routing(kern_r), flags.use_kernels(False):
+        replayed = step(model, batch)
+    B, S = batch["tokens"].shape[:2]
+    per_layer, agree = routing_flips(kern_r, plain_r, B, S)
+    rel_replayed = rel_frobenius(logits, replayed)
+    del replayed
+    return {"per_layer": per_layer,
+            "picks_differ_mean": float(np.mean(
+                [r["picks_differ"] for r in per_layer])),
+            "kept_differ_mean": float(np.mean(
+                [r["kept_differ"] for r in per_layer])),
+            "tokens_agreeing_in_every_layer": float(agree.float().mean()),
+            "rel_frobenius_on_agreeing_tokens":
+                masked_rel_frobenius(logits, plain_logits, agree),
+            "rel_frobenius_routing_replayed": rel_replayed,
+            "rerun_bit_equal": rerun_equal}, rel_replayed
+
+
+def phase_prefill_compare(cfg, model, batch, logits, times, launched,
                           n_steps):
-    """The counted run's logits against the plain path's (bf16)."""
+    """The counted run's logits against the plain path's (bf16), over
+    every token.  For the MoE family routing is discontinuous: a token
+    whose top-2 flips, or that a flip before it pushes past an expert's
+    capacity, moves by O(1), and through attention every later token of its
+    sequence moves too; with random weights the flips cascade with depth.
+    So the bar is held on the plain path with the kernel path's routing
+    replayed, and the free-running comparison and the share of picks that
+    route otherwise are reported beside it (``moe_routing_report``)."""
+    step = steps.make_prefill_step(cfg)
     before = read_launches()
     with flags.use_kernels(False):
-        plain_logits = steps.make_prefill_step(cfg)(model,
-                                                    {"tokens": tokens})
+        plain_logits = step(model, batch)
     if read_launches() != before:
         raise AssertionError("the plain path launched a kernel")
     rel = rel_frobenius(logits, plain_logits)
+    held, routing = rel, None
+    if cfg.moe is not None:
+        routing, held = moe_routing_report(step, model, batch, logits,
+                                           plain_logits)
+        routing["bar_held_on"] = "the plain path with the kernel path's " \
+            "routing replayed, every token"
     ms = float(np.median(times))
-    B, S = tokens.shape
-    emit({"phase": "prefill", "ok": rel <= TOL_PREFILL_BF16,
+    B, S = batch["tokens"].shape[:2]
+    ok = held <= TOL_PREFILL_BF16
+    emit({"phase": "prefill", "ok": ok,
           "arch": cfg.name, "tokens": [B, S],
           "logits": {"shape": list(logits.shape),
                      "dtype": str(logits.dtype).replace("torch.", ""),
@@ -1469,32 +1643,40 @@ def phase_prefill_compare(cfg, model, tokens, logits, times, launched,
           "steps": n_steps, "ms_per_step": times,
           "ms_per_step_median": ms, "tokens_per_s": B * S / (ms * 1e-3),
           "launches": launched, "launches_per_step": launches_per_step(cfg),
-          "rel_frobenius_vs_plain": rel, "tol": TOL_PREFILL_BF16})
-    if not rel <= TOL_PREFILL_BF16:
+          "rel_frobenius_vs_plain": rel, "held": held, "tol": TOL_PREFILL_BF16,
+          "routing": routing})
+    if not ok:
         raise AssertionError(f"prefill kernel vs plain (bf16): relative "
-                             f"Frobenius error {rel:.3e} > "
+                             f"Frobenius error {held:.3e} > "
                              f"{TOL_PREFILL_BF16:g}")
 
 
-def phase_prefill_compare_f32(cfg, model, tokens, logits):
-    """The same model and tokens in f32: here the two paths must agree
-    closely, which shows that the bf16 figure is rounding.  Casts ``model``
-    to f32 in place."""
+def phase_prefill_compare_f32(cfg, model, batch, logits):
+    """The same model and batch in f32: here the two paths must agree
+    closely over every token, which shows that the bf16 figure is rounding.
+    Casts ``model`` to f32 in place."""
     model.float()
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
+    batch = {k: v.float() if v.is_floating_point() else v
+             for k, v in batch.items()}
     step32 = steps.make_prefill_step(cfg32)
     before = read_launches()
-    k_logits = step32(model, {"tokens": tokens})
+    k_logits = step32(model, batch)
     after = read_launches()
     launched = {n: after[n] - before[n] for n in after}
     with flags.use_kernels(False):
-        p_logits = step32(model, {"tokens": tokens})
+        p_logits = step32(model, batch)
     rel32 = rel_frobenius(k_logits, p_logits)
+    routing = None
+    if cfg.moe is not None:
+        routing, _ = moe_routing_report(step32, model, batch, k_logits,
+                                        p_logits)
     emit({"phase": "prefill.f32", "ok": rel32 <= TOL_PREFILL_F32,
-          "arch": cfg.name, "tokens": list(tokens.shape),
+          "arch": cfg.name, "tokens": list(batch["tokens"].shape),
           "n_layers": cfg32.n_layers, "launches": launched,
           "rel_frobenius_vs_plain": rel32, "tol": TOL_PREFILL_F32,
+          "held_on": "every token", "routing": routing,
           # how far bf16 itself moves the logits: the scale against which
           # the bf16 kernel-vs-plain figure is to be read
           "bf16_step_vs_f32_step_rel_frobenius":
@@ -1505,41 +1687,80 @@ def phase_prefill_compare_f32(cfg, model, tokens, logits):
                              f"{TOL_PREFILL_F32:g}, launches {launched}")
 
 
+def decode_check_config(cfg, n_layers: int, T: int):
+    """``cfg`` for the decode-equals-prefill check: f32, ``n_layers``
+    layers, text only (decode takes no vision embeddings, as in the
+    reference).  For the MoE, ``capacity_factor = E / K``: decode routes
+    groups of B tokens with C = max(⌈K·B·cf/E⌉, 4), prefill groups of up to
+    2048, so at the configured factor a token may be dropped on one path and
+    kept on the other; at E / K no group can drop.  A sliding window longer
+    than the T tokens masks nothing in the prefill and goes: with one the
+    decode cache is a ring of ``window`` rows that decode attends whole,
+    rows not yet written included, as the reference's does."""
+    kw = dict(n_layers=n_layers, param_dtype="float32",
+              compute_dtype="float32", vision_tokens=0)
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    if cfg.sliding_window is not None and T <= cfg.sliding_window:
+        kw["sliding_window"] = None
+    return dataclasses.replace(cfg, **kw)
+
+
 def phase_decode_equals_prefill(cfg, seed, n_layers):
     """f32, full width, ``n_layers`` layers: a decode_step chain over 64
-    tokens against forward on the same tokens."""
-    cfg2 = dataclasses.replace(cfg, n_layers=n_layers, param_dtype="float32",
-                               compute_dtype="float32")
-    model = transformer.init_params(cfg2, device=DEV, seed=seed + 1)
+    tokens against forward on the same tokens; then one greedy
+    ``make_serve_step`` from the chain's state, which must pick the argmax
+    of each head's next logits."""
     B, T = 2, 64
-    rng = np.random.default_rng(seed + 1)
-    tokens = torch.from_numpy(
-        rng.integers(0, cfg2.vocab_size, (B, T))).to(DEV)
+    cfg2 = decode_check_config(cfg, n_layers, T)
+    model = transformer.init_params(cfg2, device=DEV, seed=seed + 1)
+    tokens = main_batch(cfg2, B, T, seed + 1)["tokens"]
     before = read_launches()
     with torch.no_grad():
         full, _ = transformer.forward(model, cfg2, {"tokens": tokens})
         after = read_launches()
-        state = transformer.init_decode_state(cfg2, B, T, device=DEV)
+        state = transformer.init_decode_state(cfg2, B, T + 1, device=DEV)
         worst = 0.0
         for t in range(T):
             logits, state = transformer.decode_step(model, cfg2, state,
                                                     tokens[:, t:t + 1])
             worst = max(worst, float((logits[:, 0] - full[:, t]).abs().max()))
+        last = tokens[:, T - 1:T]
+        # a copy of the caches (updated in place) for the logits to compare
+        peek = {k: type(v)(*(t.clone() for t in v))
+                if isinstance(v, tuple) else v for k, v in state.items()}
+        nxt_logits, _ = transformer.decode_step(model, cfg2, peek, last)
+        nxt, _ = steps.make_serve_step(cfg2, sample=False)(model, state, last)
     launched = {n: after[n] - before[n] for n in after}
     if launched != launches_per_step(cfg2):
         raise AssertionError(f"forward launched {launched}")
     if not worst <= 1e-3:
         raise AssertionError(f"decode chain vs forward: {worst:.3e} > 1e-3")
+    if not torch.equal(nxt, torch.argmax(nxt_logits[:, -1], dim=-1)
+                       .to(torch.int32)):
+        raise AssertionError("serve step: not the argmax of each head")
     emit({"phase": "decode_equals_prefill", "ok": True, "arch": cfg.name,
           "dtype": "float32", "n_layers": n_layers, "tokens": T,
-          "max_abs_err": worst, "tol": 1e-3})
+          "max_abs_err": worst, "tol": 1e-3,
+          "serve_step_tokens": list(nxt.shape),
+          "changed_for_the_check": {
+              k: str(getattr(cfg2, k)) for k in
+              ("moe", "sliding_window", "vision_tokens")
+              if getattr(cfg2, k) != getattr(cfg, k)}})
 
 
-def drive_path(cfg, args, serve: bool, decode_layers: int) -> dict:
+def drive_path(cfg, args, serve: bool, decode_layers: int,
+               n_steps: int = None, f32_layers: int = None) -> dict:
     """One main path: init, the counted prefill steps (and server run) with
     the launch counts set to 0 just before and read just after, then the
-    comparisons against the plain path.  Returns the counts."""
-    (B, S), n_steps = PREFILL_TOKENS, (PREFILL_STEPS if serve else 1)
+    comparisons against the plain path.  Returns the counts.  ``n_steps``
+    prefill steps (default: 3 on a served path, else 1); ``f32_layers``: the
+    f32 comparison runs on a fresh model of that depth (full width), where
+    the path's own depth would not fit on the card in f32."""
+    (B, S) = PREFILL_TOKENS
+    if n_steps is None:
+        n_steps = PREFILL_STEPS if serve else 1
     name = cfg.name
     with phase(f"{name}:init"):
         model = phase_init(cfg, args.seed, B, S)
@@ -1547,8 +1768,8 @@ def drive_path(cfg, args, serve: bool, decode_layers: int) -> dict:
     # ---- the main path, with the launch counts set to 0 just before -------
     reset_launches()
     with phase(f"{name}:prefill.run"):
-        tokens, logits, times = phase_prefill(cfg, model, B, S, args.seed,
-                                              n_steps)
+        batch, logits, times = phase_prefill(cfg, model, B, S, args.seed,
+                                             n_steps)
     if serve:
         with phase(f"{name}:serve.run"):
             phase_serve(cfg, model, args.seed)
@@ -1561,14 +1782,20 @@ def drive_path(cfg, args, serve: bool, decode_layers: int) -> dict:
             f"{want} ({n_steps} prefill steps, none from the decode path)")
 
     with phase(f"{name}:prefill.compare"):
-        phase_prefill_compare(cfg, model, tokens, logits, times, launched,
+        phase_prefill_compare(cfg, model, batch, logits, times, launched,
                               n_steps)
-    if args.profile and serve:
+    if args.profile:
         with phase(f"{name}:profile"):
-            phase_profile(cfg, model, tokens, args.seed)
+            phase_profile(cfg, model, batch, args.seed, serve)
+    if f32_layers is not None:
+        del model, logits
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg, n_layers=f32_layers)
+        model = transformer.init_params(cfg, device=DEV, seed=args.seed)
+        logits = steps.make_prefill_step(cfg)(model, batch)
     with phase(f"{name}:prefill.compare_f32"):
-        phase_prefill_compare_f32(cfg, model, tokens, logits)
-    del model, tokens, logits
+        phase_prefill_compare_f32(cfg, model, batch, logits)
+    del model, batch, logits
     torch.cuda.empty_cache()
     with phase(f"{name}:decode_equals_prefill"):
         phase_decode_equals_prefill(cfg, args.seed, decode_layers)
@@ -1610,21 +1837,36 @@ def _profile(fn, calls: int):
                             for e in rows[:8]]}
 
 
-def phase_profile(cfg, model, tokens, seed):
+def phase_profile(cfg, model, batch, seed, serve: bool):
     """Optional (--profile): where one prefill step and one decode iteration
-    spend their time."""
+    spend their time: the server's (8 slots after 16-token prompts) on a
+    served path, else a greedy ``make_serve_step`` over 8 rows."""
     step = steps.make_prefill_step(cfg)
-    pre = _profile(lambda: step(model, {"tokens": tokens}), 1)
-    server = DecodeServer(cfg, model, slots=SERVE["slots"],
-                          max_len=SERVE["max_len"], seed=seed, device=DEV)
-    rng = np.random.default_rng(seed)
-    for rid in range(SERVE["slots"]):
-        prompt = rng.integers(2, cfg.vocab_size, size=16).astype(np.int32)
-        server.submit(Request(rid=rid, prompt=prompt, max_new=64))
-    server._refill()
-    dec = _profile(server.step, 5)
+    pre = _profile(lambda: step(model, batch), 1)
+    slots = SERVE["slots"]
+    if serve:
+        server = DecodeServer(cfg, model, slots=slots,
+                              max_len=SERVE["max_len"], seed=seed, device=DEV)
+        rng = np.random.default_rng(seed)
+        for rid in range(slots):
+            prompt = rng.integers(2, cfg.vocab_size, size=16).astype(np.int32)
+            server.submit(Request(rid=rid, prompt=prompt, max_new=64))
+        server._refill()
+        dec = _profile(server.step, 5)
+    else:
+        state = transformer.init_decode_state(cfg, slots, SERVE["max_len"],
+                                              device=DEV)
+        serve_step = steps.make_serve_step(cfg, sample=False)
+        tok = main_batch(cfg, slots, 1, seed)["tokens"]
+
+        def one():
+            nonlocal state
+            _, state = serve_step(model, state, tok)
+        dec = _profile(one, 5)
     emit({"phase": "profile", "ok": True, "arch": cfg.name,
-          "prefill_step": pre, "decode_iteration": dec})
+          "prefill_step": pre, "decode_iteration": dec,
+          "decode_by": "DecodeServer.step" if serve
+          else "steps.make_serve_step (greedy)"})
 
 
 # ---------------------------------------------------------------------------
@@ -2020,7 +2262,7 @@ def kernel_only(args, smi) -> int:
         with phase("kernels.main_shape"):
             B, S = PREFILL_TOKENS
             rows = [phase_kernel_main_shape(get_arch(a), B, S, gen)
-                    for a in (ARCH, HYBRID)]
+                    for a in (ARCH, HYBRID, MOE, VLM, AUDIO)]
             emit({"phase": "kernels.main_shape", "ok": True,
                   "kernel": "flash_attention", "shapes": rows,
                   **fa_extra(ptx["flash_attention"])})
@@ -2054,7 +2296,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace one prefill step and a few decode "
-                         "iterations of each served path, and the multi-op "
+                         "iterations of each main path, and the multi-op "
                          "calibration cases, with torch.profiler")
     ap.add_argument("--out", default=None,
                     help="also write every phase line to this JSON file")
@@ -2092,10 +2334,19 @@ def main() -> int:
 
     # the main paths; each resets the launch counts just before it runs and
     # reads them just after
+    mixtral = dataclasses.replace(get_arch(MOE), n_layers=MOE_LAYERS)
+    vlm, audio = get_arch(VLM), get_arch(AUDIO)
     launched = {ARCH: drive_path(dense, args, serve=True, decode_layers=2),
                 HYBRID: drive_path(hybrid, args, serve=True,
                                    decode_layers=hybrid.hybrid.attn_every),
-                SSM: drive_path(pure, args, serve=False, decode_layers=2)}
+                SSM: drive_path(pure, args, serve=False, decode_layers=2),
+                MOE: drive_path(mixtral, args, serve=True, decode_layers=2,
+                                f32_layers=MOE_F32_LAYERS),
+                VLM: drive_path(vlm, args, serve=True, decode_layers=2),
+                # the server serves one codebook, as the reference's: the
+                # audio path is prefill, then decode through the steps
+                AUDIO: drive_path(audio, args, serve=False, decode_layers=2,
+                                  n_steps=PREFILL_STEPS)}
     # the training paths, each with its own reset and read of the counts
     for cfg in (dense, hybrid):
         launched[f"{cfg.name}:train"] = drive_train(cfg, args)
@@ -2104,6 +2355,8 @@ def main() -> int:
     with phase("kernels.main_shape"):
         fa_rows = [phase_kernel_main_shape(cfg, b, s, gen)
                    for b, s in ((B, S), (TB, TS)) for cfg in (dense, hybrid)]
+        fa_rows += [phase_kernel_main_shape(cfg, B, S, gen)
+                    for cfg in (mixtral, vlm, audio)]
         emit({"phase": "kernels.main_shape", "ok": True,
               "kernel": "flash_attention", "shapes": fa_rows})
     torch.cuda.empty_cache()

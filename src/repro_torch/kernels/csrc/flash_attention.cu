@@ -32,27 +32,41 @@
 //
 // bf16 (fa_wgmma_kernel, every bf16 call): the products run on the tensor
 // cores, in the FA3 shape.
-//   * S = Q K^T is a chain of wgmma.mma_async m64n128k16 with Q and K read
+//   * S = Q K^T is a chain of wgmma.mma_async m64nKk16 (K keys of a tile)
+//     with Q and K read
 //     from shared memory through descriptors (K-major, 128-byte swizzle).
-//     P is rounded to bf16 in registers and fed back as the A operand of
-//     O += P V (m64nNk16, N = 16..64 per 64-column chunk of the head), V the
-//     B operand read MN-major from its (keys, dh) tile through the transpose
-//     bit.  Accumulators are f32 in registers; the softmax uses ex2.approx
-//     with the scale folded into scale * log2(e).
-//   * Tiles of 128 queries x 128 keys.  A block is three warpgroups: one
+//     P (f32, as in the reference, which keeps it f32 for P V) is split in
+//     registers into hi = bf16(P) and lo = bf16(P - hi), both fed back as
+//     A operands of O += P_hi V + P_lo V (m64nNk16, N =
+//     16..64 per 64-column chunk of the head), V the B operand read
+//     MN-major from its (keys, dh) tile through the transpose bit.  hi + lo
+//     holds P to about 2^-16, where bf16(P) alone holds it to 2^-8: the
+//     kernel then rounds nothing the f32 plain version does not but its
+//     output, at twice the P V products.  Accumulators are f32 in
+//     registers; the softmax uses ex2.approx with the scale folded into
+//     scale * log2(e).
+//   * Tiles of 128 queries x 128 keys (64 at heads above 96).  A block is
+//     three warpgroups: one
 //     producer (one thread issues every copy) and two consumers of 64 query
 //     rows each (while one runs its softmax, the other's products can hold
 //     the tensor cores).  The producer loads Q once and
-//     streams K/V through a ring of two stages in shared memory with TMA
+//     streams K/V through a ring of two stages (four of 64 keys) in shared
+//     memory with TMA
 //     (cp.async.bulk.tensor, 4-D tensor maps over (dh, S, H, B) with the
 //     caller's strides, so strided views need no copy), signalled by
 //     mbarriers (full: bytes arrived; empty, for K and V apart: the eight
 //     consumer warps are done with them).  setmaxnreg hands the producer's
 //     registers to the consumers (24 / 240).
-//   * Up to a head of 80 a consumer also overlaps within itself: P V of one
-//     tile is in flight while S and the softmax of the next run (FA3's
-//     intra-warpgroup pipelining).  Wider heads do not fit S, P and O in 240
-//     registers at once, and run the tile's steps in order.
+//   * A consumer runs a tile's steps in order: S, the softmax, P V.  S
+//     and P hold registers only while they are used: the first k-step of
+//     Q K^T writes S without reading it, and P (hi + lo) replaces S once
+//     split, K / 2 registers each.  ptxas gives a thread of a 384-thread
+//     block 168 registers (setmaxnreg raises a consumer's at run time, not
+//     the compiler's budget), of which O takes DHP / 2: with 128 keys a
+//     tile the kernel spills at heads of 112 and 128, which therefore take
+//     64 keys.  (FA3's intra-warpgroup overlap of one tile's P V with the
+//     next tile's S and softmax, which this kernel ran up to a head of 80
+//     while P was bf16(P), needs S, P and O at once.)
 //   * A row of a 64-column chunk is 128 bytes, the swizzle span; a head
 //     wider than 64 is two chunks (two TMA boxes).  Columns past dh and rows
 //     past Sq / Skv are TMA's out-of-bounds zeros, and the products run only
@@ -62,8 +76,9 @@
 //     under a causal mask, the edge tiles of a window and the ragged last
 //     k-tile, each judged per consumer warpgroup.  A fully visible tile runs
 //     no mask arithmetic.
-//   Shared memory: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) at dh > 64 (half
-//   that at dh <= 64), one block per SM.  TMA needs a 16-byte-aligned base
+//   Shared memory: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) at heads of 80
+//   and 96 (4 stages of 16 + 16 KB above 96; half of both at heads up to
+//   64), one block per SM.  TMA needs a 16-byte-aligned base
 //   and strides that are multiples of 16 bytes; the wrapper refuses other
 //   layouts.
 //
@@ -379,8 +394,6 @@ cudaError_t launch_bk(const Params& p, int block_k, cudaStream_t stream) {
 // ===========================================================================
 
 constexpr int kBQ = 128;           // query rows of a block (2 x 64)
-constexpr int kBK = 128;           // keys of a tile
-constexpr int kStages = 2;         // K/V ring
 constexpr int kWgThreads = 384;    // producer warpgroup + 2 consumers
 constexpr int kChunkCols = 64;     // bf16 columns of one 128-byte row chunk
 constexpr int kRowBytes = 128;     // = the 128-byte swizzle span
@@ -390,11 +403,11 @@ constexpr int kConsumerRegs = 240;
 template <int DHP>
 struct Tile {
   static constexpr int kChunks = (DHP + kChunkCols - 1) / kChunkCols;
-  // Overlap P V of one tile with S and the softmax of the next: needs S, P
-  // and O in registers at once, which fits the consumers' 240 registers up
-  // to a head of 80 (at 96 and above ptxas spills and serialises the
-  // products).
-  static constexpr bool kOverlap = DHP <= 80;
+  // keys of a tile and stages of the K/V ring: S and P (hi + lo) of 128
+  // keys take 64 registers each, which with O fits ptxas's 168 up to a head
+  // of 96; wider heads take 64 keys, and twice the stages
+  static constexpr int kBK = DHP <= 96 ? 128 : 64;
+  static constexpr int kStages = DHP <= 96 ? 2 : 4;
   static constexpr int kQBytes = kChunks * kBQ * kRowBytes;
   static constexpr int kKVBytes = kChunks * kBK * kRowBytes;  // one stage
   static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
@@ -416,32 +429,48 @@ struct BParams {
 // S (64 x 128) = Q K^T over this warpgroup's 64 rows: one committed group.
 // `qd`, `kd`: descriptors of the Q rows and the K stage.  The caller fences
 // the registers (wgmma_fence) before the first product of a pipeline stage.
+// The first k-step writes S without reading it, so S's registers are free
+// from the split of P until here.
 template <int DHP>
 __device__ __forceinline__ void issue_qk(float* sc, uint64_t qd,
                                          uint64_t kd) {
+  constexpr int kBK = Tile<DHP>::kBK;
 #pragma unroll
   for (int kk = 0; kk < DHP / 16; ++kk) {
     const uint32_t col = (kk & 3) * 32;     // 16 columns = 32 bytes
-    wgmma_ss_n128(sc, desc_at(qd, (kk >> 2) * kBQ * kRowBytes + col),
-                  desc_at(kd, (kk >> 2) * kBK * kRowBytes + col), kk > 0);
+    const uint64_t a = desc_at(qd, (kk >> 2) * kBQ * kRowBytes + col);
+    const uint64_t b = desc_at(kd, (kk >> 2) * kBK * kRowBytes + col);
+    if constexpr (kBK == 128) {
+      if (kk == 0) wgmma_ss_n128_fresh(sc, a, b);
+      else wgmma_ss_n128(sc, a, b, 1);
+    } else {
+      if (kk == 0) wgmma_ss_n64_fresh(sc, a, b);
+      else wgmma_ss_n64(sc, a, b, 1);
+    }
   }
   wgmma_commit();
 }
 
-// O (64 x DHP) += P V with P in registers: one committed group.  `vd`: the
-// descriptor of the V stage.
+// O (64 x DHP) += P V with P in registers as hi (`pa`) + lo (`pl`) bf16 A
+// fragments: one committed group.  `vd`: the descriptor of the V stage.
 template <int DHP>
 __device__ __forceinline__ void issue_pv(float* o, const uint32_t (*pa)[4],
+                                         const uint32_t (*pl)[4],
                                          uint64_t vd) {
+  constexpr int kBK = Tile<DHP>::kBK;
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
     const uint32_t row = kk * 16 * kRowBytes;  // 16 keys
-    if constexpr (Tile<DHP>::kChunks == 2) {
-      wgmma_rs<kChunkCols>(o, pa[kk], desc_at(vd, row));
-      wgmma_rs<DHP - kChunkCols>(o + kChunkCols / 2, pa[kk],
-                                 desc_at(vd, row + kBK * kRowBytes));
-    } else {
-      wgmma_rs<DHP>(o, pa[kk], desc_at(vd, row));
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      const uint32_t* a = part ? pl[kk] : pa[kk];
+      if constexpr (Tile<DHP>::kChunks == 2) {
+        wgmma_rs<kChunkCols>(o, a, desc_at(vd, row));
+        wgmma_rs<DHP - kChunkCols>(o + kChunkCols / 2, a,
+                                   desc_at(vd, row + kBK * kRowBytes));
+      } else {
+        wgmma_rs<DHP>(o, a, desc_at(vd, row));
+      }
     }
   }
   wgmma_commit();
@@ -456,6 +485,7 @@ struct Rows {
 // The online-softmax step of one tile: masks S where `edge` says a pair may
 // be hidden, updates the running max and sum, overwrites S with P (f32), and
 // returns the factors by which O is to be rescaled.
+template <int kBK>
 __device__ __forceinline__ float2 softmax_tile(float* sc, Rows& st, bool edge,
                                                int r0, int c0,
                                                const BParams& p) {
@@ -502,13 +532,16 @@ __device__ __forceinline__ float2 softmax_tile(float* sc, Rows& st, bool edge,
   return alpha;
 }
 
-// P (f32, in the accumulator layout of S) to bf16 A fragments of P V: the
-// two 8-column blocks of a 16-key step are one m64k16 fragment.
-__device__ __forceinline__ void pack_p(const float* sc, uint32_t (*pa)[4]) {
+// P (f32, in the accumulator layout of S) to the hi and lo bf16 A fragments
+// of P V: the two 8-column blocks of a 16-key step are one m64k16 fragment.
+template <int kBK>
+__device__ __forceinline__ void pack_p(const float* sc, uint32_t (*pa)[4],
+                                       uint32_t (*pl)[4]) {
 #pragma unroll
   for (int j = 0; j < kBK / 8; ++j) {
-    pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
-    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+    const int f = j >> 1, e = (j & 1) * 2;
+    split_pair(sc[4 * j], sc[4 * j + 1], pa[f][e], pl[f][e]);
+    split_pair(sc[4 * j + 2], sc[4 * j + 3], pa[f][e + 1], pl[f][e + 1]);
   }
 }
 
@@ -518,6 +551,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const BParams p) {
   using T = Tile<DHP>;
+  constexpr int kBK = T::kBK;
+  constexpr int kStages = T::kStages;
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -599,9 +634,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int wq_hi = wq_lo + 63;
     const int r0 = wq_lo + ((ct >> 5) & 3) * 16 + (lane >> 2);  // and r0 + 8
     const int cq = 2 * (lane & 3);
-    const uint64_t q_desc = smem_desc(smem_u32(q_s) + cw * 64 * kRowBytes);
-    const uint64_t k_desc = smem_desc(smem_u32(k_s));
-    const uint64_t v_desc = smem_desc(smem_u32(v_s));
+    // one descriptor is held (the tiles' base); Q's rows of this warpgroup
+    // and the K and V stages are offsets from it, formed at each product
+    const uint64_t base_desc = smem_desc(smem_u32(q_s));
+    const uint32_t q_off = cw * 64 * kRowBytes;
 
     // masks only where a pair of this warpgroup may be hidden
     auto edge = [&](int k0) {
@@ -618,27 +654,33 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < DHP / 2; ++i) o[i] = 0.f;
     Rows st = {kNegInf, kNegInf, 0.f, 0.f};
     float sc[kBK / 2];          // S, then P in f32
-    uint32_t pa[kBK / 16][4];   // P in bf16: the A fragments of P V
+    uint32_t pa[kBK / 16][4];   // P's hi and lo bf16 parts: the A
+    uint32_t pl[kBK / 16][4];   // fragments of P V
 
     auto parity = [](int i) { return static_cast<uint32_t>(i / kStages) & 1; };
     // the start of a pipeline stage: no register of a product in flight is
-    // touched by anything but the products from here to their wait
-    auto fence_all = [&]() {
-      fence_regs<kBK / 2>(sc);
+    // touched by anything but the products from here to their wait.  S is
+    // not fenced before Q K^T (its first step only writes S), nor P before
+    // the next tile: each holds its registers only while it is used
+    auto fence_pv = [&]() {
       fence_regs<DHP / 2>(o);
       fence_regs<kBK / 4>(&pa[0][0]);
+      fence_regs<kBK / 4>(&pl[0][0]);
       wgmma_fence();
     };
     auto qk = [&](int s) {
-      issue_qk<DHP>(sc, opaque(q_desc),
-                    opaque(desc_at(k_desc, s * T::kKVBytes)));
+      issue_qk<DHP>(sc, opaque(desc_at(base_desc, q_off)),
+                    opaque(desc_at(base_desc,
+                                   T::kQBytes + s * T::kKVBytes)));
     };
     auto pv = [&](int s) {
-      issue_pv<DHP>(o, pa, opaque(desc_at(v_desc, s * T::kKVBytes)));
+      issue_pv<DHP>(o, pa, pl,
+                    opaque(desc_at(base_desc, T::kQBytes + (kStages + s)
+                                                  * T::kKVBytes)));
     };
     auto softmax = [&](int i) {
       const int k0 = (kt_begin + i) * kBK;
-      return softmax_tile(sc, st, edge(k0), r0, k0 + cq, p);
+      return softmax_tile<kBK>(sc, st, edge(k0), r0, k0 + cq, p);
     };
     auto rescale_and_pack = [&](float2 alpha) {
 #pragma unroll
@@ -648,64 +690,29 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         o[4 * j + 2] *= alpha.y;
         o[4 * j + 3] *= alpha.y;
       }
-      pack_p(sc, pa);
+      pack_p<kBK>(sc, pa, pl);
     };
 
     if (n_tiles > 0) mbar_wait(q_full, 0);
-    if constexpr (T::kOverlap) {
-      // P V of tile i - 1 in flight beside S and the softmax of tile i
-      if (n_tiles > 0) {
-        mbar_wait(k_full, 0);
-        fence_all();
-        qk(0);
-        wgmma_wait<0>();
-        fence_regs<kBK / 2>(sc);
-        release(k_empty);
-        rescale_and_pack(softmax(0));        // O is still 0
-      }
-      for (int i = 1; i < n_tiles; ++i) {
-        const int s = i % kStages, sp = (i - 1) % kStages;
-        mbar_wait(k_full + s, parity(i));
-        mbar_wait(v_full + sp, parity(i - 1));
-        fence_all();
-        qk(s);
-        pv(sp);
-        wgmma_wait<1>();                       // S of tile i is in
-        fence_regs<kBK / 2>(sc);
-        release(k_empty + s);
-        const float2 alpha = softmax(i);
-        wgmma_wait<0>();                       // P V of tile i - 1 is in
-        fence_regs<DHP / 2>(o);
-        fence_regs<kBK / 4>(&pa[0][0]);
-        release(v_empty + sp);
-        rescale_and_pack(alpha);
-      }
-      if (n_tiles > 0) {
-        const int sp = (n_tiles - 1) % kStages;
-        mbar_wait(v_full + sp, parity(n_tiles - 1));
-        fence_all();
-        pv(sp);
-        wgmma_wait<0>();
-        fence_regs<DHP / 2>(o);
-      }
-    } else {
-      // S, softmax, P V of a tile in order
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kStages;
-        mbar_wait(k_full + s, parity(i));
-        fence_all();
-        qk(s);
-        wgmma_wait<0>();
-        fence_regs<kBK / 2>(sc);
-        release(k_empty + s);
-        rescale_and_pack(softmax(i));
-        mbar_wait(v_full + s, parity(i));
-        fence_all();
-        pv(s);
-        wgmma_wait<0>();
-        fence_regs<DHP / 2>(o);
-        release(v_empty + s);
-      }
+    // S, softmax, P V of a tile in order
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      mbar_wait(k_full + s, parity(i));
+      fence_regs<DHP / 2>(o);
+      wgmma_fence();
+      qk(s);
+      wgmma_wait<0>();
+      fence_regs<kBK / 2>(sc);
+      release(k_empty + s);
+      rescale_and_pack(softmax(i));
+      mbar_wait(v_full + s, parity(i));
+      fence_pv();
+      pv(s);
+      wgmma_wait<0>();
+      fence_regs<DHP / 2>(o);
+      fence_regs<kBK / 4>(&pa[0][0]);
+      fence_regs<kBK / 4>(&pl[0][0]);
+      release(v_empty + s);
     }
 
     // ---- o = acc / max(l, 1e-20) ------------------------------------------
@@ -759,17 +766,28 @@ cudaError_t launch_wgmma(const CUtensorMap& tq, const CUtensorMap& tk,
 
 int padded16(int dh) { return (dh + 15) / 16 * 16; }
 
-int smem_of(int dhp) {
+// The tile of the instance for a padded head width: keys, stages, bytes of
+// shared memory; keys 0 for a width no instance serves.
+struct TileInfo {
+  int keys, stages, smem;
+};
+
+template <int DHP>
+TileInfo info() {
+  return {Tile<DHP>::kBK, Tile<DHP>::kStages, Tile<DHP>::kSmem};
+}
+
+TileInfo tile_of(int dhp) {
   switch (dhp) {
-    case 16: return Tile<16>::kSmem;
-    case 32: return Tile<32>::kSmem;
-    case 48: return Tile<48>::kSmem;
-    case 64: return Tile<64>::kSmem;
-    case 80: return Tile<80>::kSmem;
-    case 96: return Tile<96>::kSmem;
-    case 112: return Tile<112>::kSmem;
-    case 128: return Tile<128>::kSmem;
-    default: return -1;
+    case 16: return info<16>();
+    case 32: return info<32>();
+    case 48: return info<48>();
+    case 64: return info<64>();
+    case 80: return info<80>();
+    case 96: return info<96>();
+    case 112: return info<112>();
+    case 128: return info<128>();
+    default: return {0, 0, -1};
   }
 }
 
@@ -824,10 +842,11 @@ extern "C" int flash_attention_tile(int dh, int* block_q, int* block_k,
                                     int* stages, long long* smem_bytes) {
   if (dh <= 0 || dh > 128 || dh % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const TileInfo t = tile_of(padded16(dh));
   *block_q = kBQ;
-  *block_k = kBK;
-  *stages = kStages;
-  *smem_bytes = smem_of(padded16(dh));
+  *block_k = t.keys;
+  *stages = t.stages;
+  *smem_bytes = t.smem;
   return 0;
 }
 
@@ -852,11 +871,12 @@ extern "C" int flash_attention_forward_bf16(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap tq, tk, tv;
+  const int keys = tile_of(padded16(dh)).keys;
   cudaError_t err = encode_map(&tq, q, B, H, Sq, dh, q_sb, q_sh, q_ss, kBQ);
   if (err == cudaSuccess)
-    err = encode_map(&tk, k, B, KVH, Skv, dh, k_sb, k_sh, k_ss, kBK);
+    err = encode_map(&tk, k, B, KVH, Skv, dh, k_sb, k_sh, k_ss, keys);
   if (err == cudaSuccess)
-    err = encode_map(&tv, v, B, KVH, Skv, dh, v_sb, v_sh, v_ss, kBK);
+    err = encode_map(&tv, v, B, KVH, Skv, dh, v_sb, v_sh, v_ss, keys);
   if (err != cudaSuccess) return static_cast<int>(err);
   BParams p;
   p.o = static_cast<__nv_bfloat16*>(o);

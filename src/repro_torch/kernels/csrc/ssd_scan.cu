@@ -549,15 +549,6 @@ struct WgParams {
   long long y_sb, y_sh, y_sl;        // elements; y's last dimension stride 1
 };
 
-// v as hi + lo bf16 pairs: hi = bf16(v), lo = bf16(v - hi).
-__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - hf.x, b - hf.y);
-}
-
 // The work of one consumer warpgroup over the whole walk.  W: columns of S
 // it forms (those at or left of its diagonal tile); OWNER: it holds the
 // state (the first warpgroup, which has half the S and W x work of the

@@ -12,7 +12,9 @@ visible (q, k) pair.  The CUDA source holds two kernels, chosen by the input
 type alone.  bf16 goes to a Hopper kernel whose products run on the bf16
 tensor cores (``wgmma``), fed from shared memory by TMA through a two-stage
 K/V ring, with a producer warpgroup and two consumer warpgroups of 64 query
-rows; its tile is chosen in the CUDA source (``tile``).  f32 goes to a kernel
+rows; P enters P V as hi + lo bf16 parts, so the kernel keeps P as the
+reference does, in f32 to about 2^-16; its tile is chosen in the CUDA source
+(``tile``).  f32 goes to a kernel
 whose products run on the FP32 pipes, since f32 must hold 1e-4, which bf16
 tensor cores cannot give.  Both keep the running max, running sum and f32
 accumulator in registers over the whole walk along the keys, read K/V at

@@ -5,8 +5,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --reduced --device cpu
 
-Serves the dense (llama3.2-3b, smollm-360m, ...), ssm (mamba2-370m) and
-hybrid (zamba2-2.7b) families; the others raise ``NotImplementedError``.
+Serves the dense (llama3.2-3b, smollm-360m, ...), moe (mixtral-8x7b,
+mixtral-8x22b), vision-language (qwen2-vl-7b, text only), ssm (mamba2-370m)
+and hybrid (zamba2-2.7b) families.  The audio family (musicgen-medium, four
+codebooks) raises ``NotImplementedError``: the server serves one codebook, as
+the reference's does.
 
 Runs on the GPU unless ``--device cpu`` is given; weights are random, made on
 the device from ``--seed``.  The supervise / fault-plan / SLO options of the

@@ -5,10 +5,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
         --reduced --device cpu --steps 3 --batch 2 --seq 64 --ckpt /tmp/ck
 
-Trains the dense (llama3.2-3b, smollm-360m, ...), ssm (mamba2-370m) and
-hybrid (zamba2-2.7b) families with each configuration's optimizer and remat
-policy on the synthetic packed corpus; the others raise
-``NotImplementedError``.  Runs on the GPU unless ``--device cpu`` is given;
+Trains the dense, moe, audio, ssm and hybrid families with each
+configuration's optimizer and remat policy on the synthetic packed corpus.
+The vision-language family (qwen2-vl-7b) needs vision embeddings, which the
+packed corpus does not make, and fails on its first batch, as in the
+reference.  Runs on the GPU unless ``--device cpu`` is given;
 weights are random, made on the device from ``--seed``.  The reference's
 supervise / fault-plan / online-calibration options and its predicted-step
 print arrive with their modules (ROADMAP A10, A13).

@@ -1,5 +1,5 @@
-"""Attention: GQA, RoPE, sliding window, the chunked online-softmax path
-with its flash-style backward, and KV-cache decode.
+"""Attention: GQA, RoPE / M-RoPE, sliding window, the chunked online-softmax
+path with its flash-style backward, and KV-cache decode.
 
 Train and prefill go through the hand-written flash-attention kernel
 (``repro_torch.kernels.flash_attention``) inside ``_FlashAttention``, an
@@ -13,8 +13,7 @@ same backward, ``_FlashXLA``) above ``CHUNKED_ABOVE`` query-key pairs, the
 materialised-logits ``_plain_attention`` below.  Decode over the cache is
 plain tensor code, as in the reference.
 
-Not ported yet: ``apply_mrope`` (vision-language family) and the
-context-parallel branch (multi-device).
+Not ported yet: the context-parallel branch (multi-device).
 """
 from __future__ import annotations
 
@@ -37,13 +36,22 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 # ---------------------------------------------------------------------------
 
 
+def _rope_freqs(half: int, theta: float, device) -> torch.Tensor:
+    """theta ** (-i / half), i < half, in f32.  The power is taken in f64
+    and rounded once, so each frequency is the f32 value nearest the exact
+    one, as the reference's are (PyTorch's f32 ``pow`` is off by an ulp at a
+    few of them, which at positions in the thousands turns the angle by
+    ~1e-6)."""
+    exponent = -torch.arange(half, dtype=torch.float32, device=device) / half
+    # scalar base: no host-to-device copy
+    return torch.pow(theta, exponent.double()).float()
+
+
 def _rope_angles(positions: torch.Tensor, half: int,
                  theta: float) -> torch.Tensor:
     """positions (..., S) -> angles (..., S, half)  [f32]."""
-    exponent = -torch.arange(half, dtype=torch.float32,
-                             device=positions.device) / half
-    freqs = torch.pow(theta, exponent)  # scalar base: no host-to-device copy
-    return positions.float()[..., None] * freqs
+    return positions.float()[..., None] * _rope_freqs(half, theta,
+                                                      positions.device)
 
 
 def _rope_cos_sin(positions: torch.Tensor, half: int, theta: float
@@ -65,6 +73,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x (B, S, H, dh); positions (B, S) int.  Half-split layout, f32 math."""
     return _rotate(x, *_rope_cos_sin(positions, x.shape[-1] // 2, theta))
+
+
+def _mrope_cos_sin(positions: torch.Tensor, half: int, theta: float,
+                   sections) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (B, S, 3) = (t, h, w) ids -> cos, sin (B, S, 1, half) in
+    f32.  The ``half`` frequency slots are split into ``sections`` (t, h,
+    w); each slot turns by the position component of its section."""
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim // 2 = {half}")
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=positions.device)
+    pos = positions.float()[..., sec_id]                       # (B, S, half)
+    ang = pos * _rope_freqs(half, theta, positions.device)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL M-RoPE.  x (B, S, H, dh); positions (B, S, 3) = (t, h, w)
+    ids.  Half-split layout, f32 math."""
+    return _rotate(x, *_mrope_cos_sin(positions, x.shape[-1] // 2, theta,
+                                      sections))
 
 
 # ---------------------------------------------------------------------------
@@ -336,11 +367,12 @@ class Attention(nn.Module):
 
 def _positions_for(cfg, B: int, S: int, offset: int = 0,
                    device=None) -> torch.Tensor:
+    """(B, S) ids; (B, S, 3) (t, h, w) ids for M-RoPE, all three the text
+    position (the reference's stub: no vision grid)."""
+    pos = (offset + torch.arange(S, device=device)).expand(B, S)
     if cfg.m_rope:
-        raise NotImplementedError(
-            "M-RoPE positions wait for the vision-language slice")
-    pos = offset + torch.arange(S, device=device)
-    return pos.expand(B, S)
+        return pos[..., None].expand(B, S, 3)
+    return pos
 
 
 def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
@@ -353,9 +385,6 @@ def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
     the cache.  The cache is updated IN PLACE and returned."""
     B, S, d = x.shape
     H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    if cfg.m_rope:
-        raise NotImplementedError(
-            "M-RoPE (apply_mrope) waits for the vision-language slice")
     if positions is None:
         offset = 0 if cache is None else cache_pos
         positions = _positions_for(cfg, B, S, offset, x.device)
@@ -367,7 +396,11 @@ def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
     k = logical(k, ("act_batch", None, "act_kv_heads", None))
     v = logical(v, ("act_batch", None, "act_kv_heads", None))
 
-    cos, sin = _rope_cos_sin(positions, dh // 2, cfg.rope_theta)
+    if cfg.m_rope:
+        cos, sin = _mrope_cos_sin(positions, dh // 2, cfg.rope_theta,
+                                  cfg.mrope_sections)
+    else:
+        cos, sin = _rope_cos_sin(positions, dh // 2, cfg.rope_theta)
     q = _rotate(q, cos, sin)
     k = _rotate(k, cos, sin)
 

@@ -6,10 +6,13 @@ stored ``(in, out)``) and returns a ``state_dict`` for
 ``transformer.Transformer``: one entry per layer, dense weights ``(out,
 in)``.  With it both packages compute the same function of the same numbers.
 
-Dense, ssm and hybrid families.  The SSM mixer's ``conv_w`` keeps the
-reference's ``(d_conv, conv_dim)`` layout; its ``A_log``, ``D`` and
-``dt_bias`` stay f32 whatever ``param_dtype`` is, as in the reference.  The
-hybrid's shared attention+MLP block is not stacked in the reference either.
+Every family.  The SSM mixer's ``conv_w`` keeps the reference's ``(d_conv,
+conv_dim)`` layout; its ``A_log``, ``D`` and ``dt_bias`` stay f32 whatever
+``param_dtype`` is, as in the reference.  The hybrid's shared attention+MLP
+block is not stacked in the reference either.  The MoE's router and experts
+keep the reference's layout (``models/moe.py``); the audio family's
+multi-codebook embedding ``(n_codebooks, V, d)`` is copied and its heads
+``(n_heads, d, V)`` become ``(n_heads, V, d)``.
 
 bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` refuses; they go through float32, which holds every
@@ -39,11 +42,16 @@ def _tensor(a: Any, dtype: torch.dtype) -> torch.Tensor:
 
 def _dense_block(sd: Dict[str, torch.Tensor], pre: str,
                  blk: Mapping[str, Any], take: Callable, dtype) -> None:
-    """ln1, attn, ln2, ffn of one attention+MLP block."""
+    """ln1, attn, ln2, and ffn or moe of one attention+MLP block."""
     sd[pre + "ln1.scale"] = _tensor(take(blk["ln1"]["scale"]), dtype)
     sd[pre + "ln2.scale"] = _tensor(take(blk["ln2"]["scale"]), dtype)
-    for group, names in (("attn", ("wq", "wk", "wv", "wo")),
-                         ("ffn", ("gate", "up", "down"))):
+    groups = [("attn", ("wq", "wk", "wv", "wo"))]
+    if "moe" in blk:
+        for name in ("router", "gate", "up", "down"):
+            sd[f"{pre}moe.{name}"] = _tensor(take(blk["moe"][name]), dtype)
+    else:
+        groups.append(("ffn", ("gate", "up", "down")))
+    for group, names in groups:
         for name in names:
             leaf = blk[group][name]
             key = f"{pre}{group}.{name}."
@@ -71,18 +79,16 @@ def params_from_reference(cfg: ArchConfig, tree: Mapping[str, Any]
     """-> ``state_dict`` (CPU tensors in ``cfg.param_dtype``, the SSM's
     ``A_log``/``D``/``dt_bias`` in f32); load it with
     ``model.load_state_dict``."""
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense, ssm and hybrid families are ported "
-            "yet")
     dtype = layers.to_dtype(cfg.param_dtype)
     sd: Dict[str, torch.Tensor] = {}
     sd["embed.weight"] = _tensor(tree["embed"]["w"], dtype)
     sd["final_ln.scale"] = _tensor(tree["final_ln"]["scale"], dtype)
     if not cfg.tie_embeddings:
-        sd["head.weight"] = _tensor(tree["head"]["w"], dtype).T.contiguous()
+        # (d, V) -> (V, d); (n_heads, d, V) -> (n_heads, V, d)
+        sd["head.weight"] = _tensor(tree["head"]["w"], dtype) \
+            .transpose(-1, -2).contiguous()
 
-    block = _dense_block if cfg.family == "dense" else _ssm_block
+    block = _ssm_block if cfg.family in ("ssm", "hybrid") else _dense_block
     for i in range(cfg.n_layers):
         block(sd, f"blocks.{i}.", tree["blocks"], lambda a, i=i: a[i], dtype)
     if cfg.family == "hybrid":

@@ -2,9 +2,10 @@
 their parameters.
 
 Weights follow PyTorch's habit, ``(out, in)`` for a dense layer; the
-reference stores ``(in, out)`` and ``models/convert.py`` transposes.  The
-multi-codebook embedding and the multi-head LM head of the audio family are
-not ported yet and raise ``NotImplementedError``.
+reference stores ``(in, out)`` and ``models/convert.py`` transposes.  So the
+audio family's LM head of ``n_heads`` codebook heads is ``(n_heads, vocab,
+d_model)`` where the reference's is ``(n_heads, d_model, vocab)``; its
+multi-codebook embedding is ``(n_codebooks, vocab, d_model)`` in both.
 """
 from __future__ import annotations
 
@@ -58,18 +59,24 @@ def ffn(gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
 
 
 def embed(weight: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (...) int → (..., d_model); weight (vocab, d_model)."""
-    if weight.ndim != 2:
-        raise NotImplementedError(
-            "multi-codebook embedding (audio family) is not ported yet")
+    """tokens (...) int → (..., d_model); weight (vocab, d_model).  With a
+    multi-codebook weight (n_codebooks, vocab, d_model) (MusicGen), tokens
+    (..., n_codebooks) → the sum of the codebooks' embeddings, added in
+    codebook order."""
+    if weight.ndim == 3:
+        out = F.embedding(tokens[..., 0], weight[0])
+        for c in range(1, weight.shape[0]):
+            out = out + F.embedding(tokens[..., c], weight[c])
+        return out
     return F.embedding(tokens, weight)
 
 
 def lm_head(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """weight (vocab, d_model)."""
-    if weight.ndim != 2:
-        raise NotImplementedError(
-            "multi-head LM head (audio family) is not ported yet")
+    """weight (vocab, d_model): x (..., d_model) → (..., vocab).  With
+    ``n_heads`` codebook heads, weight (n_heads, vocab, d_model): x (B, S,
+    d_model) → (B, S, n_heads, vocab)."""
+    if weight.ndim == 3:
+        return torch.einsum("bsd,hvd->bshv", x, weight)
     return F.linear(x, weight)
 
 
@@ -121,10 +128,11 @@ class FFN(nn.Module):
 
 class Embedding(nn.Module):
     def __init__(self, vocab: int, d_model: int, dtype, device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, n_codebooks: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(
-            normal_((vocab, d_model), dtype, device, generator))
+        shape = (n_codebooks, vocab, d_model) if n_codebooks > 1 \
+            else (vocab, d_model)
+        self.weight = nn.Parameter(normal_(shape, dtype, device, generator))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return embed(self.weight, tokens)
@@ -132,10 +140,10 @@ class Embedding(nn.Module):
 
 class LMHead(nn.Module):
     def __init__(self, d_model: int, vocab: int, dtype, device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, n_heads: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(
-            normal_((vocab, d_model), dtype, device, generator))
+        shape = (n_heads, vocab, d_model) if n_heads > 1 else (vocab, d_model)
+        self.weight = nn.Parameter(normal_(shape, dtype, device, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return lm_head(self.weight, x)

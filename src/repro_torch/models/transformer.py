@@ -1,4 +1,4 @@
-"""Model assembly — the dense, ssm and hybrid families.
+"""Model assembly for every family of the registry.
 
 The model is an ``nn.Module`` (``Transformer``) whose blocks sit in an
 ``nn.ModuleList`` and are run by a Python loop, eagerly; the reference stacks
@@ -7,19 +7,21 @@ keep the reference's names and argument order, with the module in the place
 of the parameter pytree.
 
 Families:
-  dense  : pre-norm attention + FFN blocks
-  ssm    : Mamba2 (SSD) blocks
-  hybrid : Zamba2 — SSD blocks + one *shared* attention+MLP block applied
-           after every ``attn_every``-th SSD layer
+  dense / moe / vlm / audio : pre-norm attention + (FFN | MoE) blocks; vlm
+                              places vision embeddings over the first
+                              positions and turns q, k by M-RoPE; audio sums
+                              codebook embeddings and has one LM head per
+                              codebook
+  ssm                       : Mamba2 (SSD) blocks
+  hybrid                    : Zamba2 — SSD blocks + one *shared*
+                              attention+MLP block applied after every
+                              ``attn_every``-th SSD layer
 
 Training: ``loss_fn`` differentiates ``forward`` with torch autograd; the
 kernels sit inside autograd Functions (``attention._FlashAttention``,
 ``ssm._SSDScan``).  The reference's ``jax.checkpoint`` remat per block is
 ``torch.utils.checkpoint`` (``_remat``): ``full`` keeps only block
 boundaries, ``dots`` also keeps the outputs of the 2-D matrix products.
-
-Mixture-of-experts, vision-language and audio raise ``NotImplementedError``
-naming what they wait for.
 """
 from __future__ import annotations
 
@@ -33,27 +35,14 @@ from torch.utils import checkpoint as _ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import logical
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, ssm
 from repro_torch.runtime import flags
 
-_WAITS_FOR = {
-    "moe": "the mixture-of-experts slice (models/moe.py)",
-    "vlm": "the vision-language slice (apply_mrope, vision embeddings)",
-    "audio": "the audio slice (multi-codebook embedding and heads)",
-}
 
-
-def _require_supported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.moe is not None:
-        what = "moe" if cfg.moe is not None else cfg.family
-        raise NotImplementedError(
-            f"{cfg.name}: family {what!r} is not ported yet; it waits for "
-            f"{_WAITS_FOR.get(what, 'a later slice')}")
-    if cfg.n_input_codebooks != 1 or cfg.n_output_heads != 1 \
-            or cfg.vision_tokens or cfg.m_rope:
-        raise NotImplementedError(
-            f"{cfg.name}: codebooks, vision tokens and M-RoPE are not ported "
-            "yet")
+def _has_ssm(cfg: ArchConfig) -> bool:
+    """ssm and hybrid stack SSM blocks; every other family attention
+    blocks."""
+    return cfg.family in ("ssm", "hybrid")
 
 
 # ---------------------------------------------------------------------------
@@ -62,14 +51,19 @@ def _require_supported(cfg: ArchConfig) -> None:
 
 
 class DenseBlock(nn.Module):
-    """Pre-norm attention + SwiGLU FFN."""
+    """Pre-norm attention + SwiGLU FFN (``ffn``) or mixture of experts
+    (``moe``)."""
 
     def __init__(self, cfg: ArchConfig, dtype, device, generator):
         super().__init__()
         self.ln1 = layers.RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
         self.attn = attn.Attention(cfg, dtype, device, generator)
         self.ln2 = layers.RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
-        self.ffn = layers.FFN(cfg.d_model, cfg.d_ff, dtype, device, generator)
+        if cfg.moe is not None:
+            self.moe = moe.MoE(cfg, dtype, device, generator)
+        else:
+            self.ffn = layers.FFN(cfg.d_model, cfg.d_ff, dtype, device,
+                                  generator)
 
 
 class SSMBlock(nn.Module):
@@ -84,11 +78,11 @@ class SSMBlock(nn.Module):
 class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, device, generator: torch.Generator):
         super().__init__()
-        _require_supported(cfg)
         dtype = layers.to_dtype(cfg.param_dtype)
         self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype,
-                                      device, generator)
-        block = DenseBlock if cfg.family == "dense" else SSMBlock
+                                      device, generator,
+                                      cfg.n_input_codebooks)
+        block = SSMBlock if _has_ssm(cfg) else DenseBlock
         self.blocks = nn.ModuleList(
             block(cfg, dtype, device, generator) for _ in range(cfg.n_layers))
         if cfg.family == "hybrid":
@@ -101,7 +95,8 @@ class Transformer(nn.Module):
         self.final_ln = layers.RMSNorm(cfg.d_model, dtype, device,
                                        cfg.norm_eps)
         self.head = None if cfg.tie_embeddings else layers.LMHead(
-            cfg.d_model, cfg.vocab_size, dtype, device, generator)
+            cfg.d_model, cfg.vocab_size, dtype, device, generator,
+            cfg.n_output_heads)
 
 
 def init_params(cfg: ArchConfig,
@@ -177,12 +172,18 @@ def _annotate_resid(h):
 
 
 def _dense_block_apply(bp: DenseBlock, h, cfg, positions, cache=None,
-                       cache_pos=None):
+                       cache_pos=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (h, the block's auxiliary loss: the MoE's, else 0)."""
     a_out, _ = attn.attn_apply(bp.attn, bp.ln1(h), cfg, positions=positions,
                                cache=cache, cache_pos=cache_pos)
     h = _annotate_resid(h + a_out)
-    h = _annotate_resid(h + bp.ffn(bp.ln2(h)))
-    return h
+    x = bp.ln2(h)
+    if cfg.moe is not None:
+        f_out, aux = moe.moe_apply(bp.moe, x, cfg)
+    else:
+        f_out = bp.ffn(x)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _annotate_resid(h + f_out), aux
 
 
 def _ssm_block_apply(bp: SSMBlock, h, cfg, state=None):
@@ -197,18 +198,32 @@ def _is_site(cfg, i: int) -> bool:
 
 def embed_inputs(model: Transformer, cfg: ArchConfig,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    _require_supported(cfg)
-    return _annotate_resid(model.embed(batch["tokens"]))
+    """The token embeddings; with ``cfg.vision_tokens``,
+    ``batch["vision_embeds"]`` (B, vision_tokens, d) in place of the first
+    ``vision_tokens`` positions."""
+    h = model.embed(batch["tokens"])
+    if cfg.vision_tokens:
+        ve = batch["vision_embeds"].to(h.dtype)
+        if ve.shape[1] > h.shape[1]:
+            raise ValueError(f"{ve.shape[1]} vision embeddings for a "
+                             f"sequence of {h.shape[1]}")
+        h = torch.cat([ve, h[:, ve.shape[1]:]], dim=1)
+    return _annotate_resid(h)
 
 
 def logits_from_hidden(model: Transformer, cfg: ArchConfig,
                        h: torch.Tensor) -> torch.Tensor:
+    """(B, S, V); (B, S, n_output_heads, V) with several heads."""
     h = model.final_ln(h)
     if cfg.tie_embeddings:
         logits = layers.tied_lm_head(model.embed.weight, h)
+        names = ("act_batch", "act_seq", "act_vocab")
     else:
         logits = model.head(h)
-    return logical(logits, ("act_batch", "act_seq", "act_vocab"))
+        names = (("act_batch", "act_seq", "act_vocab")
+                 if cfg.n_output_heads == 1
+                 else ("act_batch", "act_seq", None, "act_vocab"))
+    return logical(logits, names)
 
 
 def forward(model: Transformer, cfg: ArchConfig,
@@ -216,25 +231,27 @@ def forward(model: Transformer, cfg: ArchConfig,
             remat_policy: Optional[str] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (logits, aux_loss).  Train/prefill path (full sequence); the
-    auxiliary loss is zero for every ported family.  ``remat_policy``
-    (default ``cfg.remat_policy``) wraps each block — for the hybrid, each
-    super-block of ``attn_every`` SSM layers and the shared block, as the
-    reference's ``super_body`` — in ``_remat``."""
+    auxiliary loss is the MoE layers' summed, f32 (zero for the other
+    families).  ``remat_policy`` (default ``cfg.remat_policy``) wraps each
+    block — for the hybrid, each super-block of ``attn_every`` SSM layers
+    and the shared block, as the reference's ``super_body`` — in
+    ``_remat``."""
     policy = remat_policy or cfg.remat_policy
     h = embed_inputs(model, cfg, batch)
     B, S = h.shape[0], h.shape[1]
     positions = attn._positions_for(cfg, B, S, device=h.device)
-    if cfg.family == "dense":
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if not _has_ssm(cfg):
         for bp in model.blocks:
-            h = _remat(functools.partial(_dense_block_apply, bp, cfg=cfg,
-                                         positions=positions), policy)(h)
+            h, a = _remat(functools.partial(_dense_block_apply, bp, cfg=cfg,
+                                            positions=positions), policy)(h)
+            aux = aux + a
     else:
         k = cfg.hybrid.attn_every if cfg.family == "hybrid" else 1
         for i in range(0, cfg.n_layers, k):
             h = _remat(functools.partial(_super_block_apply, model, cfg,
                                          range(i, i + k), positions),
                        policy)(h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return logits_from_hidden(model, cfg, h), aux
 
 
@@ -244,7 +261,7 @@ def _super_block_apply(model: Transformer, cfg, layers_, positions, h):
     for i in layers_:
         h = _ssm_block_apply(model.blocks[i], h, cfg)
         if _is_site(cfg, i):
-            h = _dense_block_apply(model.shared, h, cfg, positions)
+            h, _ = _dense_block_apply(model.shared, h, cfg, positions)
     return h
 
 
@@ -258,11 +275,18 @@ def loss_fn(model: Transformer, cfg: ArchConfig,
             remat_policy: Optional[str] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (total, {"ce", "aux"}): the mean (masked) next-token cross-entropy
-    of ``batch["labels"]``.  The mixture-of-experts auxiliary term waits for
-    the MoE slice (``forward`` raises for that family)."""
+    of ``batch["labels"]`` ((B, S), or (B, S, n_output_heads) with several
+    heads, the mask (B, S) then applying to every head), plus
+    ``cfg.moe.aux_loss_weight`` × the auxiliary loss for the MoE family."""
     logits, aux = forward(model, cfg, batch, remat_policy)
-    ce = layers.softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
-    return ce, {"ce": ce, "aux": aux}
+    mask = batch.get("loss_mask")
+    if cfg.n_output_heads > 1 and mask is not None:
+        mask = mask[..., None]
+    ce = layers.softmax_xent(logits, batch["labels"], mask)
+    total = ce
+    if cfg.moe is not None:
+        total = total + cfg.moe.aux_loss_weight * aux
+    return total, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -275,23 +299,22 @@ def init_decode_state(cfg: ArchConfig, B: int, max_len: int, dtype=None,
     """Decode caches stacked along a leading axis, and the position:
 
     * ``"kv"``: KV caches ``(n, B, Smax, KVH, dh)``, one per attention layer
-      (dense) or one per application site of the shared block (hybrid,
-      ``n_layers // attn_every`` sites);
+      (dense, moe, vlm, audio) or one per application site of the shared
+      block (hybrid, ``n_layers // attn_every`` sites);
     * ``"ssm"``: ``SSMState(conv (L, B, d_conv-1, conv_dim), h (L, B, H, P,
       N) f32)``, one per SSM layer (ssm, hybrid).
 
     As in the reference there is ONE position for all ``B`` rows.  It is kept
     as a host integer, so reading it never waits for the device."""
-    _require_supported(cfg)
     dtype = dtype or layers.to_dtype(cfg.compute_dtype)
     state: Dict[str, Any] = {"pos": 0}
-    if cfg.family != "dense":
+    if _has_ssm(cfg):
         one = ssm.init_ssm_state(cfg, B, dtype, device=device)
         state["ssm"] = ssm.SSMState(
             *(t.new_zeros((cfg.n_layers,) + tuple(t.shape)) for t in one))
     if cfg.family != "ssm":
-        n = cfg.n_layers if cfg.family == "dense" \
-            else cfg.n_layers // cfg.hybrid.attn_every
+        n = cfg.n_layers // cfg.hybrid.attn_every \
+            if cfg.family == "hybrid" else cfg.n_layers
         shape = (n,) + attn.cache_shape(cfg, B, max_len)
         state["kv"] = attn.KVCache(
             torch.zeros(shape, dtype=dtype, device=device),
@@ -302,11 +325,12 @@ def init_decode_state(cfg: ArchConfig, B: int, max_len: int, dtype=None,
 def decode_step(model: Transformer, cfg: ArchConfig, state: Dict[str, Any],
                 tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One-token decode.  tokens (B, 1) -> logits (B, 1, V), new state.
+    """One-token decode.  tokens (B, 1[, n_codebooks]) -> logits (B, 1[,
+    n_output_heads], V), new state.  Text only, as in the reference: no
+    vision embeddings; an MoE layer routes the B tokens as one group.
 
     The caches of ``state`` (KV and SSM) are updated IN PLACE; the returned
     state shares them and carries the advanced position."""
-    _require_supported(cfg)
     pos = int(state["pos"])
     kv, st = state.get("kv"), state.get("ssm")
     h = _annotate_resid(model.embed(tokens))
@@ -317,12 +341,12 @@ def decode_step(model: Transformer, cfg: ArchConfig, state: Dict[str, Any],
         return attn.KVCache(kv.k[site], kv.v[site])
 
     for i, bp in enumerate(model.blocks):
-        if cfg.family == "dense":
-            h = _dense_block_apply(bp, h, cfg, positions, cache(i), pos)
+        if not _has_ssm(cfg):
+            h, _ = _dense_block_apply(bp, h, cfg, positions, cache(i), pos)
             continue
         h = _ssm_block_apply(bp, h, cfg, ssm.SSMState(st.conv[i], st.h[i]))
         if _is_site(cfg, i):
-            h = _dense_block_apply(model.shared, h, cfg, positions,
-                                   cache(i // cfg.hybrid.attn_every), pos)
+            h, _ = _dense_block_apply(model.shared, h, cfg, positions,
+                                      cache(i // cfg.hybrid.attn_every), pos)
     logits = logits_from_hidden(model, cfg, h)
     return logits, {**state, "pos": pos + 1}

@@ -71,7 +71,12 @@ class DecodeServer:
                  slo_decode_s: Optional[float] = None, injector=None,
                  device="cuda"):
         if cfg.n_input_codebooks != 1:
-            raise NotImplementedError("codebook serving is not ported")
+            # as the reference's server, which asserts one codebook and
+            # leaves codebook serving to its examples (there is none)
+            raise NotImplementedError(
+                f"{cfg.name}: the decode server serves one codebook; "
+                f"{cfg.n_input_codebooks} codebooks decode through "
+                "steps.make_serve_step")
         if admission not in ("fifo", "model"):
             raise ValueError(f"admission must be 'fifo' or 'model', "
                              f"got {admission!r}")

@@ -97,6 +97,11 @@ def make_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
 
 
 def make_prefill_step(cfg: ArchConfig):
+    """-> ``prefill_step(model, batch) -> logits``; ``batch`` is handed to
+    ``transformer.forward`` whole (``tokens``, and ``vision_embeds`` for the
+    vision-language family; keys it does not read, such as ``loss_mask``,
+    pass unread)."""
+
     @torch.no_grad()
     def prefill_step(model, batch):
         logits, _ = transformer.forward(model, cfg, batch)
@@ -107,7 +112,9 @@ def make_prefill_step(cfg: ArchConfig):
 
 def make_serve_step(cfg: ArchConfig, sample: bool = True,
                     temperature: float = 1.0):
-    """One decode iteration: token in, next token + new cache.
+    """One decode iteration: token in, next token + new cache.  The next
+    token is (B,), or (B, n_output_heads) with several heads: each head
+    samples (or argmaxes) over the last axis of its logits.
 
     ``generator`` (a ``torch.Generator`` on the tokens' device) drives the
     sampling and may be ``None`` for ``sample=False``."""
@@ -116,10 +123,12 @@ def make_serve_step(cfg: ArchConfig, sample: bool = True,
     def serve_step(model, state, tokens,
                    generator: Optional[torch.Generator] = None):
         logits, new_state = transformer.decode_step(model, cfg, state, tokens)
-        last = logits[:, -1]
+        last = logits[:, -1]                      # (B[, n_heads], V)
         if sample:
             probs = torch.softmax(last.float() / temperature, dim=-1)
-            next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            next_tok = torch.multinomial(probs.reshape(-1, probs.shape[-1]),
+                                         1, generator=generator)
+            next_tok = next_tok.reshape(last.shape[:-1])
         else:
             next_tok = torch.argmax(last, dim=-1)
         return next_tok.to(torch.int32), new_state

@@ -48,7 +48,7 @@ def test_package_layout():
                  "optim/optimizers.py", "distributed/plan.py",
                  "data/pipeline.py", "checkpoint/store.py",
                  "runtime/straggler.py", "runtime/trainer.py",
-                 "launch/train.py"):
+                 "launch/train.py", "models/moe.py"):
         assert need in names, need
     for src in ("flash_attention.cu", "ssd_scan.cu", "matmul.cu",
                 "transpose.cu"):
