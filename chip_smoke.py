@@ -56,7 +56,20 @@ counts set to 0 just before the path and read just after):
   their properties extracted from ATen graphs, the fit, the registry), then
   the held-out step: the model loaded back by name predicts the 4 held-out
   kernels, which are timed beside it — the ``matmul`` kernel (``mm_tiled``,
-  ``skinny_mm``) and the ``transpose`` kernel (the tiled transpose).
+  ``skinny_mm``) and the ``transpose`` kernel (the tiled transpose);
+* the step predictor (``predict`` lines): for every path measured above (the
+  prefill steps, the servers' decode iterations with their slots, mean
+  occupancy and cache rows, the train steps, the second f32 prefill step of
+  each f32 comparison), ``core.predictor.predict_step`` under the
+  ``gpu-h100`` model fitted in this run and under the analytic ``gpu-h100``
+  seed, beside the measured seconds, with the properties the fitted model
+  leaves unpriced; ``predict_plans`` and ``StragglerMonitor.from_model``
+  must agree with it to 1e-9.
+
+The prefill and serve steps the script builds itself come from
+``steps.make_step`` and a ``WorkloadSpec``.  The run has its own compile
+cache (``REPRO_COMPILE_CACHE`` points to a temporary directory), so the step
+programs of the predict phase are built cold.
 
 Every phase prints one JSON line; any failure ends the run with a non-zero
 exit code.  The last line is ``{"ok": true, "device": {...}}``.  With
@@ -97,10 +110,12 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.calibration import __main__ as calib_cli  # noqa: E402
-from repro_torch.calibration import registry  # noqa: E402
+from repro_torch.calibration import registry, seeds  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.core import extract, measure, mkernels, tkernels  # noqa: E402
+from repro_torch.core import exprops, predictor  # noqa: E402
 from repro_torch.core import properties as props  # noqa: E402
+from repro_torch.core.workload import WorkloadSpec  # noqa: E402
 from repro_torch.core.model import geomean, relative_error  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -111,10 +126,12 @@ from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import transpose as tr  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, PackedLoader  # noqa: E402
+from repro_torch.distributed.plan import Plan  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.optim import optimizers as opt  # noqa: E402
 from repro_torch.runtime import flags, steps  # noqa: E402
 from repro_torch.runtime.server import DecodeServer, Request  # noqa: E402
+from repro_torch.runtime.straggler import StragglerMonitor  # noqa: E402
 from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
 
 DEV = "cuda"
@@ -1389,6 +1406,123 @@ def launches_per_step(cfg) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# what each main path measured, for the predict phase
+
+#: one entry a measured path: its config, workload, plan, measured seconds
+#: and, where --profile ran, its device-idle share
+PATHS = []
+#: the plan the trainer runs under (``Trainer``'s default; remat from the
+#: config), and the one-device mesh every path runs on
+TRAINER_PLAN = Plan(dp_axes=())
+MESH1 = {"data": 1}
+#: predictions of one path must agree across the three entry points to this
+PREDICT_RTOL = 1e-9
+
+
+def record_path(cfg, kind: str, spec: WorkloadSpec, seconds: float,
+                timed_by: str, plan: Plan = None, **extra) -> None:
+    PATHS.append({"path": f"{cfg.name}:{kind}", "cfg": cfg, "spec": spec,
+                  "plan": plan or Plan(dp_axes=()), "measured_s": seconds,
+                  "timed_by": timed_by, "device_idle_share": None, **extra})
+
+
+def record_idle(cfg, kind: str, prof: dict) -> None:
+    """The idle share a --profile trace measured, on the path's entry."""
+    for p in PATHS:
+        if p["path"] == f"{cfg.name}:{kind}":
+            p["device_idle_share"] = prof.get("device_idle_share")
+
+
+def _seconds(pred) -> dict:
+    return {"seconds": pred.seconds, "terms": pred.terms, "mfu": pred.mfu}
+
+
+def phase_predict(out_dir: str, cache_dir: str):
+    """The step predictor on the card's own numbers: for every path
+    measured above, ``predict_step`` under the ``gpu-h100`` model fitted in
+    this run (loaded back by name) and under the analytic ``gpu-h100``
+    seed, beside the measured seconds.  ``unpriced``: each property with a
+    nonzero count the fitted model has no weight for (its prediction skips
+    it), with its seconds under the seed.  Fails where a prediction is not
+    finite and above 0, or where ``predict_plans`` or
+    ``StragglerMonitor.from_model`` disagree with ``predict_step`` beyond
+    ``PREDICT_RTOL``."""
+    fitted = registry.load_model(CALIB_DEVICE, out_dir)
+    if fitted.meta.get("source") != "calibrated":
+        raise AssertionError(f"{CALIB_DEVICE} loaded from the registry is "
+                             f"{fitted.meta.get('source')!r}, not the fit")
+    seed = seeds.ANALYTIC_SEEDS[CALIB_DEVICE]()
+    models = {"fitted": fitted, "seed": seed}
+    seed_w = dict(zip(seed.keys, (float(w) for w in seed.weights)))
+    fitted_keys = set(fitted.keys)
+    budget = torch.cuda.get_device_properties(0).total_memory
+    cold_s = 0.0
+    for p in PATHS:
+        cfg, spec, plan = p["cfg"], p["spec"], p["plan"]
+        t0 = time.perf_counter()
+        plans = {n: float(predictor.predict_plans(cfg, spec, [plan], MESH1,
+                                                  m)[0])
+                 for n, m in models.items()}
+        build_s = time.perf_counter() - t0   # the first builds its programs
+        cold_s += build_s
+        t0 = time.perf_counter()
+        preds = {n: predictor.predict_step(cfg, spec, plan, MESH1, m)
+                 for n, m in models.items()}
+        step_s = time.perf_counter() - t0
+        monitor = StragglerMonitor.from_model(cfg, spec, plan, MESH1,
+                                              n_hosts=1, model=fitted)
+        for n, pred in preds.items():
+            if not (math.isfinite(pred.seconds) and pred.seconds > 0):
+                raise AssertionError(f"{p['path']}: {n} predicts "
+                                     f"{pred.seconds!r} s")
+            if abs(plans[n] - pred.seconds) > PREDICT_RTOL * pred.seconds:
+                raise AssertionError(f"{p['path']}: predict_plans {plans[n]!r}"
+                                     f" vs predict_step {pred.seconds!r} "
+                                     f"({n})")
+        if abs(monitor.predicted_step_s - plans["fitted"]) \
+                > PREDICT_RTOL * plans["fitted"]:
+            raise AssertionError(f"{p['path']}: StragglerMonitor.from_model "
+                                 f"{monitor.predicted_step_s!r} vs "
+                                 f"predict_plans {plans['fitted']!r}")
+        pv = predictor.plan_property_vector(cfg, spec, plan, MESH1)
+        unpriced = {k: {"count": v, "seed_s": v * seed_w[k]
+                        if k in seed_w else None}
+                    for k, v in sorted(pv.items())
+                    if v and k not in fitted_keys}
+        m = p["measured_s"]
+        peak = predictor.estimate_peak_bytes(cfg, spec, plan, MESH1)
+        emit({"phase": "predict", "ok": True, "path": p["path"],
+              "n_layers": cfg.n_layers, "dtype": cfg.compute_dtype,
+              "workload": dataclasses.asdict(spec),
+              "remat": plan.remat_policy or cfg.remat_policy,
+              "measured_s": m, "timed_by": p["timed_by"],
+              "fitted": _seconds(preds["fitted"]),
+              "seed": _seconds(preds["seed"]),
+              "fitted_over_measured": preds["fitted"].seconds / m,
+              "seed_over_measured": preds["seed"].seconds / m,
+              "predict_plans_s": plans,
+              "straggler_from_model_s": monitor.predicted_step_s,
+              "unpriced": unpriced,
+              "unpriced_seed_s": sum(u["seed_s"] or 0.0
+                                     for u in unpriced.values()),
+              "device_idle_share": p["device_idle_share"],
+              "estimated_peak_bytes": peak,
+              "feasible_on_this_card": predictor.feasible(
+                  cfg, spec, plan, MESH1, budget=budget),
+              "measured_peak_memory_bytes": p.get("peak_memory_bytes"),
+              "first_predict_plans_s": build_s,
+              "predict_step_s": step_s})
+    emit({"phase": "predict.summary", "ok": True, "paths": len(PATHS),
+          "fitted_meta": {k: fitted.meta.get(k) for k in
+                          ("source", "fit_geomean_rel_err")},
+          "fitted_keys": sorted(fitted_keys),
+          "card_memory_bytes": budget,
+          "step_programs_cold_build_s": cold_s,
+          "compile_cache_dir_files": len(os.listdir(cache_dir)),
+          "compile_cache": exprops.disk_cache_report()})
+
+
 def rel_frobenius(a, b) -> float:
     num = den = 0.0
     for i in range(a.shape[0]):  # row by row: the f32 copies stay small
@@ -1492,6 +1626,22 @@ def masked_rel_frobenius(a, b, tokens) -> float:
     return rel_frobenius(torch.where(m, a, 0), torch.where(m, b, 0))
 
 
+def prefill_step(cfg, B: int, S: int):
+    """The prefill step of ``cfg`` for tokens (B, S), built as a user builds
+    it: ``steps.make_step`` from the workload."""
+    return steps.make_step(cfg, WorkloadSpec(phase="prefill", global_batch=B,
+                                             seq_len=S))
+
+
+def serve_step(cfg, slots: int, max_len: int, **kw):
+    """The decode step of ``cfg`` for ``slots`` rows of ``max_len``-row
+    caches, through ``steps.make_step``; ``kw`` goes to
+    ``make_serve_step``."""
+    return steps.make_step(cfg, WorkloadSpec(phase="decode",
+                                             global_batch=slots,
+                                             seq_len=max_len), **kw)
+
+
 def phase_init(cfg, seed, B, S):
     t0 = time.perf_counter()
     model = transformer.init_params(cfg, device=DEV, seed=seed)
@@ -1501,7 +1651,7 @@ def phase_init(cfg, seed, B, S):
                              f"{cfg.n_params()}")
     # warm-up at the counted steps' shape (library handles, GEMM choices,
     # allocator); not part of the counted run
-    steps.make_prefill_step(cfg)(model, main_batch(cfg, B, S, seed + 7))
+    prefill_step(cfg, B, S)(model, main_batch(cfg, B, S, seed + 7))
     torch.cuda.synchronize()
     emit({"phase": "init", "ok": True, "arch": cfg.name,
           "family": cfg.family, "n_layers": cfg.n_layers,
@@ -1515,7 +1665,7 @@ def phase_prefill(cfg, model, B, S, seed, n_steps):
     """The counted prefill steps of the main path; returns the batch, the
     logits and the step times."""
     batch = main_batch(cfg, B, S, seed)
-    step = steps.make_prefill_step(cfg)
+    step = prefill_step(cfg, B, S)
     times = []
     logits = None
     for _ in range(n_steps):
@@ -1546,10 +1696,12 @@ def phase_serve(cfg, model, seed):
         server.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
     iters = []
     done = []
+    occupied = []
     t0 = time.perf_counter()
     while server.queue or any(server.active):
         server._refill()
         before = [r for r in server.active if r]
+        occupied.append(len(before))
         iters.append(server.step() * 1e3)
         done.extend(r for r in before if r.done)
     torch.cuda.synchronize()
@@ -1564,12 +1716,26 @@ def phase_serve(cfg, model, seed):
     if not bool(torch.isfinite(server.last_logits).all()):
         raise AssertionError("decode logits are not finite")
     toks = sum(len(r.out) for r in done)
+    # the workload as the server had it: its slots and cache rows, the mean
+    # occupancy, and the context its decode read each iteration (the whole
+    # cache: decode attends every row, masked)
+    rows = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+    active = int(round(float(np.mean(occupied))))
+    record_path(cfg, "decode", WorkloadSpec(
+        phase="decode", global_batch=slots, seq_len=max_len,
+        active_slots=active,
+        cache_tokens=None if cfg.family == "ssm" else float(slots * rows)),
+        float(np.median(iters)) * 1e-3,
+        f"median of {len(iters)} decode iterations (DecodeServer.step)",
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
     emit({"phase": "serve", "ok": True, "arch": cfg.name, "slots": slots,
           "max_len": max_len, "requests": n_req, "max_new": max_new,
           "prompt_tokens": int(sum(len(r.prompt) for r in done)),
           "new_tokens": toks, "decode_iterations": len(iters),
           "decode_calls_total": int(server.state["pos"]),
           "ms_per_iteration_median": float(np.median(iters)),
+          "active_slots_mean": float(np.mean(occupied)),
           "ms_per_iteration_mean": float(np.mean(iters)),
           "wall_seconds": wall, "tokens_per_s": toks / wall,
           "tokens_per_s_decode_only": toks / (sum(iters) * 1e-3),
@@ -1619,7 +1785,8 @@ def phase_prefill_compare(cfg, model, batch, logits, times, launched,
     So the bar is held on the plain path with the kernel path's routing
     replayed, and the free-running comparison and the share of picks that
     route otherwise are reported beside it (``moe_routing_report``)."""
-    step = steps.make_prefill_step(cfg)
+    B, S = batch["tokens"].shape[:2]
+    step = prefill_step(cfg, B, S)
     before = read_launches()
     with flags.use_kernels(False):
         plain_logits = step(model, batch)
@@ -1633,7 +1800,10 @@ def phase_prefill_compare(cfg, model, batch, logits, times, launched,
         routing["bar_held_on"] = "the plain path with the kernel path's " \
             "routing replayed, every token"
     ms = float(np.median(times))
-    B, S = batch["tokens"].shape[:2]
+    record_path(cfg, "prefill", WorkloadSpec(phase="prefill", global_batch=B,
+                                             seq_len=S), ms * 1e-3,
+                f"median of {n_steps} prefill steps (host clock, "
+                "synchronised)")
     ok = held <= TOL_PREFILL_BF16
     emit({"phase": "prefill", "ok": ok,
           "arch": cfg.name, "tokens": [B, S],
@@ -1660,11 +1830,22 @@ def phase_prefill_compare_f32(cfg, model, batch, logits):
                                 compute_dtype="float32")
     batch = {k: v.float() if v.is_floating_point() else v
              for k, v in batch.items()}
-    step32 = steps.make_prefill_step(cfg32)
+    B, S = batch["tokens"].shape[:2]
+    step32 = prefill_step(cfg32, B, S)
     before = read_launches()
     k_logits = step32(model, batch)
     after = read_launches()
     launched = {n: after[n] - before[n] for n in after}
+    # a second call, timed, for the predict phase
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = step32(model, batch)
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    del again
+    record_path(cfg32, "prefill.f32", WorkloadSpec(
+        phase="prefill", global_batch=B, seq_len=S), f32_s,
+        "the second f32 prefill step (host clock, synchronised)")
     with flags.use_kernels(False):
         p_logits = step32(model, batch)
     rel32 = rel_frobenius(k_logits, p_logits)
@@ -1680,7 +1861,8 @@ def phase_prefill_compare_f32(cfg, model, batch, logits):
           # how far bf16 itself moves the logits: the scale against which
           # the bf16 kernel-vs-plain figure is to be read
           "bf16_step_vs_f32_step_rel_frobenius":
-              rel_frobenius(logits, k_logits)})
+              rel_frobenius(logits, k_logits),
+          "ms_second_call": f32_s * 1e3})
     if launched != launches_per_step(cfg32) or not rel32 <= TOL_PREFILL_F32:
         raise AssertionError(f"prefill kernel vs plain (f32): relative "
                              f"Frobenius error {rel32:.3e} > "
@@ -1731,7 +1913,8 @@ def phase_decode_equals_prefill(cfg, seed, n_layers):
         peek = {k: type(v)(*(t.clone() for t in v))
                 if isinstance(v, tuple) else v for k, v in state.items()}
         nxt_logits, _ = transformer.decode_step(model, cfg2, peek, last)
-        nxt, _ = steps.make_serve_step(cfg2, sample=False)(model, state, last)
+        nxt, _ = serve_step(cfg2, B, T + 1, sample=False)(model, state,
+                                                           last)
     launched = {n: after[n] - before[n] for n in after}
     if launched != launches_per_step(cfg2):
         raise AssertionError(f"forward launched {launched}")
@@ -1792,7 +1975,7 @@ def drive_path(cfg, args, serve: bool, decode_layers: int,
         torch.cuda.empty_cache()
         cfg = dataclasses.replace(cfg, n_layers=f32_layers)
         model = transformer.init_params(cfg, device=DEV, seed=args.seed)
-        logits = steps.make_prefill_step(cfg)(model, batch)
+        logits = prefill_step(cfg, B, S)(model, batch)
     with phase(f"{name}:prefill.compare_f32"):
         phase_prefill_compare_f32(cfg, model, batch, logits)
     del model, batch, logits
@@ -1841,7 +2024,7 @@ def phase_profile(cfg, model, batch, seed, serve: bool):
     """Optional (--profile): where one prefill step and one decode iteration
     spend their time: the server's (8 slots after 16-token prompts) on a
     served path, else a greedy ``make_serve_step`` over 8 rows."""
-    step = steps.make_prefill_step(cfg)
+    step = prefill_step(cfg, *batch["tokens"].shape[:2])
     pre = _profile(lambda: step(model, batch), 1)
     slots = SERVE["slots"]
     if serve:
@@ -1856,13 +2039,16 @@ def phase_profile(cfg, model, batch, seed, serve: bool):
     else:
         state = transformer.init_decode_state(cfg, slots, SERVE["max_len"],
                                               device=DEV)
-        serve_step = steps.make_serve_step(cfg, sample=False)
+        step1 = serve_step(cfg, slots, SERVE["max_len"], sample=False)
         tok = main_batch(cfg, slots, 1, seed)["tokens"]
 
         def one():
             nonlocal state
-            _, state = serve_step(model, state, tok)
+            _, state = step1(model, state, tok)
         dec = _profile(one, 5)
+    record_idle(cfg, "prefill", pre)
+    if serve:
+        record_idle(cfg, "decode", dec)
     emit({"phase": "profile", "ok": True, "arch": cfg.name,
           "prefill_step": pre, "decode_iteration": dec,
           "decode_by": "DecodeServer.step" if serve
@@ -2046,6 +2232,11 @@ def phase_train_steps(cfg, trainer, n_steps) -> list:
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                for m in hist):
         raise AssertionError(f"{cfg.name}: a loss is not finite: {hist}")
+    record_path(cfg, "train", WorkloadSpec(phase="train", global_batch=B,
+                                           seq_len=S),
+                float(np.median([m["time_s"] for m in hist])),
+                f"median of {n_steps} Trainer.train steps",
+                plan=TRAINER_PLAN, peak_memory_bytes=peak)
     emit({"phase": "train.steps", "ok": True, "arch": cfg.name,
           "tokens": [B, S], "steps": steps_out,
           "losses": [m["loss"] for m in hist],
@@ -2143,9 +2334,10 @@ def phase_train_split(cfg, trainer) -> dict:
 
 def phase_train_profile(cfg, trainer):
     """Optional (--profile): where one train step spends its time."""
+    prof = _profile(lambda: trainer.train(1, on_metrics=quiet), 1)
+    record_idle(cfg, "train", prof)
     emit({"phase": "train.profile", "ok": True, "arch": cfg.name,
-          "train_step": _profile(lambda: trainer.train(1, on_metrics=quiet),
-                                 1)})
+          "train_step": prof})
 
 
 def drive_train(cfg, args) -> dict:
@@ -2312,7 +2504,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); this script runs on a GPU only", file=sys.stderr)
         return 1
+    # a compile cache of the run's own: no step program of an earlier run is
+    # read, so the predict phase's build times are cold
+    with tempfile.TemporaryDirectory(prefix="exprops-") as cache_dir:
+        os.environ["REPRO_COMPILE_CACHE"] = cache_dir
+        return run(args, cache_dir)
 
+
+def run(args, cache_dir: str) -> int:
     t_start = time.perf_counter()
     with phase("device"):
         smi = phase_device()
@@ -2386,6 +2585,10 @@ def main() -> int:
         with phase("heldout"):
             phase_heldout(reg_dir, res)
         launched["calibration"] = read_launches()
+        # the step predictor: the model just fitted, loaded back by name,
+        # against every path measured above
+        with phase("predict"):
+            phase_predict(reg_dir, cache_dir)
     torch.cuda.empty_cache()
     if args.profile:
         with phase("calibrate.profile"):

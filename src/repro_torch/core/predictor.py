@@ -1,24 +1,55 @@
-"""The analytic v5e seed and the model-argument rules of the predictor.
+"""Step-time prediction for (arch × shape × mesh × plan) — the framework's
+first-class use of the paper's fitted linear model.
 
-Only the part of the reference's ``core/predictor.py`` that the registry
-needs: the v5e datasheet constants, ``tpu_v5e_weights`` (the registry's
-``"tpu-v5e"`` seed and the ``None`` default of ``resolve_model``),
-``ModelLike`` and ``resolve_model``.  Step-time prediction over
-(arch × shape × mesh × plan) arrives with ``core/workload.py`` and
-``archcount.py``.
+Two weight sources:
 
-The constants are a TPU v5e datasheet's, kept so that model files and
-``resolve_model(None)`` behave as in the reference; they are catalog data
-for another device, not a figure of the H100.
+  * a **fitted** ``LinearCostModel`` (the ``gpu-h100`` model that
+    ``python -m repro_torch.calibration --device gpu-h100`` fits on the card
+    and registers);
+  * an **analytic seed**: the registry's datasheet seeds
+    (``calibration/seeds.py``: ``gpu-h100`` and the other GPUs) or the
+    reference's v5e seed below (``tpu_v5e_weights``, the ``None`` default of
+    ``resolve_model``).
+
+The prediction is the paper's inner product <α, p>, with compute/memory
+properties scaled down by the device count (data-parallel work division) and
+collective properties already expressed per-device by
+``archcount.collective_counts``.
+
+This predictor powers ``runtime/straggler.py`` (expected-step-time
+thresholds), ``distributed/elastic.py`` (re-planning after node loss) and
+the predicted-step print of ``launch/train.py``.
+
+A copy of the reference's ``core/predictor.py`` with two rules for its v5e
+constants, which are catalog data for another device, never a figure of the
+H100:
+
+  * MFU divides by the peak of the model's own device where that device is a
+    datasheet of ``calibration/seeds.GPU_DATASHEETS`` (the fitted and the
+    analytic ``gpu-h100`` both are); every other model keeps the reference's
+    ``PEAK_FLOPS_BF16``;
+  * ``feasible`` keeps the reference's default budget (``HBM_BYTES``); a
+    caller on the card passes ``torch.cuda.get_device_properties(dev)
+    .total_memory``.
+
+``score_explain`` waits for ``obs/explain.py`` (ROADMAP A12).
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
+import numpy as np
+
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core import archcount
 from repro_torch.core import properties as props
+from repro_torch.core import workload as wl
+from repro_torch.core.lru import LRUCache
 from repro_torch.core.model import LinearCostModel
+from repro_torch.core.workload import WorkloadSpec
 
-# --- v5e hardware constants (per chip) ---
+# --- v5e hardware constants (per chip): catalog data for another device ---
 PEAK_FLOPS_BF16 = 197e12     # FLOP/s
 PEAK_FLOPS_F32 = 49e12       # VPU-ish f32 rate
 HBM_BW = 819e9               # B/s
@@ -74,7 +105,312 @@ def resolve_model(model: ModelLike) -> LinearCostModel:
     registry device name (where a fitted model shadows a same-named seed).
 
     Delegates to ``repro_torch.calibration.registry.resolve_model`` (the
-    single home of these rules), imported lazily because calibration sits
-    above core."""
+    single home of these rules; its ``"tpu-v5e"`` default seed IS
+    ``tpu_v5e_weights``), imported lazily because calibration sits above
+    core."""
     from repro_torch.calibration import registry
     return registry.resolve_model(model)
+
+
+def peak_flops_bf16(model: LinearCostModel) -> float:
+    """The bf16 matmul peak MFU divides by: the datasheet's of the model's
+    device where ``calibration/seeds.GPU_DATASHEETS`` has one (``gpu-h100``
+    fitted or analytic: 989e12), else the reference's ``PEAK_FLOPS_BF16``."""
+    from repro_torch.calibration import seeds  # calibration sits above core
+    ds = seeds.GPU_DATASHEETS.get(model.device)
+    return ds.matmul_flops[16] if ds is not None else PEAK_FLOPS_BF16
+
+
+@dataclass
+class StepPrediction:
+    seconds: float
+    breakdown: Dict[str, float]      # per-property seconds
+    terms: Dict[str, float]          # compute / memory / collective seconds
+    model_flops: float
+    mfu: float                       # MODEL_FLOPS / (chips·peak·seconds),
+    #                                  peak from ``peak_flops_bf16``
+
+
+def _env_for(spec: WorkloadSpec, cfg: Optional[ArchConfig] = None,
+             microbatches: int = 1) -> Dict[str, float]:
+    # one env for every phase: the spec pins B/S (+ decode refinements),
+    # the plan's schedule overrides M
+    env = spec.env(cfg)
+    env["M"] = microbatches
+    return env
+
+
+# ---------------------------------------------------------------------------
+# Compiled step vectors — kernel-granularity compute terms
+# ---------------------------------------------------------------------------
+
+#: (cfg, spec.structure(), remat_policy) -> symcount.CompiledVector.  Step
+#: vectors are pure functions of those three — a spec's SHAPE enters only
+#: through the evaluation env, so every spec sharing a structure (phase +
+#: which decode refinements are modeled) shares one compiled vector.
+#: Bounded LRU: each key pins a whole frozen ``ArchConfig`` (plus its
+#: compiled closures), so the cache must not grow with every config a
+#: long-lived process ever scores.
+_STEP_PV_CACHE: LRUCache = LRUCache(maxsize=64)
+
+
+def _step_pv_sym(cfg: ArchConfig, spec: WorkloadSpec,
+                 remat_policy: Optional[str] = None, _sc=None):
+    """The symbolic property-vector map of one step of ``cfg`` — the shared
+    source for both the per-property compiled path (``step_vector_fn``) and
+    the fused basis program (``step_program``).
+
+    For train/prefill the compute terms come from the PER-KERNEL property
+    vectors (``core.kernelmodel.step_kernel_vectors``): the mxu count is the
+    block-rounded sum over the step's matmul / flash-attention / ssd_scan
+    launches (plus unkernelized contractions), and the kernels' VMEM
+    (``local:``) traffic joins the vector — the same counts the block-size
+    autotuner scores.  Memory / VPU / optimizer / structural terms stay at
+    archcount's step granularity, as does everything for decode (its cache-
+    streaming attention has no Pallas kernel here).
+    """
+    from repro_torch.core import kernelmodel
+    from repro_torch.core.symcount import as_expr
+    sc = _sc or archcount.counts_for(cfg, spec, remat_policy=remat_policy)
+    pv_sym = dict(sc.pv)
+    if spec.phase in ("train", "prefill"):
+        mult = archcount.train_fwd_multiplier(cfg, remat_policy) \
+            if spec.phase == "train" else 1.0
+        kpv = kernelmodel.step_compute_vector(cfg, spec)
+        for k, v in kpv.items():
+            scaled = as_expr(v) * mult
+            if k.startswith("mxu:"):
+                pv_sym[k] = scaled          # replaces the step count
+            else:
+                pv_sym[k] = scaled + as_expr(pv_sym[k]) \
+                    if k in pv_sym else scaled
+    return pv_sym
+
+
+def _structure_key(spec: WorkloadSpec):
+    """Cache-key part for a spec: the bare phase string when no refinement
+    is modeled (bit-compatible with the pre-spec ``kind=`` disk keys, so
+    existing compile caches stay warm), the full structure tuple otherwise."""
+    st = spec.structure()
+    return st[0] if len(st) == 1 else st
+
+
+def step_vector_fn(cfg: ArchConfig, workload: wl.WorkloadLike,
+                   remat_policy: Optional[str] = None, _sc=None):
+    """Compiled symbolic property vector for one step of ``cfg`` (one
+    closure per property — see ``_step_pv_sym`` for what the vector holds).
+    The batched engine's hot path uses the FUSED form (``step_program``);
+    this per-property form stays as the reference the fused path is pinned
+    against, and serves ``plan_property_vector`` / ``predict_step``."""
+    from repro_torch.core.symcount import compile_vector
+    spec = wl.as_spec(workload)
+    key = (cfg, spec.structure(), remat_policy)
+    cv = _STEP_PV_CACHE.get(key)
+    if cv is None:
+        cv = compile_vector(_step_pv_sym(cfg, spec, remat_policy, _sc=_sc))
+        _STEP_PV_CACHE[key] = cv
+    return cv
+
+
+#: (cfg, structure, remat) -> exprops.BasisProgram — the fused-GEMV step
+#: scorer.
+_STEP_PROG_CACHE: LRUCache = LRUCache(maxsize=64)
+
+
+def step_program(cfg: ArchConfig, workload: wl.WorkloadLike,
+                 remat_policy: Optional[str] = None):
+    """The step property vector as a FUSED basis program
+    (``core.exprops``): canonicalized, cross-property CSE'd, scored as one
+    GEMV.  In-memory LRU over the persistent on-disk compile cache — the
+    disk key derives from (cfg, spec structure, remat) so a warm cache
+    skips building the symbolic counts entirely."""
+    from repro_torch.core import exprops
+    spec = wl.as_spec(workload)
+    key = (cfg, spec.structure(), remat_policy)
+    prog = _STEP_PROG_CACHE.get(key)
+    if prog is None:
+        dk = exprops.program_key("step", cfg, _structure_key(spec),
+                                 remat_policy)
+        prog = exprops.load_or_build(
+            dk, lambda: _step_pv_sym(cfg, spec, remat_policy))
+        _STEP_PROG_CACHE[key] = prog
+    return prog
+
+
+def plan_property_vector(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
+                         mesh_shape: Mapping[str, int],
+                         _count_cache: Optional[dict] = None,
+                         _sc=None) -> Dict[str, float]:
+    """The concrete per-device property vector for one (plan, mesh) cell.
+
+    ``_count_cache`` memoizes the expensive symbolic-count evaluation across
+    plans that share (remat_policy, microbatches) — the batched scorer passes
+    one cache over the whole candidate set, so an autoshard sweep evaluates
+    the per-arch counts once per distinct schedule, not once per plan.
+    ``_sc`` lets a caller that already built the ``StepCounts`` (e.g.
+    ``predict_step``, which also needs ``concrete_model_flops``) avoid
+    rebuilding them.
+    """
+    spec = wl.as_spec(workload)
+    n_dev = int(np.prod(list(mesh_shape.values()))) or 1
+    env = _env_for(spec, cfg, plan.microbatches)
+
+    ck = (plan.remat_policy, plan.microbatches)
+    cached = _count_cache.get(ck) if _count_cache is not None else None
+    if cached is None:
+        cv = step_vector_fn(cfg, spec, plan.remat_policy, _sc=_sc)
+        cached = {k: float(v) for k, v in cv(env).items()}
+        if _count_cache is not None:
+            _count_cache[ck] = cached
+    # compute/memory events divide over the mesh (SPMD work division)
+    pv = {k: v / n_dev for k, v in cached.items()}
+    coll = archcount.collective_counts(cfg, spec, plan, mesh_shape)
+    from repro_torch.core.symcount import evaluate_vector
+    pv.update(evaluate_vector(coll, env))
+    pv[props.CONST1] = 1.0
+    return pv
+
+
+def predict_step(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
+                 mesh_shape: Mapping[str, int],
+                 weights: ModelLike = None,
+                 residual=None) -> StepPrediction:
+    """Predict one step's wall time on ``mesh_shape`` under ``plan``.
+
+    ``residual`` (a ``core.fit.ResidualHead``, e.g. from an
+    ``OnlineCalibrator`` running with ``residual=True``) applies the
+    learned multiplicative correction on top of the analytic inner product
+    — the hybrid analytic+learned prediction.  The per-property breakdown
+    stays analytic; the head's contribution appears as a ``residual``
+    term and scales ``seconds``/``mfu``."""
+    weights = resolve_model(weights)
+    spec = wl.as_spec(workload)
+    n_dev = int(np.prod(list(mesh_shape.values()))) or 1
+    env = _env_for(spec, cfg, plan.microbatches)
+
+    sc = archcount.counts_for(cfg, spec,
+                              remat_policy=plan.remat_policy)
+    pv = plan_property_vector(cfg, spec, plan, mesh_shape, _sc=sc)
+
+    bd = weights.breakdown(pv)
+    total = sum(bd.values())
+    terms = {c: 0.0 for c in props.CATEGORIES}
+    for k, v in bd.items():
+        terms[props.category(k)] += v
+    if residual is not None:
+        corrected = total * residual.correction(pv)
+        terms["residual"] = corrected - total
+        total = corrected
+    mf = sc.concrete_model_flops(env)
+    peak = peak_flops_bf16(weights)
+    mfu = mf / (n_dev * peak * total) if total > 0 else 0.0
+    return StepPrediction(seconds=total, breakdown=bd, terms=terms,
+                          model_flops=mf, mfu=mfu)
+
+
+def score_explain(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
+                  mesh_shape: Mapping[str, int], weights: ModelLike = None):
+    """Decompose one cell's predicted step seconds into basis-term
+    contributions — per term, per cost category, per program source (step
+    / collective / launch) — summing exactly to the fused
+    ``PlanSpace.scores`` cell.  The reference returns an
+    ``obs.explain.Explanation``; that module is not ported yet."""
+    raise NotImplementedError(
+        "score_explain needs obs/explain.py, which waits for the "
+        "model-scored serving slice (ROADMAP A12)")
+
+
+def predict_plans(cfg: ArchConfig, workload: wl.WorkloadLike,
+                  plans: Sequence, mesh_shape: Mapping[str, int],
+                  weights: ModelLike = None, cache=None) -> np.ndarray:
+    """Batched step-time prediction: seconds for every candidate plan.
+
+    This is the plan-search hot path, routed through the array-batched
+    search-space engine (``core.planspace``): the whole candidate set
+    scores through FUSED basis programs (``core.exprops``) — deduped basis
+    terms evaluated once per unique environment row, folded model weights,
+    one GEMV — with no per-plan interpreted tree-walks anywhere.  The
+    per-plan interpreted path survives as ``predict_plans_loop``, the
+    oracle the engine is tested and benchmarked against.
+
+    ``cache`` (an ``exprops.BasisCache``) switches on incremental
+    rescoring: basis columns keyed by their own free-variable values, so a
+    repeat call after a small delta (device count, mesh shape) recomputes
+    only the touched columns — the ``elastic.replan`` /
+    ``StragglerMonitor`` fast path.
+    """
+    weights = resolve_model(weights)
+    spec = wl.as_spec(workload)
+    if not len(plans):
+        return np.zeros((0,))
+    from repro_torch.core import planspace  # planspace sits above predictor
+    space = planspace.PlanSpace.from_product(cfg, spec, list(plans),
+                                             [dict(mesh_shape)])
+    return space.scores(weights, cache=cache)
+
+
+def predict_plans_loop(cfg: ArchConfig, workload: wl.WorkloadLike,
+                       plans: Sequence, mesh_shape: Mapping[str, int],
+                       weights: ModelLike = None) -> np.ndarray:
+    """Reference scorer: per-plan ``plan_property_vector`` + one
+    ``predict_many``.  Semantically identical to ``predict_plans``; kept as
+    the oracle the batched engine is pinned against (tests) and the
+    baseline ``benchmarks/search_bench.py`` times the engine's speedup
+    over."""
+    weights = resolve_model(weights)
+    spec = wl.as_spec(workload)
+    count_cache: dict = {}
+    pvs: List[Dict[str, float]] = [
+        plan_property_vector(cfg, spec, p, mesh_shape, count_cache)
+        for p in plans]
+    if not pvs:
+        return np.zeros((0,))
+    return np.asarray(weights.predict_many(pvs), dtype=np.float64)
+
+
+def rank_plans(cfg: ArchConfig, workload: wl.WorkloadLike, plans,
+               mesh_shape: Mapping[str, int],
+               weights: ModelLike = None):
+    """Sort candidate plans by predicted step time (ascending) — the paper's
+    §6.2 'select the optimal set of kernel configurations', realized.
+
+    Scoring goes through the batched ``predict_plans`` path; ties break on
+    the plans' own fields (``planspace.plan_sort_key``), never on the
+    caller's enumeration order."""
+    from repro_torch.core.planspace import plan_sort_key
+    secs = predict_plans(cfg, workload, plans, mesh_shape, weights)
+    order = sorted(range(len(plans)),
+                   key=lambda i: (secs[i], plan_sort_key(plans[i])))
+    return [(float(secs[i]), plans[i]) for i in order]
+
+
+# ---------------------------------------------------------------------------
+# HBM feasibility (capacity is out of the paper's model scope — §2 — so the
+# framework enforces it as a *constraint*, not a cost term)
+# ---------------------------------------------------------------------------
+
+HBM_BYTES = 16e9  # v5e: catalog data for another device; callers on the card
+#                   pass the card's memory as ``budget``
+
+
+def estimate_peak_bytes(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
+                        mesh_shape: Mapping[str, int]) -> float:
+    """Closed-form peak HBM bytes/device for a plan (napkin-math grade:
+    params + optimizer + gradients + activation working set or caches).
+
+    The formula itself lives in ``core.planspace`` as a single numpy pass
+    over candidate arrays (``planspace.peak_bytes``); this scalar form is
+    the one-cell special case, so a batched feasibility sweep and the
+    per-plan call can never drift apart."""
+    from repro_torch.core import planspace
+    spec = wl.as_spec(workload)
+    return float(planspace.peak_bytes(cfg, spec, [plan], [mesh_shape])[0])
+
+
+def feasible(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
+             mesh_shape: Mapping[str, int],
+             budget: float = HBM_BYTES) -> bool:
+    """Whether the plan's closed-form peak bytes fit ``budget``.  The default
+    is the reference's v5e HBM; on the card pass
+    ``torch.cuda.get_device_properties(dev).total_memory``."""
+    return estimate_peak_bytes(cfg, workload, plan, mesh_shape) <= budget

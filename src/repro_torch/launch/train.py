@@ -10,21 +10,36 @@ configuration's optimizer and remat policy on the synthetic packed corpus.
 The vision-language family (qwen2-vl-7b) needs vision embeddings, which the
 packed corpus does not make, and fails on its first batch, as in the
 reference.  Runs on the GPU unless ``--device cpu`` is given;
-weights are random, made on the device from ``--seed``.  The reference's
-supervise / fault-plan / online-calibration options and its predicted-step
-print arrive with their modules (ROADMAP A10, A13).
+weights are random, made on the device from ``--seed``.
+
+Before training it prints the cost model's predicted step time of the full
+architecture (not the ``--reduced`` one) at ``--batch`` × ``--seq`` on one
+H100, priced by the registry name ``gpu-h100``: a model fitted on the card
+(``python -m repro_torch.calibration --device gpu-h100``, in
+``$REPRO_MODEL_REGISTRY`` or ``experiments/registry``) shadows the analytic
+datasheet seed, and the line names which of the two priced it.  As in the
+reference, the prediction is printed only and does not feed the trainer.
+The reference's supervise / fault-plan / online-calibration options arrive
+with their modules (ROADMAP A13).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
+from repro_torch.configs.base import SHAPES
 from repro_torch.configs.registry import ARCHS, get_arch
+from repro_torch.core import predictor
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import trace as _obs_trace
+from repro_torch.distributed.plan import plan_for
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+#: the registry name that prices the predicted step
+PREDICT_MODEL = "gpu-h100"
 
 
 def main(argv=None) -> None:
@@ -58,6 +73,17 @@ def main(argv=None) -> None:
                     n_codebooks=cfg.n_input_codebooks)
     tc = TrainerConfig(ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every,
                        lr=args.lr, total_steps=args.steps, seed=args.seed)
+    # the cost model's prediction of the full architecture's step
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=args.seq,
+                                global_batch=args.batch)
+    plan = plan_for(ARCHS[args.arch], SHAPES["train_4k"])
+    model = predictor.resolve_model(PREDICT_MODEL)
+    pred = predictor.predict_step(ARCHS[args.arch], shape, plan,
+                                  {"data": 1, "model": 1}, model)
+    print(f"[train] {ARCHS[args.arch].name}: predicted full-arch step "
+          f"{pred.seconds*1e3:.1f}ms on 1 chip (model {model.device}, "
+          f"source {model.meta.get('source', 'unknown')})")
+
     trainer = Trainer(cfg, dc, tc, device=args.device)
     where = torch.cuda.get_device_name(0) if args.device == "cuda" \
         else "cpu"

@@ -4,9 +4,10 @@ All run eagerly; prefill and serve without autograd.  The train step takes
 the gradient of ``transformer.loss_fn`` with torch autograd, accumulates
 microbatches in f32 when the plan asks for several (one microbatch's
 activations live at a time), clips by the global norm and applies the
-optimizer, which updates the parameters in place.  ``make_step`` waits for
-``core/workload.py`` and ``make_manual_dp_train_step`` for the multi-device
-slice.
+optimizer, which updates the parameters in place.  ``make_step`` picks one
+of the three from a ``core.workload.WorkloadSpec``.  The reference's
+``make_manual_dp_train_step`` waits for the multi-device slice (ROADMAP
+A14).
 """
 from __future__ import annotations
 
@@ -134,3 +135,22 @@ def make_serve_step(cfg: ArchConfig, sample: bool = True,
         return next_tok.to(torch.int32), new_state
 
     return serve_step
+
+
+def make_step(cfg: ArchConfig, workload, plan: Optional[Plan] = None,
+              optimizer: Optional[opt.Optimizer] = None, **kw):
+    """One entry point for any workload phase: the ``WorkloadSpec`` (or a
+    ``ShapeConfig`` / deprecated phase string — ``repro_torch.core.workload``
+    normalizes) picks the step family; extra keywords pass through to the
+    underlying ``make_*_step``.  ``optimizer`` defaults to the config's for
+    train workloads.  The plan shapes the train step only: the prefill and
+    serve steps run on one device without autograd, so there is nothing for
+    its remat policy or sharding to change."""
+    from repro_torch.core import workload as wl
+    spec = wl.as_spec(workload)
+    if spec.phase == "train":
+        optimizer = optimizer or opt.get_optimizer(cfg.optimizer)
+        return make_train_step(cfg, optimizer, plan, **kw)
+    if spec.phase == "prefill":
+        return make_prefill_step(cfg, **kw)
+    return make_serve_step(cfg, **kw)

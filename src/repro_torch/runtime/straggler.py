@@ -3,11 +3,11 @@
 The monitor compares *observed* per-host step times against the cost
 model's *predicted* step time (core/predictor.py) — the paper's §6.1 'load
 balancing' application.  A host is a straggler when its EWMA exceeds
-``k × max(predicted, fleet median)``.  The reference's
-``StragglerMonitor.from_model`` derives the predicted step time from a cost
-model through the batched plan search (``predictor.predict_plans``); that
-waits for the workload / plan-space slice (A10) and raises until then, so
-the port takes the predicted step time as an argument.
+``k × max(predicted, fleet median)``.  ``StragglerMonitor.from_model``
+derives the predicted step time from a cost model directly — an in-memory
+``LinearCostModel``, a registry device name (``repro_torch.calibration``,
+where a fitted ``gpu-h100`` shadows the analytic seed), or the analytic v5e
+seed.
 
 Mitigations (policy chosen by the trainer):
   * ``report``   — log only;
@@ -22,7 +22,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.core import exprops
 from repro_torch.obs import metrics as _obs_metrics
+
+#: incremental-rescore cache for monitor re-anchoring (see ``from_model``)
+_BASIS_CACHE = exprops.BasisCache(maxsize=2048)
 
 _STRAGGLER_EVENTS = _obs_metrics.REGISTRY.counter(
     "repro_straggler_events_total",
@@ -55,14 +59,28 @@ class StragglerMonitor:
     @classmethod
     def from_model(cls, cfg, workload, plan, mesh_shape, n_hosts: int,
                    model=None, **kw) -> "StragglerMonitor":
-        """A monitor anchored to the cost model's predicted step time for
-        (cfg × workload × plan × mesh).  Needs ``core/predictor.py``'s plan
-        scoring, which is not ported yet."""
-        raise NotImplementedError(
-            "StragglerMonitor.from_model needs predictor.predict_plans and "
-            "the plan space (core/predictor.py, core/planspace.py, "
-            "core/exprops.py), which wait for the workload slice (A10); "
-            "pass predicted_step_s instead")
+        """Build a monitor whose threshold is anchored to the cost model's
+        predicted step time for (cfg × workload × plan × mesh).
+
+        ``workload`` is any ``repro_torch.core.workload.WorkloadLike`` — a
+        ``WorkloadSpec``, a ``ShapeConfig``, or the deprecated phase
+        string (``predict_plans`` normalizes).
+
+        ``model`` is anything ``predictor.resolve_model`` accepts: None (the
+        analytic v5e seed), a registry device name, or a ``LinearCostModel``.
+
+        The threshold is a pure step-time scalar, so it goes through the
+        same batched engine as plan search (``predictor.predict_plans`` →
+        ``core.planspace``) rather than the heavier ``predict_step``
+        (which also assembles the per-property breakdown and MFU).
+        Scoring passes the module's ``exprops.BasisCache``, so re-anchoring
+        a monitor after a mesh/shape delta (e.g. post-``elastic.replan``)
+        recomputes only the basis columns the delta touches.
+        """
+        from repro_torch.core import predictor  # runtime sits above core
+        secs = predictor.predict_plans(cfg, workload, [plan], mesh_shape,
+                                       model, cache=_BASIS_CACHE)
+        return cls(n_hosts=n_hosts, predicted_step_s=float(secs[0]), **kw)
 
     def threshold(self) -> float:
         return self.k * max(self.predicted_step_s,

@@ -13,8 +13,10 @@ weights come from a ``torch.Generator`` on the device seeded with
 
 Not ported yet, each raising ``NotImplementedError`` until its slice: the
 online calibrator (``online_calibrate``, ``calibrator=``; A13) and the fault
-injector (``injector=``; A13).  The straggler monitor's predicted step time
-is an argument (``predicted_step_s``) until the predictor is ported (A10).
+injector (``injector=``; A13).  As in the reference, the straggler monitor's
+predicted step time is an argument (``predicted_step_s``); a caller that
+wants the cost model's builds it with ``StragglerMonitor.from_model`` or
+``core.predictor.predict_plans``.
 """
 from __future__ import annotations
 

@@ -48,7 +48,10 @@ def test_package_layout():
                  "optim/optimizers.py", "distributed/plan.py",
                  "data/pipeline.py", "checkpoint/store.py",
                  "runtime/straggler.py", "runtime/trainer.py",
-                 "launch/train.py", "models/moe.py"):
+                 "launch/train.py", "models/moe.py", "core/lru.py",
+                 "core/symcount.py", "core/workload.py", "core/archcount.py",
+                 "core/exprops.py", "core/kernelmodel.py",
+                 "core/planspace.py", "distributed/elastic.py"):
         assert need in names, need
     for src in ("flash_attention.cu", "ssd_scan.cu", "matmul.cu",
                 "transpose.cu"):

@@ -350,6 +350,14 @@ def test_straggler_ewma_recovers_and_reanchors():
 
 
 def test_straggler_from_model_waits_for_the_predictor():
-    with pytest.raises(NotImplementedError, match="A10"):
-        StragglerMonitor.from_model(TARCHS["llama3.2-3b"], None, None,
-                                    {"data": 1}, 1)
+    """The predictor is ported: ``from_model`` takes its threshold from the
+    batched plan scoring (``tests/test_torch_planspace.py`` holds it to the
+    reference's)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core import predictor
+    cfg, shape = TARCHS["llama3.2-3b"], SHAPES["train_4k"]
+    plan = tplan.Plan(dp_axes=("data",))
+    m = StragglerMonitor.from_model(cfg, shape, plan, {"data": 1}, 1)
+    want = predictor.predict_plans(cfg, shape, [plan], {"data": 1})
+    assert m.predicted_step_s == float(want[0]) > 0
+    assert m.n_hosts == 1
