@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only ssd-cases|ssd  # the SSD scan alone
     python3 chip_smoke.py --only mm-cases|mm    # matmul alone
     python3 chip_smoke.py --only tr-cases|tr    # the transpose alone
+    python3 chip_smoke.py --only autotune       # the autotune phase alone
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
 source, all started together), holds each kernel against its plain PyTorch
@@ -64,7 +65,19 @@ counts set to 0 just before the path and read just after):
   ``gpu-h100`` model fitted in this run and under the analytic ``gpu-h100``
   seed, beside the measured seconds, with the properties the fitted model
   leaves unpriced; ``predict_plans`` and ``StragglerMonitor.from_model``
-  must agree with it to 1e-9.
+  must agree with it to 1e-9;
+* the autotuner (``autotune`` lines): at the main paths' kernel shapes, the
+  f32 attention of the f32 comparison steps and the calibration's largest
+  matmul and transpose in f32 and bf16, every candidate of the grid
+  ``kernels.autotune`` sweeps is launched (its tile and shared memory as the
+  C query reports them must equal the tuner's Python mirrors), held against
+  the plain version and timed, beside its predicted seconds under the
+  analytic ``gpu-h100`` seed and the model fitted in this run (with the
+  keys the fit leaves unpriced), Spearman's rank correlation of predicted
+  and measured, the tile ``block_sizes="auto"`` picks on the card and the
+  fastest; the main paths themselves run at ``"auto"``'s tiles, as the
+  reference's do, and the SSD pick on a main path must be a tensor-core
+  chunk.
 
 The prefill and serve steps the script builds itself come from
 ``steps.make_step`` and a ``WorkloadSpec``.  The run has its own compile
@@ -76,10 +89,11 @@ exit code.  The last line is ``{"ok": true, "device": {...}}``.  With
 ``--only`` it builds, holds one kernel (flash attention: ``fa``; SSD scan:
 ``ssd``; matmul: ``mm``; transpose: ``tr``) against its plain version at its
 case table and (without ``-cases``) times it at the main paths' shapes, runs
-no main path, and says so in its last line.  The ``kernels`` line gives each
-matmul kernel (``paper16``, ``fma128``, ``wgmma``), each SSD-scan kernel
-(``wgmma``, ``fma``) and each transpose kernel (``vec16``, ``scalar``) with
-its tile, registers and spills; the build fails if a tensor-core instance of
+no main path, and says so in its last line; ``--only autotune`` builds and
+runs the autotune phase under the analytic seed alone.  The ``kernels`` line
+gives each matmul kernel (``paper16``, ``fma128``, ``wgmma``), each SSD-scan
+kernel (``wgmma``, ``fma``) and each transpose kernel (``vec16``,
+``scalar``) with its tile, registers and spills; the build fails if a tensor-core instance of
 any kernel, or an instance of the transpose's vector kernel, spills.  The
 transpose is timed at the calibration's four sizes beside the empty kernel
 over the same grid (the floor one block per tile sets).
@@ -1523,6 +1537,308 @@ def phase_predict(out_dir: str, cache_dir: str):
           "compile_cache": exprops.disk_cache_report()})
 
 
+# ---------------------------------------------------------------------------
+# the autotuner on the card: every candidate of each kernel's grid launched,
+# held against the plain version and timed beside its predicted seconds
+
+#: calls per timing and timings per candidate (the median is kept); fewer
+#: for the slow ``paper16`` candidates
+AUTOTUNE_TIMING = (5, 10)
+AUTOTUNE_TIMING_SLOW = (3, 2)
+
+
+def autotune_cases() -> list:
+    """(label, kernel, make, call, plain, shape, tol) per case: the main
+    paths' kernels at their shapes (PERF.md §6: attention of llama, zamba2,
+    mixtral, qwen2-vl, musicgen; the SSD scan of zamba2, mamba2 and
+    zamba2's training), the f32 attention (llama, musicgen) and SSD scan
+    (zamba2, mamba2) of the f32 comparison steps, and the calibration's
+    largest tiled matmul and transpose in f32 and bf16, each made when its
+    case runs."""
+    B, S = PREFILL_TOKENS
+    TB, TS = TRAIN_TOKENS
+    gen = torch.Generator(DEV).manual_seed(1)
+    cases = []
+
+    def attention(name, dtype):
+        cfg = get_arch(name)
+        w = cfg.sliding_window
+
+        def make():
+            q, k, v = fa_inputs(B, cfg.n_heads, cfg.n_kv_heads, S, S,
+                                cfg.head_dim_, dtype, gen)
+            return {"q": q, "k": k, "v": v}
+        return (f"{name} attention {str(dtype)[6:]}", "flash_attention",
+                make,
+                lambda t, blocks: kops.flash_attention(
+                    t["q"], t["k"], t["v"], causal=True, window=w,
+                    block_sizes=blocks),
+                lambda t, blocks: fa.attention_reference(
+                    t["q"], t["k"], t["v"], causal=True, window=w),
+                lambda t: kops.flash_attention_shape(t["q"], t["k"],
+                                                     causal=True, window=w),
+                (TOL[dtype], TOL[dtype]))
+
+    def ssd_case(name, b, s_len, dtype=torch.bfloat16):
+        cfg = get_arch(name)
+        sc = cfg.ssm
+
+        def make():
+            x, dt, _, Bm, Cm = ssd_inputs(b, cfg.ssm_heads, sc.n_groups,
+                                          s_len, sc.head_dim, sc.d_state,
+                                          dtype, gen)
+            A = -torch.linspace(1.0, 16.0, cfg.ssm_heads, device=DEV)
+            return {"x": x, "dt": dt, "A": A, "B": Bm, "C": Cm}
+        return (f"{name} ssd {b}x{s_len} {str(dtype)[6:]}", "ssd_scan", make,
+                lambda t, blocks: kops.ssd_scan(
+                    t["x"], t["dt"], t["A"], t["B"], t["C"],
+                    block_sizes=blocks)[0],
+                lambda t, blocks: ssd.ssd_scan_reference(
+                    t["x"], t["dt"], t["A"], t["B"], t["C"],
+                    chunk=blocks["chunk"])[0],
+                lambda t: kops.ssd_scan_shape(t["x"], t["B"], t["C"]),
+                (SSD_TOL[dtype], SSD_TOL[dtype]))
+
+    def matmul_case(dtype):
+        n = largest_tiled("mm")
+
+        def make():
+            return {"a": mkernels._rand(gen, (n, n), DEV).to(dtype),
+                    "b": mkernels._rand(gen, (n, n), DEV).to(dtype)}
+        return (f"matmul {n}^3 {str(dtype)[6:]}", "matmul", make,
+                lambda t, blocks: kops.matmul(t["a"], t["b"],
+                                              block_sizes=blocks),
+                lambda t, blocks: mm.matmul_reference(t["a"], t["b"]),
+                lambda t: kops.matmul_shape(t["a"], t["b"]), MM_TOL[dtype])
+
+    def transpose_case(dtype):
+        n = tr_ladder()[-1]
+
+        def make():
+            return {"x": torch.randn((n, n), device=DEV,
+                                     generator=gen).to(dtype)}
+        return (f"transpose {n}^2 {str(dtype)[6:]}", "transpose", make,
+                lambda t, blocks: kops.transpose(t["x"], block_sizes=blocks),
+                lambda t, blocks: tr.transpose_reference(t["x"]),
+                lambda t: kops.transpose_shape(t["x"]), (0.0, 0.0))
+
+    for name in (ARCH, HYBRID, MOE, VLM, AUDIO):
+        cases.append(attention(name, torch.bfloat16))
+    for name in (ARCH, AUDIO):
+        cases.append(attention(name, torch.float32))
+    for name, b, s_len in ((HYBRID, B, S), (SSM, B, S), (HYBRID, TB, TS)):
+        cases.append(ssd_case(name, b, s_len))
+    for name in (HYBRID, SSM):   # the f32 comparison steps': FP32 kernel
+        cases.append(ssd_case(name, B, S, torch.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append(matmul_case(dtype))
+        cases.append(transpose_case(dtype))
+    return cases
+
+
+def launched_tile(kernel: str, t: dict, shape: dict, blocks: dict) -> dict:
+    """What the C query reports for the launch ``blocks`` makes, beside the
+    Python mirrors the autotuner reads (its tile and footprint): raises
+    where they differ."""
+    from repro_torch.core import kernelmodel
+    km = kernelmodel.get(kernel)
+    mirror = {"variant": km.variant(shape, blocks),
+              "smem": km.footprint(shape, blocks)}
+    if kernel == "matmul":
+        c = mm.tile_for(t["a"], t["b"], blocks["block_m"], blocks["block_n"],
+                        blocks["block_k"])
+        got = {"variant": c.variant, "smem": c.smem,
+               "tile": [c.bm, c.bn, c.bk]}
+        mirror["tile"] = [blocks["block_m"], blocks["block_n"],
+                          blocks["block_k"]]
+        py = kernelmodel._mm_tile(shape, blocks)
+        if py != c:
+            raise AssertionError(f"matmul tile_rule {py} != matmul_tile {c}")
+    elif kernel == "flash_attention":
+        dh = shape["dh"]
+        if shape["bits"] == 16:
+            bq, bk, _, smem = fa.tile(dh)
+            if fa.tile(dh) != fa.tile_rule(dh):
+                raise AssertionError(f"tile_rule({dh}) {fa.tile_rule(dh)} != "
+                                     f"flash_attention_tile {fa.tile(dh)}")
+        else:
+            bq, bk = fa.pick_tiles(blocks["block_q"], blocks["block_k"], dh)
+            smem = fa.f32_tile(bq, bk, dh)
+        got = {"variant": "wgmma" if shape["bits"] == 16 else "fma",
+               "smem": smem, "tile": [bq, bk]}
+        mirror["tile"] = [blocks["block_q"], blocks["block_k"]]
+    elif kernel == "ssd_scan":
+        c = ssd.tile_for(t["x"], t["B"], t["C"], blocks["chunk"])
+        py = ssd.tile_rule(shape["P"], shape["N"],
+                           min(blocks["chunk"], shape["L"]), c.variant)
+        if py != c:
+            raise AssertionError(f"ssd tile_rule {py} != ssd_scan_tile {c}")
+        got = {"variant": c.variant, "smem": c.smem,
+               "tile": [blocks["chunk"], c.p_block]}
+        mirror["tile"] = [blocks["chunk"], blocks["p_block"]]
+    else:
+        c = tr.tile_for(t["x"], blocks["block"])
+        py = tr.tile_rule(blocks["block"], t["x"].dtype, c.variant)
+        if py != c:
+            raise AssertionError(f"transpose tile_rule {py} != "
+                                 f"transpose_tile {c}")
+        got = {"variant": c.variant, "smem": c.smem, "tile": [c.edge]}
+        mirror["tile"] = [blocks["block"]]
+    if got != mirror:
+        raise AssertionError(f"{kernel} at {blocks}: the autotuner's mirror "
+                             f"{mirror} != the C query {got}")
+    return got
+
+
+def spearman(a, b):
+    """Spearman's rank correlation of two sequences (average ranks for
+    ties); None below two points or where either is constant."""
+    def ranks(x):
+        x = np.asarray(x, dtype=np.float64)
+        order = np.argsort(x, kind="stable")
+        r = np.empty(len(x))
+        r[order] = np.arange(len(x), dtype=np.float64)
+        for v in np.unique(x):  # ties share their mean rank
+            r[x == v] = r[x == v].mean()
+        return r
+    if len(a) < 2:
+        return None
+    ra, rb = ranks(a), ranks(b)
+    if ra.std() == 0 or rb.std() == 0:
+        return None
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def sweep_speedup() -> dict:
+    """The compiled scorer against the interpreted one on the reference's
+    64-point matmul grid (its ``tests/test_autotune.py`` timing test), best
+    of 3 after a warm call: host time of the card's machine."""
+    from repro_torch.core import kernelmodel
+    from repro_torch.kernels import autotune
+    km = kernelmodel.PALLAS_KERNELS["matmul"]
+    shape = {"M": 1024, "N": 512, "K": 2048, "bits": 16}
+    cands = autotune.candidate_configs(km, shape)
+    fast = autotune.score_configs(km, shape, cands)
+    slow = autotune.score_configs_interpreted(km, shape, cands)
+    if not np.allclose(fast, slow, rtol=1e-12, atol=0.0):
+        raise AssertionError("compiled and interpreted scores differ")
+
+    def best_of(fn, n=3):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t0)
+        return min(out)
+    t_fast = best_of(lambda: autotune.score_configs(km, shape, cands))
+    t_slow = best_of(lambda: autotune.score_configs_interpreted(
+        km, shape, cands))
+    return {"points": len(cands), "compiled_s": t_fast,
+            "interpreted_s": t_slow, "speedup": t_slow / t_fast}
+
+
+def phase_autotune(reg_dir=None):
+    """Every candidate of every kernel's grid at the shapes of
+    ``autotune_cases``: launched (its tile and shared memory as the C query
+    reports them equal to the autotuner's mirrors), held against the plain
+    version, timed (median of ``AUTOTUNE_TIMING`` timings), beside its
+    predicted seconds under the analytic ``gpu-h100`` seed and, with
+    ``reg_dir``, under the model fitted in this run, with the keys the fit
+    leaves unpriced (their seconds under the seed).  Spearman's rank
+    correlation of predicted and measured, the tile ``"auto"`` picks on the
+    card (``ops.default_model``) and its time against the fastest.  Fails
+    where a candidate disagrees with its plain version, a mirror with its C
+    query, or the bf16 SSD pick on a main path is not a tensor-core
+    chunk."""
+    from repro_torch.core import kernelmodel
+    from repro_torch.core.symcount import evaluate_vector
+    from repro_torch.kernels import autotune
+    seed = seeds.ANALYTIC_SEEDS[CALIB_DEVICE]()
+    models = {"seed": seed}
+    if reg_dir is not None:
+        models["fitted"] = registry.load_model(CALIB_DEVICE, reg_dir)
+    seed_w = dict(zip(seed.keys, (float(w) for w in seed.weights)))
+    default = registry.resolve_model(kops.CARD_MODEL)
+    rows = []
+    for (label, kernel, make, call, plain, shape_of, tol) in autotune_cases():
+        t = make()
+        shape = shape_of(t)
+        km = kernelmodel.get(kernel)
+        cands = autotune.candidate_configs(kernel, shape)
+        measured, launched, errs = [], [], []
+        ref = None   # the plain version's result; the SSD's per chunk
+        for blocks in cands:
+            launched.append(launched_tile(kernel, t, shape, blocks))
+            o = call(t, blocks)
+            torch.cuda.synchronize()
+            if ref is None or kernel == "ssd_scan":
+                ref = None   # the last one freed before the next is made
+                ref = plain(t, blocks)
+            if tol == (0.0, 0.0):
+                if not torch.equal(o, ref):
+                    raise AssertionError(f"{label} at {blocks}: not exact")
+                errs.append(0.0)
+            else:
+                errs.append(compare(o, ref, *tol))
+            del o
+            reps, iters = AUTOTUNE_TIMING_SLOW \
+                if launched[-1]["variant"] == "paper16" else AUTOTUNE_TIMING
+            call(t, blocks)
+            measured.append(float(np.median(
+                [time_ms(lambda: call(t, blocks), 0, iters)
+                 for _ in range(reps)])))
+        preds = {n: [float(x) for x in
+                     autotune.score_configs(kernel, shape, cands, m)]
+                 for n, m in models.items()}
+        unpriced = None
+        if "fitted" in models:
+            keys = set(models["fitted"].keys)
+            unpriced = []
+            for blocks in cands:
+                pv = evaluate_vector(
+                    km.vector(shape, blocks, km.variant(shape, blocks)), {})
+                unpriced.append({k: v * seed_w.get(k, 0.0)
+                                 for k, v in sorted(pv.items())
+                                 if v and k not in keys})
+        pick = autotune.best_block_sizes(kernel, shape, kops.CARD_MODEL)
+        i_pick = cands.index(pick)
+        i_fast = int(np.argmin(measured))
+        if kernel == "ssd_scan" and shape["bits"] == 16 \
+                and launched[i_pick]["variant"] != "wgmma":
+            raise AssertionError(f"{label}: \"auto\" picks {pick}, served "
+                                 f"by {launched[i_pick]['variant']}")
+        row = {"label": label, "kernel": kernel, "shape": shape,
+               "candidates": [{"blocks": c, **lt, "ms": ms,
+                               "max_abs_err": e,
+                               **{f"{n}_s": p[i] for n, p in preds.items()},
+                               **({"unpriced_seed_s": unpriced[i]}
+                                  if unpriced is not None else {})}
+                              for i, (c, lt, ms, e) in enumerate(
+                                  zip(cands, launched, measured, errs))],
+               "spearman": {n: spearman(p, measured)
+                            for n, p in preds.items()},
+               "pick": pick, "pick_model": default.meta.get("source"),
+               "pick_ms": measured[i_pick],
+               "picks_by_model": {n: cands[int(np.argmin(p))]
+                                  for n, p in preds.items()},
+               "fastest": cands[i_fast], "fastest_ms": measured[i_fast],
+               "pick_over_fastest": measured[i_pick] / measured[i_fast],
+               "mirrors_equal_c_queries": True,
+               "max_abs_err": max(errs), "tol": list(tol)}
+        emit({"phase": "autotune", "ok": True, **row})
+        rows.append(row)
+        del t, ref
+        torch.cuda.empty_cache()
+    speed = sweep_speedup()
+    emit({"phase": "autotune.summary", "ok": True, "shapes": len(rows),
+          "candidates": sum(len(r["candidates"]) for r in rows),
+          "models": sorted(models), "pick_model": default.meta.get("source"),
+          "picks_within_10pct_of_fastest": sum(
+              r["pick_over_fastest"] <= 1.1 for r in rows),
+          "sweep_64_points": speed})
+    return rows
+
+
 def rel_frobenius(a, b) -> float:
     num = den = 0.0
     for i in range(a.shape[0]):  # row by row: the f32 copies stay small
@@ -2438,6 +2754,13 @@ def kernel_only(args, smi) -> int:
     the main paths' shapes; no main path runs, so the last line says so."""
     with phase("build"):
         ptx = phase_build()
+    if args.only == "autotune":
+        with phase("autotune"):
+            phase_autotune()
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "scope": f"--only {args.only}",
+                          "main_paths": "not run"}), flush=True)
+        return 0
     gen = torch.Generator(DEV).manual_seed(args.seed)
     kernel = args.only.split("-")[0]
     cases = {"fa": ("kernels.cases", phase_kernel_cases),
@@ -2493,11 +2816,13 @@ def main() -> int:
     ap.add_argument("--out", default=None,
                     help="also write every phase line to this JSON file")
     ap.add_argument("--only", choices=("fa-cases", "fa", "ssd-cases", "ssd",
-                                       "mm-cases", "mm", "tr-cases", "tr"),
+                                       "mm-cases", "mm", "tr-cases", "tr",
+                                       "autotune"),
                     default=None,
                     help="build, then only the flash-attention (fa), SSD-scan "
                          "(ssd), matmul (mm) or transpose (tr) cases (-cases) "
-                         "or the cases and timings")
+                         "or the cases and timings, or the autotune phase "
+                         "under the analytic seed alone")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2589,6 +2914,13 @@ def run(args, cache_dir: str) -> int:
         # against every path measured above
         with phase("predict"):
             phase_predict(reg_dir, cache_dir)
+        # the autotuner: every candidate of every grid launched, with the
+        # counts set to 0 just before it and read just after
+        torch.cuda.empty_cache()
+        reset_launches()
+        with phase("autotune"):
+            phase_autotune(reg_dir)
+        launched["autotune"] = read_launches()
     torch.cuda.empty_cache()
     if args.profile:
         with phase("calibrate.profile"):

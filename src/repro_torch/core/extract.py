@@ -701,3 +701,26 @@ def extract_graph(fn, *args, hints: Optional[Mapping[str, float]] = None,
         ext.add_access(_Access(-1 - len(ext.accesses), _bits_of(val),
                                "store", 1, 0, elems))
     return ext.property_vector(group_size=group_size, extra=extra_props)
+
+
+# ---------------------------------------------------------------------------
+# Schedule-derived properties for tiled kernels
+# ---------------------------------------------------------------------------
+
+
+def pallas_props(grid: Sequence[int], block_elems_in: Sequence[int],
+                 block_elems_out: Sequence[int], bits: int = 32,
+                 barriers_per_step: int = 1) -> Dict[str, float]:
+    """Properties visible only in the *schedule* (paper §3.2 last ¶).
+
+    grid cells = work groups; each grid step moves its input blocks into
+    on-chip memory (local loads when re-read from there) and synchronizes.
+    The reference's name is kept: the counts are those of any tiled grid,
+    a CUDA launch's thread blocks as much as a Pallas grid."""
+    cells = float(math.prod(grid)) if len(grid) else 1.0
+    local = cells * float(sum(block_elems_in))
+    return {
+        props.local_key(_nbits(bits)): local,
+        props.BARRIER: cells * barriers_per_step,
+        props.GROUPS: cells,
+    }

@@ -20,25 +20,42 @@ per-kernel vectors (projections/FFN/head → matmul, attention → flash,
 SSD → ssd_scan), which is what ``core.predictor`` uses for its compute
 term.
 
-A partial copy of the reference's ``core/kernelmodel.py``: the per-kernel
-vector builders and the step composition, with the reference's default
-blocks, so that the port's step counts equal the reference's.  **These
-vectors count the reference's Pallas block schedule (128-wide matmul and
-attention tiles, the SSD chunk), not what the CUDA kernels execute.**  The
-kernel registry, its candidate grids and the TPU's VMEM budget are not
-ported; the autotuner slice (ROADMAP A11) brings them and re-points these
-vectors to the tiles the CUDA sources report (``flash_attention_tile``,
-``matmul_tile``, ``ssd_scan_tile``, ``transpose_tile``).
+A copy of the reference's ``core/kernelmodel.py`` with the CUDA kernels'
+schedule beside the Pallas one:
+
+  * each vector builder takes ``variant``, the CUDA kernel that runs the
+    blocks given (``None``, the default, is the reference's Pallas schedule
+    and its vector).  With a variant the blocks are the tile that kernel
+    executes, and its products count on the pipe it uses: ``mxu:16`` on
+    the ``wgmma`` tensor cores, ``mxu:32`` on the FP32 pipes (``paper16``
+    and ``fma128`` matmuls, the FP32 attention and SSD kernels) whatever
+    the input type.  The step composition keeps the defaults, so the
+    step counts still equal the reference's;
+  * ``KERNELS``, the registry the autotuner (``kernels/autotune.py``)
+    sweeps, lists the tiles the CUDA sources build (their Python mirrors:
+    ``matmul.tile_rule``, ``flash_attention.pick_tiles`` / ``tile_rule``,
+    ``ssd_scan.variant_rule`` / ``tile_rule``, ``transpose.tile_rule``),
+    each with its block's shared memory, under ``SMEM_LIMIT`` (the CUDA
+    sources' ``kSmemLimit``);
+  * ``PALLAS_KERNELS`` is the reference's registry — its power-of-two
+    grids, VMEM footprints and a v5e core's VMEM budget — kept for the
+    parity tests that hold the autotuner to the reference's; nothing on the
+    card is priced or bounded by it.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 from repro_torch.core import properties as props
 from repro_torch.core.symcount import (
     CeilDiv, Const, Expr, ExprLike, Max, Min, Var, add_vectors, as_expr,
     scale_vector,
 )
+# bytes of shared memory one thread block may use on sm_90 (``kSmemLimit``,
+# csrc/hopper.cuh): the budget of every CUDA candidate
+from repro_torch.kernels.flash_attention import SMEM_LIMIT
 
 # Free variables of the step-level composition (same names as archcount)
 B = Var("B")   # global batch
@@ -50,13 +67,24 @@ S = Var("S")   # sequence length
 # ---------------------------------------------------------------------------
 
 
+def _pipe_bits(variant: Optional[str], bits: int) -> int:
+    """The operand bits a product is counted under: the input's in the
+    reference's schedule (``variant`` None), 16 on the ``wgmma`` tensor
+    cores, 32 on the FP32 pipes (any other CUDA kernel)."""
+    if variant is None:
+        return bits
+    return 16 if variant == "wgmma" else 32
+
+
 def matmul_vector(M: ExprLike, N: ExprLike, K: ExprLike, *,
                   block_m: ExprLike = 128, block_n: ExprLike = 128,
-                  block_k: ExprLike = 128, bits: int = 32
-                  ) -> Dict[str, ExprLike]:
+                  block_k: ExprLike = 128, bits: int = 32,
+                  variant: Optional[str] = None) -> Dict[str, ExprLike]:
     """(M,K)@(K,N) tiled matmul: (bm×bk)+(bk×bn) tiles stream HBM→VMEM per
     grid cell, fp32 (bm×bn) accumulator carried across the sequential k
-    walk."""
+    walk.  ``variant`` (``paper16``, ``fma128``, ``wgmma``): the CUDA
+    kernel running the tile (bm, bn, bk); its products count ``mxu:16`` on
+    ``wgmma``, ``mxu:32`` otherwise; the tiles keep the input's bits."""
     M, N, K = as_expr(M), as_expr(N), as_expr(K)
     bm, bn, bk = as_expr(block_m), as_expr(block_n), as_expr(block_k)
     n_m, n_n, n_k = CeilDiv(M, bm), CeilDiv(N, bn), CeilDiv(K, bk)
@@ -66,7 +94,7 @@ def matmul_vector(M: ExprLike, N: ExprLike, K: ExprLike, *,
         props.local_key(bits): local,
         props.BARRIER: cells,
         props.GROUPS: n_m * n_n,
-        props.mxu_key(bits): 2 * cells * bm * bn * bk,
+        props.mxu_key(_pipe_bits(variant, bits)): 2 * cells * bm * bn * bk,
         props.CONST1: 1.0,
     }
 
@@ -95,10 +123,14 @@ def flash_attention_vector(B_: ExprLike, H: ExprLike, KVH: ExprLike,
                            Sq: ExprLike, Skv: ExprLike, dh: ExprLike, *,
                            causal: bool = True, window: Optional[int] = None,
                            block_q: ExprLike = 128, block_k: ExprLike = 128,
-                           bits: int = 16) -> Dict[str, ExprLike]:
+                           bits: int = 16, variant: Optional[str] = None
+                           ) -> Dict[str, ExprLike]:
     """Online-softmax attention: q/k/v tiles stream per executed pair; the
     (bq×bk) logit tile never leaves VMEM; fully-masked pairs are skipped
-    (but their grid steps still barrier)."""
+    (but their grid steps still barrier).  ``variant`` (``wgmma``, the bf16
+    kernel; ``fma``, the f32 one): the CUDA kernel running the tile
+    (bq, bk), whose pipe sets the bits of every key."""
+    bits = _pipe_bits(variant, bits)
     bq, bk = as_expr(block_q), as_expr(block_k)
     n_q, n_k = CeilDiv(as_expr(Sq), bq), CeilDiv(as_expr(Skv), bk)
     cells = as_expr(B_) * as_expr(H) * n_q * n_k
@@ -116,20 +148,31 @@ def flash_attention_vector(B_: ExprLike, H: ExprLike, KVH: ExprLike,
 
 
 def ssd_scan_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: ExprLike,
-                    N: ExprLike, *, chunk: ExprLike = 128, bits: int = 16
+                    N: ExprLike, *, chunk: ExprLike = 128, bits: int = 16,
+                    variant: Optional[str] = None,
+                    p_block: Optional[ExprLike] = None
                     ) -> Dict[str, ExprLike]:
     """Chunked SSD: per (batch, head, chunk) cell the x/B/C blocks move
     HBM→VMEM and the (P×N) state stays VMEM-resident.  Intra-chunk work is
     quadratic in the chunk; the state update is paid once per chunk — the
-    block-size tradeoff the tuner balances."""
+    block-size tradeoff the tuner balances.  ``variant`` (``wgmma``;
+    ``fma``, the FP32 kernel, which holds everything in f32): the CUDA
+    kernel running the chunk, whose pipe sets the bits of every key.
+    ``p_block``: the P slice one CUDA thread block owns; each slice is a
+    cell of its own, which recomputes the chunk's C·Bᵀ (None, or a slice
+    that holds all of P: the reference's cells)."""
+    bits = _pipe_bits(variant, bits)
     Q = as_expr(chunk)
     nc = CeilDiv(as_expr(L), Q)
     cells = as_expr(Bz) * as_expr(H) * nc
-    local = cells * (Q * as_expr(P) + 2 * Q * as_expr(N)
-                     + as_expr(P) * as_expr(N))
+    Pc = as_expr(P)
+    if p_block is not None:
+        cells = cells * CeilDiv(Pc, as_expr(p_block))
+        Pc = Min(Pc, as_expr(p_block))
+    local = cells * (Q * Pc + 2 * Q * as_expr(N) + Pc * as_expr(N))
     mxu = cells * 2 * (Q * Q * as_expr(N)          # C·Bᵀ
-                       + Q * Q * as_expr(P)        # W·x (intra)
-                       + Q * as_expr(P) * as_expr(N) * 2)  # inter + state
+                       + Q * Q * Pc                # W·x (intra)
+                       + Q * Pc * as_expr(N) * 2)  # inter + state
     return {
         props.local_key(bits): local,
         props.BARRIER: cells,
@@ -140,9 +183,13 @@ def ssd_scan_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: ExprLike,
 
 
 def transpose_vector(M: ExprLike, N: ExprLike, *, block: ExprLike = 256,
-                     bits: int = 32) -> Dict[str, ExprLike]:
+                     bits: int = 32, variant: Optional[str] = None
+                     ) -> Dict[str, ExprLike]:
     """VMEM-tile relayout: each (b×b) tile passes through VMEM twice
-    (stream in, stream out) so both HBM directions stay stride-1."""
+    (stream in, stream out) so both HBM directions stay stride-1.
+    ``variant`` (``vec16``, ``scalar``): the CUDA kernel running the edge
+    ``block``; both count as the reference's schedule does (no product, the
+    tile in the input's bits)."""
     b = as_expr(block)
     bm, bn = Min(b, as_expr(M)), Min(b, as_expr(N))
     cells = CeilDiv(as_expr(M), bm) * CeilDiv(as_expr(N), bn)
@@ -152,6 +199,320 @@ def transpose_vector(M: ExprLike, N: ExprLike, *, block: ExprLike = 256,
         props.GROUPS: cells,
         props.CONST1: 1.0,
     }
+
+
+# ---------------------------------------------------------------------------
+# Kernel registries — shape/block parameter spaces + on-chip footprints
+# ---------------------------------------------------------------------------
+
+#: the reference's budget, a v5e core's VMEM and the share it leaves the
+#: kernel: ``PALLAS_KERNELS`` only
+VMEM_BYTES = 16 * 2 ** 20
+VMEM_BUDGET = 0.75
+
+
+def _pow2_divisors(n: int, lo: int, hi: int) -> List[int]:
+    out, b = [], lo
+    while b <= min(n, hi):
+        if n % b == 0:
+            out.append(b)
+        b *= 2
+    return out or [min(n, hi)]
+
+
+def _no_variant(shape, blocks) -> None:
+    return None
+
+
+@dataclass(frozen=True)
+class KernelModel:
+    """One kernel family: symbolic vector builder + its config space."""
+    name: str
+    shape_params: Tuple[str, ...]
+    block_params: Tuple[str, ...]
+    #: (shape, blocks, variant) -> Dict[str, ExprLike]; entries of either
+    #: mapping may be symcount Exprs, so one builder serves sweeps and step
+    #: composition
+    builder: Callable[..., Dict[str, ExprLike]]
+    #: shape -> list of concrete candidate block dicts (before the budget)
+    candidates: Callable[[Mapping[str, int]], List[Dict[str, int]]]
+    #: (shape, blocks) -> bytes of on-chip memory of one block / grid cell
+    footprint: Callable[[Mapping[str, int], Mapping[str, int]], float]
+    #: the most ``footprint`` may be
+    budget: float
+    #: (shape, blocks) -> the kernel that runs the blocks (a variant name of
+    #: the CUDA source), or None where one schedule serves every candidate
+    variant: Callable[[Mapping[str, int], Mapping[str, int]],
+                      Optional[str]] = _no_variant
+    #: which schedule the counts describe: "cuda" or "pallas"
+    schedule: str = "cuda"
+
+    def vector(self, shape: Mapping[str, ExprLike],
+               blocks: Mapping[str, ExprLike],
+               variant: Optional[str] = None) -> Dict[str, ExprLike]:
+        return self.builder(shape, blocks, variant)
+
+    def symbolic_blocks(self) -> Dict[str, Var]:
+        return {b: Var(b) for b in self.block_params}
+
+
+def _bits(shape, default: int) -> int:
+    return int(shape.get("bits", default))
+
+
+# --- the reference's Pallas registry (parity tests) ------------------------
+
+
+def _mm_builder(shape, blocks, variant=None):
+    return matmul_vector(shape["M"], shape["N"], shape["K"],
+                         block_m=blocks["block_m"], block_n=blocks["block_n"],
+                         block_k=blocks["block_k"], bits=_bits(shape, 32),
+                         variant=variant)
+
+
+def _mm_candidates(shape):
+    return [{"block_m": bm, "block_n": bn, "block_k": bk}
+            for bm in _pow2_divisors(int(shape["M"]), 32, 512)
+            for bn in _pow2_divisors(int(shape["N"]), 32, 512)
+            for bk in _pow2_divisors(int(shape["K"]), 32, 512)]
+
+
+def _mm_vmem(shape, blocks):
+    by = _bits(shape, 32) // 8
+    bm, bn, bk = blocks["block_m"], blocks["block_n"], blocks["block_k"]
+    return (bm * bk + bk * bn) * by + bm * bn * (4 + by)  # tiles + f32 acc
+
+
+def _fa_builder(shape, blocks, variant=None):
+    return flash_attention_vector(
+        shape["B"], shape["H"], shape["KVH"], shape["Sq"], shape["Skv"],
+        shape["dh"], causal=bool(shape.get("causal", True)),
+        window=shape.get("window"), block_q=blocks["block_q"],
+        block_k=blocks["block_k"], bits=_bits(shape, 16), variant=variant)
+
+
+def _fa_candidates(shape):
+    return [{"block_q": bq, "block_k": bk}
+            for bq in _pow2_divisors(int(shape["Sq"]), 32, 512)
+            for bk in _pow2_divisors(int(shape["Skv"]), 32, 512)]
+
+
+def _fa_vmem(shape, blocks):
+    by = _bits(shape, 16) // 8
+    dh = int(shape["dh"])
+    bq, bk = blocks["block_q"], blocks["block_k"]
+    # q/k/v tiles + (m, l, acc) f32 scratch + the (bq×bk) logit tile
+    return ((bq + 2 * bk) * dh * by + (2 * bq + bq * dh) * 4
+            + bq * bk * 4)
+
+
+def _ssd_builder(shape, blocks, variant=None):
+    return ssd_scan_vector(shape["Bz"], shape["H"], shape["L"], shape["P"],
+                           shape["N"], chunk=blocks["chunk"],
+                           bits=_bits(shape, 16), variant=variant,
+                           p_block=blocks.get("p_block"))
+
+
+def _ssd_candidates(shape):
+    return [{"chunk": c} for c in _pow2_divisors(int(shape["L"]), 16, 256)]
+
+
+def _ssd_vmem(shape, blocks):
+    by = _bits(shape, 16) // 8
+    P, N = int(shape["P"]), int(shape["N"])
+    Q = blocks["chunk"]
+    # x/dt/B/C tiles + f32 state + the three (Q×Q) f32 intermediates
+    return (Q * (P + 2 * N + 1) * by + P * N * 4 + 3 * Q * Q * 4)
+
+
+def _tr_builder(shape, blocks, variant=None):
+    return transpose_vector(shape["M"], shape["N"], block=blocks["block"],
+                            bits=_bits(shape, 32), variant=variant)
+
+
+def _tr_candidates(shape):
+    M, N = int(shape["M"]), int(shape["N"])
+    blocks = sorted(set(_pow2_divisors(M, 32, 512))
+                    & set(_pow2_divisors(N, 32, 512))) \
+        or sorted(set(_pow2_divisors(M, 32, 512))
+                  | set(_pow2_divisors(N, 32, 512)))
+    return [{"block": b} for b in blocks]
+
+
+def _tr_vmem(shape, blocks):
+    by = _bits(shape, 32) // 8
+    b = blocks["block"]
+    return 2 * b * b * by
+
+
+_PALLAS_BUDGET = VMEM_BYTES * VMEM_BUDGET
+
+PALLAS_KERNELS: Dict[str, KernelModel] = {
+    "matmul": KernelModel(
+        "matmul", ("M", "N", "K"), ("block_m", "block_n", "block_k"),
+        _mm_builder, _mm_candidates, _mm_vmem, _PALLAS_BUDGET,
+        schedule="pallas"),
+    "flash_attention": KernelModel(
+        "flash_attention", ("B", "H", "KVH", "Sq", "Skv", "dh"),
+        ("block_q", "block_k"), _fa_builder, _fa_candidates, _fa_vmem,
+        _PALLAS_BUDGET, schedule="pallas"),
+    "ssd_scan": KernelModel(
+        "ssd_scan", ("Bz", "H", "L", "P", "N"), ("chunk",),
+        _ssd_builder, _ssd_candidates, _ssd_vmem, _PALLAS_BUDGET,
+        schedule="pallas"),
+    "transpose": KernelModel(
+        "transpose", ("M", "N"), ("block",),
+        _tr_builder, _tr_candidates, _tr_vmem, _PALLAS_BUDGET,
+        schedule="pallas"),
+}
+
+
+# --- the CUDA registry: the tiles the sources build ------------------------
+#
+# A candidate is the tile a kernel executes, written as the request that
+# the wrapper of ``kernels/ops.py`` hands on and the CUDA source serves with
+# that same tile.  Layout facts the sources read beside the shape are
+# optional shape entries, defaulting to contiguous rows at an aligned base:
+# ``va``/``vb`` (matmul: A / B readable 16 bytes at a time), ``tma``
+# (ssd_scan: x, B, C bf16 and readable by TMA), ``aligned`` (transpose: a
+# 16-byte base and leading stride).
+
+
+def _mm_tile(shape, blocks):
+    from repro_torch.kernels import matmul as mm
+    bits = _bits(shape, 32)
+    by = bits // 8
+    K, N = int(shape["K"]), int(shape["N"])
+    return mm.tile_rule(int(shape["M"]), N, int(blocks["block_m"]),
+                        int(blocks["block_n"]), int(blocks["block_k"]),
+                        bf16=bits == 16,
+                        va=bool(shape.get("va", K * by % 16 == 0)),
+                        vb=bool(shape.get("vb", N * by % 16 == 0)))
+
+
+def _mm_cuda_candidates(shape):
+    """The tiles a request of the paper's 16³ and of the 128 tile get:
+    ``paper16`` and, by type and layout, ``fma128`` or ``wgmma``."""
+    out = {}
+    for req in (16, 128):
+        t = _mm_tile(shape, {"block_m": req, "block_n": req, "block_k": req})
+        out.setdefault((t.bm, t.bn, t.bk),
+                       {"block_m": t.bm, "block_n": t.bn, "block_k": t.bk})
+    return list(out.values())
+
+
+def _fa_cuda_candidates(shape):
+    """bf16: the one tile of the tensor-core kernel (``tile_rule``); f32:
+    every tile ``pick_tiles`` serves a request of ``TILES``² with."""
+    from repro_torch.kernels import flash_attention as fa
+    dh = int(shape["dh"])
+    if _bits(shape, 16) == 16:
+        bq, bk = fa.tile_rule(dh)[:2]
+        return [{"block_q": bq, "block_k": bk}]
+    tiles = dict.fromkeys(fa.pick_tiles(q, k, dh)
+                          for q in fa.TILES for k in fa.TILES)
+    return [{"block_q": q, "block_k": k} for q, k in tiles]
+
+
+def _fa_cuda_variant(shape, blocks):
+    return "wgmma" if _bits(shape, 16) == 16 else "fma"
+
+
+def _fa_cuda_smem(shape, blocks):
+    from repro_torch.kernels import flash_attention as fa
+    dh = int(shape["dh"])
+    if _bits(shape, 16) == 16:
+        return fa.tile_rule(dh)[3]
+    return fa.smem_bytes(blocks["block_q"], blocks["block_k"], dh)
+
+
+def _ssd_cuda_candidates(shape):
+    """The chunks of the reference's grid, each with the P slice its
+    kernel takes (``tile_rule``; 0 where the kernel takes no tile)."""
+    return [{"chunk": c["chunk"], "p_block": _ssd_cuda_tile(shape, c).p_block}
+            for c in _ssd_candidates(shape)]
+
+
+def _ssd_cuda_variant(shape, blocks):
+    from repro_torch.kernels import ssd_scan as ssd
+    P, N = int(shape["P"]), int(shape["N"])
+    tma = shape.get("tma", _bits(shape, 16) == 16 and P % 8 == 0
+                    and N % 8 == 0)
+    return ssd.variant_rule(P, N, min(int(blocks["chunk"]), int(shape["L"])),
+                            bool(tma))
+
+
+def _ssd_cuda_tile(shape, blocks):
+    """The tile ``ssd_scan_tile`` reports for the chunk, or one of infinite
+    shared memory where the kernel takes no tile (N above 128, say: the
+    wrapper raises on the card)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    variant = _ssd_cuda_variant(shape, blocks)
+    try:
+        return ssd.tile_rule(int(shape["P"]), int(shape["N"]),
+                             min(int(blocks["chunk"]), int(shape["L"])),
+                             variant)
+    except ValueError:
+        return ssd.Tile(variant, 0, 0, math.inf)
+
+
+def _tr_dtype(shape):
+    import torch
+    return torch.bfloat16 if _bits(shape, 32) == 16 else torch.float32
+
+
+def _tr_cuda_candidates(shape):
+    from repro_torch.kernels import transpose as tr
+    return [{"block": b} for b in tr.EDGES]
+
+
+def _tr_cuda_variant(shape, blocks):
+    from repro_torch.kernels import transpose as tr
+    return tr.variant_rule(_tr_dtype(shape), int(shape["M"]),
+                           int(shape["N"]), int(blocks["block"]),
+                           bool(shape.get("aligned", True)))
+
+
+def _tr_cuda_smem(shape, blocks):
+    from repro_torch.kernels import transpose as tr
+    return tr.tile_rule(int(blocks["block"]), _tr_dtype(shape),
+                        _tr_cuda_variant(shape, blocks)).smem
+
+
+KERNELS: Dict[str, KernelModel] = {
+    "matmul": KernelModel(
+        "matmul", ("M", "N", "K"), ("block_m", "block_n", "block_k"),
+        _mm_builder, _mm_cuda_candidates,
+        lambda shape, blocks: _mm_tile(shape, blocks).smem, SMEM_LIMIT,
+        lambda shape, blocks: _mm_tile(shape, blocks).variant),
+    "flash_attention": KernelModel(
+        "flash_attention", ("B", "H", "KVH", "Sq", "Skv", "dh"),
+        ("block_q", "block_k"), _fa_builder, _fa_cuda_candidates,
+        _fa_cuda_smem, SMEM_LIMIT, _fa_cuda_variant),
+    "ssd_scan": KernelModel(
+        "ssd_scan", ("Bz", "H", "L", "P", "N"), ("chunk", "p_block"),
+        _ssd_builder, _ssd_cuda_candidates,
+        lambda shape, blocks: _ssd_cuda_tile(shape, blocks).smem, SMEM_LIMIT,
+        _ssd_cuda_variant),
+    "transpose": KernelModel(
+        "transpose", ("M", "N"), ("block",),
+        _tr_builder, _tr_cuda_candidates, _tr_cuda_smem, SMEM_LIMIT,
+        _tr_cuda_variant),
+}
+
+
+def get(kernel, kernels: Optional[Mapping[str, KernelModel]] = None
+        ) -> KernelModel:
+    """``kernel`` itself if it is a ``KernelModel``, else its entry in
+    ``kernels`` (default ``KERNELS``, the CUDA registry)."""
+    if isinstance(kernel, KernelModel):
+        return kernel
+    kernels = KERNELS if kernels is None else kernels
+    try:
+        return kernels[kernel]
+    except KeyError:
+        raise KeyError(f"unknown kernel {kernel!r}; "
+                       f"known: {sorted(kernels)}") from None
 
 
 # ---------------------------------------------------------------------------

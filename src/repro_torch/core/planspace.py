@@ -28,8 +28,8 @@ block co-tuning), ``distributed/elastic.replan`` and
 A copy of the reference's ``core/planspace.py``; the reference's
 ``benchmarks/search_bench.py`` times that engine against the per-plan
 interpreted loop (``predictor.predict_plans_loop``).  The kernel-block
-co-tuning hook (``cotune_kernel_blocks``) waits for the autotuner
-(``kernels/autotune.py``, ROADMAP A11).  ``feasible_mask`` keeps the
+co-tuning hook (``cotune_kernel_blocks``) tunes over the CUDA sources'
+tiles unless given the reference's grids.  ``feasible_mask`` keeps the
 reference's default budget (``predictor.HBM_BYTES``, catalog data for
 another device); a caller on the card passes the card's memory.
 """
@@ -808,13 +808,18 @@ def stream_topk(cfg: ArchConfig, workload: wl.WorkloadLike, plans: Sequence,
 
 
 def cotune_kernel_blocks(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
-                         mesh_shape: Mapping[str, int], model=None
-                         ) -> Dict[str, Dict[str, int]]:
+                         mesh_shape: Mapping[str, int], model=None, *,
+                         kernels=None) -> Dict[str, Dict[str, int]]:
     """Model-chosen block sizes for the step's dominant kernels at this
     (plan, mesh) cell's *per-device* shard shapes — the joint plan × block
     co-tuning hook.  The plan/mesh pin the sharding (dp/tp ways, schedule);
-    the per-kernel shape derivation and tuning live in the reference's
-    ``kernels/autotune.best_blocks_for_workload``, not ported yet."""
-    raise NotImplementedError(
-        "cotune_kernel_blocks needs kernels/autotune.py, which waits for the "
-        "kernel-model slice (ROADMAP A11)")
+    the per-kernel shape derivation and tuning live in
+    ``kernels/autotune.best_blocks_for_workload``, over ``kernels``
+    (default the CUDA sources' tiles, ``kernelmodel.KERNELS``)."""
+    from repro_torch.kernels import autotune
+    spec = wl.as_spec(workload)
+    dp = _axis_product(mesh_shape, plan.dp_axes)
+    tp = mesh_shape.get(plan.tp_axis, 1) if plan.tp_axis else 1
+    return autotune.best_blocks_for_workload(
+        cfg, spec, model, dp=dp, tp=tp, microbatches=plan.microbatches,
+        kernels=kernels)

@@ -351,11 +351,18 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(const Params p) {
   }
 }
 
+// Bytes of shared memory of one block of fa_fwd_kernel<BQ, BK, DHP>: the
+// Q, K and V tiles and the P strip, as the kernel lays them out.
+constexpr size_t f32_smem_bytes(int bq, int bk, int dhp) {
+  return sizeof(float) *
+         (static_cast<size_t>(bq) * (dhp + 4) + static_cast<size_t>(bk) *
+          (dhp + 4) + static_cast<size_t>(bk) * dhp +
+          static_cast<size_t>(bq) * (bk + 16));
+}
+
 template <int BQ, int BK, int DHP>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t bytes =
-      sizeof(float) *
-      (BQ * (DHP + 4) + BK * (DHP + 4) + BK * DHP + BQ * (BK + 16));
+  constexpr size_t bytes = f32_smem_bytes(BQ, BK, DHP);
   if constexpr (bytes > kSmemLimit) {
     return cudaErrorInvalidValue;  // this tile does not fit; never built
   } else {
@@ -833,6 +840,24 @@ extern "C" int flash_attention_forward(
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The f32 kernel's tile (block_q, block_k) at head width dh: the bytes of
+// shared memory of one block, as launch<> sets them.  Returns
+// cudaErrorInvalidValue for a tile or dh it does not take, or a tile that
+// does not fit one block (never built).
+extern "C" int flash_attention_f32_tile(int block_q, int block_k, int dh,
+                                        long long* smem_bytes) {
+  const bool built = (block_q == 32 || block_q == 64 || block_q == 128) &&
+                     (block_k == 32 || block_k == 64 || block_k == 128);
+  if (!built || dh <= 0 || dh > 128 || dh % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int dhp = dh <= 16 ? 16 : (dh <= 32 ? 32 : (dh <= 64 ? 64 : 128));
+  const size_t bytes = f32_smem_bytes(block_q, block_k, dhp);
+  if (bytes > hopper::kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *smem_bytes = static_cast<long long>(bytes);
+  return 0;
 }
 
 // The bf16 kernel's tile for head width dh: query rows and keys of a tile,

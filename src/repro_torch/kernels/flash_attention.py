@@ -119,6 +119,75 @@ def tile(dh: int) -> Tuple[int, int, int, int]:
     return bq.value, bk.value, stages.value, nbytes.value
 
 
+def tile_rule(dh: int) -> Tuple[int, int, int, int]:
+    """``tile`` as a pure function: the bf16 kernel's tile at head width
+    ``dh`` as the CUDA source's ``Tile<DHP>`` sets it (query rows, keys,
+    stages of the K/V ring, bytes of shared memory of one block), without
+    building anything.  ``chip_smoke.py`` holds it against the C query."""
+    if dh <= 0 or dh > 128 or dh % 4:
+        raise ValueError(f"the bf16 kernel takes no head_dim {dh}")
+    dhp = (dh + 15) // 16 * 16
+    chunks = (dhp + 63) // 64            # 128-byte row chunks of a row
+    keys, stages = (128, 2) if dhp <= 96 else (64, 4)
+    q_bytes, kv_bytes = chunks * 128 * 128, chunks * keys * 128
+    smem = 1024 + q_bytes + 2 * stages * kv_bytes + 8 * (1 + 4 * stages)
+    return 128, keys, stages, smem
+
+
+def f32_tile(block_q: int, block_k: int, dh: int) -> int:
+    """The bytes of shared memory the f32 kernel's tile ``(block_q,
+    block_k)`` takes at head width ``dh``, as the CUDA source reports them
+    (``flash_attention_f32_tile``); raises ``ValueError`` for a tile it
+    does not build.  Builds the source if need be; needs ``nvcc``."""
+    fn = _build.load("flash_attention").flash_attention_f32_tile
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+    nbytes = ctypes.c_longlong()
+    if fn(block_q, block_k, dh, ctypes.byref(nbytes)) != 0:
+        raise ValueError(f"the f32 kernel builds no tile {block_q}x{block_k} "
+                         f"at head_dim {dh}")
+    return nbytes.value
+
+
+def schedule_props(B: int, H: int, KVH: int, Sq: int, Skv: int, dh: int,
+                   *, causal: bool = True, window: Optional[int] = None,
+                   block_q: int = 128, block_k: int = 128,
+                   bits: int = 16) -> dict:
+    """Schedule-derived property vector (the reference's ``schedule_props``,
+    ``src/repro/kernels/flash_attention.py:142``: grid cells, block traffic
+    and the executed, non-skipped tile pairs) at the tile the CUDA source
+    serves the request with: bf16 (``bits=16``) the tensor-core kernel's
+    ``tile_rule(dh)`` with its products on ``wgmma`` (``mxu:16``), f32 the
+    FP32 kernel's ``pick_tiles`` (``mxu:32``).  Where the tile is the
+    request, this is the reference's vector."""
+    from repro_torch.core import properties as props
+    if bits == 16:
+        block_q, block_k = tile_rule(dh)[:2]
+    else:
+        block_q, block_k = pick_tiles(block_q, block_k, dh)
+    n_q, n_k = -(-Sq // block_q), -(-Skv // block_k)
+    cells = B * H * n_q * n_k
+    exec_pairs = 0
+    for qi in range(n_q):
+        for ki in range(n_k):
+            ok = True
+            if causal and ki * block_k > qi * block_q + block_q - 1:
+                ok = False
+            if window is not None and \
+                    qi * block_q - (ki * block_k + block_k - 1) >= window:
+                ok = False
+            exec_pairs += ok
+    exec_cells = B * H * exec_pairs
+    local = exec_cells * (block_q * dh + 2 * block_k * dh)
+    return {
+        props.local_key(bits): float(local),
+        props.BARRIER: float(cells),
+        props.GROUPS: float(cells),
+        props.mxu_key(bits): 4.0 * exec_cells * block_q * block_k * dh,
+    }
+
+
 def tma_layout_error(name: str, shape, strides, data_ptr: int,
                      dtype: torch.dtype) -> Optional[str]:
     """Why TMA cannot read a 4-D tensor through a map of its own shape and

@@ -102,6 +102,67 @@ def tile(M: int, N: int, K: int, block_m: int = 128, block_n: int = 128,
     return Tile(bm, bn, bk, smem.value, VARIANTS[variant], stages)
 
 
+#: shared memory, stages and k step of each kernel's block (csrc/matmul.cu:
+#: ``Paper16``, ``Fma128``, ``WgTile``), by element bytes where it depends on
+#: them
+_PAPER16_STAGES, _BT_STRIDE = 4, 20
+_FMA_AT_STRIDE = 128 + 4
+_WGMMA_SMEM = 1024 + 4 * (128 * 64 * 2 + 2 * 2 * 64 * 64 * 2) + 8 * 2 * 4
+
+
+def tile_rule(M: int, N: int, block_m: int = 128, block_n: int = 128,
+              block_k: int = 128, *, bf16: bool = False, va: bool = True,
+              vb: bool = True) -> Tile:
+    """``tile`` as a pure function: the CUDA source's ``pick_tile`` and the
+    shared memory ``matmul_tile`` reports, without building anything.
+    ``va``/``vb``: A / B readable 16 bytes at a time (a 16-byte-aligned base
+    and a leading stride of a multiple of 16 bytes); for bf16 both together
+    are TMA's rule.  ``chip_smoke.py`` holds it against the C query."""
+    by = 2 if bf16 else 4
+    bm, bn = min(block_m, M), min(block_n, N)
+    want = float(bm) * float(bn)  # compared with edge² on a log scale
+    r16, r128 = 16.0 * 16.0 / want, 128.0 * 128.0 / want
+    d16 = r16 if r16 >= 1.0 else 1.0 / r16
+    d128 = r128 if r128 >= 1.0 else 1.0 / r128
+    if d16 <= d128:
+        return Tile(16, 16, 16, by * _PAPER16_STAGES * (16 * 16
+                                                       + 16 * _BT_STRIDE),
+                    "paper16", _PAPER16_STAGES)
+    if bf16 and va and vb:
+        return Tile(128, 256, 64, _WGMMA_SMEM, "wgmma", 4)
+    bk, stages = (32, 3) if va else (16, 4)
+    return Tile(128, 128, bk, by * stages * bk * (_FMA_AT_STRIDE + 128),
+                "fma128", stages)
+
+
+def schedule_props(M: int, N: int, K: int, *, block_m: int = 128,
+                   block_n: int = 128, block_k: int = 128, bits: int = 32,
+                   va: Optional[bool] = None,
+                   vb: Optional[bool] = None) -> dict:
+    """Schedule-derived property vector of one call (the reference's
+    ``schedule_props``, ``src/repro/kernels/matmul.py:66``) at the tile the
+    CUDA source serves the request with (``tile_rule``; ``va``/``vb``
+    default to contiguous rows at an aligned base).  The products count
+    ``mxu:16`` on ``wgmma``, ``mxu:32`` on the FP32 pipes (``paper16``,
+    ``fma128``, bf16 too).  Where the tile is the request, this is the
+    reference's vector."""
+    from repro_torch.core import properties as props
+    by = bits // 8
+    va = K * by % 16 == 0 if va is None else va
+    vb = N * by % 16 == 0 if vb is None else vb
+    t = tile_rule(M, N, block_m, block_n, block_k, bf16=bits == 16, va=va,
+                  vb=vb)
+    n_m, n_n = -(-M // t.bm), -(-N // t.bn)
+    cells = n_m * n_n * -(-K // t.bk)
+    local = cells * (t.bm * t.bk + t.bk * t.bn + t.bm * t.bn)
+    return {
+        props.local_key(bits): float(local),
+        props.BARRIER: float(cells),
+        props.GROUPS: float(n_m * n_n),
+        props.mxu_key(16 if t.variant == "wgmma" else 32): 2.0 * M * N * K,
+    }
+
+
 def tile_for(a: torch.Tensor, b: torch.Tensor, block_m: int = 128,
              block_n: int = 128, block_k: int = 128) -> Tile:
     """The kernel and tile ``matmul(a, b, ...)`` launches for these

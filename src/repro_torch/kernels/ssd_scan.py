@@ -56,7 +56,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import tma_layout_error
+from repro_torch.kernels.flash_attention import SMEM_LIMIT, tma_layout_error
 from repro_torch.runtime import flags
 
 NEG_INF = -1e30
@@ -124,23 +124,124 @@ class Tile(NamedTuple):
     smem: int         # bytes of shared memory of one block
 
 
+def tma_readable(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                 bases: Optional[Sequence[int]] = None) -> bool:
+    """x, B and C all bf16 and each readable by TMA (see the module's
+    note).  ``bases``: the byte addresses of x, B, C (default their
+    ``data_ptr()``; for meta tensors the storage offset in bytes)."""
+    if any(t.dtype != torch.bfloat16 for t in (x, B, C)):
+        return False
+    if bases is None:
+        bases = [t.data_ptr() for t in (x, B, C)]
+    return not any(tma_layout_error(n, t.shape, t.stride(), base, t.dtype)
+                   for n, t, base in zip("xBC", (x, B, C), bases))
+
+
+def variant_rule(P: int, N: int, chunk: int, tma: bool) -> str:
+    """``pick_variant`` on what it reads: the head width P, the state width
+    N, the chunk after clipping to L, and whether x, B, C are bf16 and
+    readable by TMA (``tma_readable``)."""
+    if not tma or chunk not in WGMMA_CHUNKS \
+            or P % 16 or P > 128 or N % 16 or N > 128:
+        return "fma"
+    return "wgmma"
+
+
 def pick_variant(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                  chunk: int, bases: Optional[Sequence[int]] = None) -> str:
     """The kernel a call goes to, from types, shapes, strides and base
     addresses alone (see the module's note).  ``chunk`` is the chunk after
     clipping to L.  ``bases``: the byte addresses of x, B, C (default their
     ``data_ptr()``; for meta tensors the storage offset in bytes)."""
-    if bases is None:
-        bases = [t.data_ptr() for t in (x, B, C)]
     P, N = x.shape[3], B.shape[3]
-    if any(t.dtype != torch.bfloat16 for t in (x, B, C)) \
-            or chunk not in WGMMA_CHUNKS \
-            or P % 16 or P > 128 or N % 16 or N > 128:
-        return "fma"
-    if any(tma_layout_error(n, t.shape, t.stride(), base, t.dtype)
-           for n, t, base in zip("xBC", (x, B, C), bases)):
-        return "fma"
-    return "wgmma"
+    if variant_rule(P, N, chunk, True) == "fma":
+        return "fma"   # decided without reading the layouts
+    return variant_rule(P, N, chunk, tma_readable(x, B, C, bases))
+
+
+#: the CUDA source's constants (csrc/ssd_scan.cu): the W strip of the FP32
+#: kernel, the P slice and tile rows (bytes) of the tensor-core kernel
+_STRIP, _WG_P_BLOCK, _WG_ROW = 32, 64, 128
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def _padded_state(N: int) -> int:
+    return 16 if N <= 16 else (32 if N <= 32 else (64 if N <= 64 else 128))
+
+
+def _fma_smem(chunk: int, N: int, p_block: int) -> int:
+    qa, npad = _round_up(chunk, 64), _padded_state(N)
+    return 4 * (qa * (npad + 4) + qa * p_block + _STRIP * (npad + 4)
+                + _STRIP * (qa + 4) + npad * p_block + 4 * qa + 32)
+
+
+def _wgmma_smem(chunk: int, N: int, stages: int) -> int:
+    halves = 1 if N <= 64 else 2                 # 64-column halves of N
+    stage = chunk * _WG_ROW + 2 * halves * chunk * _WG_ROW
+    h_bytes = halves * _WG_P_BLOCK * _WG_ROW
+    return 1024 + stages * (stage + 3 * chunk * 4) + 2 * h_bytes + 16 * stages
+
+
+def tile_rule(P: int, N: int, chunk: int, variant: str = "fma") -> Tile:
+    """``tile`` as a pure function: the tile ``ssd_scan_tile`` reports for
+    (P, N, chunk), without building anything; raises ``ValueError`` for a
+    shape the variant does not take.  ``chip_smoke.py`` holds it against
+    the C query."""
+    if variant == "wgmma":
+        if variant_rule(P, N, chunk, True) != "wgmma":
+            raise ValueError(f"the wgmma kernel takes no tile for P={P}, "
+                             f"N={N}, chunk={chunk}")
+        stages = 3 if _wgmma_smem(chunk, N, 3) <= SMEM_LIMIT else 2
+        return Tile("wgmma", _WG_P_BLOCK, stages,
+                    _wgmma_smem(chunk, N, stages))
+    if variant != "fma" or not (0 < chunk <= MAX_CHUNK and 0 < N <= 128
+                                and P > 0 and N % 4 == 0 and P % 4 == 0):
+        raise ValueError(f"the {variant} kernel takes no tile for P={P}, "
+                         f"N={N}, chunk={chunk}")
+    pb = 16 if P <= 16 else (32 if P <= 32 else 64)
+    while _fma_smem(chunk, N, pb) > SMEM_LIMIT:
+        if pb == 16:
+            raise ValueError(f"no P slice fits shared memory at N={N}, "
+                             f"chunk={chunk}")
+        pb //= 2
+    return Tile("fma", pb, 1, _fma_smem(chunk, N, pb))
+
+
+def schedule_props(Bz: int, H: int, L: int, P: int, N: int, *,
+                   chunk: int = 128, bits: int = 16,
+                   tma: Optional[bool] = None) -> dict:
+    """Schedule-derived properties (the reference's ``schedule_props``,
+    ``src/repro/kernels/ssd_scan.py:125``: per (batch, head, chunk) cell the
+    x/B/C blocks move on chip and the (P, N) state stays there) at the
+    chunk the call runs (clipped to L), counted on the kernel that runs it:
+    ``wgmma`` (bf16 ``mxu:16`` and ``local:16``) or the FP32 kernel
+    (``mxu:32``, ``local:32``: it holds everything in f32), a cell per P
+    slice of a thread block (``tile_rule``; each recomputes C·Bᵀ).
+    ``tma``: x, B, C bf16 and readable by TMA (default: ``bits == 16`` with
+    P and N multiples of 8, contiguous).  Where the kernel computes in the
+    input's type and one slice holds all of P, this is the reference's
+    vector."""
+    from repro_torch.core import properties as props
+    chunk = min(chunk, L)
+    if tma is None:
+        tma = bits == 16 and P % 8 == 0 and N % 8 == 0
+    t = tile_rule(P, N, chunk, variant_rule(P, N, chunk, tma))
+    kbits = 16 if t.variant == "wgmma" else 32
+    Pc = min(P, t.p_block)
+    cells = Bz * H * -(-L // chunk) * -(-P // t.p_block)
+    local = cells * (chunk * Pc + 2 * chunk * N + Pc * N)
+    mxu = cells * 2.0 * (chunk * chunk * N      # CB
+                         + chunk * chunk * Pc   # y_intra
+                         + chunk * Pc * N * 2)  # y_inter + state update
+    return {
+        props.local_key(kbits): float(local),
+        props.BARRIER: float(cells),
+        props.GROUPS: float(cells),
+        props.mxu_key(kbits): mxu,
+    }
 
 
 def tile(P: int, N: int, chunk: int, variant: str = "fma") -> Tile:

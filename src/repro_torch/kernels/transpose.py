@@ -45,6 +45,8 @@ from repro_torch.runtime import flags
 VARIANTS = ("scalar", "vec16")
 #: elements of one vec16 access (16 bytes), as the CUDA source's VecWidth
 VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
+#: the tile edges the CUDA source builds
+EDGES = (16, 32, 64)
 
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
              + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
@@ -81,9 +83,60 @@ def _pick(dtype: torch.dtype, M: int, N: int, ld: int, base: int,
     """``pick_variant`` on values the caller has already read (the
     launch's own, so that choosing costs it no second look at x)."""
     v = VEC_ELEMS.get(dtype)
-    if v is None or block >= 32 or base % 16 or ld % v or M % v or N % v:
+    return variant_rule(dtype, M, N, block,
+                        v is not None and base % 16 == 0 and ld % v == 0)
+
+
+def variant_rule(dtype: torch.dtype, M: int, N: int, block: int,
+                 aligned: bool) -> str:
+    """The variant of ``pick_variant`` from the type, shape and request,
+    and ``aligned``: a 16-byte-aligned base and a leading stride of whole
+    16-byte accesses."""
+    v = VEC_ELEMS.get(dtype)
+    if v is None or not aligned or block >= 32 or M % v or N % v:
         return "scalar"
     return "vec16"
+
+
+def edge_rule(block: int) -> int:
+    """The largest tile edge the CUDA source builds not above ``block`` (16
+    at least): the edge a request is served with (``pick_tile`` in the
+    source)."""
+    return 64 if block >= 64 else (32 if block >= 32 else 16)
+
+
+def tile_rule(block: int = 256, dtype: torch.dtype = torch.float32,
+              variant: str = "scalar") -> Tile:
+    """``tile`` as a pure function: what ``transpose_tile`` reports,
+    without building anything; raises ``ValueError`` where it refuses.
+    ``chip_smoke.py`` holds it against the C query."""
+    edge = edge_rule(block)
+    if block < 1 or dtype not in VEC_ELEMS or variant not in VARIANTS \
+            or (variant == "vec16" and edge != 16):
+        raise ValueError(f"the {variant} kernel takes no tile for "
+                         f"block={block}, dtype {dtype}")
+    nbytes = 16 // VEC_ELEMS[dtype]
+    if variant == "vec16":
+        return Tile(variant, 16, 16 * (16 // VEC_ELEMS[dtype]),
+                    16 * 16 * nbytes)
+    return Tile(variant, edge, 256, edge * (edge + 1) * nbytes)
+
+
+def schedule_props(M: int, N: int, *, block: int = 256,
+                   bits: int = 32) -> dict:
+    """The reference's ``schedule_props``
+    (``src/repro/kernels/transpose.py:42``) at the edge the CUDA source
+    serves ``block`` with (``edge_rule``: 16, 32 or 64; ``vec16`` and
+    ``scalar`` share the 16 edge).  Where the edge is the request, this is
+    the reference's vector."""
+    from repro_torch.core import properties as props
+    e = edge_rule(block)
+    cells = -(-M // e) * -(-N // e)
+    return {
+        props.local_key(bits): float(M * N),
+        props.BARRIER: float(cells),
+        props.GROUPS: float(cells),
+    }
 
 
 def tile(block: int = 256, dtype: torch.dtype = torch.float32,

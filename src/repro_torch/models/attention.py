@@ -304,7 +304,8 @@ class _FlashAttention(_FlashXLA):
         need = grad and any(ctx.needs_input_grad[:3])
         out = kops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window, return_lse=need)
+            causal=True, window=window, return_lse=need,
+            block_sizes="auto")  # cost-model-chosen tile (autotune)
         o, lse = out if need else (out, None)
         o = o.transpose(1, 2)
         if need:
@@ -412,10 +413,9 @@ def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
         if flags.attention_stubbed():  # cost-attribution mode
             o = v.repeat_interleave(H // KVH, dim=2)
         elif flags.kernels_enabled():
-            # the kernel, differentiable; its backward chunks as
-            # attention_core's chunked path does.  The reference asks the
-            # autotuner for the tiling here; until that is ported the
-            # kernel's default tiles are used.
+            # the kernel, differentiable, at the autotuner's tile (as the
+            # reference asks for it); its backward chunks as
+            # attention_core's chunked path does
             o = _FlashAttention.apply(q, k, v, cfg.sliding_window,
                                       min(1024, S), min(1024, S),
                                       torch.is_grad_enabled())

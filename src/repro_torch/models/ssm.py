@@ -140,11 +140,13 @@ def ssm_apply(p: SSM, x: torch.Tensor, cfg, *,
             raise ValueError(
                 f"prefill length {S} is not a multiple of the SSD chunk "
                 f"{chunk} (the reference asserts the same)")
-        # (B, H, S, ·) views, no copies.  The reference asks the autotuner
-        # for the chunk here; until it is ported the configuration's chunk
-        # is used.
-        y = _SSDScan.apply(xin.transpose(1, 2), dt.transpose(1, 2), A,
-                           Bm.transpose(1, 2), Cm.transpose(1, 2), chunk)
+        # (B, H, S, ·) views, no copies; the chunk is the autotuner's, as
+        # in the reference, resolved here once so that the backward
+        # recomputes at the chunk the forward ran
+        xs, Bs, Cs = xin.transpose(1, 2), Bm.transpose(1, 2), \
+            Cm.transpose(1, 2)
+        chunk = kops.ssd_chunk(xs, Bs, Cs, chunk=chunk, block_sizes="auto")
+        y = _SSDScan.apply(xs, dt.transpose(1, 2), A, Bs, Cs, chunk)
         y = y.transpose(1, 2)
         new_state = None
     else:

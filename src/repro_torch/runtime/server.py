@@ -83,7 +83,8 @@ class DecodeServer:
         if admission == "model" or slo_decode_s is not None:
             raise NotImplementedError(
                 "model-scored admission and the decode SLO guard wait for "
-                "core/predictor.py (AdmissionScorer)")
+                "AdmissionScorer (runtime/server.py of the reference), not "
+                "ported yet")
         if calibrator is not None:
             raise NotImplementedError(
                 "online calibration (calibration/online.py) is not ported yet")

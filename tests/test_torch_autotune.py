@@ -1,0 +1,636 @@
+"""The port's kernel model and autotuner against the JAX package, on the
+CPU: ``kernels/autotune.py``, the ``KernelModel`` registries of
+``core/kernelmodel.py``, ``core/extract.pallas_props`` and the four
+kernels' ``schedule_props`` (mirrors of ``tests/test_autotune.py`` and of
+``tests/test_kernels.py``'s schedule test).
+
+At the reference's grids and blocks, passed explicitly
+(``kernelmodel.PALLAS_KERNELS``), every score and pick equals the
+reference's at rtol 1e-12.  Over the CUDA registry (``KERNELS``): the
+compiled scorer equals the interpreted one at 1e-12, the pick is in the top
+3 of the exhaustive sweep, the grids list only tiles the CUDA sources build
+(their Python mirrors, which ``tests/test_torch_gpu.py`` and
+``chip_smoke.py`` hold against the C queries on a card) under a block's
+shared memory, and the SSD pick at zamba2's and mamba2's shapes under the
+``gpu-h100`` seed is a tensor-core chunk.  ``"auto"`` through every
+``ops`` wrapper on a CPU tensor runs the plain version, within the
+reference's tolerance of the reference's ``"auto"`` kernel in interpret
+mode.  Nothing here builds a CUDA source.
+"""
+from __future__ import annotations
+
+import random
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import kernelmodel as jkm
+from repro.core import symcount as jsym
+from repro.kernels import autotune as jat
+from repro.kernels import flash_attention as jfa
+from repro.kernels import matmul as jmm
+from repro.kernels import ops as jops
+from repro.kernels import ssd_scan as jssd
+from repro.kernels import transpose as jtr
+from repro_torch.core import extract, kernelmodel
+from repro_torch.core import properties as props
+from repro_torch.core.symcount import (
+    CeilDiv, Const, Expr, FloorDiv, Max, Min, Piecewise, Var, as_expr,
+    compile_vector, evaluate_vector,
+)
+from repro_torch.kernels import _build, autotune
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import matmul as tmm
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.kernels import transpose as ttr
+
+torch.set_num_threads(1)
+
+RTOL = 1e-12
+PALLAS = kernelmodel.PALLAS_KERNELS
+
+# the reference's shapes (tests/test_autotune.py)
+SHAPES = {
+    "matmul": {"M": 1024, "N": 512, "K": 2048, "bits": 16},
+    "flash_attention": {"B": 2, "H": 8, "KVH": 2, "Sq": 2048, "Skv": 2048,
+                        "dh": 64, "causal": True, "window": None,
+                        "bits": 16},
+    "ssd_scan": {"Bz": 2, "H": 8, "L": 2048, "P": 64, "N": 128, "bits": 16},
+    "transpose": {"M": 2048, "N": 1024, "bits": 32},
+}
+KERNELS = sorted(SHAPES)
+
+# the port's main paths and calibration, at the shapes the card runs
+CARD_SHAPES = [
+    ("matmul", {"M": 4096, "N": 4096, "K": 4096, "bits": 32}),
+    ("matmul", {"M": 4096, "N": 4096, "K": 4096, "bits": 16}),
+    ("matmul", {"M": 4096, "N": 4096, "K": 4096, "bits": 16, "va": False,
+                "vb": True}),
+    ("flash_attention", {"B": 4, "H": 24, "KVH": 8, "Sq": 2048,
+                         "Skv": 2048, "dh": 128, "causal": True,
+                         "window": None, "bits": 32}),
+    ("flash_attention", {"B": 4, "H": 32, "KVH": 32, "Sq": 2048,
+                         "Skv": 2048, "dh": 80, "causal": True,
+                         "window": None, "bits": 16}),
+    ("flash_attention", {"B": 4, "H": 24, "KVH": 24, "Sq": 2048,
+                         "Skv": 2048, "dh": 64, "causal": True,
+                         "window": None, "bits": 32}),
+    ("ssd_scan", {"Bz": 4, "H": 80, "L": 2048, "P": 64, "N": 64,
+                  "bits": 16, "tma": True}),
+    ("ssd_scan", {"Bz": 4, "H": 32, "L": 2048, "P": 64, "N": 128,
+                  "bits": 32, "tma": False}),
+    ("transpose", {"M": 16384, "N": 16384, "bits": 32, "aligned": True}),
+    ("transpose", {"M": 16384, "N": 16384, "bits": 16, "aligned": True}),
+]
+CARD_IDS = [f"{k}{i}" for i, (k, _) in enumerate(CARD_SHAPES)]
+
+
+# ---------------------------------------------------------------------------
+# (a) compiled ≡ interpreted on randomized expression trees
+# ---------------------------------------------------------------------------
+
+_VARS = ("x", "y", "z")
+
+
+def _rand_expr(rng: random.Random, depth: int = 0) -> Expr:
+    if depth > 4 or rng.random() < 0.25:
+        if rng.random() < 0.5:
+            return Const(rng.randint(1, 9))
+        return Var(rng.choice(_VARS))
+    op = rng.choice(["add", "sub", "mul", "fdiv", "cdiv", "max", "min",
+                     "pow", "div", "pw"])
+    a = _rand_expr(rng, depth + 1)
+    b = _rand_expr(rng, depth + 1)
+    if op == "add":
+        return a + b
+    if op == "sub":
+        return a - b
+    if op == "mul":
+        return a * b
+    if op == "fdiv":
+        return FloorDiv(a, as_expr(rng.randint(1, 7)))
+    if op == "cdiv":
+        return CeilDiv(a, as_expr(rng.randint(1, 7)))
+    if op == "max":
+        return Max(a, b)
+    if op == "min":
+        return Min(a, b)
+    if op == "pow":
+        return a ** rng.choice([1, 2, 3])
+    if op == "div":
+        return a / as_expr(rng.randint(1, 7))
+    return Piecewise([(a - 3, b)], a + b)
+
+
+def test_compiled_matches_eval_randomized():
+    rng = random.Random(1234)
+    for _ in range(200):
+        e = _rand_expr(rng)
+        env = {v: rng.randint(1, 64) for v in _VARS}
+        np.testing.assert_allclose(float(e.compile()(env)),
+                                   float(e.eval(env)), rtol=RTOL)
+
+
+def test_compiled_vectorized_matches_pointwise_eval():
+    rng = random.Random(99)
+    e = _rand_expr(rng)
+    while not e.free_vars():
+        e = _rand_expr(rng)
+    n = 257
+    envs = {v: np.asarray([rng.randint(1, 64) for _ in range(n)])
+            for v in _VARS}
+    arr = e.compile()(envs)
+    pts = [e.eval({v: int(envs[v][i]) for v in _VARS}) for i in range(n)]
+    np.testing.assert_allclose(np.asarray(arr, dtype=np.float64), pts,
+                               rtol=RTOL)
+
+
+def test_compile_vector_passthrough_constants():
+    pv = {"a": Var("x") * 2, "b": 7.0}
+    out = compile_vector(pv)({"x": 5})
+    assert float(out["a"]) == 10.0 and out["b"] == 7.0
+
+
+# ---------------------------------------------------------------------------
+# (b) the reference's grids: every number equals the reference's
+# ---------------------------------------------------------------------------
+
+
+def _items(configs):
+    return [tuple(sorted(c.items())) for c in configs]
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_pallas_candidates_equal_the_reference(kernel):
+    shape = SHAPES[kernel]
+    got = autotune.candidate_configs(PALLAS[kernel], shape)
+    assert got == jat.candidate_configs(kernel, shape)
+    km, jk = PALLAS[kernel], jkm.get(kernel)
+    assert km.budget == jkm.VMEM_BYTES * jkm.VMEM_BUDGET
+    for c in km.candidates(shape):
+        assert km.footprint(shape, c) == jk.vmem_bytes(shape, c)
+
+
+@pytest.mark.parametrize("model", [None, "gpu-a100"])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_scores_and_picks_equal_the_reference_at_its_grid(kernel, model):
+    shape = SHAPES[kernel]
+    cands = jat.candidate_configs(kernel, shape)
+    np.testing.assert_allclose(
+        autotune.score_configs(PALLAS[kernel], shape, cands, model),
+        jat.score_configs(kernel, shape, cands, model), rtol=RTOL)
+    np.testing.assert_allclose(
+        autotune.score_configs_interpreted(PALLAS[kernel], shape, cands,
+                                           model),
+        jat.score_configs_interpreted(kernel, shape, cands, model),
+        rtol=RTOL)
+    got = autotune.rank_block_sizes(PALLAS[kernel], shape, model)
+    want = jat.rank_block_sizes(kernel, shape, model)
+    assert [c for _, c in got] == [c for _, c in want]
+    np.testing.assert_allclose([s for s, _ in got], [s for s, _ in want],
+                               rtol=RTOL)
+    assert autotune.best_block_sizes(PALLAS[kernel], shape, model) \
+        == jat.best_block_sizes(kernel, shape, model)
+
+
+def test_compiled_matches_interpreted_on_the_reference_64_point_grid():
+    """The reference's speed test's grid (``test_compiled_sweep_speedup_
+    over_interpreted``): ≥ 64 matmul points, compiled equals interpreted
+    to 1e-12.  The speedup itself is timed by ``chip_smoke.py``'s autotune
+    phase, not asserted here."""
+    shape = SHAPES["matmul"]
+    cands = autotune.candidate_configs(PALLAS["matmul"], shape)
+    assert len(cands) >= 64
+    np.testing.assert_allclose(
+        autotune.score_configs(PALLAS["matmul"], shape, cands),
+        autotune.score_configs_interpreted(PALLAS["matmul"], shape, cands),
+        rtol=RTOL)
+
+
+@pytest.mark.parametrize("phase", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "mamba2-370m", "zamba2-2.7b",
+                                  "mixtral-8x7b"])
+def test_workload_shapes_and_blocks_equal_the_reference(arch, phase):
+    from repro.configs.registry import ARCHS as JARCHS
+    from repro.core.workload import WorkloadSpec as JSpec
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.workload import WorkloadSpec
+    kw = dict(phase=phase, global_batch=16, seq_len=1024)
+    for dp, tp, mb in ((1, 1, 1), (4, 2, 2)):
+        got = autotune.workload_kernel_shapes(
+            ARCHS[arch], WorkloadSpec(**kw), dp=dp, tp=tp, microbatches=mb)
+        want = jat.workload_kernel_shapes(
+            JARCHS[arch], JSpec(**kw), dp=dp, tp=tp, microbatches=mb)
+        assert got == want
+        assert autotune.best_blocks_for_workload(
+            ARCHS[arch], WorkloadSpec(**kw), dp=dp, tp=tp, microbatches=mb,
+            kernels=PALLAS) == jat.best_blocks_for_workload(
+            JARCHS[arch], JSpec(**kw), dp=dp, tp=tp, microbatches=mb)
+        cuda = autotune.best_blocks_for_workload(
+            ARCHS[arch], WorkloadSpec(**kw), "gpu-h100", dp=dp, tp=tp,
+            microbatches=mb)
+        assert cuda.keys() == got.keys()
+        for kern, blocks in cuda.items():
+            assert blocks in autotune.candidate_configs(kern, got[kern])
+
+
+def test_vector_builders_default_to_the_reference_and_count_the_pipe():
+    """``variant=None`` is the reference's vector; a CUDA variant counts its
+    products on its pipe: ``mxu:16`` on ``wgmma``, ``mxu:32`` on the FP32
+    pipes, whatever the input type."""
+    args = {
+        "matmul_vector": ((512, 256, 1024), dict(block_m=64, block_n=128,
+                                                 block_k=32)),
+        "flash_attention_vector": ((2, 8, 2, 512, 512, 64),
+                                   dict(block_q=64, block_k=128, window=96)),
+        "ssd_scan_vector": ((2, 8, 512, 64, 128), dict(chunk=64)),
+        "transpose_vector": ((512, 256), dict(block=32)),
+    }
+    pipes = {"matmul_vector": ("paper16", "fma128", "wgmma"),
+             "flash_attention_vector": ("fma", "wgmma"),
+             "ssd_scan_vector": ("fma", "wgmma"),
+             "transpose_vector": ("scalar", "vec16")}
+    for name, (pos, kw) in args.items():
+        for bits in (16, 32):
+            ev = jsym.evaluate_vector(
+                getattr(jkm, name)(*pos, bits=bits, **kw), {})
+            got = evaluate_vector(
+                getattr(kernelmodel, name)(*pos, bits=bits, **kw), {})
+            assert got == ev
+            for variant in pipes[name]:
+                pv = evaluate_vector(getattr(kernelmodel, name)(
+                    *pos, bits=bits, variant=variant, **kw), {})
+                if name == "transpose_vector":
+                    assert pv == ev
+                    continue
+                pipe = 16 if variant == "wgmma" else 32
+                assert props.mxu_key(pipe) in pv
+                assert props.mxu_key(48 - pipe) not in pv
+                ref_mxu = ev[props.mxu_key(bits)]
+                assert pv[props.mxu_key(pipe)] == ref_mxu
+
+
+# ---------------------------------------------------------------------------
+# (b) the CUDA registry: the sources' tiles, under a block's shared memory
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernel,shape", CARD_SHAPES, ids=CARD_IDS)
+def test_cuda_compiled_scoring_matches_interpreted(kernel, shape):
+    cands = autotune.candidate_configs(kernel, shape)
+    for model in (None, "gpu-h100"):
+        np.testing.assert_allclose(
+            autotune.score_configs(kernel, shape, cands, model),
+            autotune.score_configs_interpreted(kernel, shape, cands, model),
+            rtol=RTOL)
+
+
+@pytest.mark.parametrize("kernel,shape", CARD_SHAPES + [
+    (k, s) for k, s in SHAPES.items()], ids=CARD_IDS + KERNELS)
+def test_cuda_pick_in_top3_of_exhaustive(kernel, shape):
+    for model in (None, "gpu-h100"):
+        best = autotune.best_block_sizes(kernel, shape, model)
+        cands = autotune.candidate_configs(kernel, shape)
+        secs = autotune.score_configs_interpreted(kernel, shape, cands,
+                                                  model)
+        top3 = {tuple(sorted(cands[i].items()))
+                for i in np.argsort(secs, kind="stable")[:3]}
+        assert tuple(sorted(best.items())) in top3
+
+
+@pytest.mark.parametrize("kernel,shape", CARD_SHAPES + [
+    (k, s) for k, s in SHAPES.items()], ids=CARD_IDS + KERNELS)
+def test_cuda_candidates_fit_a_block_and_are_served_as_asked(kernel, shape):
+    """Every candidate fits ``kSmemLimit`` and is a tile the CUDA source
+    serves the request with (the request is the tile that runs)."""
+    km = kernelmodel.get(kernel)
+    assert km.budget == kernelmodel.SMEM_LIMIT == 232448
+    cands = autotune.candidate_configs(kernel, shape)
+    assert cands and len(_items(cands)) == len(set(_items(cands)))
+    for c in cands:
+        assert km.footprint(shape, c) <= kernelmodel.SMEM_LIMIT
+        if kernel == "matmul":
+            t = kernelmodel._mm_tile(shape, c)
+            assert (t.bm, t.bn, t.bk) == (c["block_m"], c["block_n"],
+                                          c["block_k"])
+        elif kernel == "flash_attention" and shape["bits"] == 32:
+            assert tfa.pick_tiles(c["block_q"], c["block_k"], shape["dh"]) \
+                == (c["block_q"], c["block_k"])
+        elif kernel == "transpose":
+            assert ttr.edge_rule(c["block"]) == c["block"]
+        elif kernel == "ssd_scan":
+            chunk = min(c["chunk"], shape["L"])
+            assert tssd.tile_rule(shape["P"], shape["N"], chunk,
+                                  km.variant(shape, c)).p_block \
+                == c["p_block"]
+
+
+@pytest.mark.parametrize("bits,va,vb,want", [
+    (32, True, True, [(16, 16, 16), (128, 128, 32)]),
+    (32, False, True, [(16, 16, 16), (128, 128, 16)]),
+    (16, True, True, [(16, 16, 16), (128, 256, 64)]),
+    (16, True, False, [(16, 16, 16), (128, 128, 32)]),
+])
+def test_matmul_grid_is_the_sources_kernels(bits, va, vb, want):
+    shape = {"M": 1024, "N": 512, "K": 2048, "bits": bits, "va": va,
+             "vb": vb}
+    cands = autotune.candidate_configs("matmul", shape)
+    assert [(c["block_m"], c["block_n"], c["block_k"]) for c in cands] \
+        == want
+    km = kernelmodel.get("matmul")
+    variants = [km.variant(shape, c) for c in cands]
+    assert variants == ["paper16", "wgmma" if bits == 16 and va and vb
+                        else "fma128"]
+    # a product too small for the 128 tile gets paper16 alone
+    small = dict(shape, M=8, N=8)
+    assert [km.variant(small, c)
+            for c in autotune.candidate_configs("matmul", small)] \
+        == ["paper16"]
+
+
+@pytest.mark.parametrize("dh", [16, 48, 64, 80, 96, 112, 128])
+def test_attention_grids(dh):
+    shape = dict(CARD_SHAPES[3][1], dh=dh)
+    f32 = autotune.candidate_configs("flash_attention", shape)
+    want = dict.fromkeys(tfa.pick_tiles(q, k, dh) for q in tfa.TILES
+                         for k in tfa.TILES)
+    assert [(c["block_q"], c["block_k"]) for c in f32] == list(want)
+    bf16 = autotune.candidate_configs("flash_attention",
+                                      dict(shape, bits=16))
+    assert bf16 == [{"block_q": 128, "block_k": 128 if dh <= 96 else 64}]
+
+
+def test_bf16_attention_auto_builds_nothing():
+    """One candidate: ``"auto"`` returns the CUDA source's tile without a
+    score and without compiling the source."""
+    built = dict(_build._libs)
+    shape = dict(CARD_SHAPES[4][1])
+    assert autotune.best_block_sizes("flash_attention", shape, "gpu-h100") \
+        == {"block_q": 128, "block_k": 128}
+    assert _build._libs == built
+
+
+@pytest.mark.parametrize("name,B,S", [("zamba2-2.7b", 4, 2048),
+                                      ("mamba2-370m", 4, 2048),
+                                      ("zamba2-2.7b", 2, 4096)])
+def test_ssd_pick_on_the_main_paths_is_a_tensor_core_chunk(name, B, S):
+    """Under the card's analytic seed, the chunk the main paths run is one
+    ``ssd_wgmma_kernel`` is built for: its products count ``mxu:16``, the
+    FP32 kernel's ``mxu:32`` at 1/15 of the rate."""
+    from repro_torch.configs.registry import ARCHS
+    cfg = ARCHS[name]
+    shape = {"Bz": B, "H": cfg.ssm_heads, "L": S, "P": cfg.ssm.head_dim,
+             "N": cfg.ssm.d_state, "bits": 16, "tma": True}
+    best = autotune.best_block_sizes("ssd_scan", shape, "gpu-h100")
+    assert best["chunk"] in tssd.WGMMA_CHUNKS
+    assert kernelmodel.get("ssd_scan").variant(shape, best) == "wgmma"
+
+
+def test_candidates_respect_the_budget_passed():
+    shape = CARD_SHAPES[3][1]
+    km = kernelmodel.get("flash_attention")
+    cands = autotune.candidate_configs("flash_attention", shape, budget=1e5)
+    assert cands and all(km.footprint(shape, c) <= 1e5 for c in cands)
+    # nothing fits: the smallest footprint is kept
+    one = autotune.candidate_configs("flash_attention", shape, budget=1)
+    assert one == [min(km.candidates(shape),
+                       key=lambda c: km.footprint(shape, c))]
+
+
+def test_best_block_sizes_accepts_registry_name_and_model():
+    from repro_torch.calibration.seeds import ANALYTIC_SEEDS
+    for kernel, shape in CARD_SHAPES:
+        assert autotune.best_block_sizes(kernel, shape, "gpu-h100") \
+            == autotune.best_block_sizes(kernel, shape,
+                                         ANALYTIC_SEEDS["gpu-h100"]())
+
+
+# ---------------------------------------------------------------------------
+# schedule_props and pallas_props against the reference's
+# ---------------------------------------------------------------------------
+
+
+def _close(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_allclose(a[k], b[k], rtol=RTOL)
+
+
+def test_flash_attention_schedule_props_skip_count():
+    """The reference's case (64 × 64, served as asked by the f32 kernel):
+    the same vector, executed pairs ≈ half of all pairs."""
+    kw = dict(block_q=64, block_k=64, bits=32)
+    p_c = tfa.schedule_props(1, 1, 1, 512, 512, 64, causal=True, **kw)
+    p_f = tfa.schedule_props(1, 1, 1, 512, 512, 64, causal=False, **kw)
+    _close(p_c, jfa.schedule_props(1, 1, 1, 512, 512, 64, causal=True, **kw))
+    _close(p_f, jfa.schedule_props(1, 1, 1, 512, 512, 64, causal=False,
+                                   **kw))
+    assert p_c[props.mxu_key(32)] < 0.6 * p_f[props.mxu_key(32)]
+    assert p_c[props.BARRIER] == p_f[props.BARRIER]  # grid still walks
+
+
+@pytest.mark.parametrize("dh,bq,bk,bits,causal,window", [
+    (64, 32, 32, 32, True, None), (64, 128, 64, 32, True, 96),
+    (64, 64, 128, 32, False, None), (128, 128, 64, 32, True, None),
+    (64, 128, 128, 16, True, None), (80, 128, 128, 16, True, 256),
+    (128, 128, 64, 16, True, None)])
+def test_flash_attention_schedule_props_where_the_tile_is_the_request(
+        dh, bq, bk, bits, causal, window):
+    args = (2, 4, 2, 512, 512, dh)
+    kw = dict(causal=causal, window=window, block_q=bq, block_k=bk,
+              bits=bits)
+    _close(tfa.schedule_props(*args, **kw), jfa.schedule_props(*args, **kw))
+
+
+def test_flash_attention_schedule_props_count_the_served_tile():
+    # bf16 at dh 128 runs 128 x 64 whatever the request
+    got = tfa.schedule_props(2, 4, 2, 512, 512, 128, block_q=32,
+                             block_k=32, bits=16)
+    _close(got, jfa.schedule_props(2, 4, 2, 512, 512, 128, block_q=128,
+                                   block_k=64, bits=16))
+
+
+@pytest.mark.parametrize("req,served,bits", [
+    ((16, 16, 16), (16, 16, 16), 32), ((128, 128, 32), (128, 128, 32), 32),
+    ((128, 128, 128), (128, 128, 32), 32), ((512, 64, 8), (128, 128, 32), 32),
+    ((128, 256, 64), (128, 256, 64), 16), ((64, 64, 64), (128, 256, 64), 16)])
+def test_matmul_schedule_props(req, served, bits):
+    M, N, K = 1024, 512, 2048
+    got = tmm.schedule_props(M, N, K, block_m=req[0], block_n=req[1],
+                             block_k=req[2], bits=bits)
+    _close(got, jmm.schedule_props(M, N, K, block_m=served[0],
+                                   block_n=served[1], block_k=served[2],
+                                   bits=bits))
+
+
+def test_matmul_schedule_props_bf16_on_the_fp32_pipes():
+    got = tmm.schedule_props(1024, 512, 2048, block_m=16, block_n=16,
+                             block_k=16, bits=16)
+    want = jmm.schedule_props(1024, 512, 2048, block_m=16, block_n=16,
+                              block_k=16, bits=16)
+    assert got[props.mxu_key(32)] == want[props.mxu_key(16)]
+    assert props.mxu_key(16) not in got
+    assert got[props.local_key(16)] == want[props.local_key(16)]
+
+
+@pytest.mark.parametrize("N,chunk,bits,tma,ref_bits", [
+    (128, 64, 32, None, 32), (64, 256, 32, None, 32), (128, 64, 16, None, 16),
+    (128, 128, 16, True, 16), (128, 32, 16, None, 32), (64, 256, 16, None, 32),
+    (128, 128, 16, False, 32)])
+def test_ssd_schedule_props(N, chunk, bits, tma, ref_bits):
+    """On the kernel that runs the chunk: ``wgmma`` counts as the
+    reference's bf16 vector, the FP32 kernel as its f32 one (one P slice a
+    block here)."""
+    args = (2, 8, 1024, 64, N)
+    assert tssd.tile_rule(64, N, chunk, "fma").p_block == 64
+    got = tssd.schedule_props(*args, chunk=chunk, bits=bits, tma=tma)
+    _close(got, jssd.schedule_props(*args, chunk=chunk, bits=ref_bits))
+
+
+def test_ssd_schedule_props_count_the_p_slices():
+    """At chunk 256 and N 128 the FP32 kernel splits P 64 into slices of
+    16: four cells a (batch, head, chunk), each recomputing C·Bᵀ — as the
+    reference's vector of four heads of P 16 counts them."""
+    got = tssd.schedule_props(2, 8, 1024, 64, 128, chunk=256, bits=32)
+    _close(got, jssd.schedule_props(2, 32, 1024, 16, 128, chunk=256,
+                                    bits=32))
+    pv = evaluate_vector(kernelmodel.ssd_scan_vector(
+        2, 8, 1024, 64, 128, chunk=256, bits=32, variant="fma",
+        p_block=16), {})
+    _close({k: v for k, v in pv.items() if k != props.CONST1}, got)
+
+
+@pytest.mark.parametrize("block,served", [(16, 16), (32, 32), (64, 64),
+                                          (256, 64), (48, 32)])
+def test_transpose_schedule_props(block, served):
+    _close(ttr.schedule_props(2048, 1024, block=block),
+           jtr.schedule_props(2048, 1024, block=served))
+
+
+@pytest.mark.parametrize("bits,per", [(32, 1), (16, 2), (8, 1)])
+def test_pallas_props_equal_the_reference(bits, per):
+    from repro.core import extract as jextract
+    args = ((4, 8, 2), (128 * 64, 64 * 32), (128 * 32,))
+    assert extract.pallas_props(*args, bits=bits, barriers_per_step=per) \
+        == jextract.pallas_props(*args, bits=bits, barriers_per_step=per)
+
+
+# ---------------------------------------------------------------------------
+# (c) block_sizes="auto" through the wrappers vs the reference's "auto"
+# ---------------------------------------------------------------------------
+
+
+def _rng_tensor(rng, shape, dtype=torch.float32):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
+        .to(dtype)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def test_auto_matmul_matches_ref():
+    rng = np.random.default_rng(0)
+    a, b = _rng_tensor(rng, (256, 512)), _rng_tensor(rng, (512, 384))
+    o = tops.matmul(a, b, block_sizes="auto")
+    assert torch.equal(o, tmm.matmul_reference(a, b))
+    r = jops.matmul(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()),
+                    block_sizes="auto", interpret=True)
+    np.testing.assert_allclose(_np(o), _np(r), atol=1e-3, rtol=1e-5)
+
+
+def test_auto_flash_attention_matches_ref():
+    rng = np.random.default_rng(7)
+    q = _rng_tensor(rng, (2, 4, 256, 64))
+    k, v = _rng_tensor(rng, (2, 2, 256, 64)), _rng_tensor(rng, (2, 2, 256, 64))
+    o = tops.flash_attention(q, k, v, causal=True, block_sizes="auto")
+    r = jops.flash_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                             causal=True, block_sizes="auto", interpret=True)
+    np.testing.assert_allclose(_np(o), _np(r), atol=3e-5, rtol=3e-5)
+
+
+def test_auto_ssd_scan_matches_ref():
+    rng = np.random.default_rng(3)
+    Bz, H, G, L, P, N = 1, 2, 1, 256, 16, 16
+    x = 0.5 * _rng_tensor(rng, (Bz, H, L, P))
+    dt = torch.nn.functional.softplus(_rng_tensor(rng, (Bz, H, L)))
+    A = -torch.exp(0.3 * _rng_tensor(rng, (H,)))
+    B, C = (0.3 * _rng_tensor(rng, (Bz, G, L, N)) for _ in range(2))
+    y, h = tops.ssd_scan(x, dt, A, B, C, block_sizes="auto")
+    yr, hr = jops.ssd_scan(*(jnp.asarray(t.numpy())
+                             for t in (x, dt, A, B, C)),
+                           block_sizes="auto", interpret=True)
+    np.testing.assert_allclose(_np(y), _np(yr), atol=5e-4, rtol=5e-4)
+    np.testing.assert_allclose(_np(h), _np(hr), atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_auto_transpose_matches_ref(dtype):
+    x = _rng_tensor(np.random.default_rng(5), (512, 256),
+                    getattr(torch, dtype))
+    o = tops.transpose(x, block_sizes="auto")
+    r = jops.transpose(jnp.asarray(x.float().numpy()).astype(dtype),
+                       block_sizes="auto", interpret=True)
+    np.testing.assert_array_equal(_np(o), _np(r))
+
+
+def test_ops_resolve_auto_once_per_layout_and_stay_bounded(monkeypatch):
+    """``"auto"`` through ``ops`` is memoized per layout of the arguments
+    (a hit does not ask the tuner again) and the memo is emptied at its
+    bound."""
+    calls = []
+    best = autotune.best_block_sizes
+
+    def counted(*a, **k):
+        calls.append(a[0])
+        return best(*a, **k)
+    monkeypatch.setattr(autotune, "best_block_sizes", counted)
+    monkeypatch.setattr(tops, "_AUTO", {})
+    monkeypatch.setattr(tops, "_AUTO_MAX", 2)
+    x = torch.zeros(64, 32)
+    for _ in range(3):
+        assert torch.equal(tops.transpose(x, block_sizes="auto"), x.t())
+    assert calls == ["transpose"]
+    for n in (48, 40, 64):   # 48 fills the memo, 40 empties it, 64 is new
+        tops.transpose(torch.zeros(n, 32), block_sizes="auto")
+    assert len(calls) == 4 and len(tops._AUTO) == 2
+    # a model given as an object is scored on every call, as the reference
+    from repro_torch.calibration.seeds import ANALYTIC_SEEDS
+    m = ANALYTIC_SEEDS["gpu-h100"]()
+    tops.transpose(x, block_sizes="auto", model=m)
+    tops.transpose(x, block_sizes="auto", model=m)
+    assert len(calls) == 6
+
+
+def test_default_model_follows_the_tensor():
+    assert tops.default_model(torch.zeros(1)) is None
+    assert tops.default_model(torch.zeros(1, device="meta")) is None
+    assert tops.CARD_MODEL == "gpu-h100"
+
+
+# ---------------------------------------------------------------------------
+# step composition — unchanged by the registry
+# ---------------------------------------------------------------------------
+
+
+def test_step_kernel_vectors_track_archcount_mxu():
+    """The kernel-composed mxu total agrees with archcount's step count in
+    the leading term, as in the reference."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core import archcount
+    from repro_torch.core.symcount import add_vectors
+    from repro_torch.core.workload import WorkloadSpec
+    env = {"B": 8, "S": 4096, "M": 1}
+    for arch in ("glm4-9b", "mamba2-370m", "mixtral-8x7b", "zamba2-2.7b"):
+        cfg = ARCHS[arch]
+        bits = 16 if "16" in cfg.compute_dtype else 32
+        total = add_vectors(*kernelmodel.step_kernel_vectors(
+            cfg, WorkloadSpec(phase="prefill")).values())
+        kern = evaluate_vector(total, env)[props.mxu_key(bits)]
+        step = archcount.forward_counts(cfg)[props.mxu_key(bits)].eval(env)
+        assert kern == pytest.approx(step, rel=0.05), (arch, kern, step)

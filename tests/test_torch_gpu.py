@@ -798,3 +798,108 @@ def test_family_forward_on_the_card_matches_the_cpu_plain_path(name, cuda):
             b, aux_b = transformer.forward(cpu, cfg, batch)
     torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(aux_a.cpu(), aux_b, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the autotuner on the card: the Python tile mirrors against the C queries,
+# and block_sizes="auto" through the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_matmul_tile_rule_mirrors_the_c_query(dtype, aligned, cuda):
+    from repro_torch.kernels import matmul as mm
+    dt = getattr(torch, dtype)
+    for M, N, req in ((4096, 4096, 16), (4096, 4096, 128), (8, 8, 128),
+                      (64, 64, 128), (32, 32, 128), (100, 3000, 64),
+                      (1024, 512, 256)):
+        lda = 4096 if aligned else 4097   # rows of 4097: not 16 bytes
+        t = mm.tile(M, N, 4096, req, req, req, dtype=dt, lda=lda, ldb=N)
+        by = 2 if dt == torch.bfloat16 else 4
+        assert t == mm.tile_rule(M, N, req, req, req, bf16=by == 2,
+                                 va=lda * by % 16 == 0,
+                                 vb=N * by % 16 == 0)
+
+
+def test_attention_tile_mirrors_the_c_queries(cuda):
+    for dh in range(4, 129, 4):
+        assert fa.tile(dh) == fa.tile_rule(dh)
+        for bq in fa.TILES:
+            for bk in fa.TILES:
+                nbytes = fa.smem_bytes(bq, bk, dh)
+                if nbytes > fa.SMEM_LIMIT:
+                    with pytest.raises(ValueError):
+                        fa.f32_tile(bq, bk, dh)
+                else:
+                    assert fa.f32_tile(bq, bk, dh) == nbytes
+
+
+def test_ssd_and_transpose_tile_rules_mirror_the_c_queries(cuda):
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import transpose as tr
+    for P in (16, 32, 48, 64, 80, 128, 256):
+        for N in (16, 32, 64, 96, 128):
+            for chunk in (16, 32, 64, 100, 128, 256):
+                for variant in ssd.VARIANTS:
+                    try:
+                        want = ssd.tile_rule(P, N, chunk, variant)
+                    except ValueError:
+                        with pytest.raises(ValueError):
+                            ssd.tile(P, N, chunk, variant)
+                        continue
+                    assert ssd.tile(P, N, chunk, variant) == want
+    for dtype in (torch.float32, torch.bfloat16):
+        for block in (1, 16, 31, 32, 48, 64, 256):
+            for variant in tr.VARIANTS:
+                if variant == "vec16" and block >= 32:
+                    with pytest.raises(ValueError):
+                        tr.tile(block, dtype, variant)
+                    continue
+                assert tr.tile(block, dtype, variant) \
+                    == tr.tile_rule(block, dtype, variant)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_auto_through_every_wrapper_launches_the_kernel(dtype, cuda):
+    """``block_sizes="auto"`` on CUDA tensors: the card's model picks a
+    tile, the kernel runs it, and the result is the plain version's."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import transpose as tr
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(0)
+    a = torch.randn(512, 256, device=cuda, generator=g).to(dt)
+    b = torch.randn(256, 384, device=cuda, generator=g).to(dt)
+    before = mm.matmul.launches
+    o = kops.matmul(a, b, block_sizes="auto")
+    assert mm.matmul.launches == before + 1
+    tol = dict(atol=1e-3, rtol=1e-5) if dt == torch.float32 \
+        else dict(atol=1.0, rtol=3e-2)
+    torch.testing.assert_close(o.float(), mm.matmul_reference(a, b).float(),
+                               **tol)
+    before = tr.transpose.launches
+    assert torch.equal(kops.transpose(a, block_sizes="auto"), a.t())
+    assert tr.transpose.launches == before + 1
+    case = (2, 4, 2, 256, 256, 64, True, None, dtype)
+    q, k, v = _qkv(case, cuda)
+    before = fa.flash_attention.launches
+    o = kops.flash_attention(q, k, v, block_sizes="auto")
+    assert fa.flash_attention.launches == before + 1
+    torch.testing.assert_close(
+        o.float(), fa.attention_reference(q, k, v).float(),
+        **(dict(atol=2e-2, rtol=2e-2) if dt == torch.bfloat16
+           else dict(atol=1e-4, rtol=1e-4)))
+    x, dt_, A, B, C = _ssd_inputs((2, 4, 1, 512, 64, 64, 128, dtype), cuda,
+                                  bc_dtype=dtype)
+    chunk = kops.ssd_chunk(x, B, C, block_sizes="auto")
+    before = ssd.ssd_scan.launches
+    y, h = kops.ssd_scan(x, dt_, A, B, C, block_sizes="auto")
+    assert ssd.ssd_scan.launches == before + 1
+    yp, hp = ssd.ssd_scan_reference(x, dt_, A, B, C, chunk=chunk)
+    tol = dict(atol=3e-2, rtol=3e-2) if dt == torch.bfloat16 \
+        else dict(atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(y.float(), yp.float(), **tol)
+    torch.testing.assert_close(h, hp, atol=5e-4, rtol=5e-4)
+    if dt == torch.bfloat16:   # a tensor-core chunk under the card's seed
+        assert ssd.pick_variant(x, B, C, chunk) == "wgmma"

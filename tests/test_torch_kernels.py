@@ -90,10 +90,21 @@ def test_ref_module_reexports_plain_version():
     assert tref.attention is tfa.attention_reference
 
 
-def test_block_sizes_auto_waits_for_autotuner():
-    (q, k, v), _ = _inputs(FA_CASES[1])
-    with pytest.raises(NotImplementedError, match="autotun"):
-        tops.flash_attention(q, k, v, block_sizes="auto")
+@pytest.mark.parametrize("case", FA_CASES, ids=IDS)
+def test_block_sizes_auto_matches_the_reference_auto(case):
+    """``"auto"`` on a CPU tensor: the plain version (no launch), equal to
+    the reference's ``block_sizes="auto"`` kernel in interpret mode."""
+    (q, k, v), (jq, jk, jv) = _inputs(case)
+    causal, window, dtype = case[6], case[7], case[8]
+    before = tfa.flash_attention.launches
+    o = tops.flash_attention(q, k, v, causal=causal, window=window,
+                             block_sizes="auto")
+    assert tfa.flash_attention.launches == before
+    assert torch.equal(o, tfa.attention_reference(q, k, v, causal=causal,
+                                                  window=window))
+    r = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                             block_sizes="auto", interpret=True)
+    np.testing.assert_allclose(_np(o), _np(r), **_tol(dtype))
 
 
 def test_block_sizes_mapping_and_bad_value():
@@ -313,8 +324,9 @@ def test_matmul_and_transpose_block_sizes(kernel):
             return tops.transpose(a, **kw)
         mapping = {"block": 16}
     assert torch.equal(call(block_sizes=mapping), call())
-    with pytest.raises(NotImplementedError, match="autotun"):
-        call(block_sizes="auto")
+    # "auto" on a CPU tensor: the autotuner picks a tile, the plain version
+    # runs
+    assert torch.equal(call(block_sizes="auto"), call())
     with pytest.raises(TypeError):
         call(block_sizes=7)
 

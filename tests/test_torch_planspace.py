@@ -542,11 +542,30 @@ def test_mesh_factorizations_cover_all_splits():
     assert planspace.factor_pairs(36) == jplanspace.factor_pairs(36)
 
 
-def test_cotune_kernel_blocks_waits_for_the_autotuner(sweep_cell):
-    cfg, shape, plans, _ = sweep_cell
-    with pytest.raises(NotImplementedError, match="A11"):
-        planspace.cotune_kernel_blocks(cfg, shape, plans[0],
-                                       {"data": 8, "model": 8})
+@pytest.mark.parametrize("mesh", [{"data": 8, "model": 8},
+                                  {"data": 64, "model": 1}])
+def test_cotune_kernel_blocks_matches_the_reference(sweep_cell, mesh):
+    """At the reference's grids (``PALLAS_KERNELS``) and default model the
+    co-tuning returns the reference's blocks for each plan's shard shapes;
+    over the CUDA registry (the default), tiles of its grids."""
+    from repro.core import planspace as jplanspace
+    from repro_torch.kernels import autotune
+    cfg, shape, _, _ = sweep_cell
+    jcfg, jshape = JARCHS["smollm-360m"], JSHAPES["train_4k"]
+    for jplan in candidate_plans(jcfg, jshape)[:4]:
+        plan = port_plan(jplan)
+        got = planspace.cotune_kernel_blocks(
+            cfg, shape, plan, mesh, kernels=kernelmodel.PALLAS_KERNELS)
+        assert got == jplanspace.cotune_kernel_blocks(jcfg, jshape, jplan,
+                                                      mesh)
+        cuda = planspace.cotune_kernel_blocks(cfg, shape, plan, mesh)
+        assert cuda.keys() == got.keys()
+        shapes = autotune.workload_kernel_shapes(
+            cfg, shape, dp=planspace._axis_product(mesh, plan.dp_axes),
+            tp=mesh.get(plan.tp_axis, 1) if plan.tp_axis else 1,
+            microbatches=plan.microbatches)
+        for kern, blocks in cuda.items():
+            assert blocks in autotune.candidate_configs(kern, shapes[kern])
 
 
 def test_rank_plans_tie_break_is_enumeration_order_free(sweep_cell):

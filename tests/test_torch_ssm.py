@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from repro.configs.registry import ARCHS as JARCHS
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
 from repro.models import ssm as jssm
@@ -171,10 +172,28 @@ def test_ref_module_exports_the_oracles():
     assert set(tref.__all__) == {"attention", "ssd", "matmul", "transpose"}
 
 
-def test_ssd_block_sizes_auto_waits_for_autotuner_and_mapping_works():
+@pytest.mark.parametrize("case", SSD_CASES, ids=SSD_IDS)
+def test_ssd_block_sizes_auto_matches_the_reference_auto(case):
+    """``"auto"`` on a CPU tensor runs the plain version at the chunk the
+    autotuner picks (the v5e seed over the CUDA grid, ``ops.ssd_chunk``),
+    within the reference's tolerance of the reference's ``"auto"`` kernel
+    in interpret mode."""
+    Bz, H, G, L, P, N, _, dtype = case
+    (x, dt, A, B, C), (jx, jdt, jA, jB, jC) = _ssd_inputs(Bz, H, G, L, P, N,
+                                                          dtype)
+    y, h = tops.ssd_scan(x, dt, A, B, C, block_sizes="auto")
+    chunk = tops.ssd_chunk(x, B, C, block_sizes="auto")
+    assert L % chunk == 0
+    yp, hp = tssd.ssd_scan_reference(x, dt, A, B, C, chunk=chunk)
+    assert torch.equal(y, yp) and torch.equal(h, hp)
+    yr, hr = jops.ssd_scan(jx, jdt, jA, jB, jC, block_sizes="auto",
+                           interpret=True)
+    np.testing.assert_allclose(_np(y), _np(yr), **_ssd_tol(dtype))
+    np.testing.assert_allclose(_np(h), _np(hr), **TOL_SSD)
+
+
+def test_ssd_block_sizes_mapping_works():
     (x, dt, A, B, C), _ = _ssd_inputs(1, 2, 1, 64, 16, 16, "float32")
-    with pytest.raises(NotImplementedError, match="autotun"):
-        tops.ssd_scan(x, dt, A, B, C, block_sizes="auto")
     a = tops.ssd_scan(x, dt, A, B, C, block_sizes={"chunk": 32})[0]
     b = tops.ssd_scan(x, dt, A, B, C, chunk=32)[0]
     assert torch.equal(a, b)
@@ -217,15 +236,22 @@ def test_ssd_wrapper_on_a_cuda_tensor_without_a_card_raises():
                             torch.float32)  # device defaults to "cuda"
 
 
-def test_ssd_wrapper_takes_no_cost_model_argument():
-    """``model=`` of the reference's wrapper comes with the autotuner; until
-    then an argument that nothing reads is refused, as for flash
-    attention."""
+def test_wrappers_take_the_cost_model_argument():
+    """``model=`` (a registry name or an in-memory model) is what
+    ``"auto"`` scores through, as in the reference; without ``"auto"``
+    nothing reads it."""
+    from repro_torch.calibration.seeds import ANALYTIC_SEEDS
     (x, dt, A, B, C), _ = _ssd_inputs(1, 2, 1, 64, 16, 16, "float32")
-    for fn, args in ((tops.ssd_scan, (x, dt, A, B, C)),
-                     (tops.flash_attention, (x, x, x))):
-        with pytest.raises(TypeError, match="model"):
-            fn(*args, model="gpu-h100")
+    plain = tops.ssd_scan(x, dt, A, B, C, chunk=32)[0]
+    for model in ("gpu-h100", ANALYTIC_SEEDS["gpu-h100"]()):
+        c = tops.ssd_chunk(x, B, C, block_sizes="auto", model=model)
+        y = tops.ssd_scan(x, dt, A, B, C, block_sizes="auto", model=model)[0]
+        assert torch.equal(y, tssd.ssd_scan_reference(x, dt, A, B, C,
+                                                      chunk=c)[0])
+        assert torch.equal(tops.ssd_scan(x, dt, A, B, C, chunk=32,
+                                         model=model)[0], plain)
+        o = tops.flash_attention(x, x, x, block_sizes="auto", model=model)
+        assert torch.equal(o, tops.flash_attention(x, x, x))
 
 
 def test_kernel_source_is_in_the_package_and_not_built_on_import():
