@@ -58,14 +58,19 @@ counts set to 0 just before the path and read just after):
   the held-out step: the model loaded back by name predicts the 4 held-out
   kernels, which are timed beside it — the ``matmul`` kernel (``mm_tiled``,
   ``skinny_mm``) and the ``transpose`` kernel (the tiled transpose);
+* the SSD chunk of a training step (``train.ssd_chunk``, zamba2): steps at
+  the chunk ``"auto"`` picks under autograd (the backward's recompute
+  priced), at the one it picks for the kernel alone and at the configured
+  one, in turns;
 * the step predictor (``predict`` lines): for every path measured above (the
   prefill steps, the servers' decode iterations with their slots, mean
   occupancy and cache rows, the train steps, the second f32 prefill step of
   each f32 comparison), ``core.predictor.predict_step`` under the
   ``gpu-h100`` model fitted in this run and under the analytic ``gpu-h100``
   seed, beside the measured seconds, with the properties the fitted model
-  leaves unpriced; ``predict_plans`` and ``StragglerMonitor.from_model``
-  must agree with it to 1e-9;
+  leaves unpriced, once on the reference's Pallas blocks and once on the
+  card's kernels (``kernels``: ``pallas`` / ``cuda``); ``predict_plans``
+  and ``StragglerMonitor.from_model`` must agree with it to 1e-9;
 * the autotuner (``autotune`` lines): at the main paths' kernel shapes, the
   f32 attention of the f32 comparison steps and the calibration's largest
   matmul and transpose in f32 and bf16, every candidate of the grid
@@ -75,9 +80,19 @@ counts set to 0 just before the path and read just after):
   analytic ``gpu-h100`` seed and the model fitted in this run (with the
   keys the fit leaves unpriced), Spearman's rank correlation of predicted
   and measured, the tile ``block_sizes="auto"`` picks on the card and the
-  fastest; the main paths themselves run at ``"auto"``'s tiles, as the
-  reference's do, and the SSD pick on a main path must be a tensor-core
-  chunk.
+  fastest (above 1.25x fails); each candidate's blocks an SM holds (the
+  tuner's residency mirrors) equal the CUDA occupancy calculator for
+  its instance, its registers this build's ``ptxas``; the main paths
+  themselves run at ``"auto"``'s tiles, as the reference's do, and the
+  SSD pick on a prefill path must be a tensor-core chunk;
+* ``explain``: ``score_explain`` of llama3.2-3b's bf16 prefill step under
+  the fitted model, its rows summing to the fused score within 1e-9;
+* ``admission``: a llama3.2-3b server (4 slots x 512 rows, full width and
+  depth) answering 8 requests in an order adversarial to FIFO, under
+  ``admission="fifo"`` and ``"model"``, measured latencies and orders
+  beside ``simulate_serving``'s and the scorer's span predictions beside
+  the measured spans;
+* ``autoshard``: one plan search on the host under ``gpu-h100``.
 
 The prefill and serve steps the script builds itself come from
 ``steps.make_step`` and a ``WorkloadSpec``.  The run has its own compile
@@ -127,7 +142,8 @@ from repro_torch.calibration import __main__ as calib_cli  # noqa: E402
 from repro_torch.calibration import registry, seeds  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.core import extract, measure, mkernels, tkernels  # noqa: E402
-from repro_torch.core import exprops, predictor  # noqa: E402
+from repro_torch.core import exprops, kernelmodel, planspace  # noqa: E402
+from repro_torch.core import predictor  # noqa: E402
 from repro_torch.core import properties as props  # noqa: E402
 from repro_torch.core.workload import WorkloadSpec  # noqa: E402
 from repro_torch.core.model import geomean, relative_error  # noqa: E402
@@ -141,10 +157,15 @@ from repro_torch.kernels import transpose as tr  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, PackedLoader  # noqa: E402
 from repro_torch.distributed.plan import Plan  # noqa: E402
+from repro_torch.launch import autoshard  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
+from repro_torch.obs import trace as _obs_trace  # noqa: E402
+from repro_torch.obs.explain import score_explain  # noqa: E402
 from repro_torch.optim import optimizers as opt  # noqa: E402
 from repro_torch.runtime import flags, steps  # noqa: E402
-from repro_torch.runtime.server import DecodeServer, Request  # noqa: E402
+from repro_torch.runtime.server import (AdmissionScorer,  # noqa: E402
+                                        DecodeServer, Request,
+                                        simulate_serving)
 from repro_torch.runtime.straggler import StragglerMonitor  # noqa: E402
 from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
 
@@ -858,14 +879,19 @@ def phase_ssd_cases(gen):
     return rows
 
 
-def phase_ssd_main_shape(cfg, B, S, gen):
-    """ssd_scan at a main path's prefill shape, in the main path's layout,
-    with A as the model makes it: error, times, bound."""
+def phase_ssd_main_shape(cfg, B, S, gen, train: bool = False):
+    """ssd_scan at a main path's shape, in the main path's layout, with A
+    as the model makes it, at the chunk the path resolves (``"auto"``; a
+    training path calls under autograd, where the backward's recompute is
+    priced too): error, times, bound."""
+    from repro_torch.kernels import autotune
     s = cfg.ssm
     H, P, N, G = cfg.ssm_heads, s.head_dim, s.d_state, s.n_groups
-    Q = min(s.chunk, S)
     dtype = torch.bfloat16
     x, dt, _, Bm, Cm = ssd_inputs(B, H, G, S, P, N, dtype, gen)
+    Q = autotune.best_block_sizes(
+        "ssd_scan", dict(kops.ssd_scan_shape(x, Bm, Cm), grad=train),
+        kops.CARD_MODEL)["chunk"]
     A = -torch.linspace(1.0, 16.0, H, device=DEV)
     y, h = kops.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
     torch.cuda.synchronize()
@@ -905,7 +931,7 @@ def phase_ssd_main_shape(cfg, B, S, gen):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     ms = min(ms_a, ms_b)
     t = ssd.tile_for(x, Bm, Cm, Q)
-    if t.variant != "wgmma":
+    if not train and t.variant != "wgmma":
         raise AssertionError(f"{cfg.name}: the main path's SSD scan is served "
                              f"by {t.variant}, not the tensor-core kernel")
     bound = max(t_ops, t_bytes) * 1e3
@@ -914,6 +940,7 @@ def phase_ssd_main_shape(cfg, B, S, gen):
         "shape": {"Bz": B, "H": H, "G": G, "L": S, "P": P, "N": N,
                   "chunk": Q, "dtype": "bfloat16",
                   "x_strides": list(x.stride())},
+        "path": "train" if train else "prefill",
         "variant": t.variant, "tile": t._asdict(),
         "max_abs_err": err, "tol": SSD_TOL[dtype],
         "h_max_abs_err": herr, "h_tol": SSD_TOL_H,
@@ -1452,14 +1479,21 @@ def _seconds(pred) -> dict:
     return {"seconds": pred.seconds, "terms": pred.terms, "mfu": pred.mfu}
 
 
+#: the kernel registries every path is predicted under: the reference's
+#: Pallas blocks, then the CUDA kernels the card launches
+PREDICT_KERNELS = (("pallas", kernelmodel.PALLAS_KERNELS),
+                   ("cuda", kernelmodel.KERNELS))
+
+
 def phase_predict(out_dir: str, cache_dir: str):
     """The step predictor on the card's own numbers: for every path
-    measured above, ``predict_step`` under the ``gpu-h100`` model fitted in
-    this run (loaded back by name) and under the analytic ``gpu-h100``
-    seed, beside the measured seconds.  ``unpriced``: each property with a
-    nonzero count the fitted model has no weight for (its prediction skips
-    it), with its seconds under the seed.  Fails where a prediction is not
-    finite and above 0, or where ``predict_plans`` or
+    measured above and each registry of ``PREDICT_KERNELS`` (one
+    ``predict`` line each), ``predict_step`` under the ``gpu-h100`` model
+    fitted in this run (loaded back by name) and under the analytic
+    ``gpu-h100`` seed, beside the measured seconds.  ``unpriced``: each
+    property with a nonzero count the fitted model has no weight for (its
+    prediction skips it), with its seconds under the seed.  Fails where a
+    prediction is not finite and above 0, or where ``predict_plans`` or
     ``StragglerMonitor.from_model`` disagree with ``predict_step`` beyond
     ``PREDICT_RTOL``."""
     fitted = registry.load_model(CALIB_DEVICE, out_dir)
@@ -1472,62 +1506,12 @@ def phase_predict(out_dir: str, cache_dir: str):
     fitted_keys = set(fitted.keys)
     budget = torch.cuda.get_device_properties(0).total_memory
     cold_s = 0.0
-    for p in PATHS:
-        cfg, spec, plan = p["cfg"], p["spec"], p["plan"]
-        t0 = time.perf_counter()
-        plans = {n: float(predictor.predict_plans(cfg, spec, [plan], MESH1,
-                                                  m)[0])
-                 for n, m in models.items()}
-        build_s = time.perf_counter() - t0   # the first builds its programs
-        cold_s += build_s
-        t0 = time.perf_counter()
-        preds = {n: predictor.predict_step(cfg, spec, plan, MESH1, m)
-                 for n, m in models.items()}
-        step_s = time.perf_counter() - t0
-        monitor = StragglerMonitor.from_model(cfg, spec, plan, MESH1,
-                                              n_hosts=1, model=fitted)
-        for n, pred in preds.items():
-            if not (math.isfinite(pred.seconds) and pred.seconds > 0):
-                raise AssertionError(f"{p['path']}: {n} predicts "
-                                     f"{pred.seconds!r} s")
-            if abs(plans[n] - pred.seconds) > PREDICT_RTOL * pred.seconds:
-                raise AssertionError(f"{p['path']}: predict_plans {plans[n]!r}"
-                                     f" vs predict_step {pred.seconds!r} "
-                                     f"({n})")
-        if abs(monitor.predicted_step_s - plans["fitted"]) \
-                > PREDICT_RTOL * plans["fitted"]:
-            raise AssertionError(f"{p['path']}: StragglerMonitor.from_model "
-                                 f"{monitor.predicted_step_s!r} vs "
-                                 f"predict_plans {plans['fitted']!r}")
-        pv = predictor.plan_property_vector(cfg, spec, plan, MESH1)
-        unpriced = {k: {"count": v, "seed_s": v * seed_w[k]
-                        if k in seed_w else None}
-                    for k, v in sorted(pv.items())
-                    if v and k not in fitted_keys}
-        m = p["measured_s"]
-        peak = predictor.estimate_peak_bytes(cfg, spec, plan, MESH1)
-        emit({"phase": "predict", "ok": True, "path": p["path"],
-              "n_layers": cfg.n_layers, "dtype": cfg.compute_dtype,
-              "workload": dataclasses.asdict(spec),
-              "remat": plan.remat_policy or cfg.remat_policy,
-              "measured_s": m, "timed_by": p["timed_by"],
-              "fitted": _seconds(preds["fitted"]),
-              "seed": _seconds(preds["seed"]),
-              "fitted_over_measured": preds["fitted"].seconds / m,
-              "seed_over_measured": preds["seed"].seconds / m,
-              "predict_plans_s": plans,
-              "straggler_from_model_s": monitor.predicted_step_s,
-              "unpriced": unpriced,
-              "unpriced_seed_s": sum(u["seed_s"] or 0.0
-                                     for u in unpriced.values()),
-              "device_idle_share": p["device_idle_share"],
-              "estimated_peak_bytes": peak,
-              "feasible_on_this_card": predictor.feasible(
-                  cfg, spec, plan, MESH1, budget=budget),
-              "measured_peak_memory_bytes": p.get("peak_memory_bytes"),
-              "first_predict_plans_s": build_s,
-              "predict_step_s": step_s})
+    for kname, kernels in PREDICT_KERNELS:
+        for p in PATHS:
+            cold_s += predict_path(p, kname, kernels, models, seed_w,
+                                   fitted_keys, budget)
     emit({"phase": "predict.summary", "ok": True, "paths": len(PATHS),
+          "kernels": [k for k, _ in PREDICT_KERNELS],
           "fitted_meta": {k: fitted.meta.get(k) for k in
                           ("source", "fit_geomean_rel_err")},
           "fitted_keys": sorted(fitted_keys),
@@ -1535,6 +1519,72 @@ def phase_predict(out_dir: str, cache_dir: str):
           "step_programs_cold_build_s": cold_s,
           "compile_cache_dir_files": len(os.listdir(cache_dir)),
           "compile_cache": exprops.disk_cache_report()})
+
+
+def predict_path(p: dict, kname: str, kernels, models: dict, seed_w: dict,
+                 fitted_keys: set, budget: float) -> float:
+    """One ``predict`` line: path ``p`` under the registry ``kernels``;
+    returns the seconds the first ``predict_plans`` took (it builds the
+    programs)."""
+    cfg, spec, plan = p["cfg"], p["spec"], p["plan"]
+    t0 = time.perf_counter()
+    plans = {n: float(predictor.predict_plans(cfg, spec, [plan], MESH1, m,
+                                              kernels=kernels)[0])
+             for n, m in models.items()}
+    build_s = time.perf_counter() - t0   # the first builds its programs
+    t0 = time.perf_counter()
+    preds = {n: predictor.predict_step(cfg, spec, plan, MESH1, m,
+                                       kernels=kernels)
+             for n, m in models.items()}
+    step_s = time.perf_counter() - t0
+    monitor = StragglerMonitor.from_model(cfg, spec, plan, MESH1, n_hosts=1,
+                                          model=models["fitted"],
+                                          kernels=kernels)
+    for n, pred in preds.items():
+        if not (math.isfinite(pred.seconds) and pred.seconds > 0):
+            raise AssertionError(f"{p['path']} ({kname}): {n} predicts "
+                                 f"{pred.seconds!r} s")
+        if abs(plans[n] - pred.seconds) > PREDICT_RTOL * pred.seconds:
+            raise AssertionError(f"{p['path']} ({kname}): predict_plans "
+                                 f"{plans[n]!r} vs predict_step "
+                                 f"{pred.seconds!r} ({n})")
+    if abs(monitor.predicted_step_s - plans["fitted"]) \
+            > PREDICT_RTOL * plans["fitted"]:
+        raise AssertionError(f"{p['path']} ({kname}): StragglerMonitor."
+                             f"from_model {monitor.predicted_step_s!r} vs "
+                             f"predict_plans {plans['fitted']!r}")
+    pv = predictor.plan_property_vector(cfg, spec, plan, MESH1,
+                                        kernels=kernels)
+    unpriced = {k: {"count": v, "seed_s": v * seed_w[k]
+                    if k in seed_w else None}
+                for k, v in sorted(pv.items())
+                if v and k not in fitted_keys}
+    m = p["measured_s"]
+    emit({"phase": "predict", "ok": True, "path": p["path"],
+          "kernels": kname,
+          "kernel_blocks": kernelmodel.step_kernel_blocks(cfg, spec, kernels),
+          "n_layers": cfg.n_layers, "dtype": cfg.compute_dtype,
+          "workload": dataclasses.asdict(spec),
+          "remat": plan.remat_policy or cfg.remat_policy,
+          "measured_s": m, "timed_by": p["timed_by"],
+          "fitted": _seconds(preds["fitted"]),
+          "seed": _seconds(preds["seed"]),
+          "fitted_over_measured": preds["fitted"].seconds / m,
+          "seed_over_measured": preds["seed"].seconds / m,
+          "predict_plans_s": plans,
+          "straggler_from_model_s": monitor.predicted_step_s,
+          "unpriced": unpriced,
+          "unpriced_seed_s": sum(u["seed_s"] or 0.0
+                                 for u in unpriced.values()),
+          "device_idle_share": p["device_idle_share"],
+          "estimated_peak_bytes": predictor.estimate_peak_bytes(
+              cfg, spec, plan, MESH1),
+          "feasible_on_this_card": predictor.feasible(
+              cfg, spec, plan, MESH1, budget=budget),
+          "measured_peak_memory_bytes": p.get("peak_memory_bytes"),
+          "first_predict_plans_s": build_s,
+          "predict_step_s": step_s})
+    return build_s
 
 
 # ---------------------------------------------------------------------------
@@ -1545,6 +1595,9 @@ def phase_predict(out_dir: str, cache_dir: str):
 #: for the slow ``paper16`` candidates
 AUTOTUNE_TIMING = (5, 10)
 AUTOTUNE_TIMING_SLOW = (3, 2)
+#: a pick slower than this many times the fastest candidate fails the phase
+#: (far above the noise of the medians; PERF.md names the picks above 1.10)
+PICK_OVER_FASTEST_MAX = 1.25
 
 
 def autotune_cases() -> list:
@@ -1640,7 +1693,6 @@ def launched_tile(kernel: str, t: dict, shape: dict, blocks: dict) -> dict:
     """What the C query reports for the launch ``blocks`` makes, beside the
     Python mirrors the autotuner reads (its tile and footprint): raises
     where they differ."""
-    from repro_torch.core import kernelmodel
     km = kernelmodel.get(kernel)
     mirror = {"variant": km.variant(shape, blocks),
               "smem": km.footprint(shape, blocks)}
@@ -1690,6 +1742,92 @@ def launched_tile(kernel: str, t: dict, shape: dict, blocks: dict) -> dict:
     return got
 
 
+#: mangled entry functions of each source, with their ``ptxas -v``
+#: registers, read from the build phase's logs
+_PTXAS: dict = {}
+
+
+def ptxas_of(source: str) -> list:
+    if source not in _PTXAS:
+        path = _build.build_dir() / f"{source}.nvcc.log"
+        _PTXAS[source] = ptxas_entries(path.read_text())
+    return _PTXAS[source]
+
+
+def instance_pattern(kernel: str, shape: dict, blocks: dict,
+                     variant: str) -> str:
+    """A regular expression for the mangled entry function of the kernel
+    instance the launch of ``blocks`` runs (its template arguments)."""
+    if kernel == "flash_attention":
+        dh = shape["dh"]
+        if variant == "wgmma":
+            return rf"fa_wgmma_kernelILi{(dh + 15) // 16 * 16}E"
+        return (rf"fa_fwd_kernelILi{blocks['block_q']}ELi{blocks['block_k']}"
+                rf"ELi{fa.padded_head_dim(dh)}E")
+    if kernel == "ssd_scan":
+        n = shape["N"]
+        if variant == "wgmma":
+            chunk = min(blocks["chunk"], shape["L"])
+            return (rf"ssd_wgmma_kernelILi{chunk}"
+                    rf"ELi{64 if n <= 64 else 128}E")
+        return rf"ssd_fwd_kernelILi{ssd._padded_state(n)}ELi{blocks['p_block']}E"
+    if kernel == "matmul":
+        t = "13__nv_bfloat16" if shape["bits"] == 16 else "f"
+        va, vb = (int(v) for v in kernelmodel._mm_layout(shape))
+        if variant == "wgmma":
+            return r"mm_wgmma_kernelILi2E"
+        if variant == "paper16":
+            return rf"mm16_kernelI{t}Lb{va}E"
+        return rf"mm128_kernelI{t}Li{blocks['block_k']}ELi\d+ELb{va}ELb{vb}E"
+    t = "t" if shape["bits"] == 16 else "j"
+    if variant == "vec16":
+        return rf"transpose_vec_kernelI{t}Li{128 // shape['bits']}E"
+    return rf"transpose_kernelI{t}Li{blocks['block']}E"
+
+
+def card_residency(kernel: str, shape: dict, blocks: dict, variant: str,
+                   smem: float) -> dict:
+    """The autotuner's residency mirror of one candidate held to the card:
+    the registers its kernel module mirrors against this build's ``ptxas
+    -v`` report, and ``blocks["resident"]`` against the CUDA occupancy
+    calculator for that instance at the block's threads and dynamic shared
+    memory.  Raises where they differ."""
+    source = kernel
+    if kernel == "flash_attention":
+        threads, regs = fa.block_resources(shape["bits"], blocks["block_q"],
+                                           blocks["block_k"], shape["dh"])
+    elif kernel == "ssd_scan":
+        threads, regs = ssd.block_resources(
+            variant, min(blocks["chunk"], shape["L"]), shape["N"],
+            blocks["p_block"])
+    elif kernel == "matmul":
+        va, vb = kernelmodel._mm_layout(shape)
+        threads, regs = mm.block_resources(variant, bf16=shape["bits"] == 16,
+                                           va=va, vb=vb)
+    else:
+        dtype = torch.bfloat16 if shape["bits"] == 16 else torch.float32
+        threads = tr.tile_rule(blocks["block"], dtype, variant).threads
+        regs = tr.REGISTERS[(variant, dtype)]
+    pat = re.compile(instance_pattern(kernel, shape, blocks, variant))
+    hits = [e for e in ptxas_of(source) if pat.search(e["function"])]
+    if len(hits) != 1:
+        raise AssertionError(f"{kernel} at {blocks}: {len(hits)} instances "
+                             f"match {pat.pattern}")
+    entry = hits[0]
+    static = kernel == "transpose" or variant == "paper16"
+    card = _build.blocks_per_sm(source, entry["function"], threads,
+                                  0 if static else int(smem))
+    mirror = kernelmodel.resident_blocks(threads, regs, smem)
+    row = {"threads": threads, "registers": regs,
+           "ptxas_registers": entry["registers"], "resident": mirror,
+           "occupancy_resident": card}
+    if regs != entry["registers"] or mirror != card \
+            or blocks["resident"] != mirror:
+        raise AssertionError(f"{kernel} at {blocks}: the residency mirror "
+                             f"{row} differs from the card")
+    return row
+
+
 def spearman(a, b):
     """Spearman's rank correlation of two sequences (average ranks for
     ties); None below two points or where either is constant."""
@@ -1713,7 +1851,6 @@ def sweep_speedup() -> dict:
     """The compiled scorer against the interpreted one on the reference's
     64-point matmul grid (its ``tests/test_autotune.py`` timing test), best
     of 3 after a warm call: host time of the card's machine."""
-    from repro_torch.core import kernelmodel
     from repro_torch.kernels import autotune
     km = kernelmodel.PALLAS_KERNELS["matmul"]
     shape = {"M": 1024, "N": 512, "K": 2048, "bits": 16}
@@ -1748,9 +1885,10 @@ def phase_autotune(reg_dir=None):
     correlation of predicted and measured, the tile ``"auto"`` picks on the
     card (``ops.default_model``) and its time against the fastest.  Fails
     where a candidate disagrees with its plain version, a mirror with its C
-    query, or the bf16 SSD pick on a main path is not a tensor-core
-    chunk."""
-    from repro_torch.core import kernelmodel
+    query or with the card (``card_residency``: registers against the
+    build's ``ptxas``, blocks an SM holds against the CUDA occupancy calculator), the bf16 SSD
+    pick on a main path is not a tensor-core chunk, or a pick is more than
+    ``PICK_OVER_FASTEST_MAX`` times the fastest candidate."""
     from repro_torch.core.symcount import evaluate_vector
     from repro_torch.kernels import autotune
     seed = seeds.ANALYTIC_SEEDS[CALIB_DEVICE]()
@@ -1765,10 +1903,13 @@ def phase_autotune(reg_dir=None):
         shape = shape_of(t)
         km = kernelmodel.get(kernel)
         cands = autotune.candidate_configs(kernel, shape)
-        measured, launched, errs = [], [], []
+        measured, launched, errs, resid = [], [], [], []
         ref = None   # the plain version's result; the SSD's per chunk
         for blocks in cands:
             launched.append(launched_tile(kernel, t, shape, blocks))
+            resid.append(card_residency(kernel, shape, blocks,
+                                        launched[-1]["variant"],
+                                        launched[-1]["smem"]))
             o = call(t, blocks)
             torch.cuda.synchronize()
             if ref is None or kernel == "ssd_scan":
@@ -1807,14 +1948,20 @@ def phase_autotune(reg_dir=None):
                 and launched[i_pick]["variant"] != "wgmma":
             raise AssertionError(f"{label}: \"auto\" picks {pick}, served "
                                  f"by {launched[i_pick]['variant']}")
+        if measured[i_pick] > PICK_OVER_FASTEST_MAX * measured[i_fast]:
+            raise AssertionError(
+                f"{label}: \"auto\" picks {pick} at {measured[i_pick]} ms, "
+                f"{measured[i_pick] / measured[i_fast]:.3f}x the fastest "
+                f"{cands[i_fast]} (limit {PICK_OVER_FASTEST_MAX})")
         row = {"label": label, "kernel": kernel, "shape": shape,
                "candidates": [{"blocks": c, **lt, "ms": ms,
-                               "max_abs_err": e,
+                               "residency": rs, "max_abs_err": e,
                                **{f"{n}_s": p[i] for n, p in preds.items()},
                                **({"unpriced_seed_s": unpriced[i]}
                                   if unpriced is not None else {})}
-                              for i, (c, lt, ms, e) in enumerate(
-                                  zip(cands, launched, measured, errs))],
+                              for i, (c, lt, ms, rs, e) in enumerate(
+                                  zip(cands, launched, measured, resid,
+                                      errs))],
                "spearman": {n: spearman(p, measured)
                             for n, p in preds.items()},
                "pick": pick, "pick_model": default.meta.get("source"),
@@ -1824,6 +1971,7 @@ def phase_autotune(reg_dir=None):
                "fastest": cands[i_fast], "fastest_ms": measured[i_fast],
                "pick_over_fastest": measured[i_pick] / measured[i_fast],
                "mirrors_equal_c_queries": True,
+               "residency_equals_the_occupancy_query": True,
                "max_abs_err": max(errs), "tol": list(tol)}
         emit({"phase": "autotune", "ok": True, **row})
         rows.append(row)
@@ -1835,8 +1983,198 @@ def phase_autotune(reg_dir=None):
           "models": sorted(models), "pick_model": default.meta.get("source"),
           "picks_within_10pct_of_fastest": sum(
               r["pick_over_fastest"] <= 1.1 for r in rows),
+          "worst_pick_over_fastest": max(r["pick_over_fastest"]
+                                         for r in rows),
           "sweep_64_points": speed})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# model-scored serving, the explanation of a prediction, the plan search
+
+#: the admission phase: one llama3.2-3b server of 4 slots x 512 rows, 8
+#: requests all at t = 0 in an order adversarial to FIFO (the reference's
+#: tests/test_workload.py: long prompts first), 16 new tokens each (no
+#: early stop: the 480 prompt tokens and 32 decode iterations fill the 512
+#: rows exactly, whichever policy admits)
+ADMISSION = dict(slots=4, max_len=512, prompts=[256, 128] + [16] * 6,
+                 max_new=16)
+
+
+def serve_timed(cfg, model, policy: str, seed: int, scorer=None) -> dict:
+    """Serve ``ADMISSION``'s requests under ``policy`` with a tracer on:
+    each request's latency (its completion on the host clock, all arriving
+    at t = 0), the makespan, the admission order, and the spans' measured
+    seconds beside the scorer's ``predicted_s`` (a FIFO server builds no
+    scorer: ``scorer`` is given it for the spans, its picks stay FIFO)."""
+    a = ADMISSION
+    server = DecodeServer(cfg, model, slots=a["slots"], max_len=a["max_len"],
+                          seed=seed, eos_id=-1, admission=policy, device=DEV)
+    if server.scorer is None:
+        server.scorer = scorer
+    rng = np.random.default_rng(seed)
+    for rid, plen in enumerate(a["prompts"]):
+        prompt = rng.integers(2, cfg.vocab_size, size=plen).astype(np.int32)
+        server.submit(Request(rid=rid, prompt=prompt, max_new=a["max_new"]))
+    tracer = _obs_trace.Tracer()
+    prev = _obs_trace.get_tracer()
+    _obs_trace.set_tracer(tracer)
+    latency, order = {}, []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while server.queue or any(server.active):
+            queued = {r.rid for r in server.queue}
+            server._refill()
+            order += [r.rid for r in server.active
+                      if r is not None and r.rid in queued]
+            before = [r for r in server.active if r]
+            server.step()
+            now = time.perf_counter() - t0
+            latency.update({r.rid: now for r in before if r.done})
+    finally:
+        _obs_trace.set_tracer(prev)
+    if sorted(latency) != list(range(len(a["prompts"]))):
+        raise AssertionError(f"{policy}: {len(latency)} of "
+                             f"{len(a['prompts'])} requests completed")
+    if not bool(torch.isfinite(server.last_logits).all()):
+        raise AssertionError(f"{policy}: decode logits are not finite")
+    lat = np.asarray([latency[r] for r in sorted(latency)])
+    spans = {n: [(sp.duration_s, sp.predicted_s, sp.args)
+                 for sp in tracer.spans if sp.name == n]
+             for n in ("prefill", "decode_step")}
+    return {"policy": policy, "order": order,
+            "mean_latency_s": float(lat.mean()),
+            "max_latency_s": float(lat.max()), "makespan_s": float(lat.max()),
+            "spans": spans, "decode_calls": int(server.state["pos"]),
+            "scorer": server.scorer}
+
+
+def phase_admission(seed: int) -> dict:
+    """``DecodeServer`` under ``admission="fifo"`` and then ``"model"`` on
+    ``ADMISSION``'s requests (llama3.2-3b, full width and depth, bf16),
+    measured, beside ``simulate_serving``'s prediction of each under the
+    model server's scorer (``gpu-h100``, as on every CUDA server), and the
+    scorer's prefill and decode-iteration seconds beside the measured
+    spans.  The server feeds a prompt through the decode step token by
+    token (the reference's server); the simulation prices it as one
+    prefill (the reference's replay).  Fails where a request does not
+    complete, the logits are not finite, the measured model order is not
+    the one the simulation predicts, or a prediction is not finite and
+    above 0."""
+    cfg = get_arch(ARCH)
+    model = transformer.init_params(cfg, device=DEV, seed=seed)
+    a = ADMISSION
+    scorer = AdmissionScorer(cfg, slots=a["slots"], max_len=a["max_len"],
+                             model=kops.CARD_MODEL)
+    runs = {p: serve_timed(cfg, model, p, seed, scorer)
+            for p in ("fifo", "model")}
+    if runs["model"]["scorer"].model.device != scorer.model.device:
+        raise AssertionError(f"the CUDA server scores through "
+                             f"{runs['model']['scorer'].model.device}")
+    sims = {p: simulate_serving(cfg, a["prompts"], a["max_new"],
+                                slots=a["slots"], max_len=a["max_len"],
+                                policy=p, scorer=scorer)
+            for p in ("fifo", "model")}
+    if runs["model"]["order"] != sims["model"]["order"]:
+        raise AssertionError(f"model admission order {runs['model']['order']}"
+                             f" != the simulation's {sims['model']['order']}")
+    out = {"phase": "admission", "ok": True, "arch": cfg.name,
+           "slots": a["slots"], "max_len": a["max_len"],
+           "prompts": a["prompts"], "max_new": a["max_new"],
+           "cost_model": scorer.model.device,
+           "cost_model_source": scorer.model.meta.get("source")}
+    for p in ("fifo", "model"):
+        r, sim = runs[p], sims[p]
+        pre = r["spans"]["prefill"]
+        dec = r["spans"]["decode_step"]
+        for dur, pred, _ in pre + dec:
+            if not (pred is not None and math.isfinite(pred) and pred > 0):
+                raise AssertionError(f"{p}: a span predicts {pred!r} s")
+        out[p] = {
+            "measured": {k: r[k] for k in ("order", "mean_latency_s",
+                                           "max_latency_s", "makespan_s",
+                                           "decode_calls")},
+            "simulated": {k: sim[k] for k in ("order", "mean_latency_s",
+                                              "max_latency_s",
+                                              "makespan_s")},
+            "prefill_spans": [{"plen": args["plen"], "measured_s": dur,
+                               "predicted_s": pred}
+                              for dur, pred, args in pre],
+            "decode_iteration_median_s": float(np.median(
+                [d for d, _, _ in dec])),
+            "decode_iteration_predicted_median_s": float(np.median(
+                [q for _, q, _ in dec])),
+            "decode_iterations": len(dec)}
+    out["model_over_fifo_mean_latency"] = {
+        "measured": runs["model"]["mean_latency_s"]
+        / runs["fifo"]["mean_latency_s"],
+        "simulated": sims["model"]["mean_latency_s"]
+        / sims["fifo"]["mean_latency_s"]}
+    emit(out)
+    return out
+
+
+#: score_explain's rows must sum to the fused score to this
+EXPLAIN_RTOL = 1e-9
+
+
+def phase_explain(reg_dir: str) -> dict:
+    """``score_explain`` of llama3.2-3b's bf16 prefill step (the main
+    path's 4 x 2048 on one card) under the ``gpu-h100`` model fitted in
+    this run, on the card's kernels: the total, the terms by group and
+    source, the top terms.  Fails unless the rows sum to the fused
+    ``PlanSpace.scores`` cell within ``EXPLAIN_RTOL``."""
+    cfg = get_arch(ARCH)
+    B, S = PREFILL_TOKENS
+    spec = WorkloadSpec(phase="prefill", global_batch=B, seq_len=S)
+    fitted = registry.load_model(CALIB_DEVICE, reg_dir)
+    exp = score_explain(cfg, spec, TRAINER_PLAN, MESH1, model=fitted)
+    fused = float(planspace.PlanSpace.from_product(
+        cfg, spec, [TRAINER_PLAN], [MESH1]).scores(fitted)[0])
+    rows_sum = sum(r.seconds for r in exp.rows)
+    for name, v in (("rows", rows_sum), ("total", exp.total_seconds)):
+        if not abs(v - fused) <= EXPLAIN_RTOL * abs(fused):
+            raise AssertionError(f"score_explain {name} {v!r} != the fused "
+                                 f"score {fused!r}")
+    out = {"phase": "explain", "ok": True, "path": f"{cfg.name}:prefill",
+           "model": fitted.device, "source": fitted.meta.get("source"),
+           "kernel_blocks": kernelmodel.step_kernel_blocks(cfg, spec),
+           "total_s": exp.total_seconds, "fused_s": fused,
+           "rows_sum_s": rows_sum,
+           "rows_sum_rel_err": abs(rows_sum - fused) / abs(fused),
+           "by_group_s": exp.by_group(), "by_source_s": exp.by_source(),
+           "top_terms": [{"term": r.term, "seconds": r.seconds,
+                          "share": r.share, "group": r.group,
+                          "source": r.source,
+                          "properties": list(r.properties)}
+                         for r in exp.top(8)]}
+    emit(out)
+    return out
+
+
+def phase_autoshard() -> dict:
+    """One plan search on the host (``launch/autoshard.search``): glm4-9b
+    train_4k over every factorization of 256 devices under ``gpu-h100``
+    (the registry's: its datasheet seed here), the top 3 with their
+    co-tuned kernel tiles."""
+    t0 = time.perf_counter()
+    ranked = autoshard.search("glm4-9b", "train_4k", model=kops.CARD_MODEL,
+                              top_k=3, n_devices=256, tune_kernels=True)
+    wall = time.perf_counter() - t0
+    if not ranked or not all(math.isfinite(s) and s > 0
+                             for s, *_ in ranked):
+        raise AssertionError(f"autoshard ranked {ranked!r}")
+    out = {"phase": "autoshard", "ok": True, "arch": "glm4-9b",
+           "shape": "train_4k", "devices": 256, "model": kops.CARD_MODEL,
+           "search_s": wall,
+           "top": [{"predicted_s": s, "mesh": m,
+                    "plan": {k: v for k, v in dataclasses.asdict(p).items()
+                             if v not in (None, ())},
+                    "kernel_blocks": blocks}
+                   for s, p, m, blocks in ranked]}
+    emit(out)
+    return out
 
 
 def rel_frobenius(a, b) -> float:
@@ -2656,6 +2994,45 @@ def phase_train_profile(cfg, trainer):
           "train_step": prof})
 
 
+#: train steps timed at each SSD chunk of ``phase_train_ssd_chunk``
+SSD_CHUNK_STEPS = 2
+
+
+def phase_train_ssd_chunk(cfg, trainer) -> dict:
+    """The training step at the SSD chunk ``"auto"`` picks under autograd
+    (the backward's chunk-by-chunk recompute priced), beside the chunk it
+    picks for the kernel alone (no autograd: the autotune phase's row) and
+    the model's configured chunk, in turns (auto, kernel-only, configured,
+    auto): ``SSD_CHUNK_STEPS`` steps each, the chunk pinned by wrapping
+    ``ops.ssd_chunk``.  Steps of the same trainer (the weights move on), so
+    the seconds compare the chunks, not the losses."""
+    from repro_torch.kernels import autotune
+    B, S = TRAIN_TOKENS
+    s = cfg.ssm
+    shape = {"Bz": B, "H": cfg.ssm_heads, "L": S, "P": s.head_dim,
+             "N": s.d_state, "bits": 16, "tma": True}
+    picks = {name: autotune.best_block_sizes(
+        "ssd_scan", dict(shape, grad=grad), kops.CARD_MODEL)["chunk"]
+        for name, grad in (("autograd", True), ("kernel_only", False))}
+    picks["configured"] = min(s.chunk, S)
+    resolve = kops.ssd_chunk
+    times = {name: [] for name in picks}
+    try:
+        for name in ("autograd", "kernel_only", "configured", "autograd"):
+            kops.ssd_chunk = lambda *a, _c=picks[name], **k: _c
+            hist = trainer.train(SSD_CHUNK_STEPS, on_metrics=quiet)
+            times[name] += [m["time_s"] for m in hist[-SSD_CHUNK_STEPS:]]
+    finally:
+        kops.ssd_chunk = resolve
+    out = {"phase": "train.ssd_chunk", "ok": True, "arch": cfg.name,
+           "tokens": [B, S], "chunks": picks,
+           "seconds": times,
+           "seconds_median": {n: float(np.median(t))
+                              for n, t in times.items()}}
+    emit(out)
+    return out
+
+
 def drive_train(cfg, args) -> dict:
     """One training path at full width and depth: the kernels against the
     plain paths on one batch, the trainer, then the counted steps with the
@@ -2681,6 +3058,9 @@ def drive_train(cfg, args) -> dict:
                              f"{launched}, expected {want}")
     with phase(f"{name}:train.split"):
         phase_train_split(cfg, trainer)
+    if cfg.ssm is not None:
+        with phase(f"{name}:train.ssd_chunk"):
+            phase_train_ssd_chunk(cfg, trainer)
     if args.profile:
         with phase(f"{name}:train.profile"):
             phase_train_profile(cfg, trainer)
@@ -2887,7 +3267,7 @@ def run(args, cache_dir: str) -> int:
     with phase("kernels.ssd.main_shape"):
         ssd_rows = [phase_ssd_main_shape(cfg, B, S, gen)
                     for cfg in (hybrid, pure)] \
-            + [phase_ssd_main_shape(hybrid, TB, TS, gen)]
+            + [phase_ssd_main_shape(hybrid, TB, TS, gen, train=True)]
         emit({"phase": "kernels.ssd.main_shape", "ok": True,
               "kernel": "ssd_scan", "shapes": ssd_rows,
               **ssd_extra(ptx["ssd_scan"])})
@@ -2921,7 +3301,18 @@ def run(args, cache_dir: str) -> int:
         with phase("autotune"):
             phase_autotune(reg_dir)
         launched["autotune"] = read_launches()
+        with phase("explain"):
+            phase_explain(reg_dir)
     torch.cuda.empty_cache()
+    # model-scored serving: the same requests under FIFO and the model,
+    # measured beside the simulation (the decode path launches no kernel)
+    reset_launches()
+    with phase("admission"):
+        phase_admission(args.seed)
+    launched["admission"] = read_launches()
+    torch.cuda.empty_cache()
+    with phase("autoshard"):
+        phase_autoshard()
     if args.profile:
         with phase("calibrate.profile"):
             phase_calibration_profile(args.seed)

@@ -556,11 +556,10 @@ class BasisProgram:
         """Per-term attribution of ``scale · score(env, model)``: a list of
         (term repr, seconds, category, fed property keys) rows — the folded
         constant appears as term ``"1"`` — whose seconds sum exactly to the
-        fused GEMV score.  The reference delegates to ``obs/explain.py``,
-        which is not ported yet."""
-        raise NotImplementedError(
-            "BasisProgram.explain needs obs/explain.py, which waits for the "
-            "model-scored serving slice (ROADMAP A12)")
+        fused GEMV score.  Delegates to ``repro_torch.obs.explain``
+        (imported lazily; ``obs.explain`` sits above core)."""
+        from repro_torch.obs.explain import explain_program
+        return explain_program(self, env, model, scale=scale, source=source)
 
     # -- serialization (the on-disk compile cache) -------------------------
     def to_json_dict(self) -> Dict[str, object]:

@@ -18,7 +18,8 @@ Per kernel we count (closed-form in the block variables):
 ``step_kernel_vectors`` recomposes a whole forward pass out of these
 per-kernel vectors (projections/FFN/head → matmul, attention → flash,
 SSD → ssd_scan), which is what ``core.predictor`` uses for its compute
-term.
+term: on the card, the library GEMMs and the CUDA kernels at the tiles the
+main paths launch; under ``PALLAS_KERNELS``, the reference's composition.
 
 A copy of the reference's ``core/kernelmodel.py`` with the CUDA kernels'
 schedule beside the Pallas one:
@@ -29,8 +30,9 @@ schedule beside the Pallas one:
     executes, and its products count on the pipe it uses: ``mxu:16`` on
     the ``wgmma`` tensor cores, ``mxu:32`` on the FP32 pipes (``paper16``
     and ``fma128`` matmuls, the FP32 attention and SSD kernels) whatever
-    the input type.  The step composition keeps the defaults, so the
-    step counts still equal the reference's;
+    the input type, and the grid is priced as the card runs it: in waves
+    of the blocks an SM holds (``resident``), with the waits of a wave's
+    walk and the shared-memory operand reads of the FP32 pipes;
   * ``KERNELS``, the registry the autotuner (``kernels/autotune.py``)
     sweeps, lists the tiles the CUDA sources build (their Python mirrors:
     ``matmul.tile_rule``, ``flash_attention.pick_tiles`` / ``tile_rule``,
@@ -76,27 +78,104 @@ def _pipe_bits(variant: Optional[str], bits: int) -> int:
     return 16 if variant == "wgmma" else 32
 
 
+# --- what paces a grid on the card (the CUDA schedule) ---------------------
+#
+# The TPU walks the reference's grid cell by cell, so its vectors count a
+# ``barrier`` and a ``group`` per cell.  The card runs thread blocks in
+# parallel, as many at once on each of its SMs as shared memory, threads and
+# registers allow, so a grid is paced by waves of blocks: ``groups`` counts
+# waves, ``barrier`` the block-wide waits along one wave's walk (waves x
+# steps a block walks x waits a step), and the products of a partly filled
+# last wave are paid as if the wave were full (the idle slots cost time).
+
+#: the H100 SXM's SMs, and what one SM holds (NVIDIA's Hopper tuning
+#: guide): 228 KB of shared memory of which each block also reserves 1 KB,
+#: 2048 threads, 32 blocks, 64 K registers in four sub-partitions allocated
+#: per warp in steps of 8 registers a thread
+SMS = 132
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
+THREADS_PER_SM = 2048
+BLOCKS_PER_SM = 32
+REGS_PER_PARTITION = 16384
+
+
+def resident_blocks(threads: int, registers: int, smem: float) -> int:
+    """Blocks of ``threads`` threads at ``registers`` registers a thread
+    and ``smem`` bytes of shared memory that one SM holds at once: the
+    least of what shared memory, threads and registers allow (the
+    CUDA occupancy calculator's rule)."""
+    if not math.isfinite(smem):
+        return 0
+    by_smem = SMEM_PER_SM // (int(smem) + SMEM_RESERVED_PER_BLOCK)
+    warps = -(-threads // 32)
+    per_warp = -(-registers // 8) * 8 * 32
+    by_regs = 4 * (REGS_PER_PARTITION // per_warp) // warps
+    return max(0, min(by_smem, THREADS_PER_SM // threads, BLOCKS_PER_SM,
+                      by_regs))
+
+
+def _waves(blocks: Expr, resident: ExprLike) -> Tuple[Expr, Expr]:
+    """(waves, slot factor) of a grid of ``blocks`` blocks at ``resident``
+    blocks an SM: the scheduler spreads blocks over the SMs first, so an SM
+    holds at most ceil(blocks / SMS) of them; the slot factor is the slots
+    the waves hold over the blocks that fill them (1 for full waves)."""
+    per_sm = Min(as_expr(resident), CeilDiv(blocks, Const(SMS)))
+    waves = CeilDiv(blocks, SMS * per_sm)
+    return waves, waves * SMS * per_sm / blocks
+
+
+def _grid_keys(waves: Expr, steps: ExprLike, syncs: ExprLike
+               ) -> Dict[str, ExprLike]:
+    return {props.BARRIER: waves * as_expr(steps) * as_expr(syncs),
+            props.GROUPS: waves, props.CONST1: 1.0}
+
+
+def _need_resident(variant, resident) -> None:
+    if variant is not None and resident is None:
+        raise ValueError(f"the CUDA kernel {variant!r} is priced by the "
+                         f"blocks an SM holds: pass resident=")
+
+
 def matmul_vector(M: ExprLike, N: ExprLike, K: ExprLike, *,
                   block_m: ExprLike = 128, block_n: ExprLike = 128,
                   block_k: ExprLike = 128, bits: int = 32,
-                  variant: Optional[str] = None) -> Dict[str, ExprLike]:
+                  variant: Optional[str] = None,
+                  resident: Optional[ExprLike] = None
+                  ) -> Dict[str, ExprLike]:
     """(M,K)@(K,N) tiled matmul: (bm×bk)+(bk×bn) tiles stream HBM→VMEM per
     grid cell, fp32 (bm×bn) accumulator carried across the sequential k
     walk.  ``variant`` (``paper16``, ``fma128``, ``wgmma``): the CUDA
-    kernel running the tile (bm, bn, bk); its products count ``mxu:16`` on
-    ``wgmma``, ``mxu:32`` otherwise; the tiles keep the input's bits."""
+    kernel running the tile (bm, bn, bk) at ``resident`` blocks an SM; its
+    products count ``mxu:16`` on ``wgmma``, ``mxu:32`` otherwise, the
+    tiles keep the input's bits, and on the FP32 pipes each product's
+    operands come from shared memory (``local:32``, by the thread's output
+    tile ``matmul.THREAD_TILE``); a block walks K in steps of bk."""
     M, N, K = as_expr(M), as_expr(N), as_expr(K)
     bm, bn, bk = as_expr(block_m), as_expr(block_n), as_expr(block_k)
     n_m, n_n, n_k = CeilDiv(M, bm), CeilDiv(N, bn), CeilDiv(K, bk)
     cells = n_m * n_n * n_k
     local = cells * (bm * bk + bk * bn + bm * bn)
-    return {
-        props.local_key(bits): local,
-        props.BARRIER: cells,
-        props.GROUPS: n_m * n_n,
-        props.mxu_key(_pipe_bits(variant, bits)): 2 * cells * bm * bn * bk,
-        props.CONST1: 1.0,
-    }
+    if variant is None:
+        return {
+            props.local_key(bits): local,
+            props.BARRIER: cells,
+            props.GROUPS: n_m * n_n,
+            props.mxu_key(bits): 2 * cells * bm * bn * bk,
+            props.CONST1: 1.0,
+        }
+    from repro_torch.kernels import matmul as mm
+    _need_resident(variant, resident)
+    waves, slots = _waves(n_m * n_n, resident)
+    macs = cells * bm * bn * bk
+    out = {props.local_key(bits): local,
+           props.mxu_key(_pipe_bits(variant, bits)): 2 * macs * slots,
+           **_grid_keys(waves, n_k, mm.SYNCS_PER_STEP)}
+    if variant in mm.THREAD_TILE:
+        tm, tn = mm.THREAD_TILE[variant]
+        key = props.local_key(32)
+        out[key] = as_expr(out.get(key, 0)) + macs * ((tm + tn) / (tm * tn))
+    return out
 
 
 def _fa_exec_blocks(n_q: Expr, n_k: Expr, *, causal: bool,
@@ -123,13 +202,18 @@ def flash_attention_vector(B_: ExprLike, H: ExprLike, KVH: ExprLike,
                            Sq: ExprLike, Skv: ExprLike, dh: ExprLike, *,
                            causal: bool = True, window: Optional[int] = None,
                            block_q: ExprLike = 128, block_k: ExprLike = 128,
-                           bits: int = 16, variant: Optional[str] = None
+                           bits: int = 16, variant: Optional[str] = None,
+                           resident: Optional[ExprLike] = None
                            ) -> Dict[str, ExprLike]:
     """Online-softmax attention: q/k/v tiles stream per executed pair; the
     (bq×bk) logit tile never leaves VMEM; fully-masked pairs are skipped
     (but their grid steps still barrier).  ``variant`` (``wgmma``, the bf16
     kernel; ``fma``, the f32 one): the CUDA kernel running the tile
-    (bq, bk), whose pipe sets the bits of every key."""
+    (bq, bk) at ``resident`` blocks an SM, whose pipe sets the bits of
+    every key.  A block owns a q tile and walks its key tiles (the longest
+    walk, the last q tile's, paces a wave); on the FP32 pipes each product
+    reads its operands from shared memory, by the thread's register tile
+    (16 x 16 threads: bq/16 x bk/16 logits, bq/16 x dh/16 outputs)."""
     bits = _pipe_bits(variant, bits)
     bq, bk = as_expr(block_q), as_expr(block_k)
     n_q, n_k = CeilDiv(as_expr(Sq), bq), CeilDiv(as_expr(Skv), bk)
@@ -138,67 +222,139 @@ def flash_attention_vector(B_: ExprLike, H: ExprLike, KVH: ExprLike,
                             block_q=bq, block_k=bk)
     exec_cells = as_expr(B_) * as_expr(H) * execd
     local = exec_cells * (bq * as_expr(dh) + 2 * bk * as_expr(dh))
-    return {
-        props.local_key(bits): local,
-        props.BARRIER: cells,
-        props.GROUPS: cells,
-        props.mxu_key(bits): 4 * exec_cells * bq * bk * as_expr(dh),
-        props.CONST1: 1.0,
-    }
+    mxu = 4 * exec_cells * bq * bk * as_expr(dh)
+    if variant is None:
+        return {
+            props.local_key(bits): local,
+            props.BARRIER: cells,
+            props.GROUPS: cells,
+            props.mxu_key(bits): mxu,
+            props.CONST1: 1.0,
+        }
+    from repro_torch.kernels import flash_attention as fa
+    _need_resident(variant, resident)
+    waves, slots = _waves(as_expr(B_) * as_expr(H) * n_q, resident)
+    steps = n_k if window is None else \
+        Min(n_k, CeilDiv(Const(window), bk) + 1)
+    if variant != "wgmma":
+        dhp = fa.padded_head_dim(int(dh))
+        local = local + exec_cells * 16 * ((bq + bk) * dhp + bk * (bq + dhp))
+    return {props.local_key(bits): local,
+            props.mxu_key(bits): mxu * slots,
+            **_grid_keys(waves, steps, fa.SYNCS_PER_TILE)}
 
 
 def ssd_scan_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: ExprLike,
                     N: ExprLike, *, chunk: ExprLike = 128, bits: int = 16,
                     variant: Optional[str] = None,
-                    p_block: Optional[ExprLike] = None
-                    ) -> Dict[str, ExprLike]:
+                    p_block: Optional[ExprLike] = None,
+                    resident: Optional[ExprLike] = None,
+                    backward: bool = False) -> Dict[str, ExprLike]:
     """Chunked SSD: per (batch, head, chunk) cell the x/B/C blocks move
     HBM→VMEM and the (P×N) state stays VMEM-resident.  Intra-chunk work is
     quadratic in the chunk; the state update is paid once per chunk — the
     block-size tradeoff the tuner balances.  ``variant`` (``wgmma``;
     ``fma``, the FP32 kernel, which holds everything in f32): the CUDA
-    kernel running the chunk, whose pipe sets the bits of every key.
-    ``p_block``: the P slice one CUDA thread block owns; each slice is a
-    cell of its own, which recomputes the chunk's C·Bᵀ (None, or a slice
-    that holds all of P: the reference's cells)."""
+    kernel running the chunk at ``resident`` blocks an SM, whose pipe sets
+    the bits of every key; a block owns a (batch, head, P slice) and walks
+    the chunks.  ``p_block``: the P slice one CUDA thread block owns; each
+    slice is a cell of its own, which recomputes the chunk's C·Bᵀ (None,
+    or a slice that holds all of P: the reference's cells).
+
+    The products are the kernels' own: ``wgmma`` skips the 64 x 64 tiles
+    of C·Bᵀ and W above the diagonal; the FP32 kernel builds W a strip of
+    32 rows at a time in blocks of 64 columns, over the state padded to
+    16/32/64/128, each product's operands read from shared memory (a thread
+    owns 2 x 4 or 4 x 4 outputs: 0.75 reads a product, 0.5 in the state
+    update).
+
+    ``backward``: the call runs under autograd, so the chunk also sets the
+    backward's recompute: the plain chunked version, forward and backward,
+    dispatched operator by operator on the host (``const1`` each,
+    ``ssd_scan.RECOMPUTE_DISPATCHES_PER_CHUNK`` a chunk), its products
+    three times the reference's count in f32 (``mxu:32``)."""
     bits = _pipe_bits(variant, bits)
     Q = as_expr(chunk)
     nc = CeilDiv(as_expr(L), Q)
-    cells = as_expr(Bz) * as_expr(H) * nc
+    blocks = as_expr(Bz) * as_expr(H)
     Pc = as_expr(P)
     if p_block is not None:
-        cells = cells * CeilDiv(Pc, as_expr(p_block))
+        blocks = blocks * CeilDiv(Pc, as_expr(p_block))
         Pc = Min(Pc, as_expr(p_block))
-    local = cells * (Q * Pc + 2 * Q * as_expr(N) + Pc * as_expr(N))
-    mxu = cells * 2 * (Q * Q * as_expr(N)          # C·Bᵀ
-                       + Q * Q * Pc                # W·x (intra)
-                       + Q * Pc * as_expr(N) * 2)  # inter + state
-    return {
-        props.local_key(bits): local,
-        props.BARRIER: cells,
-        props.GROUPS: cells,
-        props.mxu_key(bits): mxu,
-        props.CONST1: 1.0,
-    }
+    cells = blocks * nc
+    N_ = as_expr(N)
+    local = cells * (Q * Pc + 2 * Q * N_ + Pc * N_)
+    if variant is None:
+        mxu = cells * 2 * (Q * Q * N_           # C·Bᵀ
+                           + Q * Q * Pc         # W·x (intra)
+                           + Q * Pc * N_ * 2)   # inter + state
+        return {
+            props.local_key(bits): local,
+            props.BARRIER: cells,
+            props.GROUPS: cells,
+            props.mxu_key(bits): mxu,
+            props.CONST1: 1.0,
+        }
+    from repro_torch.kernels import ssd_scan as ssd
+    _need_resident(variant, resident)
+    waves, slots = _waves(blocks, resident)
+    if variant == "wgmma":
+        tri = (Q + 64) / (2 * Q)      # 64 x 64 tiles on and below the diagonal
+        prod = tri * Q * Q * (N_ + Pc) + 2 * Q * Pc * N_
+        syncs: ExprLike = ssd.WGMMA_SYNCS_PER_CHUNK
+    else:
+        NP = ssd._padded_state(int(N))
+        strips, m = CeilDiv(Q, Const(32)), CeilDiv(Q, Const(64))
+        col_blocks = m * (m + 1) - (2 * m - strips) * m   # Σ ⌈rows/64⌉
+        cb = 32 * 64 * NP * col_blocks
+        wx = 512 * Pc * strips * (strips + 1)
+        ch = 32 * strips * NP * Pc
+        st = Q * NP * Pc
+        prod = cb + wx + ch + st
+        local = local + cells * (0.75 * (cb + wx + ch) + 0.5 * st)
+        syncs = ssd.fma_syncs_per_chunk(Q)
+    out = {props.local_key(bits): local,
+           props.mxu_key(bits): 2 * cells * prod * slots,
+           **_grid_keys(waves, nc, syncs)}
+    if backward:
+        rows = as_expr(Bz) * as_expr(H) * nc
+        P_, key = as_expr(P), props.mxu_key(32)
+        recompute = 3 * 2 * rows * (Q * Q * N_ + Q * Q * P_ + 2 * Q * P_ * N_)
+        out[key] = as_expr(out.get(key, 0)) + recompute
+        out[props.CONST1] = 1.0 + nc * ssd.RECOMPUTE_DISPATCHES_PER_CHUNK
+    return out
 
 
 def transpose_vector(M: ExprLike, N: ExprLike, *, block: ExprLike = 256,
-                     bits: int = 32, variant: Optional[str] = None
+                     bits: int = 32, variant: Optional[str] = None,
+                     resident: Optional[ExprLike] = None
                      ) -> Dict[str, ExprLike]:
     """VMEM-tile relayout: each (b×b) tile passes through VMEM twice
     (stream in, stream out) so both HBM directions stay stride-1.
     ``variant`` (``vec16``, ``scalar``): the CUDA kernel running the edge
-    ``block``; both count as the reference's schedule does (no product, the
-    tile in the input's bits)."""
+    ``block`` at ``resident`` blocks an SM, one barrier a block; it also
+    counts its stride-1 accesses to device memory, each direction M·N
+    elements in accesses of 16 bytes (``vec16``) or one element
+    (``scalar``): the keys count accesses, and the card pays an access,
+    not a byte, where a kernel is short of bytes in flight."""
     b = as_expr(block)
     bm, bn = Min(b, as_expr(M)), Min(b, as_expr(N))
     cells = CeilDiv(as_expr(M), bm) * CeilDiv(as_expr(N), bn)
-    return {
-        props.local_key(bits): cells * 2 * bm * bn,
-        props.BARRIER: cells,
-        props.GROUPS: cells,
-        props.CONST1: 1.0,
-    }
+    if variant is None:
+        return {
+            props.local_key(bits): cells * 2 * bm * bn,
+            props.BARRIER: cells,
+            props.GROUPS: cells,
+            props.CONST1: 1.0,
+        }
+    _need_resident(variant, resident)
+    waves, _ = _waves(cells, resident)
+    per_access = 128 // bits if variant == "vec16" else 1
+    accesses = as_expr(M) * as_expr(N) * (1.0 / per_access)
+    return {props.local_key(bits): cells * 2 * bm * bn,
+            props.mem_key("load", bits, "s1"): accesses,
+            props.mem_key("store", bits, "s1"): accesses,
+            **_grid_keys(waves, 1, 1)}
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +423,7 @@ def _mm_builder(shape, blocks, variant=None):
     return matmul_vector(shape["M"], shape["N"], shape["K"],
                          block_m=blocks["block_m"], block_n=blocks["block_n"],
                          block_k=blocks["block_k"], bits=_bits(shape, 32),
-                         variant=variant)
+                         variant=variant, resident=blocks.get("resident"))
 
 
 def _mm_candidates(shape):
@@ -288,7 +444,8 @@ def _fa_builder(shape, blocks, variant=None):
         shape["B"], shape["H"], shape["KVH"], shape["Sq"], shape["Skv"],
         shape["dh"], causal=bool(shape.get("causal", True)),
         window=shape.get("window"), block_q=blocks["block_q"],
-        block_k=blocks["block_k"], bits=_bits(shape, 16), variant=variant)
+        block_k=blocks["block_k"], bits=_bits(shape, 16), variant=variant,
+        resident=blocks.get("resident"))
 
 
 def _fa_candidates(shape):
@@ -310,7 +467,9 @@ def _ssd_builder(shape, blocks, variant=None):
     return ssd_scan_vector(shape["Bz"], shape["H"], shape["L"], shape["P"],
                            shape["N"], chunk=blocks["chunk"],
                            bits=_bits(shape, 16), variant=variant,
-                           p_block=blocks.get("p_block"))
+                           p_block=blocks.get("p_block"),
+                           resident=blocks.get("resident"),
+                           backward=bool(shape.get("grad", False)))
 
 
 def _ssd_candidates(shape):
@@ -327,7 +486,8 @@ def _ssd_vmem(shape, blocks):
 
 def _tr_builder(shape, blocks, variant=None):
     return transpose_vector(shape["M"], shape["N"], block=blocks["block"],
-                            bits=_bits(shape, 32), variant=variant)
+                            bits=_bits(shape, 32), variant=variant,
+                            resident=blocks.get("resident"))
 
 
 def _tr_candidates(shape):
@@ -371,23 +531,39 @@ PALLAS_KERNELS: Dict[str, KernelModel] = {
 #
 # A candidate is the tile a kernel executes, written as the request that
 # the wrapper of ``kernels/ops.py`` hands on and the CUDA source serves with
-# that same tile.  Layout facts the sources read beside the shape are
-# optional shape entries, defaulting to contiguous rows at an aligned base:
-# ``va``/``vb`` (matmul: A / B readable 16 bytes at a time), ``tma``
-# (ssd_scan: x, B, C bf16 and readable by TMA), ``aligned`` (transpose: a
-# 16-byte base and leading stride).
+# that same tile, with what the source derives from it: ``resident``, the
+# blocks of that kernel one SM holds (``resident_blocks`` of the kernel
+# modules' ``block_resources`` mirrors and the block's shared memory), and
+# for the SSD scan the P slice.  ``ops`` reads only the request.  Layout
+# facts the sources read beside the shape are optional shape entries,
+# defaulting to contiguous rows at an aligned base: ``va``/``vb`` (matmul:
+# A / B readable 16 bytes at a time), ``tma`` (ssd_scan: x, B, C bf16 and
+# readable by TMA), ``grad`` (ssd_scan: the call runs under autograd),
+# ``aligned`` (transpose: a 16-byte base and leading stride).
+
+
+def _mm_layout(shape):
+    by = _bits(shape, 32) // 8
+    K, N = int(shape["K"]), int(shape["N"])
+    return (bool(shape.get("va", K * by % 16 == 0)),
+            bool(shape.get("vb", N * by % 16 == 0)))
 
 
 def _mm_tile(shape, blocks):
     from repro_torch.kernels import matmul as mm
-    bits = _bits(shape, 32)
-    by = bits // 8
-    K, N = int(shape["K"]), int(shape["N"])
-    return mm.tile_rule(int(shape["M"]), N, int(blocks["block_m"]),
-                        int(blocks["block_n"]), int(blocks["block_k"]),
-                        bf16=bits == 16,
-                        va=bool(shape.get("va", K * by % 16 == 0)),
-                        vb=bool(shape.get("vb", N * by % 16 == 0)))
+    va, vb = _mm_layout(shape)
+    return mm.tile_rule(int(shape["M"]), int(shape["N"]),
+                        int(blocks["block_m"]), int(blocks["block_n"]),
+                        int(blocks["block_k"]), bf16=_bits(shape, 32) == 16,
+                        va=va, vb=vb)
+
+
+def _mm_resident(shape, t) -> int:
+    from repro_torch.kernels import matmul as mm
+    va, vb = _mm_layout(shape)
+    threads, regs = mm.block_resources(t.variant, bf16=_bits(shape, 32) == 16,
+                                       va=va, vb=vb)
+    return resident_blocks(threads, regs, t.smem)
 
 
 def _mm_cuda_candidates(shape):
@@ -397,7 +573,8 @@ def _mm_cuda_candidates(shape):
     for req in (16, 128):
         t = _mm_tile(shape, {"block_m": req, "block_n": req, "block_k": req})
         out.setdefault((t.bm, t.bn, t.bk),
-                       {"block_m": t.bm, "block_n": t.bn, "block_k": t.bk})
+                       {"block_m": t.bm, "block_n": t.bn, "block_k": t.bk,
+                        "resident": _mm_resident(shape, t)})
     return list(out.values())
 
 
@@ -405,13 +582,20 @@ def _fa_cuda_candidates(shape):
     """bf16: the one tile of the tensor-core kernel (``tile_rule``); f32:
     every tile ``pick_tiles`` serves a request of ``TILES``² with."""
     from repro_torch.kernels import flash_attention as fa
-    dh = int(shape["dh"])
-    if _bits(shape, 16) == 16:
-        bq, bk = fa.tile_rule(dh)[:2]
-        return [{"block_q": bq, "block_k": bk}]
-    tiles = dict.fromkeys(fa.pick_tiles(q, k, dh)
-                          for q in fa.TILES for k in fa.TILES)
-    return [{"block_q": q, "block_k": k} for q, k in tiles]
+    dh, bits = int(shape["dh"]), _bits(shape, 16)
+    if bits == 16:
+        tiles = [fa.tile_rule(dh)[:2]]
+    else:
+        tiles = list(dict.fromkeys(fa.pick_tiles(q, k, dh)
+                                   for q in fa.TILES for k in fa.TILES))
+    out = []
+    for bq, bk in tiles:
+        blocks = {"block_q": bq, "block_k": bk}
+        threads, regs = fa.block_resources(bits, bq, bk, dh)
+        blocks["resident"] = resident_blocks(threads, regs,
+                                             _fa_cuda_smem(shape, blocks))
+        out.append(blocks)
+    return out
 
 
 def _fa_cuda_variant(shape, blocks):
@@ -429,8 +613,18 @@ def _fa_cuda_smem(shape, blocks):
 def _ssd_cuda_candidates(shape):
     """The chunks of the reference's grid, each with the P slice its
     kernel takes (``tile_rule``; 0 where the kernel takes no tile)."""
-    return [{"chunk": c["chunk"], "p_block": _ssd_cuda_tile(shape, c).p_block}
-            for c in _ssd_candidates(shape)]
+    from repro_torch.kernels import ssd_scan as ssd
+    out = []
+    for c in _ssd_candidates(shape):
+        t = _ssd_cuda_tile(shape, c)
+        resident = 0
+        if math.isfinite(t.smem):
+            chunk = min(int(c["chunk"]), int(shape["L"]))
+            resident = resident_blocks(*ssd.block_resources(
+                t.variant, chunk, int(shape["N"]), t.p_block), t.smem)
+        out.append({"chunk": c["chunk"], "p_block": t.p_block,
+                    "resident": resident})
+    return out
 
 
 def _ssd_cuda_variant(shape, blocks):
@@ -463,7 +657,14 @@ def _tr_dtype(shape):
 
 def _tr_cuda_candidates(shape):
     from repro_torch.kernels import transpose as tr
-    return [{"block": b} for b in tr.EDGES]
+    out = []
+    for b in tr.EDGES:
+        t = tr.tile_rule(b, _tr_dtype(shape),
+                         _tr_cuda_variant(shape, {"block": b}))
+        regs = tr.REGISTERS[(t.variant, _tr_dtype(shape))]
+        out.append({"block": b,
+                    "resident": resident_blocks(t.threads, regs, t.smem)})
+    return out
 
 
 def _tr_cuda_variant(shape, blocks):
@@ -481,21 +682,23 @@ def _tr_cuda_smem(shape, blocks):
 
 KERNELS: Dict[str, KernelModel] = {
     "matmul": KernelModel(
-        "matmul", ("M", "N", "K"), ("block_m", "block_n", "block_k"),
+        "matmul", ("M", "N", "K"),
+        ("block_m", "block_n", "block_k", "resident"),
         _mm_builder, _mm_cuda_candidates,
         lambda shape, blocks: _mm_tile(shape, blocks).smem, SMEM_LIMIT,
         lambda shape, blocks: _mm_tile(shape, blocks).variant),
     "flash_attention": KernelModel(
         "flash_attention", ("B", "H", "KVH", "Sq", "Skv", "dh"),
-        ("block_q", "block_k"), _fa_builder, _fa_cuda_candidates,
+        ("block_q", "block_k", "resident"), _fa_builder, _fa_cuda_candidates,
         _fa_cuda_smem, SMEM_LIMIT, _fa_cuda_variant),
     "ssd_scan": KernelModel(
-        "ssd_scan", ("Bz", "H", "L", "P", "N"), ("chunk", "p_block"),
+        "ssd_scan", ("Bz", "H", "L", "P", "N"), ("chunk", "p_block",
+                                                 "resident"),
         _ssd_builder, _ssd_cuda_candidates,
         lambda shape, blocks: _ssd_cuda_tile(shape, blocks).smem, SMEM_LIMIT,
         _ssd_cuda_variant),
     "transpose": KernelModel(
-        "transpose", ("M", "N"), ("block",),
+        "transpose", ("M", "N"), ("block", "resident"),
         _tr_builder, _tr_cuda_candidates, _tr_cuda_smem, SMEM_LIMIT,
         _tr_cuda_variant),
 }
@@ -534,31 +737,71 @@ def _ffn_matmul_shapes(cfg, T: ExprLike) -> List[Tuple[ExprLike, ExprLike,
             (T, cfg.d_model, cfg.d_ff)]
 
 
-def step_kernel_vectors(cfg, workload="train"
+def _is_cuda(kernels) -> bool:
+    return all(km.schedule == "cuda"
+               for km in (KERNELS if kernels is None else kernels).values())
+
+
+def step_kernel_blocks(cfg, workload="train", kernels=None
+                       ) -> Optional[Dict[str, Dict[str, int]]]:
+    """The tiles the card's main paths launch for one step of ``cfg``
+    under ``workload``: ``block_sizes="auto"`` of the attention and SSD
+    wrappers (``kernels/ops.py``) at the step's shapes on one device, scored
+    through the card's model (``ops.CARD_MODEL``, as ``ops.default_model``
+    names it for a CUDA tensor): the bf16 attention's one tile, the f32
+    attention's pick, the SSD chunk ``ssm_apply`` resolves.  None for the
+    reference's registry (its composition takes the default blocks)."""
+    if not _is_cuda(kernels):
+        return None
+    from repro_torch.core import workload as wl
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ops import CARD_MODEL
+    spec = wl.as_spec(workload, _stacklevel=4)
+    if spec.phase == "decode":
+        return {}
+    shapes = autotune.workload_kernel_shapes(cfg, spec)
+    if "ssd_scan" in shapes:    # a train step's SSD runs under autograd
+        shapes["ssd_scan"]["grad"] = spec.phase == "train"
+    return {k: autotune.best_block_sizes(get(k, kernels), shapes[k],
+                                         CARD_MODEL)
+            for k in ("flash_attention", "ssd_scan") if k in shapes}
+
+
+def step_kernel_vectors(cfg, workload="train", kernels=None
                         ) -> Dict[str, Dict[str, ExprLike]]:
-    """Per-kernel symbolic property vectors for ONE pass of ``cfg``, at the
-    kernels' default block sizes, for any ``workload``
-    (``repro_torch.core.workload.WorkloadLike``; bare phase strings are the
-    deprecated legacy form and warn).
+    """Per-kernel symbolic property vectors for ONE pass of ``cfg`` for any
+    ``workload`` (``repro_torch.core.workload.WorkloadLike``; bare phase
+    strings are the deprecated legacy form and warn), as the card runs it
+    (``kernels`` None or ``KERNELS``) or as the reference's Pallas blocks
+    count it (``PALLAS_KERNELS``).
 
     Returns ``{kernel_name: property_vector}`` with the same free variables
     as ``archcount`` (B, S — plus AS/SL/MI when a decode spec sets the
     corresponding refinement).  The composition mirrors
     ``archcount._layer_macs`` contraction-for-contraction, so the mxu totals
-    agree in the leading term; kernel-level block rounding and the VMEM
-    (``local:``) traffic are what this granularity adds.  Contractions with
-    no Pallas kernel (MoE dispatch einsum, the SSM short conv, embedding
-    gather) stay with archcount's step counts and are NOT counted here.
+    agree in the leading term.
+
+    On the card: the projections, FFN and LM head run as library GEMMs
+    (``torch.matmul``), counted as their products, ``mxu`` at the compute
+    type's bits, with no tile and no shared-memory traffic of the port's
+    own; the attention and the SSD scan are the CUDA kernels at the tiles
+    ``step_kernel_blocks`` resolves, with their shared-memory (``local:``)
+    traffic.  Under ``PALLAS_KERNELS``: the reference's composition, every
+    contraction a Pallas kernel at its default 128-wide blocks with its
+    VMEM (``local:``) traffic.  Contractions with no kernel (MoE dispatch
+    einsum, the SSM short conv) stay as archcount's closed forms
+    (``unkernelized``).
 
     Decode emits the per-token dense matmuls only (projections, FFN, LM
     head, token dim = occupied slots × speculative length): the
-    cache-streaming attention / recurrent-state update of a decode step has
-    no Pallas kernel in this repo, so those counts stay with
+    cache-streaming attention / recurrent-state update of a decode step
+    launches no kernel, so those counts stay with
     ``archcount.decode_counts``.
     """
     from repro_torch.core import archcount  # late import: archcount is heavier
     from repro_torch.core import workload as wl
     spec = wl.as_spec(workload, _stacklevel=4)
+    picks = step_kernel_blocks(cfg, spec, kernels)
     bits = 16 if "16" in cfg.compute_dtype else 32
     L = cfg.n_layers
     out: Dict[str, Dict[str, ExprLike]] = {}
@@ -609,25 +852,43 @@ def step_kernel_vectors(cfg, workload="train"
 
     mm_pv: Dict[str, ExprLike] = {}
     for (m, n, k, mult) in mm_shapes:
-        mm_pv = add_vectors(mm_pv, scale_vector(
-            matmul_vector(m, n, k, bits=bits), mult))
+        pv = {props.mxu_key(bits): 2 * as_expr(m) * n * k} \
+            if picks is not None else matmul_vector(m, n, k, bits=bits)
+        mm_pv = add_vectors(mm_pv, scale_vector(pv, mult))
     out["matmul"] = mm_pv
 
     if n_attn and not decode:
+        kw = {}
+        if picks is not None:
+            fa = get("flash_attention", kernels)
+            blocks = picks["flash_attention"]
+            kw = dict(block_q=blocks["block_q"], block_k=blocks["block_k"],
+                      resident=blocks["resident"],
+                      variant=fa.variant({"bits": bits}, blocks))
         out["flash_attention"] = scale_vector(
             flash_attention_vector(B, cfg.n_heads, cfg.n_kv_heads, S, S,
                                    cfg.head_dim_, causal=True,
-                                   window=cfg.sliding_window, bits=bits),
+                                   window=cfg.sliding_window, bits=bits,
+                                   **kw),
             float(n_attn))
     if n_ssm and not decode:
         s = cfg.ssm
+        kw = dict(chunk=s.chunk)
+        if picks is not None:
+            blocks = picks["ssd_scan"]
+            vshape = {"P": s.head_dim, "N": s.d_state, "L": blocks["chunk"],
+                      "bits": bits}
+            kw = dict(chunk=blocks["chunk"], p_block=blocks["p_block"],
+                      resident=blocks["resident"],
+                      variant=get("ssd_scan", kernels).variant(vshape,
+                                                               blocks))
         out["ssd_scan"] = scale_vector(
             ssd_scan_vector(B, cfg.ssm_heads, S, s.head_dim, s.d_state,
-                            chunk=s.chunk, bits=bits),
+                            bits=bits, **kw),
             float(n_ssm))
 
-    # contractions with no Pallas kernel: keep their archcount-style MAC
-    # closed forms so the kernel-composed mxu total replaces the step count
+    # contractions with no kernel: keep their archcount-style MAC closed
+    # forms so the kernel-composed mxu total replaces the step count
     # without dropping terms (MoE dense dispatch/combine, SSM short conv)
     extra = as_expr(0)
     if n_attn and cfg.moe is not None:
@@ -643,11 +904,15 @@ def step_kernel_vectors(cfg, workload="train"
     return out
 
 
-def step_compute_vector(cfg, workload="train") -> Dict[str, ExprLike]:
-    """The summed compute-side (mxu + VMEM local) vector of one forward
-    pass, built from the per-kernel vectors.  barrier/groups/const1 stay at
-    STEP granularity (archcount's), not per-launch — a fitted per-launch
-    barrier weight does not add up across thousands of fused launches.
+def step_compute_vector(cfg, workload="train", kernels=None
+                        ) -> Dict[str, ExprLike]:
+    """The summed compute-side (mxu + on-chip ``local``) vector of one
+    forward pass, built from the per-kernel vectors of
+    ``step_kernel_vectors`` (the card's CUDA schedule, or the reference's
+    Pallas blocks with ``kernels=PALLAS_KERNELS``).  barrier/groups/const1
+    stay at STEP granularity (archcount's), not per-launch — a fitted
+    per-launch barrier weight does not add up across thousands of fused
+    launches.
 
     Entries are CANONICALIZED (``exprops.simplify``): the layer-by-layer
     composition piles up dozens of structurally repeated addends (every
@@ -657,8 +922,8 @@ def step_compute_vector(cfg, workload="train") -> Dict[str, ExprLike]:
     from repro_torch.core import exprops
     from repro_torch.core import workload as wl
     total = add_vectors(
-        *step_kernel_vectors(cfg, wl.as_spec(workload, _stacklevel=4))
-        .values())
+        *step_kernel_vectors(cfg, wl.as_spec(workload, _stacklevel=4),
+                             kernels).values())
     keep = ("mxu:", "local:")
     return {k: exprops.simplify(v) for k, v in total.items()
             if k.startswith(keep)}

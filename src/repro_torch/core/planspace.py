@@ -285,6 +285,10 @@ class PlanSpace:
     #: loses the rank-1 structure) and the scorers fall back to the generic
     #: unique-row path
     product: Optional[_ProductInfo] = field(default=None, repr=False)
+    #: the kernel registry the step programs compose (``predictor``'s
+    #: ``kernels``): None, the card's; ``kernelmodel.PALLAS_KERNELS``, the
+    #: reference's
+    kernels: Optional[Mapping[str, object]] = field(default=None, repr=False)
     #: per-space memo of the group → BasisProgram lookups (saves re-hashing
     #: the frozen ArchConfig key on every repeat ``scores`` call)
     _progs: Dict[object, object] = field(default_factory=dict, repr=False)
@@ -301,7 +305,7 @@ class PlanSpace:
         if prog is None:
             if group_key[0] == "step":
                 prog = predictor.step_program(self.cfg, self.workload,
-                                              remat)
+                                              remat, kernels=self.kernels)
             else:
                 prog = _collective_program(self.cfg, self.workload.phase,
                                            remat)
@@ -311,7 +315,7 @@ class PlanSpace:
     # -- construction ------------------------------------------------------
     @classmethod
     def from_cells(cls, cfg: ArchConfig, workload: wl.WorkloadLike,
-                   cells: Sequence[Cell]) -> "PlanSpace":
+                   cells: Sequence[Cell], kernels=None) -> "PlanSpace":
         spec = wl.as_spec(workload)
         plans = [p for p, _ in cells]
         meshes = [dict(m) for _, m in cells]
@@ -323,12 +327,13 @@ class PlanSpace:
                             for m in meshes], dtype=np.int64)
         mb = np.asarray([p.microbatches for p in plans], dtype=np.int64)
         return cls(cfg=cfg, workload=spec, plans=plans, mesh_shapes=meshes,
-                   dp=dp, tp=tp, n_dev=n_dev, microbatches=mb)
+                   dp=dp, tp=tp, n_dev=n_dev, microbatches=mb,
+                   kernels=kernels)
 
     @classmethod
     def from_product(cls, cfg: ArchConfig, workload: wl.WorkloadLike,
-                     plans: Sequence, meshes: Sequence[Mapping[str, int]]
-                     ) -> "PlanSpace":
+                     plans: Sequence, meshes: Sequence[Mapping[str, int]],
+                     kernels=None) -> "PlanSpace":
         """Plan-major cross product: cell (i·len(meshes) + j) = plan i on
         mesh j — so a single-mesh product keeps the plans' order.
 
@@ -381,7 +386,7 @@ class PlanSpace:
                    mesh_shapes=meshes * n_p,
                    dp=dp, tp=tp, n_dev=n_dev, microbatches=mb,
                    remat_groups=expand(remat_p), topo_groups=expand(topo_p),
-                   product=info)
+                   product=info, kernels=kernels)
 
     def __len__(self) -> int:
         return len(self.plans)
@@ -416,7 +421,7 @@ class PlanSpace:
             dp=self.dp[idx], tp=self.tp[idx], n_dev=self.n_dev[idx],
             microbatches=self.microbatches[idx],
             remat_groups=remap(self.remat_groups),
-            topo_groups=remap(self.topo_groups))
+            topo_groups=remap(self.topo_groups), kernels=self.kernels)
 
     # -- vectorized property assembly --------------------------------------
     def property_arrays(self) -> Dict[str, np.ndarray]:
@@ -439,7 +444,8 @@ class PlanSpace:
         remat_groups = self.remat_groups if self.remat_groups is not None \
             else _group_indices([p.remat_policy for p in self.plans])
         for remat, idx in remat_groups.items():
-            cv = predictor.step_vector_fn(self.cfg, self.workload, remat)
+            cv = predictor.step_vector_fn(self.cfg, self.workload, remat,
+                                          kernels=self.kernels)
             env = {**base_env, "M": self.microbatches[idx]}
             for k, v in cv(env).items():
                 v = np.broadcast_to(
@@ -498,7 +504,8 @@ class PlanSpace:
         remat_groups = self.remat_groups if self.remat_groups is not None \
             else _group_indices([p.remat_policy for p in self.plans])
         for remat, idx in remat_groups.items():
-            prog = predictor.step_program(self.cfg, self.workload, remat)
+            prog = predictor.step_program(self.cfg, self.workload, remat,
+                                          kernels=self.kernels)
             env = {**base_env, "M": self.microbatches[idx]}
             s = exprops.score_cells(prog, env, len(idx), m, cache)
             total[idx] += s / self.n_dev[idx]   # SPMD work division
@@ -700,7 +707,7 @@ def peak_bytes(cfg: ArchConfig, workload: wl.WorkloadLike, plans: Sequence,
 
 def iter_product_chunks(cfg: ArchConfig, workload: wl.WorkloadLike,
                         plans: Sequence, meshes: Sequence[Mapping[str, int]],
-                        chunk_cells: int = 65536):
+                        chunk_cells: int = 65536, kernels=None):
     """Yield ``(cell_offset, PlanSpace)`` tiles of the plan-major product
     space, each at most ~``chunk_cells`` cells.
 
@@ -721,13 +728,13 @@ def iter_product_chunks(cfg: ArchConfig, workload: wl.WorkloadLike,
             for j0 in range(0, n_m, chunk_cells):
                 sub = PlanSpace.from_product(
                     cfg, spec, plans[i:i + 1],
-                    meshes[j0:j0 + chunk_cells])
+                    meshes[j0:j0 + chunk_cells], kernels=kernels)
                 yield i * n_m + j0, sub
     else:
         p_step = max(chunk_cells // n_m, 1)
         for i0 in range(0, n_p, p_step):
             sub = PlanSpace.from_product(cfg, spec, plans[i0:i0 + p_step],
-                                         meshes)
+                                         meshes, kernels=kernels)
             yield i0 * n_m, sub
 
 
@@ -735,7 +742,7 @@ def stream_topk(cfg: ArchConfig, workload: wl.WorkloadLike, plans: Sequence,
                 meshes: Sequence[Mapping[str, int]], model=None,
                 k: int = 5, chunk_cells: int = 65536,
                 hbm_budget: Optional[float] = None,
-                stats: Optional[dict] = None
+                stats: Optional[dict] = None, kernels=None
                 ) -> List[Tuple[float, object, Mesh]]:
     """Top-``k`` cells of a (plan × mesh) product of ANY size in bounded
     memory: chunks stream through the fused scorer, an ``np.argpartition``
@@ -759,7 +766,7 @@ def stream_topk(cfg: ArchConfig, workload: wl.WorkloadLike, plans: Sequence,
     best_idx = np.zeros(0, dtype=np.int64)
     n_chunks = max_chunk = pool_hw = pruned = total_cells = 0
     for off, sub in iter_product_chunks(cfg, spec, plans, meshes,
-                                        chunk_cells):
+                                        chunk_cells, kernels=kernels):
         n_chunks += 1
         max_chunk = max(max_chunk, len(sub))
         total_cells += len(sub)

@@ -155,19 +155,23 @@ _STEP_PV_CACHE: LRUCache = LRUCache(maxsize=64)
 
 
 def _step_pv_sym(cfg: ArchConfig, spec: WorkloadSpec,
-                 remat_policy: Optional[str] = None, _sc=None):
+                 remat_policy: Optional[str] = None, _sc=None,
+                 kernels=None):
     """The symbolic property-vector map of one step of ``cfg`` — the shared
     source for both the per-property compiled path (``step_vector_fn``) and
     the fused basis program (``step_program``).
 
     For train/prefill the compute terms come from the PER-KERNEL property
-    vectors (``core.kernelmodel.step_kernel_vectors``): the mxu count is the
-    block-rounded sum over the step's matmul / flash-attention / ssd_scan
-    launches (plus unkernelized contractions), and the kernels' VMEM
-    (``local:``) traffic joins the vector — the same counts the block-size
-    autotuner scores.  Memory / VPU / optimizer / structural terms stay at
-    archcount's step granularity, as does everything for decode (its cache-
-    streaming attention has no Pallas kernel here).
+    vectors (``core.kernelmodel.step_kernel_vectors`` over ``kernels``):
+    the mxu count is the sum over the step's GEMMs and flash-attention /
+    ssd_scan launches (plus unkernelized contractions), and the kernels'
+    on-chip (``local:``) traffic joins the vector — the same counts the
+    block-size autotuner scores.  ``kernels`` None or
+    ``kernelmodel.KERNELS``: what the card launches (library GEMMs, the
+    CUDA kernels at the main paths' tiles); ``kernelmodel.PALLAS_KERNELS``:
+    the reference's Pallas blocks.  Memory / VPU / optimizer / structural
+    terms stay at archcount's step granularity, as does everything for
+    decode (its cache-streaming attention launches no kernel).
     """
     from repro_torch.core import kernelmodel
     from repro_torch.core.symcount import as_expr
@@ -176,7 +180,7 @@ def _step_pv_sym(cfg: ArchConfig, spec: WorkloadSpec,
     if spec.phase in ("train", "prefill"):
         mult = archcount.train_fwd_multiplier(cfg, remat_policy) \
             if spec.phase == "train" else 1.0
-        kpv = kernelmodel.step_compute_vector(cfg, spec)
+        kpv = kernelmodel.step_compute_vector(cfg, spec, kernels)
         for k, v in kpv.items():
             scaled = as_expr(v) * mult
             if k.startswith("mxu:"):
@@ -195,8 +199,22 @@ def _structure_key(spec: WorkloadSpec):
     return st[0] if len(st) == 1 else st
 
 
+def _kernels_key(cfg: ArchConfig, spec: WorkloadSpec, kernels):
+    """Cache-key part for the step composition's registry: None for the
+    reference's (its keys stay as they were), else the tiles the card's
+    main paths launch for this step (they follow the spec's shape and the
+    card's model)."""
+    from repro_torch.core import kernelmodel
+    blocks = kernelmodel.step_kernel_blocks(cfg, spec, kernels)
+    if blocks is None:
+        return None
+    return ("cuda",) + tuple((k, tuple(sorted(v.items())))
+                             for k, v in sorted(blocks.items()))
+
+
 def step_vector_fn(cfg: ArchConfig, workload: wl.WorkloadLike,
-                   remat_policy: Optional[str] = None, _sc=None):
+                   remat_policy: Optional[str] = None, _sc=None,
+                   kernels=None):
     """Compiled symbolic property vector for one step of ``cfg`` (one
     closure per property — see ``_step_pv_sym`` for what the vector holds).
     The batched engine's hot path uses the FUSED form (``step_program``);
@@ -204,10 +222,12 @@ def step_vector_fn(cfg: ArchConfig, workload: wl.WorkloadLike,
     against, and serves ``plan_property_vector`` / ``predict_step``."""
     from repro_torch.core.symcount import compile_vector
     spec = wl.as_spec(workload)
-    key = (cfg, spec.structure(), remat_policy)
+    key = (cfg, spec.structure(), remat_policy,
+           _kernels_key(cfg, spec, kernels))
     cv = _STEP_PV_CACHE.get(key)
     if cv is None:
-        cv = compile_vector(_step_pv_sym(cfg, spec, remat_policy, _sc=_sc))
+        cv = compile_vector(_step_pv_sym(cfg, spec, remat_policy, _sc=_sc,
+                                         kernels=kernels))
         _STEP_PV_CACHE[key] = cv
     return cv
 
@@ -218,7 +238,7 @@ _STEP_PROG_CACHE: LRUCache = LRUCache(maxsize=64)
 
 
 def step_program(cfg: ArchConfig, workload: wl.WorkloadLike,
-                 remat_policy: Optional[str] = None):
+                 remat_policy: Optional[str] = None, kernels=None):
     """The step property vector as a FUSED basis program
     (``core.exprops``): canonicalized, cross-property CSE'd, scored as one
     GEMV.  In-memory LRU over the persistent on-disk compile cache — the
@@ -226,13 +246,15 @@ def step_program(cfg: ArchConfig, workload: wl.WorkloadLike,
     skips building the symbolic counts entirely."""
     from repro_torch.core import exprops
     spec = wl.as_spec(workload)
-    key = (cfg, spec.structure(), remat_policy)
+    kkey = _kernels_key(cfg, spec, kernels)
+    key = (cfg, spec.structure(), remat_policy, kkey)
     prog = _STEP_PROG_CACHE.get(key)
     if prog is None:
-        dk = exprops.program_key("step", cfg, _structure_key(spec),
-                                 remat_policy)
+        parts = ("step", cfg, _structure_key(spec), remat_policy)
+        dk = exprops.program_key(*parts, *((kkey,) if kkey else ()))
         prog = exprops.load_or_build(
-            dk, lambda: _step_pv_sym(cfg, spec, remat_policy))
+            dk, lambda: _step_pv_sym(cfg, spec, remat_policy,
+                                     kernels=kernels))
         _STEP_PROG_CACHE[key] = prog
     return prog
 
@@ -240,7 +262,7 @@ def step_program(cfg: ArchConfig, workload: wl.WorkloadLike,
 def plan_property_vector(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
                          mesh_shape: Mapping[str, int],
                          _count_cache: Optional[dict] = None,
-                         _sc=None) -> Dict[str, float]:
+                         _sc=None, kernels=None) -> Dict[str, float]:
     """The concrete per-device property vector for one (plan, mesh) cell.
 
     ``_count_cache`` memoizes the expensive symbolic-count evaluation across
@@ -258,7 +280,8 @@ def plan_property_vector(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
     ck = (plan.remat_policy, plan.microbatches)
     cached = _count_cache.get(ck) if _count_cache is not None else None
     if cached is None:
-        cv = step_vector_fn(cfg, spec, plan.remat_policy, _sc=_sc)
+        cv = step_vector_fn(cfg, spec, plan.remat_policy, _sc=_sc,
+                            kernels=kernels)
         cached = {k: float(v) for k, v in cv(env).items()}
         if _count_cache is not None:
             _count_cache[ck] = cached
@@ -274,7 +297,7 @@ def plan_property_vector(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
 def predict_step(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
                  mesh_shape: Mapping[str, int],
                  weights: ModelLike = None,
-                 residual=None) -> StepPrediction:
+                 residual=None, kernels=None) -> StepPrediction:
     """Predict one step's wall time on ``mesh_shape`` under ``plan``.
 
     ``residual`` (a ``core.fit.ResidualHead``, e.g. from an
@@ -290,7 +313,8 @@ def predict_step(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
 
     sc = archcount.counts_for(cfg, spec,
                               remat_policy=plan.remat_policy)
-    pv = plan_property_vector(cfg, spec, plan, mesh_shape, _sc=sc)
+    pv = plan_property_vector(cfg, spec, plan, mesh_shape, _sc=sc,
+                              kernels=kernels)
 
     bd = weights.breakdown(pv)
     total = sum(bd.values())
@@ -309,20 +333,21 @@ def predict_step(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
 
 
 def score_explain(cfg: ArchConfig, workload: wl.WorkloadLike, plan,
-                  mesh_shape: Mapping[str, int], weights: ModelLike = None):
+                  mesh_shape: Mapping[str, int], weights: ModelLike = None,
+                  kernels=None):
     """Decompose one cell's predicted step seconds into basis-term
     contributions — per term, per cost category, per program source (step
     / collective / launch) — summing exactly to the fused
-    ``PlanSpace.scores`` cell.  The reference returns an
-    ``obs.explain.Explanation``; that module is not ported yet."""
-    raise NotImplementedError(
-        "score_explain needs obs/explain.py, which waits for the "
-        "model-scored serving slice (ROADMAP A12)")
+    ``PlanSpace.scores`` cell (``obs.explain.score_explain``)."""
+    from repro_torch.obs.explain import score_explain as _explain
+    return _explain(cfg, workload, plan, mesh_shape, weights,
+                    kernels=kernels)
 
 
 def predict_plans(cfg: ArchConfig, workload: wl.WorkloadLike,
                   plans: Sequence, mesh_shape: Mapping[str, int],
-                  weights: ModelLike = None, cache=None) -> np.ndarray:
+                  weights: ModelLike = None, cache=None,
+                  kernels=None) -> np.ndarray:
     """Batched step-time prediction: seconds for every candidate plan.
 
     This is the plan-search hot path, routed through the array-batched
@@ -345,13 +370,15 @@ def predict_plans(cfg: ArchConfig, workload: wl.WorkloadLike,
         return np.zeros((0,))
     from repro_torch.core import planspace  # planspace sits above predictor
     space = planspace.PlanSpace.from_product(cfg, spec, list(plans),
-                                             [dict(mesh_shape)])
+                                             [dict(mesh_shape)],
+                                             kernels=kernels)
     return space.scores(weights, cache=cache)
 
 
 def predict_plans_loop(cfg: ArchConfig, workload: wl.WorkloadLike,
                        plans: Sequence, mesh_shape: Mapping[str, int],
-                       weights: ModelLike = None) -> np.ndarray:
+                       weights: ModelLike = None,
+                       kernels=None) -> np.ndarray:
     """Reference scorer: per-plan ``plan_property_vector`` + one
     ``predict_many``.  Semantically identical to ``predict_plans``; kept as
     the oracle the batched engine is pinned against (tests) and the
@@ -361,7 +388,8 @@ def predict_plans_loop(cfg: ArchConfig, workload: wl.WorkloadLike,
     spec = wl.as_spec(workload)
     count_cache: dict = {}
     pvs: List[Dict[str, float]] = [
-        plan_property_vector(cfg, spec, p, mesh_shape, count_cache)
+        plan_property_vector(cfg, spec, p, mesh_shape, count_cache,
+                             kernels=kernels)
         for p in plans]
     if not pvs:
         return np.zeros((0,))
@@ -370,7 +398,7 @@ def predict_plans_loop(cfg: ArchConfig, workload: wl.WorkloadLike,
 
 def rank_plans(cfg: ArchConfig, workload: wl.WorkloadLike, plans,
                mesh_shape: Mapping[str, int],
-               weights: ModelLike = None):
+               weights: ModelLike = None, kernels=None):
     """Sort candidate plans by predicted step time (ascending) — the paper's
     §6.2 'select the optimal set of kernel configurations', realized.
 
@@ -378,7 +406,8 @@ def rank_plans(cfg: ArchConfig, workload: wl.WorkloadLike, plans,
     the plans' own fields (``planspace.plan_sort_key``), never on the
     caller's enumeration order."""
     from repro_torch.core.planspace import plan_sort_key
-    secs = predict_plans(cfg, workload, plans, mesh_shape, weights)
+    secs = predict_plans(cfg, workload, plans, mesh_shape, weights,
+                         kernels=kernels)
     order = sorted(range(len(plans)),
                    key=lambda i: (secs[i], plan_sort_key(plans[i])))
     return [(float(secs[i]), plans[i]) for i in order]

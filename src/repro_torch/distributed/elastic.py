@@ -120,7 +120,8 @@ def replan(cfg: ArchConfig, shape: wl.WorkloadLike, devices: DevicesArg,
            max_candidates: int = 64, *,
            registry_dir: Optional[str] = None,
            models: Optional[Mapping[str, object]] = None,
-           cache: Optional[exprops.BasisCache] = None) -> List[MeshOption]:
+           cache: Optional[exprops.BasisCache] = None,
+           kernels=None) -> List[MeshOption]:
     """Rank feasible (data × model) meshes for the surviving devices.
 
     ``devices`` is a survivor count (the classic 1-pool case) or a
@@ -141,7 +142,8 @@ def replan(cfg: ArchConfig, shape: wl.WorkloadLike, devices: DevicesArg,
     candidate.  Scoring passes each pool's ``exprops.BasisCache`` (or the
     caller's ``cache`` override): across successive replans only the basis
     columns a device-count/shape delta actually touches recompute (the
-    incremental-rescore contract, docs/MODEL.md §2.7).
+    incremental-rescore contract, docs/MODEL.md §2.7).  ``kernels``: the
+    registry the step programs compose (``predictor``'s; None, the card's).
     """
     spec = wl.as_spec(shape)    # any WorkloadLike; one currency from here
     opts: List[MeshOption] = []
@@ -150,7 +152,8 @@ def replan(cfg: ArchConfig, shape: wl.WorkloadLike, devices: DevicesArg,
         cells = mesh_cells(cfg, spec, n, max_candidates)
         if not cells:
             continue
-        space = planspace.PlanSpace.from_cells(cfg, spec, cells)
+        space = planspace.PlanSpace.from_cells(cfg, spec, cells,
+                                               kernels=kernels)
         secs = space.scores(model,
                             cache=cache if cache is not None
                             else pool_cache(device))
@@ -178,8 +181,8 @@ def on_failure(cfg: ArchConfig, shape: wl.WorkloadLike,
                weights: predictor.ModelLike = None, *,
                pool: Optional[str] = None,
                registry_dir: Optional[str] = None,
-               models: Optional[Mapping[str, object]] = None
-               ) -> MeshOption:
+               models: Optional[Mapping[str, object]] = None,
+               kernels=None) -> MeshOption:
     """Failure handler: fall back to the best mesh over the largest
     'round' (power-of-two) survivor count — spares become hot standbys,
     matching how real pods drain around a failed host.
@@ -193,7 +196,8 @@ def on_failure(cfg: ArchConfig, shape: wl.WorkloadLike,
     if len(pools) == 1 and pools[0][0] is None and pool is None:
         survivors = pools[0][1] - lost
         options = replan(cfg, shape, _pow2_floor(survivors), weights,
-                         registry_dir=registry_dir, models=models)
+                         registry_dir=registry_dir, models=models,
+                         kernels=kernels)
         assert options, f"no feasible mesh for {_pow2_floor(survivors)} " \
                         f"devices"
         return options[0]
@@ -205,6 +209,7 @@ def on_failure(cfg: ArchConfig, shape: wl.WorkloadLike,
         if n > 0:
             desc.append((device, n))
     options = replan(cfg, shape, desc, weights,
-                     registry_dir=registry_dir, models=models)
+                     registry_dir=registry_dir, models=models,
+                     kernels=kernels)
     assert options, f"no feasible mesh over surviving pools {desc}"
     return options[0]

@@ -10,14 +10,18 @@ once and waits for all of them.
 
 The build directory is ``build/`` at the root of the checkout, or
 ``$REPRO_TORCH_BUILD_DIR``.  A failed build raises; nothing here falls back
-to another implementation.
+to another implementation.  ``blocks_per_sm`` asks the CUDA occupancy calculator how many
+blocks of a built kernel one SM holds (what the autotuner's residency
+mirrors are held to).
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, List, Sequence
@@ -120,3 +124,65 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _libs[name] = lib
         return lib
+
+
+# --- the occupancy of a built kernel (what the residency mirrors are held to)
+
+_cubins: Dict[str, List[ctypes.c_void_p]] = {}
+
+
+def _libcuda() -> ctypes.CDLL:
+    cu = ctypes.CDLL("libcuda.so.1")
+    if cu.cuInit(0) != 0:
+        raise RuntimeError("cuInit failed")
+    return cu
+
+
+def _modules(name: str) -> List[ctypes.c_void_p]:
+    """The cubins of ``lib<name>.so`` (``cuobjdump -xelf all``), loaded
+    into the current context (the caller has made one, e.g. with a first
+    tensor on the card)."""
+    mods = _cubins.get(name)
+    if mods is None:
+        cu = _libcuda()
+        lib = _lib_path(name).resolve()
+        cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+        mods = []
+        with tempfile.TemporaryDirectory() as d:
+            subprocess.run([str(cuobjdump), "-xelf", "all", str(lib)],
+                           cwd=d, check=True, capture_output=True)
+            for cubin in sorted(glob.glob(os.path.join(d, "*.cubin"))):
+                mod = ctypes.c_void_p()
+                if cu.cuModuleLoad(ctypes.byref(mod), cubin.encode()) != 0:
+                    raise RuntimeError(f"cuModuleLoad failed for {cubin}")
+                mods.append(mod)
+        _cubins[name] = mods
+    return mods
+
+
+def blocks_per_sm(name: str, function: str, threads: int,
+                  dynamic_smem: int) -> int:
+    """The blocks of ``function`` (a mangled entry of ``csrc/<name>.cu``,
+    as built) one SM of the current device holds at ``threads`` threads a
+    block and ``dynamic_smem`` bytes of dynamic shared memory, by the
+    CUDA occupancy calculator (after allowing the kernel all the
+    dynamic shared memory a block may have, as the launches do).  Needs the
+    card, ``cuobjdump`` beside ``nvcc`` and a built library."""
+    cu = _libcuda()
+    for mod in _modules(name):
+        fn = ctypes.c_void_p()
+        if cu.cuModuleGetFunction(ctypes.byref(fn), mod,
+                                  function.encode()) != 0:
+            continue
+        static = ctypes.c_int()
+        cu.cuFuncGetAttribute(ctypes.byref(static), 1, fn)  # static smem
+        # CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES
+        if cu.cuFuncSetAttribute(fn, 8, 232448 - static.value) != 0:
+            raise RuntimeError(f"cuFuncSetAttribute failed for {function}")
+        n = ctypes.c_int()
+        if cu.cuOccupancyMaxActiveBlocksPerMultiprocessor(
+                ctypes.byref(n), fn, threads,
+                ctypes.c_size_t(dynamic_smem)) != 0:
+            raise RuntimeError(f"occupancy query failed for {function}")
+        return n.value
+    raise KeyError(f"no function {function} in lib{name}.so")

@@ -150,6 +150,43 @@ def f32_tile(block_q: int, block_k: int, dh: int) -> int:
     return nbytes.value
 
 
+#: what a block of each kernel holds besides shared memory: threads, and
+#: registers a thread as ``nvcc -Xptxas -v`` reports them for this source
+#: (CUDA 12.9, sm_90a).  The bf16 kernel launches 384 threads at 168 (its
+#: warpgroups then trade registers with ``setmaxnreg``); the FP32 kernel's
+#: instances by (block_q, block_k, padded head width).  ``chip_smoke.py``
+#: holds them against the build's report, ``tests/test_torch_gpu.py`` the
+#: blocks an SM holds against the CUDA occupancy calculator.
+WGMMA_THREADS, WGMMA_REGISTERS, F32_THREADS = 384, 168, 256
+F32_REGISTERS = {
+    (128, 128, 64): 254, (128, 128, 32): 232, (128, 128, 16): 250,
+    (128, 64, 128): 206, (128, 64, 64): 198, (128, 64, 32): 162,
+    (128, 64, 16): 132, (128, 32, 128): 199, (128, 32, 64): 128,
+    (128, 32, 32): 122, (128, 32, 16): 86, (64, 128, 128): 168,
+    (64, 128, 64): 128, (64, 128, 32): 128, (64, 128, 16): 80,
+    (64, 64, 128): 128, (64, 64, 64): 92, (64, 64, 32): 98, (64, 64, 16): 64,
+    (64, 32, 128): 111, (64, 32, 64): 80, (64, 32, 32): 76, (64, 32, 16): 72,
+    (32, 128, 128): 98, (32, 128, 64): 80, (32, 128, 32): 106,
+    (32, 128, 16): 106, (32, 64, 128): 73, (32, 64, 64): 88, (32, 64, 32): 92,
+    (32, 64, 16): 92, (32, 32, 128): 64, (32, 32, 64): 74, (32, 32, 32): 64,
+    (32, 32, 16): 52,
+}
+#: block-wide waits of one key tile on the critical path: the FP32 kernel's
+#: two ``__syncthreads``, the bf16 consumers' K and V ``mbarrier`` waits
+SYNCS_PER_TILE = 2
+
+
+def block_resources(bits: int, block_q: int, block_k: int,
+                    dh: int) -> Tuple[int, int]:
+    """(threads, registers a thread) of the block that runs the tile
+    ``(block_q, block_k)`` at head width ``dh``: the bf16 kernel
+    (``bits=16``) or the FP32 one's instance."""
+    if bits == 16:
+        return WGMMA_THREADS, WGMMA_REGISTERS
+    return F32_THREADS, F32_REGISTERS[(block_q, block_k,
+                                       padded_head_dim(dh))]
+
+
 def schedule_props(B: int, H: int, KVH: int, Sq: int, Skv: int, dh: int,
                    *, causal: bool = True, window: Optional[int] = None,
                    block_q: int = 128, block_k: int = 128,

@@ -40,7 +40,7 @@ dimension contiguous, any leading stride and base address).  The product is
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -133,6 +133,40 @@ def tile_rule(M: int, N: int, block_m: int = 128, block_n: int = 128,
     bk, stages = (32, 3) if va else (16, 4)
     return Tile(128, 128, bk, by * stages * bk * (_FMA_AT_STRIDE + 128),
                 "fma128", stages)
+
+
+#: what a block of each kernel holds besides shared memory: threads, and
+#: registers a thread as ``nvcc -Xptxas -v`` reports them for this source
+#: (CUDA 12.9, sm_90a), by (variant, bf16, A read 16 bytes at a time, B
+#: too; fma128's k step follows A's reads); ``chip_smoke.py`` holds them
+#: against the build's report, ``tests/test_torch_gpu.py`` the blocks an SM
+#: holds against the CUDA occupancy calculator.  ``THREAD_TILE``: the outputs one thread of
+#: the FP32 kernels owns, rows x columns (each product reads rows + columns
+#: operands from shared memory per step of k).
+THREADS = {"paper16": 256, "fma128": 256, "wgmma": 384}
+REGISTERS = {
+    ("paper16", False, False): 44, ("paper16", False, True): 52,
+    ("paper16", True, False): 32, ("paper16", True, True): 40,
+    ("fma128", False, False, False): 165, ("fma128", False, False, True): 128,
+    ("fma128", False, True, False): 185, ("fma128", False, True, True): 128,
+    ("fma128", True, False, False): 162, ("fma128", True, False, True): 123,
+    ("fma128", True, True, False): 160, ("fma128", True, True, True): 119,
+    ("wgmma",): 168,
+}
+THREAD_TILE = {"paper16": (1, 1), "fma128": (8, 8)}
+#: block-wide waits of one step of k on the critical path
+SYNCS_PER_STEP = 1
+
+
+def block_resources(variant: str, *, bf16: bool, va: bool,
+                    vb: bool) -> Tuple[int, int]:
+    """(threads, registers a thread) of the block ``variant`` launches for
+    inputs of that type and layout (paper16 reads B element by element
+    whatever its layout)."""
+    key = ("wgmma",) if variant == "wgmma" else \
+        (variant, bf16, va) if variant == "paper16" else \
+        (variant, bf16, va, vb)
+    return THREADS[variant], REGISTERS[key]
 
 
 def schedule_props(M: int, N: int, K: int, *, block_m: int = 128,

@@ -11,7 +11,9 @@ Model code calls these.  Every wrapper accepts ``block_sizes``:
     in-memory ``LinearCostModel``, or None: ``default_model``).
 
 ``"auto"`` resolution happens in plain Python before the kernel is called,
-so it runs once per (shape, model) and is memoized.
+so it runs once per (shape, model) and is memoized.  The SSD scan's chunk
+under autograd (``ssd_scan_shape``'s ``grad``) is priced with the
+backward's chunk-by-chunk recompute (``models/ssm._SSDScan``).
 
 Block sizes are requests: flash attention's f32 kernel serves them with the
 nearest tile it is built for (``flash_attention.pick_tiles``), its bf16
@@ -73,13 +75,20 @@ def flash_attention_shape(q: torch.Tensor, k: torch.Tensor, *,
             "dh": dh, "causal": causal, "window": window, "bits": _bits(q)}
 
 
+def _under_autograd(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def ssd_scan_shape(x: torch.Tensor, B: torch.Tensor,
                    C: torch.Tensor) -> dict:
     """The problem shape ``"auto"`` tunes ``ssd_scan`` for, with whether
-    the tensor-core kernel can read x, B and C (``tma``)."""
+    the tensor-core kernel can read x, B and C (``tma``) and whether the
+    call runs under autograd (``grad``: the backward then recomputes at
+    the chunk)."""
     Bz, H, L, P = x.shape
     return {"Bz": Bz, "H": H, "L": L, "P": P, "N": B.shape[3],
-            "bits": _bits(x), "tma": _ssd.tma_readable(x, B, C)}
+            "bits": _bits(x), "tma": _ssd.tma_readable(x, B, C),
+            "grad": _under_autograd(x, B, C)}
 
 
 def matmul_shape(a: torch.Tensor, b: torch.Tensor) -> dict:
@@ -170,7 +179,7 @@ def ssd_chunk(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
     that the backward recomputes at the chunk the forward ran."""
     return _resolve_blocks("ssd_scan", lambda: ssd_scan_shape(x, B, C),
                            block_sizes, {"chunk": chunk}, model,
-                           (x, B, C))["chunk"]
+                           (x, B, C), _under_autograd(x, B, C))["chunk"]
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

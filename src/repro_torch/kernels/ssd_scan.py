@@ -210,6 +210,55 @@ def tile_rule(P: int, N: int, chunk: int, variant: str = "fma") -> Tile:
     return Tile("fma", pb, 1, _fma_smem(chunk, N, pb))
 
 
+#: what a block of each kernel holds besides shared memory: threads, and
+#: registers a thread as ``nvcc -Xptxas -v`` reports them for this source
+#: (CUDA 12.9, sm_90a): the FP32 kernel's instances by (padded N, P slice),
+#: the tensor-core kernel's by (chunk, padded N), its threads by chunk (a
+#: consumer warpgroup per 64 rows and a producer warp, or warpgroup at 128).
+#: ``chip_smoke.py`` holds them against the build's report,
+#: ``tests/test_torch_gpu.py`` the blocks an SM holds against the CUDA
+#: occupancy calculator.
+FMA_THREADS = 256
+FMA_REGISTERS = {(128, 64): 128, (128, 32): 128, (128, 16): 128,
+                 (64, 64): 128, (64, 32): 128, (64, 16): 128,
+                 (32, 64): 128, (32, 32): 128, (32, 16): 128,
+                 (16, 64): 106, (16, 32): 128, (16, 16): 128}
+WGMMA_THREADS = {64: 160, 128: 384}
+WGMMA_REGISTERS = {(64, 128): 191, (64, 64): 153, (128, 128): 168,
+                   (128, 64): 168}
+#: block-wide waits of one chunk on the critical path: the tensor-core
+#: consumers' stage ``mbarrier`` and the named barrier over h; the FP32
+#: kernel's ``__syncthreads``, three a chunk and three a strip of 32 rows
+WGMMA_SYNCS_PER_CHUNK = 2
+
+
+def fma_syncs_per_chunk(chunk):
+    """The FP32 kernel's ``__syncthreads`` of one chunk (an int or a
+    ``symcount`` expression of the chunk)."""
+    if isinstance(chunk, int):
+        return 3 + 3 * -(-chunk // _STRIP)
+    from repro_torch.core.symcount import CeilDiv, as_expr
+    return 3 + 3 * CeilDiv(as_expr(chunk), as_expr(_STRIP))
+
+
+#: the operators one chunk of the plain version dispatches forward and
+#: backward: the cost, chunk by chunk, of the training path's backward, which
+#: recomputes ``ssd_scan_reference`` under autograd at the chunk the forward
+#: ran (``models/ssm._SSDScan``); ``tests/test_torch_ssm.py`` counts them
+#: (each chunk past the first, PyTorch 2.13 on meta tensors)
+RECOMPUTE_DISPATCHES_PER_CHUNK = 175
+
+
+def block_resources(variant: str, chunk: int, N: int,
+                    p_block: int) -> Tuple[int, int]:
+    """(threads, registers a thread) of the block that runs ``variant`` at
+    (chunk, N, P slice)."""
+    if variant == "wgmma":
+        return (WGMMA_THREADS[chunk],
+                WGMMA_REGISTERS[(chunk, 64 if N <= 64 else 128)])
+    return FMA_THREADS, FMA_REGISTERS[(_padded_state(N), p_block)]
+
+
 def schedule_props(Bz: int, H: int, L: int, P: int, N: int, *,
                    chunk: int = 128, bits: int = 16,
                    tma: Optional[bool] = None) -> dict:

@@ -122,6 +122,15 @@ def tile_rule(block: int = 256, dtype: torch.dtype = torch.float32,
     return Tile(variant, edge, 256, edge * (edge + 1) * nbytes)
 
 
+#: registers a thread of each kernel as ``nvcc -Xptxas -v`` reports them
+#: for this source (CUDA 12.9, sm_90a), by variant and element type (every
+#: scalar tile takes 32); ``chip_smoke.py`` holds them against the build's
+#: report, ``tests/test_torch_gpu.py`` the blocks an SM holds against the
+#: CUDA occupancy calculator.  One barrier a block.
+REGISTERS = {("scalar", torch.float32): 32, ("scalar", torch.bfloat16): 32,
+             ("vec16", torch.float32): 16, ("vec16", torch.bfloat16): 22}
+
+
 def schedule_props(M: int, N: int, *, block: int = 256,
                    bits: int = 32) -> dict:
     """The reference's ``schedule_props``

@@ -4,6 +4,8 @@
         --requests 8 --max-new 24
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+        --reduced --device cpu --admission model --slo-decode-s 0.5
 
 Serves the dense (llama3.2-3b, smollm-360m, ...), moe (mixtral-8x7b,
 mixtral-8x22b), vision-language (qwen2-vl-7b, text only), ssm (mamba2-370m)
@@ -12,8 +14,12 @@ codebooks) raises ``NotImplementedError``: the server serves one codebook, as
 the reference's does.
 
 Runs on the GPU unless ``--device cpu`` is given; weights are random, made on
-the device from ``--seed``.  The supervise / fault-plan / SLO options of the
-reference arrive with their modules.
+the device from ``--seed``.  ``--admission model`` refills slots
+shortest-predicted-job first through the cost model (``gpu-h100`` on the
+card, the reference's default on the CPU), ``--slo-decode-s`` defers an
+admission the model predicts would break the decode-iteration SLO.  The
+supervise / fault-plan / chaos / max-queue options of the reference arrive
+with their modules.
 """
 from __future__ import annotations
 
@@ -40,9 +46,16 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--admission", default="fifo",
+                    choices=("fifo", "model"),
+                    help="slot-refill policy: arrival order or "
+                         "shortest-predicted-job-first")
+    ap.add_argument("--slo-decode-s", type=float, default=None,
+                    help="decode-iteration latency SLO (admission defers "
+                         "when the model predicts a breach)")
     ap.add_argument("--trace-json", default=None, metavar="PATH",
                     help="write a Chrome-trace/Perfetto JSON of the serve "
-                         "run (prefill/decode spans)")
+                         "run (prefill/decode spans + predicted overlay)")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="dump the metrics registry as JSON on exit")
     args = ap.parse_args(argv)
@@ -56,6 +69,8 @@ def main(argv=None) -> None:
     model = transformer.init_params(cfg, device=args.device, seed=args.seed)
     server = DecodeServer(cfg, model, slots=args.slots,
                           max_len=args.max_len, seed=args.seed,
+                          admission=args.admission,
+                          slo_decode_s=args.slo_decode_s,
                           device=args.device)
 
     rng = np.random.default_rng(args.seed)

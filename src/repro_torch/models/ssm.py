@@ -142,7 +142,8 @@ def ssm_apply(p: SSM, x: torch.Tensor, cfg, *,
                 f"{chunk} (the reference asserts the same)")
         # (B, H, S, ·) views, no copies; the chunk is the autotuner's, as
         # in the reference, resolved here once so that the backward
-        # recomputes at the chunk the forward ran
+        # recomputes at the chunk the forward ran (under autograd the
+        # tuner prices that recompute too)
         xs, Bs, Cs = xin.transpose(1, 2), Bm.transpose(1, 2), \
             Cm.transpose(1, 2)
         chunk = kops.ssd_chunk(xs, Bs, Cs, chunk=chunk, block_sizes="auto")

@@ -58,7 +58,7 @@ class StragglerMonitor:
 
     @classmethod
     def from_model(cls, cfg, workload, plan, mesh_shape, n_hosts: int,
-                   model=None, **kw) -> "StragglerMonitor":
+                   model=None, kernels=None, **kw) -> "StragglerMonitor":
         """Build a monitor whose threshold is anchored to the cost model's
         predicted step time for (cfg × workload × plan × mesh).
 
@@ -75,11 +75,13 @@ class StragglerMonitor:
         (which also assembles the per-property breakdown and MFU).
         Scoring passes the module's ``exprops.BasisCache``, so re-anchoring
         a monitor after a mesh/shape delta (e.g. post-``elastic.replan``)
-        recomputes only the basis columns the delta touches.
+        recomputes only the basis columns the delta touches.  ``kernels``:
+        the registry the step program composes (``predictor``'s).
         """
         from repro_torch.core import predictor  # runtime sits above core
         secs = predictor.predict_plans(cfg, workload, [plan], mesh_shape,
-                                       model, cache=_BASIS_CACHE)
+                                       model, cache=_BASIS_CACHE,
+                                       kernels=kernels)
         return cls(n_hosts=n_hosts, predicted_step_s=float(secs[0]), **kw)
 
     def threshold(self) -> float:

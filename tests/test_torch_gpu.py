@@ -903,3 +903,93 @@ def test_auto_through_every_wrapper_launches_the_kernel(dtype, cuda):
     torch.testing.assert_close(h, hp, atol=5e-4, rtol=5e-4)
     if dt == torch.bfloat16:   # a tensor-core chunk under the card's seed
         assert ssd.pick_variant(x, B, C, chunk) == "wgmma"
+
+
+# ---------------------------------------------------------------------------
+# the autotuner's residency mirrors against the occupancy calculator;
+# model admission
+
+
+@pytest.fixture(scope="module")
+def ptxas_logs():
+    """Every source built once with ``-Xptxas -v``, its report written
+    where ``chip_smoke.py``'s build phase writes it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
+    from repro_torch.kernels import _build
+    logs = _build.build_all(extra_flags=("-Xptxas", "-v"), force=True)
+    for name, log in logs.items():
+        (_build.build_dir() / f"{name}.nvcc.log").write_text(log)
+    return logs
+
+
+@pytest.mark.parametrize("kernel,shape", [
+    ("flash_attention", {"B": 4, "H": 24, "KVH": 24, "Sq": 2048,
+                         "Skv": 2048, "dh": 64, "causal": True,
+                         "window": None, "bits": 32}),
+    ("flash_attention", {"B": 4, "H": 24, "KVH": 8, "Sq": 2048,
+                         "Skv": 2048, "dh": 128, "causal": True,
+                         "window": None, "bits": 16}),
+    ("ssd_scan", {"Bz": 4, "H": 80, "L": 2048, "P": 64, "N": 64,
+                  "bits": 16, "tma": True}),
+    ("ssd_scan", {"Bz": 4, "H": 32, "L": 2048, "P": 64, "N": 128,
+                  "bits": 32}),
+    ("matmul", {"M": 4096, "N": 4096, "K": 4096, "bits": 16}),
+    ("matmul", {"M": 4096, "N": 4096, "K": 4096, "bits": 32,
+                "va": False}),
+    ("transpose", {"M": 16384, "N": 16384, "bits": 32}),
+    ("transpose", {"M": 16384, "N": 16384, "bits": 16}),
+])
+def test_residency_mirrors_equal_the_occupancy_calculator(kernel, shape,
+                                                          cuda,
+                                            ptxas_logs):
+    """Every candidate's ``resident`` (the kernel modules' thread and
+    register mirrors under ``kernelmodel.resident_blocks``) equals the
+    CUDA occupancy calculator for the instance that runs it, and the
+    registers equal this build's ``ptxas`` report."""
+    import sys
+    from pathlib import Path
+    from repro_torch.core import kernelmodel
+    from repro_torch.kernels import autotune
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    chip_smoke._PTXAS.clear()
+    torch.zeros(1, device=cuda)
+    km = kernelmodel.get(kernel)
+    for blocks in autotune.candidate_configs(kernel, shape):
+        row = chip_smoke.card_residency(
+            kernel, shape, blocks, km.variant(shape, blocks),
+            km.footprint(shape, blocks))
+        assert row["occupancy_resident"] == blocks["resident"] >= 1
+        assert row["registers"] == row["ptxas_registers"]
+
+
+def test_model_admission_server_on_the_card(cuda):
+    """A CUDA server admits shortest-predicted-job first through the card's
+    model (``gpu-h100``, its datasheet seed from an empty registry) and
+    predicts every span."""
+    from repro_torch.obs import trace
+    from repro_torch.runtime import server
+    cfg = dataclasses.replace(ARCHS["llama3.2-3b"].reduced(),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    model = transformer.init_params(cfg, device=cuda, seed=0)
+    srv = server.DecodeServer(cfg, model, slots=2, max_len=96, seed=0,
+                              eos_id=-1, admission="model",
+                              slo_decode_s=10.0)
+    assert srv.scorer.model.device == "gpu-h100"
+    rng = np.random.default_rng(0)
+    for rid, plen in enumerate([24, 3, 9, 4]):
+        srv.submit(server.Request(rid=rid, prompt=rng.integers(
+            2, cfg.vocab_size, plen).astype(np.int32), max_new=3))
+    tracer = trace.Tracer()
+    prev = trace.get_tracer()
+    trace.set_tracer(tracer)
+    try:
+        done = srv.run()
+    finally:
+        trace.set_tracer(prev)
+    assert [r.rid for r in done][-1] == 0   # the long prompt goes last
+    assert len(done) == 4 and all(len(r.out) == 3 for r in done)
+    spans = [s for s in tracer.spans if s.name in ("prefill", "decode_step")]
+    assert spans and all(s.predicted_s > 0 for s in spans)

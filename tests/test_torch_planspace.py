@@ -34,7 +34,7 @@ from repro.core import kernelmodel as jkernelmodel
 from repro.core import predictor as jpredictor
 from repro.core import symcount as jsym
 from repro.core import workload as jwl
-from repro.launch.autoshard import candidate_plans
+from repro.launch import autoshard as jautoshard
 from repro.runtime import straggler as jstraggler
 from repro_torch.configs.base import SHAPES
 from repro_torch.configs.registry import ARCHS
@@ -46,6 +46,8 @@ from repro_torch.core.lru import LRUCache
 from repro_torch.core.model import LinearCostModel
 from repro_torch.core.symcount import evaluate_vector
 from repro_torch.distributed.plan import Plan
+from repro_torch.launch import autoshard
+from repro_torch.launch.autoshard import candidate_plans
 from repro_torch.runtime import straggler
 
 torch.set_num_threads(1)
@@ -54,6 +56,9 @@ ROOT = Path(__file__).resolve().parents[1]
 ALL_ARCHS = sorted(ARCHS)
 PHASES = ("train", "prefill", "decode")
 RTOL = 1e-12
+#: the reference's registry: the step programs held to the reference's
+#: compose its Pallas blocks (the card's are the default)
+P = kernelmodel.PALLAS_KERNELS
 _VARS = ("x", "y", "z")
 
 
@@ -193,7 +198,8 @@ def test_step_program_equals_the_reference(arch, phase):
     if phase == "decode":
         kw.update(active_slots=5, cache_tokens=1e4, spec_len=2,
                   moe_imbalance=1.5)
-    prog = predictor.step_program(ARCHS[arch], wl.WorkloadSpec(**kw), "full")
+    prog = predictor.step_program(ARCHS[arch], wl.WorkloadSpec(**kw), "full",
+                                  kernels=P)
     jprog = jpredictor.step_program(JARCHS[arch], jwl.WorkloadSpec(**kw),
                                     "full")
     assert prog.keys == jprog.keys
@@ -244,9 +250,15 @@ def test_program_columns_match_interpreted(seed):
 
 
 def test_program_explain_waits_for_obs_explain():
-    prog = exprops.build_program({"p": tsym.Var("x") * 2})
-    with pytest.raises(NotImplementedError, match="A12"):
-        prog.explain({"x": 3}, LinearCostModel.from_dict({"p": 1.0}))
+    """``BasisProgram.explain`` delegates to ``obs.explain`` (ported): its
+    rows are ``explain_program``'s and sum to the fused score."""
+    from repro_torch.obs.explain import explain_program
+    prog = exprops.build_program({"p": tsym.Var("x") * 2 + 5})
+    model = LinearCostModel.from_dict({"p": 1.5})
+    rows = prog.explain({"x": 3}, model)
+    assert rows == explain_program(prog, {"x": 3}, model)
+    assert sum(sec for _, sec, _, _ in rows) == pytest.approx(
+        float(prog.score({"x": 3}, model)), rel=1e-12)
 
 
 # ---------------------------------------------------------------------------
@@ -287,11 +299,11 @@ def test_step_program_round_trips_through_the_disk_cache(tmp_path,
     cfg = ARCHS["smollm-360m"]
     spec = wl.WorkloadSpec(phase="prefill", global_batch=4, seq_len=2048)
     predictor._STEP_PROG_CACHE.clear()
-    cold = predictor.step_program(cfg, spec, None)
+    cold = predictor.step_program(cfg, spec, None, kernels=P)
     assert len(os.listdir(tmp_path)) == 1
     predictor._STEP_PROG_CACHE.clear()
     hits = exprops.DISK_STATS["hits"]
-    warm = predictor.step_program(cfg, spec, None)
+    warm = predictor.step_program(cfg, spec, None, kernels=P)
     assert exprops.DISK_STATS["hits"] == hits + 1
     env = {k: np.asarray([v]) for k, v in spec.env(cfg).items()}
     model = predictor.resolve_model(None)
@@ -332,7 +344,8 @@ def test_step_kernel_vectors_equal_the_reference(arch, phase):
     env = {"B": 4, "S": 2048, "M": 1, "AS": 3, "CT": 5000, "SL": 1,
            "MI": 1.0}
     got = kernelmodel.step_kernel_vectors(ARCHS[arch],
-                                          wl.WorkloadSpec(phase=phase))
+                                          wl.WorkloadSpec(phase=phase),
+                                          kernels=P)
     want = jkernelmodel.step_kernel_vectors(JARCHS[arch],
                                             jwl.WorkloadSpec(phase=phase))
     assert sorted(got) == sorted(want)
@@ -344,7 +357,7 @@ def test_step_kernel_vectors_equal_the_reference(arch, phase):
             np.testing.assert_allclose(a[k], b[k], rtol=RTOL,
                                        err_msg=f"{name}:{k}")
     c = evaluate_vector(kernelmodel.step_compute_vector(
-        ARCHS[arch], wl.WorkloadSpec(phase=phase)), env)
+        ARCHS[arch], wl.WorkloadSpec(phase=phase), kernels=P), env)
     jc = jsym.evaluate_vector(jkernelmodel.step_compute_vector(
         JARCHS[arch], jwl.WorkloadSpec(phase=phase)), env)
     assert sorted(c) == sorted(jc)
@@ -380,21 +393,22 @@ def test_kernel_vector_builders_equal_the_reference():
 def sweep_cell():
     cfg = ARCHS["smollm-360m"]
     shape = SHAPES["train_4k"]
-    plans = [port_plan(p) for p in candidate_plans(JARCHS["smollm-360m"],
-                                                   JSHAPES["train_4k"])]
+    plans = candidate_plans(cfg, shape)
     meshes = planspace.mesh_factorizations(64)
     return cfg, shape, plans, meshes
 
 
 def test_planspace_scores_match_interpreted_loop(sweep_cell):
     cfg, shape, plans, meshes = sweep_cell
-    space = planspace.PlanSpace.from_product(cfg, shape, plans, meshes)
+    space = planspace.PlanSpace.from_product(cfg, shape, plans, meshes,
+                                             kernels=P)
     assert len(space) == len(plans) * len(meshes)
     batched = space.scores(None)
     np.testing.assert_allclose(batched, space.scores_columns(None),
                                rtol=1e-9)
     loop = np.concatenate([
-        predictor.predict_plans_loop(cfg, shape, plans, m) for m in meshes])
+        predictor.predict_plans_loop(cfg, shape, plans, m,
+                                     kernels=P) for m in meshes])
     np.testing.assert_allclose(
         batched.reshape(len(plans), len(meshes)),
         loop.reshape(len(meshes), len(plans)).T, rtol=1e-9)
@@ -402,8 +416,10 @@ def test_planspace_scores_match_interpreted_loop(sweep_cell):
 
 def test_planspace_scores_equal_the_reference(sweep_cell):
     cfg, shape, plans, meshes = sweep_cell
-    jplans = candidate_plans(JARCHS["smollm-360m"], JSHAPES["train_4k"])
-    got = planspace.PlanSpace.from_product(cfg, shape, plans, meshes)
+    jplans = jautoshard.candidate_plans(JARCHS["smollm-360m"],
+                                        JSHAPES["train_4k"])
+    got = planspace.PlanSpace.from_product(cfg, shape, plans, meshes,
+                                           kernels=P)
     from repro.core import planspace as jplanspace
     want = jplanspace.PlanSpace.from_product(
         JARCHS["smollm-360m"], JSHAPES["train_4k"], jplans,
@@ -417,16 +433,17 @@ def test_predict_plans_routes_through_engine(sweep_cell):
     cfg, shape, plans, _ = sweep_cell
     mesh = {"data": 8, "model": 8}
     np.testing.assert_allclose(
-        predictor.predict_plans(cfg, shape, plans, mesh),
-        predictor.predict_plans_loop(cfg, shape, plans, mesh), rtol=1e-9)
+        predictor.predict_plans(cfg, shape, plans, mesh, kernels=P),
+        predictor.predict_plans_loop(cfg, shape, plans, mesh,
+                                     kernels=P), rtol=1e-9)
 
 
 def test_from_cells_and_subset(sweep_cell):
     cfg, shape, plans, meshes = sweep_cell
     prod_space = planspace.PlanSpace.from_product(cfg, shape, plans[:6],
-                                                  meshes)
+                                                  meshes, kernels=P)
     cells = [(p, m) for p in plans[:6] for m in meshes]
-    cell_space = planspace.PlanSpace.from_cells(cfg, shape, cells)
+    cell_space = planspace.PlanSpace.from_cells(cfg, shape, cells, kernels=P)
     np.testing.assert_array_equal(prod_space.dp, cell_space.dp)
     np.testing.assert_array_equal(prod_space.tp, cell_space.tp)
     np.testing.assert_allclose(prod_space.scores(None),
@@ -441,22 +458,24 @@ def test_from_cells_and_subset(sweep_cell):
 
 def test_empty_candidate_set(sweep_cell):
     cfg, shape, _, _ = sweep_cell
-    space = planspace.PlanSpace.from_cells(cfg, shape, [])
+    space = planspace.PlanSpace.from_cells(cfg, shape, [], kernels=P)
     assert len(space) == 0
     assert space.scores(None).shape == (0,)
     assert space.feasible_mask().shape == (0,)
     assert planspace.peak_bytes(cfg, shape, [], []).shape == (0,)
     assert space.rank(None) == []
-    assert predictor.predict_plans(cfg, shape, [], {"data": 2}).shape == (0,)
+    assert predictor.predict_plans(cfg, shape, [], {"data": 2},
+                                   kernels=P).shape == (0,)
 
 
 @pytest.mark.parametrize("chunk", [37, 10 ** 7])
 def test_stream_topk_matches_rank_prefix(sweep_cell, chunk):
     cfg, shape, plans, meshes = sweep_cell
-    space = planspace.PlanSpace.from_product(cfg, shape, plans, meshes)
+    space = planspace.PlanSpace.from_product(cfg, shape, plans, meshes,
+                                             kernels=P)
     full = space.rank(None)[:10]
     streamed = planspace.stream_topk(cfg, shape, plans, meshes, None, k=10,
-                                     chunk_cells=chunk)
+                                     chunk_cells=chunk, kernels=P)
     assert [s for s, _, _ in streamed] == pytest.approx(
         [s for s, _, _ in full], rel=1e-12)
     assert [(p, m) for _, p, m in streamed] == [(p, m) for _, p, m in full]
@@ -469,7 +488,7 @@ def test_incremental_rescore_matches_cold_after_device_delta(sweep_cell):
     for n_dev in (64, 63):
         cells = [(p, m) for p in plans[:10]
                  for m in planspace.mesh_factorizations(n_dev)]
-        space = planspace.PlanSpace.from_cells(cfg, shape, cells)
+        space = planspace.PlanSpace.from_cells(cfg, shape, cells, kernels=P)
         np.testing.assert_allclose(space.scores(model, cache=cache),
                                    space.scores(model), rtol=1e-12)
     assert cache.hits >= cache.misses > 0
@@ -516,10 +535,10 @@ def test_collective_symbolic_matches_scalar_and_the_reference(arch, kind):
     ("zamba2-2.7b", "train_4k")])
 def test_peak_bytes_batched_matches_scalar(arch, shname):
     cfg, shape = ARCHS[arch], SHAPES[shname]
-    plans = [port_plan(p) for p in candidate_plans(JARCHS[arch],
-                                                   JSHAPES[shname])]
+    plans = candidate_plans(cfg, shape)
     meshes = planspace.mesh_factorizations(256)
-    space = planspace.PlanSpace.from_product(cfg, shape, plans, meshes)
+    space = planspace.PlanSpace.from_product(cfg, shape, plans, meshes,
+                                             kernels=P)
     batched = space.peak_bytes()
     assert batched.shape == (len(space),)
     rng = random.Random(0)
@@ -552,7 +571,7 @@ def test_cotune_kernel_blocks_matches_the_reference(sweep_cell, mesh):
     from repro_torch.kernels import autotune
     cfg, shape, _, _ = sweep_cell
     jcfg, jshape = JARCHS["smollm-360m"], JSHAPES["train_4k"]
-    for jplan in candidate_plans(jcfg, jshape)[:4]:
+    for jplan in jautoshard.candidate_plans(jcfg, jshape)[:4]:
         plan = port_plan(jplan)
         got = planspace.cotune_kernel_blocks(
             cfg, shape, plan, mesh, kernels=kernelmodel.PALLAS_KERNELS)
@@ -573,18 +592,19 @@ def test_rank_plans_tie_break_is_enumeration_order_free(sweep_cell):
     flat = LinearCostModel(keys=["const1"], weights=np.array([1.0]),
                            device="flat")
     mesh = {"data": 8, "model": 8}
-    a = predictor.rank_plans(cfg, shape, plans, mesh, flat)
+    a = predictor.rank_plans(cfg, shape, plans, mesh, flat, kernels=P)
     shuffled = list(plans)
     random.Random(3).shuffle(shuffled)
-    b = predictor.rank_plans(cfg, shape, shuffled, mesh, flat)
+    b = predictor.rank_plans(cfg, shape, shuffled, mesh, flat, kernels=P)
     assert [p for _, p in a] == [p for _, p in b]
 
 
 def test_rank_plans_equals_the_reference(sweep_cell):
     cfg, shape, plans, _ = sweep_cell
-    jplans = candidate_plans(JARCHS["smollm-360m"], JSHAPES["train_4k"])
+    jplans = jautoshard.candidate_plans(JARCHS["smollm-360m"],
+                                        JSHAPES["train_4k"])
     mesh = {"data": 8, "model": 8}
-    a = predictor.rank_plans(cfg, shape, plans, mesh)
+    a = predictor.rank_plans(cfg, shape, plans, mesh, kernels=P)
     b = jpredictor.rank_plans(JARCHS["smollm-360m"], JSHAPES["train_4k"],
                               jplans, mesh)
     assert [dataclasses.asdict(p) for _, p in a] == \
@@ -619,16 +639,17 @@ def test_lru_cache_bounds_and_recency():
     ("llama3.2-3b", "prefill_32k", {"data": 1, "model": 1}),
     ("zamba2-2.7b", "decode_32k", {"data": 2, "model": 4})])
 def test_straggler_from_model_equals_the_reference(arch, shape, mesh):
-    jplan = candidate_plans(JARCHS[arch], JSHAPES[shape])[0]
+    jplan = jautoshard.candidate_plans(JARCHS[arch], JSHAPES[shape])[0]
     mon = straggler.StragglerMonitor.from_model(
-        ARCHS[arch], SHAPES[shape], port_plan(jplan), mesh, n_hosts=4, k=3.0)
+        ARCHS[arch], SHAPES[shape], port_plan(jplan), mesh, n_hosts=4,
+        k=3.0, kernels=P)
     jmon = jstraggler.StragglerMonitor.from_model(
         JARCHS[arch], JSHAPES[shape], jplan, mesh, n_hosts=4, k=3.0)
     np.testing.assert_allclose(mon.predicted_step_s, jmon.predicted_step_s,
                                rtol=RTOL)
     assert mon.k == 3.0 and mon.n_hosts == 4
     ref = predictor.predict_plans(ARCHS[arch], SHAPES[shape],
-                                  [port_plan(jplan)], mesh)
+                                  [port_plan(jplan)], mesh, kernels=P)
     assert mon.predicted_step_s == pytest.approx(float(ref[0]), rel=1e-9)
     assert straggler._BASIS_CACHE.hits + straggler._BASIS_CACHE.misses > 0
 
@@ -673,3 +694,121 @@ def test_train_launcher_names_a_fitted_model(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "model gpu-h100, source calibrated" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the plan search (launch/autoshard.py) against the reference's
+# ---------------------------------------------------------------------------
+
+
+def _plan_dicts(plans):
+    return [dataclasses.asdict(p) for p in plans]
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("arch", ["glm4-9b", "mixtral-8x7b", "zamba2-2.7b",
+                                  "smollm-360m"])
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_candidate_plans_equal_the_reference(arch, shape, multi_pod):
+    got = candidate_plans(ARCHS[arch], SHAPES[shape], multi_pod)
+    want = jautoshard.candidate_plans(JARCHS[arch], JSHAPES[shape],
+                                      multi_pod)
+    assert got and _plan_dicts(got) == _plan_dicts(want)
+
+
+@pytest.mark.parametrize("n", [None, 64, 96])
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_candidate_meshes_equal_the_reference(shape, n):
+    for multi_pod in ((False, True) if n is None else (False,)):
+        assert autoshard.candidate_meshes(
+            SHAPES[shape], multi_pod=multi_pod, n_devices=n) \
+            == jautoshard.candidate_meshes(JSHAPES[shape],
+                                           multi_pod=multi_pod, n_devices=n)
+    with pytest.raises(ValueError, match="multi_pod"):
+        autoshard.candidate_meshes(SHAPES[shape], multi_pod=True,
+                                   n_devices=64)
+
+
+def _ranked_equal(got, want):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g[0], w[0], rtol=RTOL)
+        assert dataclasses.asdict(g[1]) == dataclasses.asdict(w[1])
+        assert g[2] == w[2]
+        if len(w) == 4:
+            assert g[3] == w[3]
+
+
+@pytest.mark.parametrize("kw", [
+    dict(top_k=3),
+    dict(top_k=8, n_devices=64),
+    dict(top_k=1, meshes=[{"data": 8, "model": 8}]),
+    dict(top_k=2, tune_kernels=True),
+    dict(top_k=4, n_devices=64, stream_chunk_cells=100),
+], ids=["default-mesh", "sweep-64", "meshes", "tune-kernels", "stream"])
+@pytest.mark.parametrize("arch,shape", [("smollm-360m", "train_4k"),
+                                        ("mixtral-8x7b", "prefill_32k")])
+def test_autoshard_search_equals_the_reference(arch, shape, kw):
+    got = autoshard.search(arch, shape, kernels=P, **kw)
+    want = jautoshard.search(arch, shape, **kw)
+    _ranked_equal(got, want)
+
+
+def test_autoshard_search_default_mesh_unchanged():
+    ranked = autoshard.search("smollm-360m", "train_4k", top_k=3)
+    assert all(mesh == {"data": 16, "model": 16} for _, _, mesh in ranked)
+    secs = [s for s, _, _ in ranked]
+    assert secs == sorted(secs)
+
+
+def test_autoshard_search_mesh_sweep():
+    ranked = autoshard.search("smollm-360m", "train_4k", n_devices=64,
+                              top_k=8)
+    assert ranked
+    assert all(mesh["data"] * mesh["model"] == 64 for _, _, mesh in ranked)
+    assert all(SHAPES["train_4k"].global_batch % mesh["data"] == 0
+               for _, _, mesh in ranked)
+    secs = [s for s, _, _ in ranked]
+    assert secs == sorted(secs)
+    fixed = autoshard.search("smollm-360m", "train_4k",
+                             meshes=[{"data": 8, "model": 8}], top_k=1)
+    assert ranked[0][0] <= fixed[0][0] + 1e-12
+
+
+def test_autoshard_multi_pod_rejects_device_sweep():
+    with pytest.raises(ValueError, match="multi_pod"):
+        autoshard.search("smollm-360m", "train_4k", multi_pod=True,
+                         n_devices=64)
+
+
+def test_autoshard_tune_kernels_are_the_card_tiles():
+    """On the card's registry the co-tuned blocks are tiles the CUDA
+    sources build, with the blocks an SM holds."""
+    ranked = autoshard.search("smollm-360m", "train_4k", top_k=2,
+                              model="gpu-h100", tune_kernels=True)
+    for entry in ranked:
+        assert len(entry) == 4
+        blocks = entry[3]
+        assert "matmul" in blocks and "flash_attention" in blocks
+        assert set(blocks["matmul"]) == {"block_m", "block_n", "block_k",
+                                         "resident"}
+        assert blocks["matmul"] in autotune_candidates("matmul", entry)
+        assert all(isinstance(v, int) for b in blocks.values()
+                   for v in b.values())
+
+
+def autotune_candidates(kernel, entry):
+    from repro_torch.kernels import autotune
+    shape = autotune.workload_kernel_shapes(
+        ARCHS["smollm-360m"], SHAPES["train_4k"], dp=entry[2]["data"],
+        tp=entry[2]["model"], microbatches=entry[1].microbatches)[kernel]
+    return autotune.candidate_configs(kernel, shape)
+
+
+def test_autoshard_cli_prints_the_card_model_and_explains(capsys):
+    autoshard.main(["--arch", "smollm-360m", "--shape", "train_4k",
+                    "--top", "2", "--explain"])
+    out = capsys.readouterr().out
+    assert "[autoshard] cost model: device=gpu-h100" in out
+    assert "top-2 plans for smollm-360m" in out and "model=gpu-h100" in out
+    assert "winning cell attribution:" in out and "predicted " in out

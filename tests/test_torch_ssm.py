@@ -610,3 +610,29 @@ def test_param_count_equals_closed_form(name):
             if TARCHS[name].hybrid else 1, d_model=256, vocab_size=512)):
         model = ttransformer.init_params(cfg, device="cpu")
         assert ttransformer.param_count(model) == cfg.n_params()
+
+
+def test_recompute_dispatches_per_chunk_are_the_plain_versions():
+    """The training path's backward recomputes ``ssd_scan_reference`` under
+    autograd chunk by chunk; the kernel model prices each chunk's
+    operators (forward and backward), counted here on meta tensors."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def count(L):
+        x, dt, A, B, C = (torch.empty(s, device="meta", requires_grad=True)
+                          for s in ((1, 2, L, 16), (1, 2, L), (2,),
+                                    (1, 1, L, 16), (1, 1, L, 16)))
+        with Count() as c:
+            y, _ = tssd.ssd_scan_reference(x, dt, A, B, C, chunk=16)
+            torch.autograd.grad(y, (x, dt, A, B, C), torch.empty_like(y))
+        return c.n
+    # past the first chunk, each adds the same operators
+    assert count(48) - count(32) == (count(128) - count(64)) // 4 \
+        == tssd.RECOMPUTE_DISPATCHES_PER_CHUNK

@@ -5,10 +5,13 @@ JAX package, on the CPU (mirrors ``tests/test_workload.py``).
 and ``distributed/elastic.py`` are numpy copies of the reference's, so the
 step predictions are held to the reference's golden pins
 (``tests/golden/workload_train.json``) at rtol 1e-12, and every other
-prediction to the reference's own output at rtol 1e-12.  The candidate
-plans come from the reference's ``launch/autoshard.candidate_plans`` and
-are carried field by field into the port's ``Plan``.  ``make_step`` is
-torch: its prefill output equals ``make_prefill_step``'s bit for bit.
+prediction to the reference's own output at rtol 1e-12 (the step
+programs on the reference's Pallas blocks, ``P``; the card's composition
+has tests of its own at the end).  The candidate plans come from the
+port's ``launch/autoshard.candidate_plans``, which
+``tests/test_torch_planspace.py`` holds equal to the reference's.
+``make_step`` is torch: its prefill output equals ``make_prefill_step``'s
+bit for bit.
 """
 from __future__ import annotations
 
@@ -27,10 +30,11 @@ from repro.core import predictor as jpredictor
 from repro.core import workload as jwl
 from repro.distributed import elastic as jelastic
 from repro.distributed.plan import plan_for as jplan_for
-from repro.launch.autoshard import candidate_plans
 from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.configs.registry import ARCHS
 from repro_torch.core import archcount, planspace, predictor
+from repro_torch.core.kernelmodel import PALLAS_KERNELS
+from repro_torch.launch.autoshard import candidate_plans
 from repro_torch.core import properties as props
 from repro_torch.core import workload as wl
 from repro_torch.core.workload import WorkloadSpec
@@ -47,6 +51,9 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
 MESH = {"data": 16, "model": 16}
 ALL_ARCHS = sorted(ARCHS)
 RTOL = 1e-12
+#: the reference's registry: the step programs held to the reference's
+#: compose its Pallas blocks (the card's are the default)
+P = PALLAS_KERNELS
 
 with open(GOLDEN) as _f:
     GOLD = json.load(_f)
@@ -59,8 +66,7 @@ def port_plan(p) -> Plan:
 
 
 def port_plans(cfg_name: str, shape: str = "train_4k"):
-    return [port_plan(p) for p in
-            candidate_plans(JARCHS[cfg_name], JSHAPES[shape])]
+    return candidate_plans(ARCHS[cfg_name], SHAPES[shape])
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +153,7 @@ def test_golden_covers_every_registry_arch():
 def test_golden_predict_step(arch):
     g, cfg = GOLD[arch], ARCHS[arch]
     plan = plan_for(cfg, wl.TRAIN_4K)
-    pred = predictor.predict_step(cfg, wl.TRAIN_4K, plan, MESH)
+    pred = predictor.predict_step(cfg, wl.TRAIN_4K, plan, MESH, kernels=P)
     np.testing.assert_allclose(pred.seconds, g["predict_step_seconds"],
                                rtol=RTOL)
     assert set(pred.terms) == set(g["predict_step_terms"])
@@ -160,7 +166,7 @@ def test_golden_predict_plans(arch):
     g, cfg = GOLD[arch], ARCHS[arch]
     plans = port_plans(arch)[:24]
     assert len(plans) == g["n_plans"]
-    secs = predictor.predict_plans(cfg, wl.TRAIN_4K, plans, MESH)
+    secs = predictor.predict_plans(cfg, wl.TRAIN_4K, plans, MESH, kernels=P)
     np.testing.assert_allclose(secs, g["predict_plans"], rtol=RTOL)
 
 
@@ -169,7 +175,7 @@ def test_golden_planspace_scores(arch):
     g, cfg = GOLD[arch], ARCHS[arch]
     plans = port_plans(arch)[:8]
     space = planspace.PlanSpace.from_product(
-        cfg, wl.TRAIN_4K, plans, planspace.mesh_factorizations(64))
+        cfg, wl.TRAIN_4K, plans, planspace.mesh_factorizations(64), kernels=P)
     np.testing.assert_allclose(space.scores(None),
                                g["planspace_scores_64dev"], rtol=RTOL)
 
@@ -185,7 +191,8 @@ def test_predict_step_every_phase_equals_the_reference(arch, shape):
     cfg, jcfg = ARCHS[arch], JARCHS[arch]
     jplan = jplan_for(jcfg, JSHAPES[shape])
     mesh = {"data": 8, "model": 4}
-    got = predictor.predict_step(cfg, SHAPES[shape], port_plan(jplan), mesh)
+    got = predictor.predict_step(cfg, SHAPES[shape], port_plan(jplan), mesh,
+                                 kernels=P)
     want = jpredictor.predict_step(jcfg, JSHAPES[shape], jplan, mesh)
     np.testing.assert_allclose(got.seconds, want.seconds, rtol=RTOL)
     np.testing.assert_allclose(got.model_flops, want.model_flops, rtol=RTOL)
@@ -206,7 +213,7 @@ def test_refined_decode_spec_equals_the_reference(arch):
     cfg, jcfg = ARCHS[arch], JARCHS[arch]
     jplan = jplan_for(jcfg, JSHAPES["decode_32k"]).with_(dp_axes=())
     got = predictor.predict_step(cfg, WorkloadSpec(**kw), port_plan(jplan),
-                                 {"data": 1})
+                                 {"data": 1}, kernels=P)
     want = jpredictor.predict_step(jcfg, jwl.WorkloadSpec(**kw), jplan,
                                    {"data": 1})
     np.testing.assert_allclose(got.seconds, want.seconds, rtol=RTOL)
@@ -220,13 +227,13 @@ def test_mfu_divides_by_the_models_device_peak():
     spec = WorkloadSpec(phase="prefill", global_batch=4, seq_len=2048)
     plan, mesh = Plan(dp_axes=()), {"data": 1}
     h100 = seeds.ANALYTIC_SEEDS["gpu-h100"]()
-    p = predictor.predict_step(cfg, spec, plan, mesh, h100)
+    p = predictor.predict_step(cfg, spec, plan, mesh, h100, kernels=P)
     assert predictor.peak_flops_bf16(h100) == 989e12
     np.testing.assert_allclose(p.mfu, p.model_flops / (989e12 * p.seconds),
                                rtol=RTOL)
     fitted = dataclasses.replace(h100, meta={"source": "calibrated"})
     assert predictor.peak_flops_bf16(fitted) == 989e12
-    v5e = predictor.predict_step(cfg, spec, plan, mesh)
+    v5e = predictor.predict_step(cfg, spec, plan, mesh, kernels=P)
     assert predictor.peak_flops_bf16(predictor.resolve_model(None)) == \
         predictor.PEAK_FLOPS_BF16 == jpredictor.PEAK_FLOPS_BF16
     np.testing.assert_allclose(
@@ -238,14 +245,16 @@ def test_spec_equals_shape_and_legacy_string_all_phases():
     for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
         shape = SHAPES[shape_name]
         plan = plan_for(cfg, shape)
-        via_shape = predictor.predict_step(cfg, shape, plan, MESH).seconds
+        via_shape = predictor.predict_step(cfg, shape, plan, MESH,
+                                           kernels=P).seconds
         via_spec = predictor.predict_step(cfg, wl.from_shape(shape), plan,
-                                          MESH).seconds
+                                          MESH, kernels=P).seconds
         assert via_spec == via_shape
         env = {"B": shape.global_batch, "S": shape.seq_len, "M": 1}
-        spec_cv = predictor.step_vector_fn(cfg, wl.from_shape(shape))
+        spec_cv = predictor.step_vector_fn(cfg, wl.from_shape(shape),
+                                           kernels=P)
         with pytest.warns(DeprecationWarning):
-            str_cv = predictor.step_vector_fn(cfg, shape.kind)
+            str_cv = predictor.step_vector_fn(cfg, shape.kind, kernels=P)
         a, b = spec_cv(env), str_cv(env)
         assert set(a) == set(b)
         for k in a:
@@ -271,10 +280,18 @@ def test_feasible_keeps_the_reference_default_and_takes_a_budget():
 
 
 def test_score_explain_waits_for_obs_explain():
+    """``predictor.score_explain`` delegates to ``obs.explain`` (ported),
+    and equals the reference's decomposition on the reference's blocks."""
+    from repro.core import predictor as jpred
     cfg = ARCHS["smollm-360m"]
-    with pytest.raises(NotImplementedError, match="A12"):
-        predictor.score_explain(cfg, wl.TRAIN_4K, plan_for(cfg, wl.TRAIN_4K),
-                                MESH)
+    got = predictor.score_explain(cfg, wl.TRAIN_4K,
+                                  plan_for(cfg, wl.TRAIN_4K), MESH,
+                                  kernels=P)
+    jcfg = JARCHS["smollm-360m"]
+    want = jpred.score_explain(jcfg, jwl.TRAIN_4K,
+                               jplan_for(jcfg, jwl.TRAIN_4K), MESH)
+    np.testing.assert_allclose(got.total_seconds, want.total_seconds,
+                               rtol=1e-9)
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +307,7 @@ def test_decode_compute_counts_tokens_not_sequence():
     cfg = ARCHS["llama3.2-3b"]
     spec = WorkloadSpec(phase="decode", global_batch=8, seq_len=1024,
                         cache_tokens=8 * 1024.0)
-    cv = predictor.step_vector_fn(cfg, spec)
+    cv = predictor.step_vector_fn(cfg, spec, kernels=P)
     k = _mxu_key(cfg)
     base = {"B": 8, "M": 1, "CT": 8 * 1024.0}
     a = float(cv({**base, "S": 1024})[k])
@@ -302,7 +319,7 @@ def test_decode_cache_read_bytes_linear_in_context():
     cfg = ARCHS["llama3.2-3b"]
     spec = WorkloadSpec(phase="decode", global_batch=8, seq_len=4096,
                         cache_tokens=1.0)
-    cv = predictor.step_vector_fn(cfg, spec)
+    cv = predictor.step_vector_fn(cfg, spec, kernels=P)
     lk = props.mem_key("load", 16, "s1")
     env = {"B": 8, "S": 4096, "M": 1}
     l1 = float(cv({**env, "CT": 8 * 1024.0})[lk])
@@ -319,8 +336,9 @@ def test_decode_speculative_length_multiplies_compute():
     spec = base.with_(spec_len=2)
     k = _mxu_key(cfg)
     env = {"B": 8, "S": 1024, "M": 1, "CT": 8 * 1024.0}
-    m1 = float(predictor.step_vector_fn(cfg, base)(env)[k])
-    m2 = float(predictor.step_vector_fn(cfg, spec)({**env, "SL": 2})[k])
+    m1 = float(predictor.step_vector_fn(cfg, base, kernels=P)(env)[k])
+    m2 = float(predictor.step_vector_fn(cfg, spec, kernels=P)({**env,
+                                                               "SL": 2})[k])
     assert m2 == pytest.approx(2 * m1, rel=1e-12)
 
 
@@ -331,8 +349,9 @@ def test_decode_default_spec_matches_neutral_refinements():
                         moe_imbalance=2.0)
     env = spec0.env(cfg)
     env["M"] = 1
-    a = predictor.step_vector_fn(cfg, spec0)(env)
-    b = predictor.step_vector_fn(cfg, spec1)({**env, "SL": 1, "MI": 1.0})
+    a = predictor.step_vector_fn(cfg, spec0, kernels=P)(env)
+    b = predictor.step_vector_fn(cfg, spec1, kernels=P)({**env, "SL": 1,
+                                                         "MI": 1.0})
     assert set(a) == set(b)
     for k in a:
         np.testing.assert_allclose(float(a[k]), float(b[k]), rtol=1e-9,
@@ -357,8 +376,9 @@ def test_moe_imbalance_scales_decode_expert_compute_only():
     k = _mxu_key(cfg)
     env = base.env(cfg)
     env["M"] = 1
-    m1 = float(predictor.step_vector_fn(cfg, base)(env)[k])
-    m2 = float(predictor.step_vector_fn(cfg, hot)({**env, "MI": 2.0})[k])
+    m1 = float(predictor.step_vector_fn(cfg, base, kernels=P)(env)[k])
+    m2 = float(predictor.step_vector_fn(cfg, hot, kernels=P)({**env,
+                                                              "MI": 2.0})[k])
     assert m1 < m2 < 2 * m1
     assert WorkloadSpec(phase="train", moe_imbalance=2.0).structure() == \
         ("train",)
@@ -451,7 +471,7 @@ def test_make_step_train_takes_the_configs_optimizer():
                                           ("mixtral-8x7b", "prefill_32k", 32),
                                           ("zamba2-2.7b", "decode_32k", 8)])
 def test_elastic_replan_equals_the_reference(arch, shape, n):
-    a = elastic.replan(ARCHS[arch], SHAPES[shape], n)
+    a = elastic.replan(ARCHS[arch], SHAPES[shape], n, kernels=P)
     b = jelastic.replan(JARCHS[arch], JSHAPES[shape], n)
     assert len(a) == len(b) > 0
     for x, y in zip(a, b):
@@ -463,8 +483,8 @@ def test_elastic_replan_equals_the_reference(arch, shape, n):
 
 def test_elastic_replan_accepts_spec():
     cfg = ARCHS["glm4-9b"]
-    a = elastic.replan(cfg, SHAPES["train_4k"], 16)
-    b = elastic.replan(cfg, wl.TRAIN_4K, 16)
+    a = elastic.replan(cfg, SHAPES["train_4k"], 16, kernels=P)
+    b = elastic.replan(cfg, wl.TRAIN_4K, 16, kernels=P)
     assert [o.predicted_step_s for o in a] == \
         [o.predicted_step_s for o in b]
     assert a and a[0].shape == b[0].shape
@@ -472,7 +492,7 @@ def test_elastic_replan_accepts_spec():
 
 def test_elastic_on_failure_equals_the_reference():
     a = elastic.on_failure(ARCHS["smollm-360m"], SHAPES["train_4k"], 256,
-                           lost=3)
+                           lost=3, kernels=P)
     b = jelastic.on_failure(JARCHS["smollm-360m"], JSHAPES["train_4k"], 256,
                             lost=3)
     assert a.shape == b.shape
@@ -487,7 +507,7 @@ def test_elastic_heterogeneous_pools_price_each_pool(tmp_path):
     cfg = ARCHS["smollm-360m"]
     pools = [("gpu-h100", 8), ("gpu-a100", 8)]
     opts = elastic.replan(cfg, SHAPES["train_4k"], pools,
-                          registry_dir=str(tmp_path))
+                          registry_dir=str(tmp_path), kernels=P)
     jopts = jelastic.replan(JARCHS["smollm-360m"], JSHAPES["train_4k"],
                             pools, registry_dir=str(tmp_path))
     assert {o.device for o in opts} == {"gpu-h100", "gpu-a100"}
@@ -496,3 +516,93 @@ def test_elastic_heterogeneous_pools_price_each_pool(tmp_path):
     np.testing.assert_allclose([o.predicted_step_s for o in opts],
                                [o.predicted_step_s for o in jopts],
                                rtol=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the step composition on the card's kernels (the default registry)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("phase", ["prefill", "train"])
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_card_step_vectors_track_archcount_leading_term(arch, phase):
+    """On the card the projections, FFN and LM head are library GEMMs:
+    their products exactly, ``mxu`` at the compute type's bits, no tile of
+    the port's own; the attention and SSD kernels at the main paths'
+    tiles.  The mxu total equals archcount's step count in the leading
+    term (the kernels' tile and wave rounding is low order)."""
+    from repro_torch.core import kernelmodel
+    from repro_torch.core.symcount import add_vectors, evaluate_vector
+    cfg = ARCHS[arch]
+    spec = WorkloadSpec(phase=phase, global_batch=8, seq_len=4096)
+    vecs = kernelmodel.step_kernel_vectors(cfg, spec)
+    bits = 16 if "16" in cfg.compute_dtype else 32
+    key = props.mxu_key(bits)
+    assert set(vecs["matmul"]) == {key}
+    env = {"B": 8, "S": 4096}
+    def products(names):
+        pv = evaluate_vector(add_vectors(*(vecs[n] for n in names)), env)
+        return pv.get(props.mxu_key(16), 0.0) + pv.get(props.mxu_key(32),
+                                                       0.0)
+    # the SSD scan apart: its kernels count their own products (the FP32
+    # one at a P slice recomputes C·Bᵀ per slice), on the pipe they use
+    step = archcount.forward_counts(cfg)[key].eval(env)
+    ssd = 0.0
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        ssd = 2 * 8 * 4096 * cfg.n_layers * cfg.ssm_heads * (
+            s.chunk * s.d_state + s.chunk * s.head_dim
+            + 2 * s.head_dim * s.d_state)
+        assert products(["ssd_scan"]) > 0
+    total = products([n for n in vecs if n != "ssd_scan"])
+    assert total == pytest.approx(step - ssd, rel=0.03), (total, step)
+    blocks = kernelmodel.step_kernel_blocks(cfg, spec)
+    assert set(blocks) == {k for k in ("flash_attention", "ssd_scan")
+                           if k in vecs}
+    compute = kernelmodel.step_compute_vector(cfg, spec)
+    assert set(compute) <= {key, props.mxu_key(48 - bits),
+                            props.local_key(bits), props.local_key(32)}
+
+
+def test_card_step_vectors_count_the_tiles_the_paths_launch():
+    from repro_torch.core import kernelmodel
+    from repro_torch.core.symcount import evaluate_vector
+    from repro_torch.kernels import flash_attention as tfa
+    cfg = ARCHS["llama3.2-3b"]
+    spec = WorkloadSpec(phase="prefill", global_batch=4, seq_len=2048)
+    got = evaluate_vector(kernelmodel.step_kernel_vectors(
+        cfg, spec)["flash_attention"], {"B": 4, "S": 2048})
+    bq, bk = tfa.tile_rule(cfg.head_dim_)[:2]
+    want = evaluate_vector(kernelmodel.flash_attention_vector(
+        4, cfg.n_heads, cfg.n_kv_heads, 2048, 2048, cfg.head_dim_,
+        block_q=bq, block_k=bk, bits=16, variant="wgmma", resident=1), {})
+    assert got == {k: v * cfg.n_layers for k, v in want.items()}
+    # the reference's registry keeps its composition
+    pallas = kernelmodel.step_kernel_vectors(cfg, spec, P)
+    assert kernelmodel.step_kernel_blocks(cfg, spec, P) is None
+    assert props.BARRIER in pallas["matmul"]
+    # a zamba2 step's SSD runs the chunk "auto" resolves for its shape
+    z = ARCHS["zamba2-2.7b"]
+    zb = kernelmodel.step_kernel_blocks(z, spec)["ssd_scan"]
+    assert zb["chunk"] == 128 and zb["resident"] == 1
+
+
+def test_predictions_follow_the_registry():
+    """The card's and the reference's compositions are distinct programs
+    (cache keys carry the card's tiles), each equal across entry points."""
+    cfg = ARCHS["zamba2-2.7b"]
+    spec = WorkloadSpec(phase="prefill", global_batch=4, seq_len=2048)
+    plan = Plan(dp_axes=())
+    mesh = {"data": 1}
+    card = predictor.predict_step(cfg, spec, plan, mesh, "gpu-h100")
+    ref = predictor.predict_step(cfg, spec, plan, mesh, "gpu-h100",
+                                 kernels=P)
+    assert card.seconds != ref.seconds
+    for kernels, pred in ((None, card), (P, ref)):
+        secs = predictor.predict_plans(cfg, spec, [plan], mesh, "gpu-h100",
+                                       kernels=kernels)
+        np.testing.assert_allclose(secs[0], pred.seconds, rtol=1e-9)
+        exp = predictor.score_explain(cfg, spec, plan, mesh, "gpu-h100",
+                                      kernels=kernels)
+        np.testing.assert_allclose(exp.total_seconds, pred.seconds,
+                                   rtol=1e-9)
