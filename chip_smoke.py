@@ -92,7 +92,23 @@ counts set to 0 just before the path and read just after):
   ``admission="fifo"`` and ``"model"``, measured latencies and orders
   beside ``simulate_serving``'s and the scorer's span predictions beside
   the measured spans;
-* ``autoshard``: one plan search on the host under ``gpu-h100``.
+* ``autoshard``: one plan search on the host under ``gpu-h100``;
+* online calibration and supervised recovery: ``robust.serve`` (llama3.2-3b,
+  full width and depth, 8 slots x 2048 rows: two prefill steps through the
+  attention kernel, then a ``DecodeServer`` under ``ServingSupervisor`` with
+  an ``OnlineCalibrator`` warm-started from the fitted ``gpu-h100`` and a
+  ``FaultInjector``: a x3 slowdown, a spike, a poisoned sample and a device
+  loss that evicts every slot; per iteration the measured and predicted ms
+  and the CUSUM evidence, the drift events, refits and the windowed error
+  around them; every request completes and an evicted request keeps a prefix
+  equal to a clean run's), ``robust.train`` (llama3.2-3b at train.resume's
+  cut under a ``Supervisor``: a device loss, the newest save, a copy of the
+  registry and a compile cache of its own corrupted; the history equals an
+  unsupervised run's within 1e-5, the resume falls back one save, the
+  registry one revision, the cache rebuilds; MTTR and the ``[supervisor]``
+  and ``[calib]`` lines) and ``robust.fleet`` (``python -m
+  repro_torch.launch fleet`` twice in-process, byte-equal histories, then a
+  ``TrainerJobRunner`` migrated by a pool shrink, replaying to 1e-5).
 
 The prefill and serve steps the script builds itself come from
 ``steps.make_step`` and a ``WorkloadSpec``.  The run has its own compile
@@ -126,6 +142,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -168,6 +185,15 @@ from repro_torch.runtime.server import (AdmissionScorer,  # noqa: E402
                                         simulate_serving)
 from repro_torch.runtime.straggler import StragglerMonitor  # noqa: E402
 from repro_torch.runtime.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.calibration.online import OnlineCalibrator  # noqa: E402
+from repro_torch.launch.__main__ import main as launch_main  # noqa: E402
+from repro_torch.launch.fleet import (FleetAllocator, JobSpec,  # noqa: E402
+                                      Manifest, PoolSpec)
+from repro_torch.runtime.faults import FaultInjector, FaultPlan  # noqa: E402
+from repro_torch.runtime.fleet_supervisor import (  # noqa: E402
+    FleetSupervisor, TrainerJobRunner)
+from repro_torch.runtime.supervisor import (  # noqa: E402
+    BackoffPolicy, ServingPolicy, ServingSupervisor, Supervisor)
 
 DEV = "cuda"
 ARCH = "llama3.2-3b"
@@ -3072,6 +3098,491 @@ def drive_train(cfg, args) -> dict:
     return launched
 
 
+# ---------------------------------------------------------------------------
+# online calibration and supervised recovery (robust.serve, robust.train,
+# robust.fleet)
+
+#: the serving stretch: 16 requests on a server of 8 slots x 2048 rows (the
+#: serve phase's geometry), tokens sampled from the server's seed, no early
+#: stop; two prefill steps of the prefill phase's shape through the
+#: kernel first (the server feeds prompts through the decode step, as the
+#: reference's)
+ROBUST_SERVE = dict(slots=8, max_len=2048, requests=16, max_new=32,
+                    prompt_len=(8, 16), prefill_steps=2)
+#: iteration-indexed: 20 clean iterations (the calibrator's 16 warmup
+#: samples and 4 more), a x3 slowdown for 10, a x4 spike, a poisoned
+#: telemetry sample, a device loss that evicts every slot 13 tokens into the
+#: second wave of requests, then a clean stretch to the end
+ROBUST_SERVE_FAULTS = ("slowdown@20:factor=3,duration=10;timing_spike@36;"
+                       "telemetry_nan@40;device_loss@45")
+#: the training stretch: llama3.2-3b at the train.resume cut (2 layers, full
+#: width), 2 x 4096 tokens a step, with Adafactor in place of the config's
+#: AdamW: one save with AdamW's m and v is 9.2 GiB at this cut and the run's
+#: disk writes must stay under 45 GiB (train.resume writes 27.9 GiB); a save
+#: every 3 steps, 7 steps
+ROBUST_TRAIN_STEPS = 7
+ROBUST_TRAIN_CKPT_EVERY = 3
+ROBUST_TRAIN_OPTIMIZER = "adafactor"
+#: a x3 slowdown of steps 1-2, a poisoned sample at step 2; at step 6 the
+#: newest save (step 6), a copy of the calibrate phase's registry and a
+#: compile cache of the phase's own corrupted, then a device lost
+ROBUST_TRAIN_FAULTS = ("slowdown@1:factor=3,duration=2;telemetry_nan@2;"
+                       "corrupt_checkpoint@6:mode=garbage;corrupt_registry@6;"
+                       "corrupt_compile_cache@6;device_loss@6")
+#: the devices a replan prices meshes over (the run stays on one card)
+ROBUST_REPLAN_DEVICES = 8
+#: the fleet's CLI run and its migration on the card
+ROBUST_FLEET_ARGS = ["fleet", "--manifest", "demo", "--steps", "12",
+                     "--fault-plan", "pool_shrink@5:pool=a100,k=2",
+                     "--chaos-seed", "7"]
+ROBUST_FLEET_STEPS = 5
+#: the window of samples ``window_rel_err`` reads before and after a refit
+REFIT_WINDOW = 16
+
+
+class RecordedCalibrator(OnlineCalibrator):
+    """``OnlineCalibrator`` that keeps, for each sample, what the robust
+    phases print: the measured seconds, the tracked (RLS) and the active
+    model's predictions before the sample, the CUSUM evidence after it, the
+    sink seq; and, around each refit, the windowed relative error of the
+    active model.  ``poison``: a ``FaultInjector`` whose
+    ``perturb_telemetry`` the sample passes on its way in (the server has no
+    telemetry hook, as the reference's; the trainer calls it itself)."""
+
+    def __init__(self, *a, poison=None, **kw):
+        super().__init__(*a, **kw)
+        self.poison = poison
+        self.rows = []
+        self.refit_errors = []
+        self._samples = {}      # samples offered so far, by phase
+
+    def observe(self, pv, seconds, *, step=None, tag="", phase="train"):
+        k = self._samples.get(phase, 0)
+        self._samples[phase] = k + 1
+        if self.poison is not None:
+            seconds = self.poison.perturb_telemetry(k, seconds)
+        scoped = self.phase is None or phase == self.phase
+        tracked = self.rls.predict(pv) if scoped else None
+        active = self.model.predict(pv)
+        before = self.window_rel_err(REFIT_WINDOW)
+        n0 = self.sink.n_recorded
+        ev = super().observe(pv, seconds, step=step, tag=tag, phase=phase)
+        self.rows.append({
+            "k": k, "phase": phase, "step": step,
+            "seq": n0 if self.sink.n_recorded > n0 else None,
+            "measured_ms": seconds * 1e3 if math.isfinite(seconds) else None,
+            "tracked_ms": None if tracked is None else tracked * 1e3,
+            "model_ms": active * 1e3, "cusum": self.drift.evidence})
+        if ev is not None:
+            self.refit_errors.append({
+                "seq": ev.seq, "window": REFIT_WINDOW,
+                "rel_err_before": before,
+                "rel_err_after": self.window_rel_err(REFIT_WINDOW)})
+        return ev
+
+    def events_json(self) -> list:
+        return [{"seq": e.seq, "step": e.step, "onset_seq": e.onset_seq,
+                 "direction": e.direction, "phase": e.phase,
+                 "magnitude": e.magnitude} for e in self.events]
+
+
+def serve_requests(cfg, seed: int) -> list:
+    a = ROBUST_SERVE
+    rng = np.random.default_rng(seed)
+    out = []
+    for rid in range(a["requests"]):
+        plen = int(rng.integers(a["prompt_len"][0], a["prompt_len"][1] + 1))
+        out.append(Request(rid=rid, prompt=rng.integers(
+            2, cfg.vocab_size, size=plen).astype(np.int32),
+            max_new=a["max_new"]))
+    return out
+
+
+def robust_server(cfg, model, seed, **kw) -> DecodeServer:
+    a = ROBUST_SERVE
+    server = DecodeServer(cfg, model, slots=a["slots"], max_len=a["max_len"],
+                          seed=seed, eos_id=-1, device=DEV, **kw)
+    for r in serve_requests(cfg, seed):
+        server.submit(r)
+    return server
+
+
+def phase_robust_serve(reg_dir: str, seed: int) -> dict:
+    """llama3.2-3b (full width and depth, bf16) on ``ROBUST_SERVE``: two
+    prefill steps through the attention kernel, then a server under
+    ``ServingSupervisor`` with an ``OnlineCalibrator`` scoped to decode and
+    warm-started from the ``gpu-h100`` model the calibrate phase fitted, and
+    a ``FaultInjector`` on ``ROBUST_SERVE_FAULTS``; beside a clean run of the
+    same requests on the same seed.  Fails where a request does not
+    complete, an evicted request's tokens before its eviction differ from
+    the clean run's or are not kept after it, the poisoned sample is not
+    quarantined, the slowdown raises no "slow" event, or the logits are not
+    finite.  The launch counts are set to 0 before the prefill and read
+    after the supervised run (the decode path launches no kernel)."""
+    cfg = get_arch(ARCH)
+    model = transformer.init_params(cfg, device=DEV, seed=seed)
+    a = ROBUST_SERVE
+    # the clean run: the same requests, seed and server, no fault
+    clean = robust_server(cfg, model, seed)
+    t0 = time.perf_counter()
+    clean_done = clean.run()
+    clean_s = time.perf_counter() - t0
+    clean_out = {r.rid: list(r.out) for r in clean_done}
+    del clean
+    torch.cuda.empty_cache()
+
+    fitted = registry.load_model(CALIB_DEVICE, reg_dir)
+    plan = FaultPlan.parse(ROBUST_SERVE_FAULTS, seed=seed)
+    inj = FaultInjector(plan)
+    cal = RecordedCalibrator(fitted, device=CALIB_DEVICE, phase="decode",
+                             registry_dir=reg_dir, poison=inj)
+    reset_launches()
+    B, S = PREFILL_TOKENS
+    step = prefill_step(cfg, B, S)
+    batch = main_batch(cfg, B, S, seed)
+    live = WorkloadSpec(phase="prefill", global_batch=B, seq_len=S,
+                        name="prefill_live")
+    prefill_pv = predictor.plan_property_vector(cfg, live, Plan(dp_axes=()),
+                                                MESH1)
+    prefill_ms = []
+    for _ in range(a["prefill_steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(model, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        prefill_ms.append(dt * 1e3)
+        cal.observe(prefill_pv, dt, tag="prefill", phase="prefill")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not finite")
+    del logits
+
+    server = robust_server(cfg, model, seed, calibrator=cal, injector=inj)
+    snap = {}
+    evict = server.evict_slot
+
+    def evict_and_keep(slot):
+        req = server.active[slot]
+        if req is not None:
+            snap[req.rid] = list(req.out)
+        return evict(slot)
+    server.evict_slot = evict_and_keep
+    sup = ServingSupervisor(server, ServingPolicy(), injector=inj)
+    t0 = time.perf_counter()
+    done = sup.run()
+    run_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launched = read_launches()
+    want = {n: k * a["prefill_steps"]
+            for n, k in launches_per_step(cfg).items()}
+    if launched != want:
+        raise AssertionError(f"robust.serve launches {launched}, expected "
+                             f"{want}")
+    if not bool(torch.isfinite(server.last_logits).all()):
+        raise AssertionError("decode logits are not finite")
+    if sorted(r.rid for r in done) != list(range(a["requests"])) or \
+            any(len(r.out) != a["max_new"] for r in done):
+        raise AssertionError(f"{len(done)} of {a['requests']} requests "
+                             "completed with their tokens")
+    if sorted(clean_out) != list(range(a["requests"])):
+        raise AssertionError("the clean run did not complete")
+    by_rid = {r.rid: r for r in done}
+    resumed = []
+    for rid, before in sorted(snap.items()):
+        out = by_rid[rid].out
+        if out[:len(before)] != before:
+            raise AssertionError(f"request {rid}: its tokens before the "
+                                 "eviction were not kept")
+        if before != clean_out[rid][:len(before)]:
+            raise AssertionError(f"request {rid}: tokens before the "
+                                 "eviction differ from the clean run's")
+        after = out[len(before):]
+        same = sum(x == y for x, y in zip(after,
+                                          clean_out[rid][len(before):]))
+        resumed.append({"rid": rid, "tokens_before_eviction": len(before),
+                        "prefix_equals_clean_run": True,
+                        "tokens_after_resume": len(after),
+                        "after_resume_equal_to_clean_run": same})
+    untouched = [rid for rid in by_rid if rid not in snap]
+    same_untouched = sum(by_rid[r].out == clean_out[r] for r in untouched)
+    decode = [r for r in cal.rows if r["phase"] == "decode"]
+    poisoned = [r for r in decode if r["seq"] is None]
+    if len(poisoned) != 1 or cal.sink.stats()["n_dropped"] != 1:
+        raise AssertionError(f"poisoned samples {poisoned}, sink "
+                             f"{cal.sink.stats()}")
+    slow_seqs = [r["seq"] for r in decode if 20 <= r["k"] < 30]
+    slow = [e for e in cal.events if e.direction == "slow"
+            and slow_seqs[0] <= e.seq <= slow_seqs[-1]]
+    if not slow:
+        raise AssertionError(f"the x3 slowdown raised no slow event: "
+                             f"{cal.events_json()}")
+    if len(snap) != a["slots"] or sup.evictions != a["slots"] or sup.shed:
+        raise AssertionError(f"evictions {sup.evictions} ({sorted(snap)}), "
+                             f"shed {len(sup.shed)}")
+    report = sup.report(printer=lambda s: None)
+    out = {"phase": "robust.serve", "ok": True, "arch": cfg.name,
+           "dtype": cfg.param_dtype, "slots": a["slots"],
+           "max_len": a["max_len"], "requests": a["requests"],
+           "max_new": a["max_new"], "fault_plan": plan.describe(),
+           "model": {"device": fitted.device,
+                     "source": fitted.meta.get("source"),
+                     "revision": fitted.meta.get("revision", 0)},
+           "prefill": {"tokens": [B, S], "ms": prefill_ms,
+                       "model_ms": fitted.predict(prefill_pv) * 1e3},
+           "iterations": [[r["k"], r["measured_ms"], r["tracked_ms"],
+                           r["model_ms"], r["cusum"]] for r in decode],
+           "iteration_columns": ["k", "measured_ms", "tracked_ms",
+                                 "model_ms", "cusum"],
+           "poisoned_iteration": poisoned[0]["k"],
+           "drift_events": cal.events_json(), "refits": cal.refits,
+           "revision": cal.revision, "refit_errors": cal.refit_errors,
+           "sink": cal.sink.stats(), "rls_samples": cal.rls.n_samples,
+           "calib": cal.report_line(),
+           "faults": inj.counts(), "evictions": sup.evictions,
+           "shed": len(sup.shed), "completed": len(done),
+           "supervisor": report, "iters": sup._iters,
+           "decode_calls_total": int(server.state["pos"]),
+           "resumed": resumed, "untouched_requests": len(untouched),
+           "untouched_equal_to_clean_run": same_untouched,
+           "clean_run_seconds": clean_s, "supervised_run_seconds": run_s,
+           "launches": launched}
+    emit(out)
+    return launched
+
+
+def robust_train_config():
+    return dataclasses.replace(resume_config(get_arch(ARCH)),
+                               optimizer=ROBUST_TRAIN_OPTIMIZER)
+
+
+def robust_trainer(cfg, seed, ckpt_dir=None, **kw) -> Trainer:
+    B, S = TRAIN_TOKENS
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                    seed=seed)
+    # blocking saves: a fault at the step after a save must find that save
+    # on disk (an async one may still be in flight; train.resume times the
+    # async checkpointer)
+    tc = TrainerConfig(ckpt_dir=ckpt_dir, ckpt_every=ROBUST_TRAIN_CKPT_EVERY,
+                       keep_ckpts=2, seed=seed, save_on_exit=False,
+                       async_ckpt=False, log_every=1000, **TRAIN_LR)
+    return Trainer(cfg, dc, tc, device=DEV, **kw)
+
+
+def phase_robust_train(reg_dir: str, seed: int):
+    """``ROBUST_TRAIN_STEPS`` steps of ``robust_train_config()`` unsupervised,
+    then under a ``Supervisor`` (checkpoints every
+    ``ROBUST_TRAIN_CKPT_EVERY`` steps, an ``OnlineCalibrator`` scoped to
+    train and warm-started from the fitted ``gpu-h100``, replans priced over
+    ``ROBUST_REPLAN_DEVICES`` by the model of a copy of the calibrate
+    phase's registry) through ``ROBUST_TRAIN_FAULTS``.  Fails unless the
+    supervised history equals the unsupervised one step for step within
+    ``TOL_REPLAY``, the corrupt save is quarantined and the resume falls
+    back one save, the registry copy falls back to its previous revision,
+    the compile cache rebuilds an entry equal to the one corrupted, and the
+    poisoned sample is quarantined.  Returns the launch counts of the
+    supervised run and the unsupervised history."""
+    cfg = robust_train_config()
+    B, S = TRAIN_TOKENS
+    t0 = time.perf_counter()
+    clean = robust_trainer(cfg, seed)
+    want = clean.train(ROBUST_TRAIN_STEPS, on_metrics=quiet)
+    clean_s = time.perf_counter() - t0
+    del clean
+    torch.cuda.empty_cache()
+
+    spec = WorkloadSpec(phase="train", global_batch=B, seq_len=S,
+                        name="train_live")
+    fitted = registry.load_model(CALIB_DEVICE, reg_dir)
+    predicted = predictor.predict_step(cfg, spec, TRAINER_PLAN, MESH1,
+                                       fitted).seconds
+    with tempfile.TemporaryDirectory(prefix="robust-") as tmp:
+        ckpt, reg_copy, cache = (os.path.join(tmp, d)
+                                 for d in ("ckpt", "registry", "cache"))
+        shutil.copytree(reg_dir, reg_copy)
+        # a second revision, so the corrupted file has one to fall back to
+        _, rev = registry.register_revision(fitted, reg_copy,
+                                            name=CALIB_DEVICE)
+        # one program in a compile cache of the phase's own
+        old_cache = os.environ.get("REPRO_COMPILE_CACHE")
+        os.environ["REPRO_COMPILE_CACHE"] = cache
+        key = exprops.program_key("robust.train", cfg.name, "train_live")
+        build = functools.partial(predictor._step_pv_sym, cfg, spec)
+        env = spec.env(cfg)
+        try:
+            before = exprops.load_or_build(key, build).score(env, fitted)
+        finally:
+            os.environ["REPRO_COMPILE_CACHE"] = old_cache
+        plan = FaultPlan.parse(ROBUST_TRAIN_FAULTS, seed=seed)
+        inj = FaultInjector(plan, ckpt_dir=ckpt, registry_dir=reg_copy,
+                            registry_device=CALIB_DEVICE,
+                            compile_cache_dir=cache)
+        cal = RecordedCalibrator(fitted, device=CALIB_DEVICE, phase="train",
+                                 registry_dir=reg_copy)
+        fallbacks = registry._FALLBACKS.value(device=CALIB_DEVICE)
+        sup = Supervisor(
+            lambda mesh: robust_trainer(cfg, seed, ckpt, calibrator=cal,
+                                        injector=inj,
+                                        predicted_step_s=predicted),
+            ROBUST_TRAIN_STEPS, cfg=cfg, workload=spec,
+            n_devices=ROBUST_REPLAN_DEVICES, model=CALIB_DEVICE,
+            registry_dir=reg_copy, injector=inj,
+            backoff=BackoffPolicy(seed=seed))
+        reset_launches()
+        t0 = time.perf_counter()
+        hist = sup.run()
+        run_s = time.perf_counter() - t0
+        launched = read_launches()
+        report = sup.report(printer=lambda s: None)
+        quarantined = sorted(os.listdir(os.path.join(ckpt, "quarantine"))) \
+            if os.path.isdir(os.path.join(ckpt, "quarantine")) else []
+        save = os.path.join(ckpt, f"step_{ROBUST_TRAIN_CKPT_EVERY:08d}")
+        save_bytes = sum(os.path.getsize(os.path.join(save, f))
+                         for f in os.listdir(save))
+        fell_back = registry.load_model(CALIB_DEVICE, reg_copy)
+        fallbacks = registry._FALLBACKS.value(device=CALIB_DEVICE) \
+            - fallbacks
+        corrupt_registry = os.path.exists(
+            registry._model_path(reg_copy, CALIB_DEVICE) + ".corrupt")
+        os.environ["REPRO_COMPILE_CACHE"] = cache
+        errors = exprops.DISK_STATS["errors"]
+        try:
+            after = exprops.load_or_build(key, build).score(env, fitted)
+        finally:
+            os.environ["REPRO_COMPILE_CACHE"] = old_cache
+        rebuilt = exprops.DISK_STATS["errors"] - errors
+        del sup.trainer
+    torch.cuda.empty_cache()
+    per_step = train_launches_per_step(cfg)
+    want_launches = {n: k * len(cal.rows) for n, k in per_step.items()}
+    if launched != want_launches:
+        raise AssertionError(f"robust.train launches {launched}, expected "
+                             f"{want_launches}")
+    if [h["step"] for h in hist] != [h["step"] for h in want]:
+        raise AssertionError("the supervised run's steps differ")
+    rel = [abs(h["loss"] - w["loss"]) / abs(w["loss"])
+           for h, w in zip(hist, want)]
+    checks = {
+        "history_within_tol": max(rel) <= TOL_REPLAY,
+        "one_recovery": len(sup.recoveries) == 1,
+        "checkpoint_quarantined": quarantined == ["step_00000006"],
+        "resumed_one_save_back": sup.steps_run == 6 + ROBUST_TRAIN_STEPS - 3,
+        "registry_fell_back": corrupt_registry and fallbacks >= 1
+        and fell_back.meta.get("revision", 0) == rev - 1,
+        "compile_cache_rebuilt": rebuilt == 1
+        and float(after) == float(before),
+        "poison_quarantined": cal.sink.stats()["n_dropped"] == 1,
+    }
+    out = {"phase": "robust.train", "ok": all(checks.values()),
+           "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "tokens": [B, S], "optimizer": cfg.optimizer,
+           "reduced": {"n_layers": "2 of 28 (train.resume's cut)",
+                       "optimizer": "adafactor in place of adamw: the "
+                                    "call's 45 GiB of disk writes"},
+           "fault_plan": plan.describe(), "checks": checks,
+           "losses": [h["loss"] for h in hist],
+           "losses_unsupervised": [w["loss"] for w in want],
+           "rel_diff_max": max(rel), "tol": TOL_REPLAY,
+           "step_ms": [h["time_s"] * 1e3 for h in hist],
+           "predicted_step_ms": predicted * 1e3,
+           "recoveries": [{"step": r.step, "cause": r.cause,
+                           "action": r.action, "mttr_ms": r.mttr_s * 1e3,
+                           "devices": r.n_devices, "detail": r.detail}
+                          for r in sup.recoveries],
+           "mesh": None if sup.mesh is None else dict(sup.mesh.shape),
+           "steps_run": sup.steps_run, "quarantined": quarantined,
+           "checkpoint_bytes": save_bytes,
+           "registry_revision_served": fell_back.meta.get("revision", 0),
+           "registry_revision_corrupted": rev,
+           "registry_fallbacks": fallbacks, "compile_cache_errors": rebuilt,
+           "samples": [[r["k"], r["measured_ms"], r["tracked_ms"],
+                        r["model_ms"], r["cusum"]] for r in cal.rows],
+           "drift_events": cal.events_json(), "refits": cal.refits,
+           "refit_errors": cal.refit_errors, "sink": cal.sink.stats(),
+           "calib": cal.report_line(), "supervisor": report,
+           "faults": inj.counts(), "unsupervised_seconds": clean_s,
+           "supervised_seconds": run_s, "launches": launched}
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"robust.train: {checks}")
+    return launched, want
+
+
+def phase_robust_fleet(reg_dir: str, seed: int, want: list) -> dict:
+    """``python -m repro_torch.launch fleet`` (``ROBUST_FLEET_ARGS``, host
+    only, pools priced by ``reg_dir``'s models) twice in-process: the two
+    placement histories must be byte for byte equal.  Then one
+    ``TrainerJobRunner`` on the card (``robust_train_config()``, a save
+    every ``ROBUST_TRAIN_CKPT_EVERY`` steps) migrated by a pool shrink at
+    fleet step 4: its history must equal ``want`` (the unsupervised run of
+    robust.train) within ``TOL_REPLAY``."""
+    hist = []
+    with tempfile.TemporaryDirectory(prefix="fleet-") as tmp:
+        for i in range(2):
+            path = os.path.join(tmp, f"history{i}.json")
+            t0 = time.perf_counter()
+            launch_main(ROBUST_FLEET_ARGS + ["--registry", reg_dir,
+                                             "--history-json", path])
+            hist.append((open(path, "rb").read(),
+                         time.perf_counter() - t0))
+        if hist[0][0] != hist[1][0]:
+            raise AssertionError("the fleet's placement history differs "
+                                 "between two runs")
+        events = [e["event"] for e in json.loads(hist[0][0])]
+
+        cfg = robust_train_config()
+        B, S = TRAIN_TOKENS
+        job = JobSpec(name="train", arch=ARCH, workload=WorkloadSpec(
+            phase="train", global_batch=B, seq_len=S, name="train"),
+            priority=5, min_devices=2, max_devices=2)
+        manifest = Manifest(pools=[PoolSpec("a100", "gpu-a100", 2),
+                                   PoolSpec("v5e", "tpu-v5e", 2)],
+                            jobs=[job])
+        allocator = FleetAllocator(manifest, registry_dir=reg_dir)
+        assignment = allocator.allocate()
+        home = assignment.placements["train"].pool
+        ckpt = os.path.join(tmp, "ckpt")
+        built = []
+
+        def factory(job_spec, placement):
+            built.append(placement.pool)
+            return robust_trainer(cfg, seed, ckpt)
+
+        sup = FleetSupervisor(
+            allocator, assignment=assignment,
+            injector=FaultInjector(FaultPlan.parse(
+                f"pool_shrink@4:pool={home},k=2", seed=seed)),
+            runner_factory=TrainerJobRunner.factory(
+                factory, target=ROBUST_FLEET_STEPS))
+        reset_launches()
+        t0 = time.perf_counter()
+        sup.run(ROBUST_FLEET_STEPS)
+        run_s = time.perf_counter() - t0
+        launched = read_launches()
+        runner = sup.runners["train"]
+        got = runner.history
+        del runner.trainer
+    torch.cuda.empty_cache()
+    rel = [abs(h["loss"] - w["loss"]) / abs(w["loss"])
+           for h, w in zip(got, want)]
+    checks = {"histories_byte_equal": True,
+              "migrated": sup.actions.get("migrate") == 1
+              and len(built) == 2 and built[0] != built[1],
+              "steps": [h["step"] for h in got]
+              == list(range(ROBUST_FLEET_STEPS)),
+              "history_within_tol": bool(rel) and max(rel) <= TOL_REPLAY}
+    out = {"phase": "robust.fleet", "ok": all(checks.values()),
+           "cli": " ".join(ROBUST_FLEET_ARGS), "events": events,
+           "history_bytes": len(hist[0][0]),
+           "cli_seconds": [h[1] for h in hist], "checks": checks,
+           "pools": built, "losses": [h["loss"] for h in got],
+           "rel_diff_max": max(rel) if rel else None, "tol": TOL_REPLAY,
+           "migration_run_seconds": run_s, "launches": launched}
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"robust.fleet: {checks}")
+    return launched
+
+
 def kernel_entry(name, source, replaces, launched, rows, cases, **extra):
     """One kernel of the ``kernels`` line: the first main-path shape's
     numbers at the top, every timed shape under ``shapes``."""
@@ -3303,6 +3814,20 @@ def run(args, cache_dir: str) -> int:
         launched["autotune"] = read_launches()
         with phase("explain"):
             phase_explain(reg_dir)
+        # online calibration and supervised recovery: each phase sets the
+        # launch counts to 0 just before its main path and reads them just
+        # after; all three read the model fitted above
+        torch.cuda.empty_cache()
+        with phase("robust.serve"):
+            launched["robust.serve"] = phase_robust_serve(reg_dir, args.seed)
+        torch.cuda.empty_cache()
+        with phase("robust.train"):
+            launched["robust.train"], unsupervised = phase_robust_train(
+                reg_dir, args.seed)
+        torch.cuda.empty_cache()
+        with phase("robust.fleet"):
+            launched["robust.fleet"] = phase_robust_fleet(
+                reg_dir, args.seed, unsupervised)
     torch.cuda.empty_cache()
     # model-scored serving: the same requests under FIFO and the model,
     # measured beside the simulation (the decode path launches no kernel)

@@ -1,7 +1,7 @@
 """Llama-3-405B [arXiv:2407.21783] — GQA kv=8, 128k vocab.
 
 Configured for Adafactor + full remat (the reference's choice for its
-largest model); the training path is not ported yet.
+largest model).
 """
 from repro_torch.configs.base import ArchConfig
 

@@ -46,14 +46,13 @@ Two more layers ride on the same decomposition:
 
 Consumers: ``core.planspace`` (fused ``PlanSpace.scores``), ``core.
 predictor`` (fused step programs), ``distributed.elastic`` /
-``runtime.straggler`` (cached incremental rescores); the block-grid scoring
-of the reference's ``kernels.autotune`` is not ported yet (ROADMAP A11).
+``runtime.straggler`` (cached incremental rescores), ``kernels.autotune``
+(the block-grid scoring).
 
 A copy of the reference's ``core/exprops.py``.  The compile cache reads the
 same ``REPRO_COMPILE_CACHE`` variable, defaults to
 ``~/.cache/repro_torch/exprops`` and fingerprints this package's formula
 modules, so the two packages never serve each other's programs.
-``BasisProgram.explain`` waits for ``obs/explain.py`` (ROADMAP A12).
 """
 from __future__ import annotations
 

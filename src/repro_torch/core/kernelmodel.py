@@ -125,6 +125,20 @@ def _waves(blocks: Expr, resident: ExprLike) -> Tuple[Expr, Expr]:
     return waves, waves * SMS * per_sm / blocks
 
 
+#: warps each of an SM's four schedulers needs resident to hide the latency
+#: of the FP32 pipes' shared-memory operand reads
+HIDING_WARPS = 4
+
+
+def _unhidden(threads: int, resident: ExprLike) -> Expr:
+    """How far the operand reads of blocks of ``threads`` threads at
+    ``resident`` blocks an SM stretch: 1 where every scheduler holds
+    ``HIDING_WARPS`` warps, else the warps it lacks over those it holds
+    (one 8-warp block an SM leaves each scheduler 2 warps: 2)."""
+    per_scheduler = as_expr(resident) * (-(-threads // 32) / 4)
+    return Max(Const(1.0), Const(HIDING_WARPS) / per_scheduler)
+
+
 def _grid_keys(waves: Expr, steps: ExprLike, syncs: ExprLike
                ) -> Dict[str, ExprLike]:
     return {props.BARRIER: waves * as_expr(steps) * as_expr(syncs),
@@ -213,7 +227,9 @@ def flash_attention_vector(B_: ExprLike, H: ExprLike, KVH: ExprLike,
     every key.  A block owns a q tile and walks its key tiles (the longest
     walk, the last q tile's, paces a wave); on the FP32 pipes each product
     reads its operands from shared memory, by the thread's register tile
-    (16 x 16 threads: bq/16 x bk/16 logits, bq/16 x dh/16 outputs)."""
+    (16 x 16 threads: bq/16 x bk/16 logits, bq/16 x dh/16 outputs),
+    stretched where the blocks an SM holds leave their latency unhidden
+    (``_unhidden``)."""
     bits = _pipe_bits(variant, bits)
     bq, bk = as_expr(block_q), as_expr(block_k)
     n_q, n_k = CeilDiv(as_expr(Sq), bq), CeilDiv(as_expr(Skv), bk)
@@ -238,7 +254,8 @@ def flash_attention_vector(B_: ExprLike, H: ExprLike, KVH: ExprLike,
         Min(n_k, CeilDiv(Const(window), bk) + 1)
     if variant != "wgmma":
         dhp = fa.padded_head_dim(int(dh))
-        local = local + exec_cells * 16 * ((bq + bk) * dhp + bk * (bq + dhp))
+        reads = exec_cells * 16 * ((bq + bk) * dhp + bk * (bq + dhp))
+        local = local + reads * _unhidden(fa.F32_THREADS, resident)
     return {props.local_key(bits): local,
             props.mxu_key(bits): mxu * slots,
             **_grid_keys(waves, steps, fa.SYNCS_PER_TILE)}

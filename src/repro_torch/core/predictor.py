@@ -31,8 +31,6 @@ H100:
   * ``feasible`` keeps the reference's default budget (``HBM_BYTES``); a
     caller on the card passes ``torch.cuda.get_device_properties(dev)
     .total_memory``.
-
-``score_explain`` waits for ``obs/explain.py`` (ROADMAP A12).
 """
 from __future__ import annotations
 

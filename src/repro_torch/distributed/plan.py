@@ -1,8 +1,7 @@
 """Parallelism plan: how logical axes map onto the physical mesh.
 
 A ``Plan`` is the unit the cost-model-driven autosharding search ranks
-(``core/predictor.py``, ``core/planspace.py``; the reference's
-``launch/autoshard.py`` waits for the multi-device slice).  A copy of the
+(``core/predictor.py``, ``core/planspace.py``, ``launch/autoshard.py``).  A copy of the
 reference's ``distributed/plan.py``: on one device the trainer reads only
 ``microbatches`` and ``remat_policy``.
 """

@@ -6,6 +6,9 @@
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --reduced --device cpu --admission model --slo-decode-s 0.5
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
+        --reduced --device cpu --fault-plan 'device_loss@6;slowdown@2' \
+        --max-queue 4
 
 Serves the dense (llama3.2-3b, smollm-360m, ...), moe (mixtral-8x7b,
 mixtral-8x22b), vision-language (qwen2-vl-7b, text only), ssm (mamba2-370m)
@@ -17,9 +20,12 @@ Runs on the GPU unless ``--device cpu`` is given; weights are random, made on
 the device from ``--seed``.  ``--admission model`` refills slots
 shortest-predicted-job first through the cost model (``gpu-h100`` on the
 card, the reference's default on the CPU), ``--slo-decode-s`` defers an
-admission the model predicts would break the decode-iteration SLO.  The
-supervise / fault-plan / chaos / max-queue options of the reference arrive
-with their modules.
+admission the model predicts would break the decode-iteration SLO.
+``--supervise`` (implied by ``--fault-plan``) serves under
+``ServingSupervisor``: a decode watchdog, slot eviction, admission
+throttling and, past ``--max-queue``, load shedding with retry-after;
+``--fault-plan`` is an iteration-indexed fault schedule, ``--chaos-seed``
+seeds its payloads.
 """
 from __future__ import annotations
 
@@ -53,6 +59,18 @@ def main(argv=None) -> None:
     ap.add_argument("--slo-decode-s", type=float, default=None,
                     help="decode-iteration latency SLO (admission defers "
                          "when the model predicts a breach)")
+    # --- supervised degradation / chaos (runtime/supervisor.py) ---
+    ap.add_argument("--supervise", action="store_true",
+                    help="run under ServingSupervisor: decode watchdog, "
+                         "slot eviction, admission throttling, load "
+                         "shedding with retry-after")
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC|PATH",
+                    help="deterministic fault schedule (iteration-indexed"
+                         "); implies --supervise")
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="shed queued requests beyond this depth "
+                         "(stamped with retry-after)")
     ap.add_argument("--trace-json", default=None, metavar="PATH",
                     help="write a Chrome-trace/Perfetto JSON of the serve "
                          "run (prefill/decode spans + predicted overlay)")
@@ -67,11 +85,20 @@ def main(argv=None) -> None:
     if args.reduced:
         cfg = cfg.reduced()
     model = transformer.init_params(cfg, device=args.device, seed=args.seed)
+    supervised = args.supervise or args.fault_plan
+    injector = None
+    if supervised:
+        from repro_torch.runtime.faults import FaultInjector, FaultPlan
+        fplan = FaultPlan.parse(args.fault_plan, seed=args.chaos_seed) \
+            if args.fault_plan else FaultPlan(seed=args.chaos_seed)
+        injector = FaultInjector(fplan)
+        if fplan:
+            print(f"[serve] fault plan armed: {fplan.describe()}")
     server = DecodeServer(cfg, model, slots=args.slots,
                           max_len=args.max_len, seed=args.seed,
                           admission=args.admission,
                           slo_decode_s=args.slo_decode_s,
-                          device=args.device)
+                          injector=injector, device=args.device)
 
     rng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
@@ -80,7 +107,16 @@ def main(argv=None) -> None:
         server.submit(Request(rid=rid, prompt=prompt, max_new=args.max_new))
 
     t0 = time.perf_counter()
-    done = server.run()
+    if supervised:
+        from repro_torch.runtime.supervisor import (ServingPolicy,
+                                                    ServingSupervisor)
+        sup = ServingSupervisor(
+            server, ServingPolicy(max_queue=args.max_queue),
+            injector=injector)
+        done = sup.run()
+        sup.report()
+    else:
+        done = server.run()
     dt = time.perf_counter() - t0
     toks = sum(len(r.out) for r in done)
     where = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"

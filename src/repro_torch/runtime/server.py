@@ -24,8 +24,13 @@ calibration registered one, else its datasheet seed) over the step
 programs of the card's kernels; on the CPU through the reference's default
 (the analytic v5e seed).
 
-Not ported yet: ``calibrator`` (online calibration) and ``injector``
-(``runtime/faults.py``); each raises ``NotImplementedError``.
+A ``calibrator`` (``calibration/online.OnlineCalibrator``) is fed every
+decode iteration's measured seconds against the property vector of the
+reference's live decode workload (``WorkloadSpec(phase="decode")`` at the
+server's slots and length, over the kernels the card launches); an
+``injector`` (``runtime/faults.FaultInjector``) perturbs the measured time
+(``perturb_decode_time``), and ``ServingSupervisor`` calls its
+``decode_begin``.
 
 Two properties of the reference that are reproduced here on purpose:
 
@@ -193,12 +198,6 @@ class DecodeServer:
         if admission not in ("fifo", "model"):
             raise ValueError(f"admission must be 'fifo' or 'model', "
                              f"got {admission!r}")
-        if calibrator is not None:
-            raise NotImplementedError(
-                "online calibration (calibration/online.py) is not ported yet")
-        if injector is not None:
-            raise NotImplementedError(
-                "fault injection (runtime/faults.py) is not ported yet")
         self.device = torch.device(device)
         if transformer.param_device(model).type != self.device.type:
             raise ValueError(
@@ -216,6 +215,7 @@ class DecodeServer:
         self.queue: List[Request] = []
         self.remaining = np.zeros(slots, np.int32)
         self._ctx = np.zeros(slots, np.int64)   # cached tokens per slot
+        self.injector = injector                # FaultInjector or None
         self._iters = 0                         # decode iterations served
         self.last_logits: Optional[torch.Tensor] = None  # of the last step
 
@@ -229,6 +229,19 @@ class DecodeServer:
                 cost_model = CARD_MODEL
             self.scorer = AdmissionScorer(cfg, slots=slots, max_len=max_len,
                                           model=cost_model)
+
+        # ---- online calibration: feed per-iteration decode timings ----
+        self.calibrator = calibrator
+        self._decode_pv = None
+        if calibrator is not None:
+            from repro_torch.core import predictor
+            from repro_torch.core.workload import WorkloadSpec
+            from repro_torch.distributed.plan import Plan
+            live = WorkloadSpec(phase="decode", global_batch=slots,
+                                seq_len=max_len, name="decode_live")
+            self._decode_pv = predictor.plan_property_vector(
+                cfg, live, Plan(dp_axes=(), tp_axis=None, fsdp=False,
+                                sequence_parallel=False), {"data": 1})
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -338,7 +351,8 @@ class DecodeServer:
     def step(self) -> float:
         """One decode iteration across all occupied slots; returns the
         measured wall seconds (to the point where the sampled tokens are on
-        the host, so the device has finished)."""
+        the host, so the device has finished; injector-perturbed, when
+        armed) — the supervisor's watchdog currency."""
         tok = np.zeros((self.slots, 1), np.int64)
         for s, req in enumerate(self.active):
             if req is not None:
@@ -356,12 +370,17 @@ class DecodeServer:
             nxt = torch.multinomial(probs, 1, generator=self.gen)[:, 0] \
                 .cpu().numpy()  # waits for the device
         dt = time.perf_counter() - t0
+        if self.injector is not None:
+            dt = self.injector.perturb_decode_time(self._iters, dt)
         self.last_logits = logits
         self._iters += 1
         _DECODE_SECONDS.observe(dt)
         if self.slo_decode_s is not None and active \
                 and dt > self.slo_decode_s:
             _SLO_VIOLATIONS.inc()
+        if self.calibrator is not None:
+            self.calibrator.observe(self._decode_pv, dt, tag="decode",
+                                    phase="decode")
         for s, req in enumerate(self.active):
             if req is None:
                 continue

@@ -993,3 +993,65 @@ def test_model_admission_server_on_the_card(cuda):
     assert len(done) == 4 and all(len(r.out) == 3 for r in done)
     spans = [s for s in tracer.spans if s.name in ("prefill", "decode_step")]
     assert spans and all(s.predicted_s > 0 for s in spans)
+
+
+def test_supervised_step_with_recovery_on_the_card(cuda, tmp_path):
+    """A reduced trainer on the card under the ``Supervisor``: a device lost
+    at step 4 rebuilds the trainer from the step-3 save after the old one
+    was released, and the history equals an unsupervised run's at rtol
+    1e-5; the attention kernel ran every step."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.runtime.faults import Fault, FaultInjector, FaultPlan
+    from repro_torch.runtime.supervisor import BackoffPolicy, Supervisor
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(ARCHS["llama3.2-3b"].reduced(),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2,
+                    seed=3)
+
+    def tc(ckpt=None):
+        return TrainerConfig(ckpt_dir=ckpt, ckpt_every=3, log_every=1000,
+                             async_ckpt=False, save_on_exit=False,
+                             total_steps=6)
+
+    want = Trainer(cfg, dc, tc(), device=cuda).train(6)
+    inj = FaultInjector(FaultPlan(faults=(Fault("device_loss", 4),)))
+    before = fa.flash_attention.launches
+    sup = Supervisor(lambda mesh: Trainer(cfg, dc, tc(str(tmp_path)),
+                                          injector=inj, device=cuda),
+                     6, injector=inj, sleep=lambda s: None,
+                     backoff=BackoffPolicy(base_s=0.0, max_s=0.0))
+    hist = sup.run()
+    assert len(sup.recoveries) == 1 and sup.steps_run == 7
+    assert fa.flash_attention.launches - before == 2 * cfg.n_layers * 7
+    np.testing.assert_allclose([h["loss"] for h in hist],
+                               [h["loss"] for h in want], rtol=1e-5)
+
+
+def test_calibrated_decode_on_the_card(cuda):
+    """A CUDA server feeds every decode iteration's synchronized seconds to
+    an ``OnlineCalibrator`` warm-started from the card's model; an injected
+    x5 slowdown of 8 iterations after a 20-iteration warm stretch raises a
+    "slow" event and one refit."""
+    from repro_torch.calibration.online import OnlineCalibrator
+    from repro_torch.runtime import server
+    from repro_torch.runtime.faults import Fault, FaultInjector, FaultPlan
+    cfg = dataclasses.replace(ARCHS["llama3.2-3b"].reduced(),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    model = transformer.init_params(cfg, device=cuda, seed=0)
+    cal = OnlineCalibrator("gpu-h100", phase="decode")
+    inj = FaultInjector(FaultPlan(faults=(Fault("slowdown", 24, factor=5.0,
+                                                duration=8),)))
+    srv = server.DecodeServer(cfg, model, slots=2, max_len=128, seed=0,
+                              eos_id=-1, calibrator=cal, injector=inj)
+    rng = np.random.default_rng(0)
+    for rid in range(2):
+        srv.submit(server.Request(rid=rid, prompt=rng.integers(
+            2, cfg.vocab_size, 4).astype(np.int32), max_new=40))
+    done = srv.run()
+    assert len(done) == 2 and cal.sink.stats()["n_recorded"] == 40
+    assert all(s.phase == "decode" for s in cal.sink.samples())
+    assert [e.direction for e in cal.events][:1] == ["slow"]
+    assert cal.refits >= 1

@@ -51,7 +51,11 @@ def test_package_layout():
                  "launch/train.py", "models/moe.py", "core/lru.py",
                  "core/symcount.py", "core/workload.py", "core/archcount.py",
                  "core/exprops.py", "core/kernelmodel.py",
-                 "core/planspace.py", "distributed/elastic.py"):
+                 "core/planspace.py", "distributed/elastic.py",
+                 "calibration/telemetry.py", "calibration/online.py",
+                 "runtime/faults.py", "runtime/supervisor.py",
+                 "runtime/fleet_supervisor.py", "launch/fleet.py",
+                 "launch/__main__.py"):
         assert need in names, need
     for src in ("flash_attention.cu", "ssd_scan.cu", "matmul.cu",
                 "transpose.cu"):

@@ -223,14 +223,25 @@ def test_position_beyond_the_cache_raises():
 
 @pytest.mark.parametrize("kw", [
     dict(admission="model"), dict(slo_decode_s=0.1),
-    dict(calibrator=object()), dict(injector=object())])
+    dict(calibrator=True), dict(injector=True)])
 def test_unported_server_options_raise(kw):
-    """The calibrator and the injector wait for their modules; model
-    admission and the decode SLO are ported and build the scorer."""
+    """Every option of the reference's server is ported now: model
+    admission and the decode SLO build the scorer, a calibrator gets the
+    live decode property vector, an injector is kept for the step's
+    timing hook; none raises."""
+    from repro_torch.calibration.online import OnlineCalibrator
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan
     _, tc, _, model = _setup()
-    if "calibrator" in kw or "injector" in kw:
-        with pytest.raises(NotImplementedError):
-            tsrv.DecodeServer(tc, model, device="cpu", **kw)
+    if "calibrator" in kw:
+        cal = OnlineCalibrator(None, device="decode-dev")
+        srv = tsrv.DecodeServer(tc, model, device="cpu", calibrator=cal)
+        assert srv.calibrator is cal and srv._decode_pv
+        assert srv.scorer is None
+        return
+    if "injector" in kw:
+        inj = FaultInjector(FaultPlan())
+        srv = tsrv.DecodeServer(tc, model, device="cpu", injector=inj)
+        assert srv.injector is inj and srv.calibrator is None
         return
     srv = tsrv.DecodeServer(tc, model, device="cpu", **kw)
     assert isinstance(srv.scorer, tsrv.AdmissionScorer)

@@ -457,10 +457,14 @@ def test_trainer_defaults_to_the_card_and_raises_without_one():
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, dc, TrainerConfig())
-    with pytest.raises(NotImplementedError, match="A13"):
-        Trainer(cfg, dc, TrainerConfig(online_calibrate=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        Trainer(cfg, dc, TrainerConfig(), injector=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, dc, TrainerConfig(online_calibrate=True))
+    # the calibrator and the injector are ported: on the CPU they build
+    t = Trainer(cfg, dc, TrainerConfig(online_calibrate=True), device="cpu")
+    assert t.calibrator is not None and t._step_pv
+    inj = object()
+    assert Trainer(cfg, dc, TrainerConfig(), injector=inj,
+                   device="cpu").injector is inj
 
 
 def test_launch_train_runs_on_the_cpu(tmp_path):
