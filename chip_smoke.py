@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only mm-cases|mm    # matmul alone
     python3 chip_smoke.py --only tr-cases|tr    # the transpose alone
     python3 chip_smoke.py --only autotune       # the autotune phase alone
+    python3 chip_smoke.py --only dp             # the data-parallel phase
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
 source, all started together), holds each kernel against its plain PyTorch
@@ -51,6 +52,15 @@ counts set to 0 just before the path and read just after):
   ``flash_attention`` kernel (and ``ssd_scan`` for zamba2) inside their
   autograd Functions, twice a layer per step (forward and remat recompute),
   the first also writing the row log-sum-exp the backward reads;
+* data-parallel training (``dp``): ``llama3.2-3b`` at full width and depth
+  (batch 2 x 4096, AdamW), 3 steps each of ``make_train_step`` and of
+  ``steps.make_manual_dp_train_step`` on ``make_mesh((1,), ("data",))``
+  over a one-rank NCCL group, uncompressed (equal to the train step within
+  1e-6: losses and every parameter) and under ``int8_ef`` (losses within
+  5 %), from the same weights and global batch: step times, peak memory,
+  the quantizer's and the collectives' device ms, ``count_collectives``'
+  bytes by kind beside ``archcount.collective_counts``' closed form — the
+  ``flash_attention`` kernel, twice a layer a step;
 * the paper's calibration loop on the card: ``python -m
   repro_torch.calibration --device gpu-h100 --scale gpu`` (launch overhead,
   the 9 measurement classes timed under the 30-run/drop-4 protocol with
@@ -76,7 +86,10 @@ counts set to 0 just before the path and read just after):
   matmul and transpose in f32 and bf16, every candidate of the grid
   ``kernels.autotune`` sweeps is launched (its tile and shared memory as the
   C query reports them must equal the tuner's Python mirrors), held against
-  the plain version and timed, beside its predicted seconds under the
+  the plain version and timed on the device (the median of the replays of
+  a CUDA graph of its calls; mamba2's bf16 SSD row also by host calls, and
+  the FP32 SSD kernel at chunks 32 and 64 over grids of one and two blocks
+  an SM: ``autotune.ssd_chunk_steps``), beside its predicted seconds under the
   analytic ``gpu-h100`` seed and the model fitted in this run (with the
   keys the fit leaves unpriced), Spearman's rank correlation of predicted
   and measured, the tile ``block_sizes="auto"`` picks on the card and the
@@ -121,7 +134,8 @@ exit code.  The last line is ``{"ok": true, "device": {...}}``.  With
 ``ssd``; matmul: ``mm``; transpose: ``tr``) against its plain version at its
 case table and (without ``-cases``) times it at the main paths' shapes, runs
 no main path, and says so in its last line; ``--only autotune`` builds and
-runs the autotune phase under the analytic seed alone.  The ``kernels`` line
+runs the autotune phase under the analytic seed alone, ``--only dp`` the
+data-parallel phase alone.  The ``kernels`` line
 gives each matmul kernel (``paper16``, ``fma128``, ``wgmma``), each SSD-scan
 kernel (``wgmma``, ``fma``) and each transpose kernel (``vec16``,
 ``scalar``) with its tile, registers and spills; the build fails if a tensor-core instance of
@@ -1161,6 +1175,37 @@ def graph_ms(fn, calls: int) -> float:
     return ms
 
 
+def graph_median_ms(fn, calls: int, reps: int) -> float:
+    """Median device milliseconds a call of ``fn``: ``calls`` calls captured
+    in one CUDA graph, each of ``reps`` replays timed by CUDA events around
+    it.  The replay enqueues the calls in one host call, so a slow host
+    adds nothing.  The capture calls ``fn`` (and its wrapper counts a
+    launch) ``calls`` times, and once more on a side stream before it;
+    the replays launch the captured kernels without calling the
+    wrappers, so they count nothing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return float(np.median(times))
+
+
 def host_us(fn, calls: int) -> float:
     """Host microseconds a call of ``fn`` takes to return: its work on the
     host and the launch queued, not waited for."""
@@ -1617,10 +1662,14 @@ def predict_path(p: dict, kname: str, kernels, models: dict, seed_w: dict,
 # the autotuner on the card: every candidate of each kernel's grid launched,
 # held against the plain version and timed beside its predicted seconds
 
-#: calls per timing and timings per candidate (the median is kept); fewer
-#: for the slow ``paper16`` candidates
-AUTOTUNE_TIMING = (5, 10)
+#: timed replays per candidate (the median is kept) and calls captured in
+#: its CUDA graph; fewer for the slow ``paper16`` candidates
+AUTOTUNE_TIMING = (10, 5)
 AUTOTUNE_TIMING_SLOW = (3, 2)
+#: the row also timed by back-to-back host calls (CUDA events around them),
+#: to show what the host adds to a fast candidate
+AUTOTUNE_HOST_TIMED = f"{SSM} ssd {PREFILL_TOKENS[0]}x{PREFILL_TOKENS[1]} " \
+    "bfloat16"
 #: a pick slower than this many times the fastest candidate fails the phase
 #: (far above the noise of the medians; PERF.md names the picks above 1.10)
 PICK_OVER_FASTEST_MAX = 1.25
@@ -1900,11 +1949,72 @@ def sweep_speedup() -> dict:
             "interpreted_s": t_slow, "speedup": t_slow / t_fast}
 
 
+#: the FP32 SSD kernel (P 64, L 2048, f32) at chunks 32 and 64 over grids of
+#: one block an SM (Bz 4 x H 32: 128 blocks), two (H 66: 264, one full wave)
+#: and zamba2's 320 (a full wave and a tail), at the states of zamba2 (N 64)
+#: and mamba2 (N 128): what a chunk step costs beside the seed's price
+SSD_STEP_GRIDS = [(64, 32), (64, 66), (64, 80), (128, 32), (128, 66),
+                   (128, 80)]
+
+
+def ssd_chunk_steps() -> dict:
+    """Device ms of the FP32 SSD kernel at chunks 32 and 64 over the grids
+    of ``SSD_STEP_GRIDS``, beside the analytic seed's prediction, and the
+    time a wait on device memory (``ssd_scan.fma_memory_waits_per_chunk``)
+    costs a wave beyond a plain barrier: the measured difference of the two
+    chunks less the seed's, over chunk 32's extra waits, plus what the
+    seed prices those waits at beyond a plain barrier (beside it,
+    ``priced_us_per_step``)."""
+    from repro_torch.kernels import autotune
+    seed = seeds.ANALYTIC_SEEDS[CALIB_DEVICE]()
+    seed_w = dict(zip(seed.keys, (float(w) for w in seed.weights)))
+    gen = torch.Generator(DEV).manual_seed(2)
+    Bz, L, P = 4, 2048, 64
+    out = []
+    for N, H in SSD_STEP_GRIDS:
+        x, dt, _, Bm, Cm = ssd_inputs(Bz, H, 1, L, P, N, torch.float32, gen)
+        A = -torch.linspace(1.0, 16.0, H, device=DEV)
+        shape = kops.ssd_scan_shape(x, Bm, Cm)
+        cands = {c["chunk"]: c for c in
+                 autotune.candidate_configs("ssd_scan", shape)}
+        row = {"N": N, "H": H, "blocks": Bz * H}
+        for chunk in (32, 64):
+            blocks = cands[chunk]
+
+            def call():
+                return kops.ssd_scan(x, dt, A, Bm, Cm, block_sizes=blocks)
+            call()
+            row[f"ms_{chunk}"] = graph_median_ms(call, 5, 10)
+            row[f"seed_ms_{chunk}"] = 1e3 * float(autotune.score_configs(
+                "ssd_scan", shape, [blocks], seed)[0])
+        waves = -(-Bz * H // (kernelmodel.SMS * min(
+            cands[32]["resident"], -(-Bz * H // kernelmodel.SMS))))
+        extra = waves * (ssd.fma_memory_waits_per_chunk(32) * L // 32
+                         - ssd.fma_memory_waits_per_chunk(64) * L // 64)
+        # the seed's price of the extra waits as the barriers they are
+        # counted as beyond a plain one
+        priced = (kernelmodel.MEMORY_WAIT_BARRIERS - 1) \
+            * seed_w[props.BARRIER]
+        row["waves"] = waves
+        row["us_per_extra_step"] = 1e3 * (
+            (row["ms_32"] - row["ms_64"])
+            - (row["seed_ms_32"] - row["seed_ms_64"])) / extra \
+            + 1e6 * priced
+        row["priced_us_per_step"] = 1e6 * priced
+        out.append(row)
+        del x, dt, Bm, Cm
+    line = {"phase": "autotune.ssd_chunk_steps", "ok": True, "rows": out,
+            "memory_wait_barriers": kernelmodel.MEMORY_WAIT_BARRIERS}
+    emit(line)
+    return line
+
+
 def phase_autotune(reg_dir=None):
     """Every candidate of every kernel's grid at the shapes of
     ``autotune_cases``: launched (its tile and shared memory as the C query
     reports them equal to the autotuner's mirrors), held against the plain
-    version, timed (median of ``AUTOTUNE_TIMING`` timings), beside its
+    version, timed on the device (``graph_median_ms``: the median of
+    ``AUTOTUNE_TIMING`` replays of a CUDA graph of its calls), beside its
     predicted seconds under the analytic ``gpu-h100`` seed and, with
     ``reg_dir``, under the model fitted in this run, with the keys the fit
     leaves unpriced (their seconds under the seed).  Spearman's rank
@@ -1929,7 +2039,7 @@ def phase_autotune(reg_dir=None):
         shape = shape_of(t)
         km = kernelmodel.get(kernel)
         cands = autotune.candidate_configs(kernel, shape)
-        measured, launched, errs, resid = [], [], [], []
+        measured, launched, errs, resid, host_timed = [], [], [], [], []
         ref = None   # the plain version's result; the SSD's per chunk
         for blocks in cands:
             launched.append(launched_tile(kernel, t, shape, blocks))
@@ -1948,12 +2058,14 @@ def phase_autotune(reg_dir=None):
             else:
                 errs.append(compare(o, ref, *tol))
             del o
-            reps, iters = AUTOTUNE_TIMING_SLOW \
+            reps, calls = AUTOTUNE_TIMING_SLOW \
                 if launched[-1]["variant"] == "paper16" else AUTOTUNE_TIMING
-            call(t, blocks)
-            measured.append(float(np.median(
-                [time_ms(lambda: call(t, blocks), 0, iters)
-                 for _ in range(reps)])))
+            measured.append(graph_median_ms(lambda: call(t, blocks), calls,
+                                            reps))
+            if label == AUTOTUNE_HOST_TIMED:
+                host_timed.append(float(np.median(
+                    [time_ms(lambda: call(t, blocks), 0, calls)
+                     for _ in range(reps)])))
         preds = {n: [float(x) for x in
                      autotune.score_configs(kernel, shape, cands, m)]
                  for n, m in models.items()}
@@ -1996,6 +2108,11 @@ def phase_autotune(reg_dir=None):
                                   for n, p in preds.items()},
                "fastest": cands[i_fast], "fastest_ms": measured[i_fast],
                "pick_over_fastest": measured[i_pick] / measured[i_fast],
+               **({"host_timed_ms": host_timed,
+                   "host_timed_pick_over_fastest":
+                       host_timed[i_pick] / min(host_timed)}
+                  if host_timed else {}),
+               "timing": "median of CUDA-graph replays",
                "mirrors_equal_c_queries": True,
                "residency_equals_the_occupancy_query": True,
                "max_abs_err": max(errs), "tol": list(tol)}
@@ -2003,6 +2120,7 @@ def phase_autotune(reg_dir=None):
         rows.append(row)
         del t, ref
         torch.cuda.empty_cache()
+    ssd_chunk_steps()
     speed = sweep_speedup()
     emit({"phase": "autotune.summary", "ok": True, "shapes": len(rows),
           "candidates": sum(len(r["candidates"]) for r in rows),
@@ -3099,6 +3217,222 @@ def drive_train(cfg, args) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# data-parallel training: the manual-DP step on a one-rank NCCL group
+
+#: llama3.2-3b at full width and depth, the training phases' batch, AdamW at
+#: the steps' constant 3e-4: DP_STEPS steps each of ``make_train_step`` and
+#: of the DP step uncompressed and under ``int8_ef``, each run from the
+#: weights the seed makes and the same global batch.  ``DP_LAYERS`` cuts the
+#: depth (None: all layers; the width stays)
+DP_STEPS = 3
+DP_LAYERS = None
+#: the uncompressed DP step against ``make_train_step``: each loss and every
+#: parameter after the last step, relative (Frobenius)
+TOL_DP = 1e-6
+#: ``int8_ef``'s loss against the uncompressed step's at every step (the
+#: reference's bar, tests/test_multidevice.py)
+TOL_DP_INT8 = 0.05
+
+
+def dp_config():
+    cfg = get_arch(ARCH)
+    return cfg if DP_LAYERS is None \
+        else dataclasses.replace(cfg, n_layers=DP_LAYERS)
+
+
+def dp_batch(cfg, seed: int) -> dict:
+    """The global batch, tokens and labels (B, S) from ``seed``."""
+    B, S = TRAIN_TOKENS
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                ).to(DEV) for k in ("tokens", "labels")}
+
+
+@contextlib.contextmanager
+def one_rank():
+    """One rank on the one card: a group of world size 1 (NCCL on the card)
+    that meets through a ``FileStore`` in a temporary directory."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import BACKENDS
+    with tempfile.TemporaryDirectory(prefix="dp-store-") as d:
+        dist.init_process_group(
+            BACKENDS[DEV], store=dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def device_spans(targets):
+    """CUDA events around every call of each ``(module, attribute, label)``
+    of ``targets`` while the block runs (the calls look the attribute up
+    when they run); yields label -> [(start, end)]."""
+    pairs = {label: [] for _, _, label in targets}
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
+    for (owner, attr, label), (_, _, fn) in zip(targets, saved):
+        def timed(*a, _fn=fn, _pairs=pairs[label], **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _fn(*a, **kw)
+            end.record()
+            _pairs.append((start, end))
+            return out
+        setattr(owner, attr, timed)
+    try:
+        yield pairs
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def dp_state(cfg, seed: int, optimizer) -> steps.TrainState:
+    model = transformer.init_params(cfg, device=DEV, seed=seed)
+    return steps.TrainState(
+        model, optimizer.init(dict(model.named_parameters())), 0)
+
+
+def dp_steps(step, state) -> tuple:
+    """``DP_STEPS`` timed steps (``step(state) -> (state, metrics)``); the
+    first under ``count_collectives``, every one with device spans of the
+    error-feedback quantizer (``ef_compress``: quantize, dequantize, the
+    new residual) and the collectives (``psum_compressed`` with its
+    requantize; ``all_reduce``).  -> (state, rows, collective bytes of a
+    step)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import compression as comp
+    targets = [(comp, "ef_compress", "ef_compress"),
+               (comp, "psum_compressed", "psum_compressed"),
+               (dist, "all_reduce", "all_reduce")]
+    rows, counted = [], None
+    for i in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with device_spans(targets) as pairs:
+            if i == 0:
+                with extract.count_collectives() as counted:
+                    state, m = step(state)
+            else:
+                state, m = step(state)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rows.append({"step": i + 1, "loss": loss, "grad_norm": gnorm,
+                     "seconds": seconds,
+                     "tokens_per_s": math.prod(TRAIN_TOKENS) / seconds,
+                     "collectives_counted": i == 0,
+                     "device_ms": {k: sum(a.elapsed_time(b) for a, b in v)
+                                   for k, v in pairs.items() if v},
+                     "calls": {k: len(v) for k, v in pairs.items() if v}})
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise AssertionError(f"dp: step {i + 1} is not finite: {rows}")
+    return state, rows, dict(counted)
+
+
+def phase_dp(seed: int) -> dict:
+    """The data-parallel path on one card: ``make_train_step``, then the
+    manual-DP step (``steps.make_manual_dp_train_step`` on
+    ``make_mesh((1,), ("data",))`` over a one-rank NCCL group) uncompressed
+    and under ``int8_ef``, each ``DP_STEPS`` steps from the same weights and
+    global batch.  Fails unless the uncompressed step equals the train step
+    within ``TOL_DP`` (losses, every parameter) and the int8 losses are
+    within ``TOL_DP_INT8`` of the uncompressed ones; reports step times,
+    peak memory, the quantizer's and collectives' device ms, the collective
+    bytes ``count_collectives`` saw beside ``archcount.collective_counts``'
+    closed form.  Resets the launch counts just before and -> reads them
+    just after."""
+    from repro_torch.core import archcount
+    from repro_torch.core.symcount import evaluate_vector
+    from repro_torch.launch.mesh import make_mesh
+    cfg = dp_config()
+    B, S = TRAIN_TOKENS
+    batch = dp_batch(cfg, seed)
+    optimizer = opt.get_optimizer("adamw")
+    n = cfg.n_params()
+    line = {"phase": "dp", "ok": True, "arch": cfg.name,
+            "n_layers": cfg.n_layers, "tokens": [B, S],
+            "optimizer": "adamw", "lr": 3e-4, "ranks": 1,
+            "reckoned_bytes": {"params_bf16": 2 * n, "adamw_m_v_f32": 8 * n,
+                               "ef_residual_f32": 4 * n,
+                               "int8_grads_f32": 4 * n}}
+    reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = steps.make_train_step(cfg, optimizer)
+    state, rows, _ = dp_steps(lambda st: step(st, batch),
+                              dp_state(cfg, seed, optimizer))
+    want = {k: p.detach().clone() for k, p in state.params.named_parameters()}
+    line["train_step"] = {"steps": rows, "peak_memory_bytes":
+                          torch.cuda.max_memory_allocated()}
+    del state, step
+    runs = {}
+    with one_rank():
+        mesh = make_mesh((1,), ("data",), device=DEV)
+        for compression in (None, "int8_ef"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fn, init_ef = steps.make_manual_dp_train_step(
+                cfg, optimizer, mesh, compression=compression)
+            state = dp_state(cfg, seed, optimizer)
+            ef = init_ef(state.params)
+
+            def dp_step(st, fn=fn, ef=ef):
+                st, _, m = fn(st, ef, batch)
+                return st, m
+            state, rows, counted = dp_steps(dp_step, state)
+            tag = compression or "fp32"
+            runs[tag] = {"steps": rows, "collective_bytes": counted,
+                         "coll_properties":
+                             extract.collective_property_vector(counted),
+                         "peak_memory_bytes":
+                             torch.cuda.max_memory_allocated()}
+            if compression is None:
+                diffs = {k: rel_diff(p.detach(), want[k])
+                         for k, p in state.params.named_parameters()}
+                worst = max(diffs, key=diffs.get)
+                runs[tag]["params_max_rel_diff"] = diffs[worst]
+                runs[tag]["params_worst"] = worst
+                del want
+            del state, ef, fn, init_ef
+    launched = read_launches()
+    ref_losses = [r["loss"] for r in line["train_step"]["steps"]]
+    fp32 = [r["loss"] for r in runs["fp32"]["steps"]]
+    int8 = [r["loss"] for r in runs["int8_ef"]["steps"]]
+    line["loss_rel_diff_fp32_vs_train_step"] = [
+        abs(a - b) / abs(b) for a, b in zip(fp32, ref_losses)]
+    line["loss_rel_diff_int8_vs_fp32"] = [abs(a - b) / abs(b)
+                                          for a, b in zip(int8, fp32)]
+    env = {"B": B, "S": S, "M": 1}
+    line["closed_form"] = {
+        f"{tag} dp={dp}": {k: float(v) for k, v in evaluate_vector(
+            archcount.collective_counts(
+                cfg, "train", Plan(dp_axes=("data",), fsdp=False,
+                                   compression=c), {"data": dp}),
+            env).items()}
+        for tag, c in (("fp32", None), ("int8_ef", "int8_ef"))
+        for dp in (1, 8)}
+    line.update(runs)
+    want_fa = 2 * cfg.n_layers * 3 * DP_STEPS
+    line["launches"] = launched
+    line["flash_attention_expected"] = want_fa
+    emit(line)
+    if max(line["loss_rel_diff_fp32_vs_train_step"]) > TOL_DP \
+            or runs["fp32"]["params_max_rel_diff"] > TOL_DP:
+        raise AssertionError(f"dp: the uncompressed DP step differs from "
+                             f"make_train_step beyond {TOL_DP}")
+    if max(line["loss_rel_diff_int8_vs_fp32"]) > TOL_DP_INT8:
+        raise AssertionError(f"dp: int8_ef's losses {int8} are not within "
+                             f"{TOL_DP_INT8} of fp32's {fp32}")
+    if launched["flash_attention"] != want_fa:
+        raise AssertionError(f"dp: flash_attention launched "
+                             f"{launched['flash_attention']} times, not "
+                             f"{want_fa}")
+    return launched
+
+
+# ---------------------------------------------------------------------------
 # online calibration and supervised recovery (robust.serve, robust.train,
 # robust.fleet)
 
@@ -3645,13 +3979,18 @@ def kernel_only(args, smi) -> int:
     the main paths' shapes; no main path runs, so the last line says so."""
     with phase("build"):
         ptx = phase_build()
+    if args.only == "dp":
+        with phase("dp"):
+            phase_dp(args.seed)
+        return finish(args, smi, {"ok": True, "scope": f"--only {args.only}",
+                                  "main_paths": "dp only"})
     if args.only == "autotune":
+        reset_launches()
         with phase("autotune"):
             phase_autotune()
-        print(smi, flush=True)
-        print(json.dumps({"ok": True, "scope": f"--only {args.only}",
-                          "main_paths": "not run"}), flush=True)
-        return 0
+        emit({"phase": "autotune.launches", "ok": True, **read_launches()})
+        return finish(args, smi, {"ok": True, "scope": f"--only {args.only}",
+                                  "main_paths": "not run"})
     gen = torch.Generator(DEV).manual_seed(args.seed)
     kernel = args.only.split("-")[0]
     cases = {"fa": ("kernels.cases", phase_kernel_cases),
@@ -3691,10 +4030,8 @@ def kernel_only(args, smi) -> int:
                   "kernel": "transpose",
                   "shapes": phase_transpose_main_shape(gen),
                   **tr_extra(ptx["transpose"])})
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "scope": f"--only {args.only}",
-                      "main_paths": "not run"}), flush=True)
-    return 0
+    return finish(args, smi, {"ok": True, "scope": f"--only {args.only}",
+                              "main_paths": "not run"})
 
 
 def main() -> int:
@@ -3708,12 +4045,13 @@ def main() -> int:
                     help="also write every phase line to this JSON file")
     ap.add_argument("--only", choices=("fa-cases", "fa", "ssd-cases", "ssd",
                                        "mm-cases", "mm", "tr-cases", "tr",
-                                       "autotune"),
+                                       "autotune", "dp"),
                     default=None,
                     help="build, then only the flash-attention (fa), SSD-scan "
                          "(ssd), matmul (mm) or transpose (tr) cases (-cases) "
                          "or the cases and timings, or the autotune phase "
-                         "under the analytic seed alone")
+                         "under the analytic seed alone, or the "
+                         "data-parallel phase (dp) alone")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3765,6 +4103,12 @@ def run(args, cache_dir: str) -> int:
     # the training paths, each with its own reset and read of the counts
     for cfg in (dense, hybrid):
         launched[f"{cfg.name}:train"] = drive_train(cfg, args)
+    # data-parallel training on a one-rank NCCL group (its own reset and
+    # read of the counts)
+    torch.cuda.empty_cache()
+    with phase("dp"):
+        launched["dp"] = phase_dp(args.seed)
+    torch.cuda.empty_cache()
 
     TB, TS = TRAIN_TOKENS
     with phase("kernels.main_shape"):
@@ -3881,10 +4225,15 @@ def run(args, cache_dir: str) -> int:
     total = round(time.perf_counter() - t_start, 1)
     emit({"phase": "total", "ok": True, "seconds": total})
     emit(kernels)
+    return finish(args, smi, {"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
+def finish(args, smi: str, last: dict) -> int:
+    """The card's name and power limit, then the last line; with ``--out``
+    every phase line also goes to that file."""
     print(smi, flush=True)
-    last = {"ok": True, "device": {"platform": "gpu",
-                                   "kind": torch.cuda.get_device_name(0),
-                                   "count": torch.cuda.device_count()}}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -59,6 +59,7 @@ touches the card.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import operator
 from collections import defaultdict
@@ -67,6 +68,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch.fx import GraphModule, Node
+from torch.utils import _python_dispatch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import properties as props
@@ -724,3 +726,91 @@ def pallas_props(grid: Sequence[int], block_elems_in: Sequence[int],
         props.BARRIER: cells * barriers_per_step,
         props.GROUPS: cells,
     }
+
+
+# ---------------------------------------------------------------------------
+# Collectives a run issues (the counterpart of the reference's compiled-HLO
+# collective summary: the port runs eagerly and has no HLO)
+# ---------------------------------------------------------------------------
+
+#: the reference's collective kinds (HLO opcodes) -> property names
+_COLL_KEY_MAP = {
+    "all-reduce": "all_reduce",
+    "all-gather": "all_gather",
+    "reduce-scatter": "reduce_scatter",
+    "all-to-all": "all_to_all",
+    "collective-permute": "permute",
+}
+
+#: ``c10d`` operators (``torch.distributed``'s calls) -> (kind, position of
+#: the operand argument)
+_C10D_KIND = {
+    "allreduce_": ("all-reduce", 0),
+    "allreduce_coalesced_": ("all-reduce", 0),
+    "allgather_": ("all-gather", 1),
+    "_allgather_base_": ("all-gather", 1),
+    "allgather_coalesced_": ("all-gather", 1),
+    "allgather_into_tensor_coalesced_": ("all-gather", 1),
+    "reduce_scatter_": ("reduce-scatter", 1),
+    "_reduce_scatter_base_": ("reduce-scatter", 1),
+    "reduce_scatter_tensor_coalesced_": ("reduce-scatter", 1),
+    "alltoall_": ("all-to-all", 1),
+    "alltoall_base_": ("all-to-all", 1),
+}
+#: ``_c10d_functional`` operators (functional collectives, DTensor) -> kind;
+#: their operand is the first argument
+_FUNCTIONAL_KIND = {
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def _collective(func) -> Optional[Tuple[str, int]]:
+    ns, name = func.namespace, func._schema.name.split("::")[-1]
+    if ns == "c10d":
+        return _C10D_KIND.get(name)
+    if ns == "_c10d_functional" and name in _FUNCTIONAL_KIND:
+        return _FUNCTIONAL_KIND[name], 0
+    return None
+
+
+class _CollectiveCounter(_python_dispatch.TorchDispatchMode):
+    """Adds each collective's operand bytes, by kind, to ``summary``."""
+
+    def __init__(self, summary: Dict[str, int]):
+        super().__init__()
+        self.summary = summary
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        hit = _collective(func)
+        if hit is not None:
+            kind, pos = hit
+            self.summary[kind] = self.summary.get(kind, 0) + sum(
+                t.numel() * t.element_size()
+                for t in pytree.tree_leaves(args[pos])
+                if isinstance(t, torch.Tensor))
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Within the block, the operand bytes of every collective issued on
+    this thread, by the reference's kind names (``all-reduce``,
+    ``all-gather``, ``reduce-scatter``, ``all-to-all``): the dict yielded
+    fills as they are issued.  Bytes are per rank, as the reference counts
+    a partitioned program's operands."""
+    summary: Dict[str, int] = {}
+    with _CollectiveCounter(summary):
+        yield summary
+
+
+def collective_property_vector(summary: Mapping[str, float]
+                               ) -> Dict[str, float]:
+    """``coll:*`` properties (bytes) from a ``count_collectives`` summary."""
+    return {props.coll_key(_COLL_KEY_MAP.get(k, k)): float(v)
+            for k, v in summary.items()}

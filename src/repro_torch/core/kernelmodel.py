@@ -139,6 +139,14 @@ def _unhidden(threads: int, resident: ExprLike) -> Expr:
     return Max(Const(1.0), Const(HIDING_WARPS) / per_scheduler)
 
 
+#: a block-wide wait on a round trip to device memory, as barrier events: a
+#: barrier is priced at 0.1 us by the analytic seed, and a wait behind a
+#: load from device memory lasts about 1 us on the H100 (the FP32 SSD
+#: kernel's chunk steps at one and two blocks an SM: ``chip_smoke.py``'s
+#: ``autotune.ssd_chunk_steps`` line, PERF.md §6)
+MEMORY_WAIT_BARRIERS = 10
+
+
 def _grid_keys(waves: Expr, steps: ExprLike, syncs: ExprLike
                ) -> Dict[str, ExprLike]:
     return {props.BARRIER: waves * as_expr(steps) * as_expr(syncs),
@@ -283,7 +291,8 @@ def ssd_scan_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: ExprLike,
     32 rows at a time in blocks of 64 columns, over the state padded to
     16/32/64/128, each product's operands read from shared memory (a thread
     owns 2 x 4 or 4 x 4 outputs: 0.75 reads a product, 0.5 in the state
-    update).
+    update); its waits on tiles loaded from device memory (one a chunk,
+    one a strip) count ``MEMORY_WAIT_BARRIERS`` barriers each.
 
     ``backward``: the call runs under autograd, so the chunk also sets the
     backward's recompute: the plain chunked version, forward and backward,
@@ -329,7 +338,9 @@ def ssd_scan_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: ExprLike,
         st = Q * NP * Pc
         prod = cb + wx + ch + st
         local = local + cells * (0.75 * (cb + wx + ch) + 0.5 * st)
-        syncs = ssd.fma_syncs_per_chunk(Q)
+        # the waits on its tile loads count as the barriers they last
+        syncs = ssd.fma_syncs_per_chunk(Q) + (MEMORY_WAIT_BARRIERS - 1) \
+            * ssd.fma_memory_waits_per_chunk(Q)
     out = {props.local_key(bits): local,
            props.mxu_key(bits): 2 * cells * prod * slots,
            **_grid_keys(waves, nc, syncs)}

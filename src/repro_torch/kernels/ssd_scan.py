@@ -241,6 +241,17 @@ def fma_syncs_per_chunk(chunk):
     return 3 + 3 * CeilDiv(as_expr(chunk), as_expr(_STRIP))
 
 
+def fma_memory_waits_per_chunk(chunk):
+    """Those of the FP32 kernel's ``__syncthreads`` of one chunk that wait
+    on a round trip to device memory (its tiles are loaded with nothing
+    prefetched): after dt, B and x, once a chunk, and after C, once a strip
+    of 32 rows."""
+    if isinstance(chunk, int):
+        return 1 + -(-chunk // _STRIP)
+    from repro_torch.core.symcount import CeilDiv, as_expr
+    return 1 + CeilDiv(as_expr(chunk), as_expr(_STRIP))
+
+
 #: the operators one chunk of the plain version dispatches forward and
 #: backward: the cost, chunk by chunk, of the training path's backward, which
 #: recomputes ``ssd_scan_reference`` under autograd at the chunk the forward

@@ -9,8 +9,8 @@
 Each subcommand is the ``main(argv)`` of the matching
 ``repro_torch.launch`` module; the per-module entry points
 (``python -m repro_torch.launch.train``) keep working unchanged.
-``dryrun`` is listed as in the reference and waits for the multi-device
-slice (ROADMAP A14).
+``dryrun`` is listed as in the reference and waits for the GSPMD-style
+half of the multi-device slice (ROADMAP A14.2).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ def main(argv=None) -> None:
     if cmd == "dryrun":
         raise NotImplementedError("repro_torch.launch dryrun: the "
                                   "multi-device dry run waits for the "
-                                  "multi-device slice (A14)")
+                                  "DTensor-sharded steps (A14.2)")
     importlib.import_module(f"repro_torch.launch.{cmd}").main(rest)
 
 

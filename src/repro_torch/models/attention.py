@@ -10,10 +10,11 @@ by chunk, f32 math.  The JAX package has no backward kernel, so none is
 ported.  Under ``flags.use_kernels(False)``, ``attention_core`` dispatches
 as the reference does: the chunked path (``_chunked_attention`` under the
 same backward, ``_FlashXLA``) above ``CHUNKED_ABOVE`` query-key pairs, the
-materialised-logits ``_plain_attention`` below.  Decode over the cache is
-plain tensor code, as in the reference.
-
-Not ported yet: the context-parallel branch (multi-device).
+materialised-logits ``_plain_attention`` below.  Under a sharding context
+whose model axis the heads cannot fill, the plain path splits q into
+``context_parallel_factor`` slices (context parallelism); the kernel path
+ignores the split, as the reference's does.  Decode over the cache is plain
+tensor code, as in the reference.
 """
 from __future__ import annotations
 
@@ -407,9 +408,7 @@ def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
 
     new_cache = None
     if cache is None:
-        if context_parallel_factor(H, S) > 1:
-            raise NotImplementedError(
-                "context-parallel attention waits for the multi-device slice")
+        cp = context_parallel_factor(H, S)
         if flags.attention_stubbed():  # cost-attribution mode
             o = v.repeat_interleave(H // KVH, dim=2)
         elif flags.kernels_enabled():
@@ -419,6 +418,18 @@ def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
             o = _FlashAttention.apply(q, k, v, cfg.sliding_window,
                                       min(1024, S), min(1024, S),
                                       torch.is_grad_enabled())
+        elif cp > 1:
+            # context parallelism: n_heads % tp != 0, so attention divides
+            # over the model axis by q-SLICE instead of by head; k/v stay
+            # whole and each slice runs with its own absolute offset
+            Scp = S // cp
+            qs = logical(q.reshape(B, cp, Scp, H, dh),
+                         ("act_batch", "act_cp", None, None, None))
+            o = torch.stack([attention_core(
+                qs[:, i], k, v, causal=True, window=cfg.sliding_window,
+                q_offset=i * Scp) for i in range(cp)], dim=1)
+            o = logical(o, ("act_batch", "act_cp", None, None, None))
+            o = o.reshape(B, S, H, dh)
         else:
             o = attention_core(q, k, v, causal=True,
                                window=cfg.sliding_window)

@@ -120,6 +120,75 @@ def param_device(model: nn.Module) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
+# Logical axes and shapes (for the sharding rules)
+# ---------------------------------------------------------------------------
+
+#: logical axes of a block's parameters by their name inside the block;
+#: dense weights are stored (out, in), so their axes read (out, in)
+BLOCK_AXES = {
+    "ln1.scale": ("embed",), "ln2.scale": ("embed",), "ln.scale": ("embed",),
+    "attn.wq.weight": ("heads", "embed"), "attn.wq.bias": ("heads",),
+    "attn.wk.weight": ("kv_heads", "embed"), "attn.wk.bias": ("kv_heads",),
+    "attn.wv.weight": ("kv_heads", "embed"), "attn.wv.bias": ("kv_heads",),
+    "attn.wo.weight": ("embed", "heads"),
+    "ffn.gate.weight": ("ff", "embed"), "ffn.up.weight": ("ff", "embed"),
+    "ffn.down.weight": ("embed", "ff"),
+    "moe.router": ("embed", "expert"),
+    "moe.gate": ("expert", "embed", "ff"), "moe.up": ("expert", "embed", "ff"),
+    "moe.down": ("expert", "ff", "embed"),
+    "mixer.in_proj.weight": ("ssm_inner", "embed"),
+    "mixer.conv_w": ("conv", "ssm_inner"), "mixer.conv_b": ("ssm_inner",),
+    "mixer.A_log": ("ssm_heads",), "mixer.D": ("ssm_heads",),
+    "mixer.dt_bias": ("ssm_heads",), "mixer.norm": ("ssm_inner",),
+    "mixer.out_proj.weight": ("embed", "ssm_inner"),
+}
+
+
+def param_shapes(cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+    """The full model's ``state_dict`` as meta tensors (shapes and types;
+    nothing allocated)."""
+    return Transformer(cfg, torch.device("meta"), None).state_dict()
+
+
+def param_axes(cfg: ArchConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes of every ``state_dict`` entry, read off the model's
+    structure on the meta device (nothing allocated)."""
+    axes = {}
+    for name, t in param_shapes(cfg).items():
+        if name == "embed.weight":
+            ax = ("codebook", "vocab", "embed") if t.ndim == 3 \
+                else ("vocab", "embed")
+        elif name == "head.weight":
+            ax = ("head_idx", "vocab", "embed") if t.ndim == 3 \
+                else ("vocab", "embed")
+        elif name == "final_ln.scale":
+            ax = ("embed",)
+        else:
+            # blocks.<i>.<name in block> or shared.<name in block>
+            local = name.split(".", 2)[2] if name.startswith("blocks.") \
+                else name.split(".", 1)[1]
+            ax = BLOCK_AXES[local]
+        axes[name] = ax
+    return axes
+
+
+def decode_state_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    """Logical-axes tree mirroring ``init_decode_state``'s output."""
+    kv_axes = attn.KVCache(
+        k=("act_layers", "act_batch", "act_seq_dp", "act_kv_heads", None),
+        v=("act_layers", "act_batch", "act_seq_dp", "act_kv_heads", None))
+    ssm_axes = ssm.SSMState(
+        conv=("act_layers", "act_batch", None, "act_ssm_inner"),
+        h=("act_layers", "act_batch", "act_ssm_heads", None, None))
+    axes: Dict[str, Any] = {"pos": ()}
+    if _has_ssm(cfg):
+        axes["ssm"] = ssm_axes
+    if cfg.family != "ssm":
+        axes["kv"] = kv_axes
+    return axes
+
+
+# ---------------------------------------------------------------------------
 # Remat
 # ---------------------------------------------------------------------------
 

@@ -210,3 +210,29 @@ def clip_by_global_norm(grads: Tensors, max_norm: float):
     for g in grads.values():
         g.copy_(g.float() * scale)
     return grads, norm
+
+
+# ---------------------------------------------------------------------------
+# Optimizer-state logical axes (for distributed sharding of TrainState)
+# ---------------------------------------------------------------------------
+
+
+def opt_state_axes(name: str, params_axes: Dict[str, tuple]):
+    """Logical-axes tree mirroring ``get_optimizer(name).init(params)``,
+    keyed by parameter name as the state is.
+
+    Leaf-wise: AdamW m/v inherit the param axes; Adafactor's factored vr/vc
+    drop the last / second-to-last axis.  ``count`` is a replicated scalar.
+    """
+    if name == "adamw":
+        return {"m": dict(params_axes), "v": dict(params_axes), "count": ()}
+    if name == "adafactor":
+        def one(ax):
+            if len(ax) >= 2:
+                return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+            return {"v": ax}
+        return {"v": {n: one(ax) for n, ax in params_axes.items()},
+                "count": ()}
+    if name == "sgd":
+        return {"m": dict(params_axes), "count": ()}
+    raise KeyError(name)
