@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only tr-cases|tr    # the transpose alone
     python3 chip_smoke.py --only autotune       # the autotune phase alone
     python3 chip_smoke.py --only dp             # the data-parallel phase
+    python3 chip_smoke.py --only gspmd          # the sharded steps, dry run
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
 source, all started together), holds each kernel against its plain PyTorch
@@ -61,6 +62,19 @@ counts set to 0 just before the path and read just after):
   the quantizer's and the collectives' device ms, ``count_collectives``'
   bytes by kind beside ``archcount.collective_counts``' closed form — the
   ``flash_attention`` kernel, twice a layer a step;
+* the DTensor-sharded steps (``gspmd.*``) on a (1, 1) ``data, model``
+  mesh over the one-rank NCCL group, each beside its unsharded step from
+  the same weights and inputs: ``gspmd.train`` (llama3.2-3b uncut, 2 x
+  4096, AdamW, 3 steps through ``step_and_specs``' train step on DTensor
+  parameters and state; losses and every parameter within 1e-6),
+  ``gspmd.prefill`` (zamba2-2.7b, 4 x 2048: the ``ssd_scan`` and
+  ``flash_attention`` kernels on each rank's shard under ``local_map``;
+  logits within 1e-6), ``gspmd.ep`` (mixtral-8x7b at 16 layers under
+  ``moe_mode="ep"``; logits within 1e-6) and ``gspmd.decode`` (llama3.2-3b,
+  8 slots x 2048 rows, 16 iterations; the sampled tokens equal); then the
+  dry run, ``python -m repro_torch.launch dryrun`` of llama3.2-3b at
+  ``train_4k`` on a fake world of 256 ranks in a process of its own, beside
+  ``archcount``'s closed form and ``predictor.estimate_peak_bytes``;
 * the paper's calibration loop on the card: ``python -m
   repro_torch.calibration --device gpu-h100 --scale gpu`` (launch overhead,
   the 9 measurement classes timed under the 30-run/drop-4 protocol with
@@ -135,7 +149,8 @@ exit code.  The last line is ``{"ok": true, "device": {...}}``.  With
 case table and (without ``-cases``) times it at the main paths' shapes, runs
 no main path, and says so in its last line; ``--only autotune`` builds and
 runs the autotune phase under the analytic seed alone, ``--only dp`` the
-data-parallel phase alone.  The ``kernels`` line
+data-parallel phase alone, ``--only gspmd`` the sharded steps and the dry
+run alone.  The ``kernels`` line
 gives each matmul kernel (``paper16``, ``fma128``, ``wgmma``), each SSD-scan
 kernel (``wgmma``, ``fma``) and each transpose kernel (``vec16``,
 ``scalar``) with its tile, registers and spills; the build fails if a tensor-core instance of
@@ -188,7 +203,8 @@ from repro_torch.kernels import transpose as tr  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, PackedLoader  # noqa: E402
 from repro_torch.distributed.plan import Plan  # noqa: E402
-from repro_torch.launch import autoshard  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
+from repro_torch.launch import autoshard, specs  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.obs import trace as _obs_trace  # noqa: E402
 from repro_torch.obs.explain import score_explain  # noqa: E402
@@ -3433,6 +3449,316 @@ def phase_dp(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the DTensor-sharded steps (gspmd.*) and the dry run
+
+#: train steps of the sharded step and of ``make_train_step`` each; prefill
+#: steps of each; decode iterations of each (slots x cache rows)
+GSPMD_TRAIN_STEPS = 3
+GSPMD_PREFILL_STEPS = 2
+GSPMD_DECODE = dict(slots=8, max_len=2048, iterations=16)
+#: a sharded step against its unsharded step on one rank: losses and every
+#: parameter (train), logits (prefill), relative Frobenius; tokens equal
+TOL_GSPMD = 1e-6
+#: the dry run: a 256-rank fake world in a process of its own
+DRYRUN_ARGS = ["dryrun", "--arch", ARCH, "--shape", "train_4k", "--mesh",
+               "single"]
+DRYRUN_TIMEOUT = 600
+
+
+def gspmd_plan(cfg, kind: str, B: int, S: int, **edit):
+    """``plan_for`` a (B, S) cell of ``kind`` on one card: model axis 1,
+    the budget the card's memory."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.plan import plan_for
+    shape = ShapeConfig(f"gspmd_{kind}", S, B, kind)
+    budget = torch.cuda.get_device_properties(0).total_memory
+    return shape, plan_for(cfg, shape, tp_size=1,
+                           hbm_budget=budget).with_(**edit), budget
+
+
+def _local(m: dict) -> dict:
+    """Metrics of a sharded step as plain tensors (replicated on the
+    mesh: each rank's copy is the value)."""
+    return {k: v.to_local() if sharding.is_dtensor(v) else v
+            for k, v in m.items()}
+
+
+def timed_calls(fn, n: int) -> tuple:
+    """``n`` synchronized calls of ``fn``; -> (last result, seconds each)."""
+    secs, out = [], None
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, secs
+
+
+def phase_gspmd_train(mesh, seed: int) -> dict:
+    """llama3.2-3b uncut, 2 x 4096, AdamW at a constant 3e-4:
+    ``GSPMD_TRAIN_STEPS`` steps of ``make_train_step``, then as many of the
+    train step ``step_and_specs`` gives, run as a DTensor program
+    (``specs.sharded``) on the parameters and optimizer state laid out as
+    DTensors, from the same weights and batch.  Fails unless the losses and
+    every parameter agree within ``TOL_GSPMD``.  The sharded run's model
+    is built straight into DTensors (``init_params(mesh=, plan=)``)."""
+    cfg = get_arch(ARCH)
+    B, S = TRAIN_TOKENS
+    batch = dp_batch(cfg, seed)
+    optimizer = opt.get_optimizer("adamw")
+    shape, plan, budget = gspmd_plan(cfg, "train", B, S)
+    n = cfg.n_params()
+    line = {"phase": "gspmd.train", "ok": True, "arch": cfg.name,
+            "n_layers": cfg.n_layers, "tokens": [B, S], "optimizer": "adamw",
+            "lr": 3e-4, "mesh": [list(mesh.mesh_dim_names),
+                                 list(mesh.shape)],
+            "hbm_budget": budget, "plan": dataclasses.asdict(plan),
+            "reckoned_bytes": {"params_bf16": 2 * n, "adamw_m_v_f32": 8 * n,
+                               "reference_params_bf16": 2 * n}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = steps.make_train_step(cfg, optimizer)
+    state, rows, _ = dp_steps(lambda st: step(st, batch),
+                              dp_state(cfg, seed, optimizer))
+    want = {k: p.detach().clone() for k, p in state.params.named_parameters()}
+    line["train_step"] = {"steps": rows, "peak_memory_bytes":
+                          torch.cuda.max_memory_allocated()}
+    del state, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn, _, in_sh, out_sh = specs.train_cell(cfg, shape, mesh, plan)
+    run = specs.sharded(fn, mesh, plan, in_sh, out_sh)
+    # the model built straight into its shards, the optimizer's state laid
+    # out as the parameters
+    model = transformer.init_params(cfg, device=DEV, seed=seed, mesh=mesh,
+                                    plan=plan)
+    state = specs.shard_args(steps.TrainState(
+        model, optimizer.init(dict(model.named_parameters())), 0),
+        in_sh[0], mesh)
+    del model
+
+    def sharded_step(st):
+        st, m = run(st, batch)
+        return st, _local(m)
+    state, rows, counted = dp_steps(sharded_step, state)
+    diffs = {k: rel_diff(p.to_local().detach(), want[k])
+             for k, p in state.params.named_parameters()}
+    worst = max(diffs, key=diffs.get)
+    line["sharded_step"] = {
+        "steps": rows, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "collective_bytes": counted,
+        "param_placements": sorted({str(p.placements)
+                                    for p in state.params.parameters()})}
+    del state, run, fn, want
+    ref = [r["loss"] for r in line["train_step"]["steps"]]
+    got = [r["loss"] for r in line["sharded_step"]["steps"]]
+    line["loss_rel_diff"] = [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+    line["params_max_rel_diff"] = diffs[worst]
+    line["params_worst"] = worst
+    line["bit_equal"] = got == ref and diffs[worst] == 0.0
+    line["seconds_a_step"] = {
+        "train_step": [r["seconds"] for r in line["train_step"]["steps"]],
+        "sharded_step": [r["seconds"] for r in line["sharded_step"]["steps"]]}
+    if max(line["loss_rel_diff"]) > TOL_GSPMD \
+            or diffs[worst] > TOL_GSPMD:
+        emit(dict(line, ok=False))
+        raise AssertionError(f"gspmd.train: the sharded step differs from "
+                             f"make_train_step beyond {TOL_GSPMD}")
+    return line
+
+
+def phase_gspmd_prefill(mesh, cfg, seed: int, phase_name: str,
+                        **edit) -> dict:
+    """``GSPMD_PREFILL_STEPS`` prefill steps of ``cfg`` on tokens
+    ``PREFILL_TOKENS`` through ``make_prefill_step``, then as many through
+    the prefill step of ``step_and_specs`` as a DTensor program (the kernels
+    on each rank's shard under ``local_map``), the model's parameters laid
+    out as DTensors in place.  Fails unless the logits agree within
+    ``TOL_GSPMD``."""
+    B, S = PREFILL_TOKENS
+    shape, plan, budget = gspmd_plan(cfg, "prefill", B, S, **edit)
+    model = transformer.init_params(cfg, device=DEV, seed=seed)
+    batch = main_batch(cfg, B, S, seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = steps.make_prefill_step(cfg)
+    want, plain_s = timed_calls(lambda: step(model, batch),
+                                GSPMD_PREFILL_STEPS)
+    fn, _, in_sh, _ = specs.prefill_cell(cfg, shape, mesh, plan)
+    run = specs.sharded(fn, mesh, plan, in_sh)
+    model = specs.shard_args(model, in_sh[0], mesh)
+    with extract.count_collectives() as counted:
+        got, sharded_s = timed_calls(lambda: run(model, batch),
+                                     GSPMD_PREFILL_STEPS)
+    got = got.to_local()
+    finite = bool(torch.isfinite(got).all())
+    rel = rel_frobenius(got, want)
+    line = {"phase": phase_name, "ok": True, "arch": cfg.name,
+            "n_layers": cfg.n_layers, "dtype": cfg.param_dtype,
+            "tokens": [B, S], "hbm_budget": budget,
+            "plan": dataclasses.asdict(plan),
+            "logits_rel_diff": rel, "bit_equal": bool(torch.equal(got, want)),
+            "finite": finite,
+            "ms_a_step": {"prefill_step": [t * 1e3 for t in plain_s],
+                          "sharded_step": [t * 1e3 for t in sharded_s]},
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "collective_bytes": dict(counted),
+            "param_placements": sorted({str(p.placements)
+                                        for p in model.parameters()})}
+    del model, got, want, run, fn
+    if not finite or rel > TOL_GSPMD:
+        emit(dict(line, ok=False))
+        raise AssertionError(f"{phase_name}: the sharded prefill's logits "
+                             f"differ by {rel} (finite {finite}), beyond "
+                             f"{TOL_GSPMD}")
+    return line
+
+
+def phase_gspmd_decode(mesh, seed: int) -> dict:
+    """llama3.2-3b, ``GSPMD_DECODE`` (8 slots x 2048 rows, 16 iterations):
+    the decode step ``make_serve_step`` gives on plain tensors, then the
+    serve step of ``step_and_specs`` as a DTensor program on the parameters
+    and decode caches laid out as DTensors; each with a generator seeded
+    alike.  Fails unless the sampled tokens are equal."""
+    cfg = get_arch(ARCH)
+    a = GSPMD_DECODE
+    shape, plan, budget = gspmd_plan(cfg, "decode", a["slots"],
+                                     a["max_len"])
+    model = transformer.init_params(cfg, device=DEV, seed=seed)
+    rng = np.random.default_rng(seed)
+    first = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (a["slots"], 1))).to(DEV)
+
+    def decode(step, model, state):
+        gen = torch.Generator(DEV).manual_seed(seed)
+        tok, toks, secs = first, [], []
+        for _ in range(a["iterations"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nxt, state = step(model, state, tok, gen)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            toks.append(nxt.tolist())
+            tok = nxt[:, None]
+        return toks, secs
+
+    plain_toks, plain_s = decode(
+        steps.make_serve_step(cfg), model,
+        transformer.init_decode_state(cfg, a["slots"], a["max_len"],
+                                      device=DEV))
+    fn, _, in_sh, _ = specs.decode_cell(cfg, shape, mesh, plan)
+    run = specs.sharded(fn, mesh, plan, in_sh)
+    model = specs.shard_args(model, in_sh[0], mesh)
+    state = specs.shard_args(transformer.init_decode_state(
+        cfg, a["slots"], a["max_len"], device=DEV), in_sh[1], mesh)
+    toks, secs = decode(run, model, state)
+    line = {"phase": "gspmd.decode", "ok": True, "arch": cfg.name,
+            "slots": a["slots"], "max_len": a["max_len"],
+            "iterations": a["iterations"], "hbm_budget": budget,
+            "plan": dataclasses.asdict(plan), "tokens_equal": toks ==
+            plain_toks,
+            "ms_an_iteration": {"serve_step": [t * 1e3 for t in plain_s],
+                                "sharded_step": [t * 1e3 for t in secs]},
+            "median_ms": {"serve_step": float(np.median(plain_s)) * 1e3,
+                          "sharded_step": float(np.median(secs)) * 1e3}}
+    del model, state, run, fn
+    if toks != plain_toks:
+        emit(dict(line, ok=False))
+        raise AssertionError(f"gspmd.decode: the sharded serve step sampled "
+                             f"{toks}, the plain one {plain_toks}")
+    return line
+
+
+def phase_dryrun() -> dict:
+    """``python -m repro_torch.launch dryrun`` on ``DRYRUN_ARGS`` in a
+    process of its own (its fake world of 256 ranks is that process's
+    default group), beside ``archcount``'s closed form of the cell's flops
+    and collective bytes per rank and ``predictor.estimate_peak_bytes``."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core import archcount
+    from repro_torch.core.symcount import evaluate_vector
+    from repro_torch.distributed.plan import H100_HBM_BYTES, plan_for
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as d:
+        out = os.path.join(d, "dryrun.json")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "repro_torch.launch",
+                            *DRYRUN_ARGS, "--out", out], env=env,
+                           capture_output=True, text=True,
+                           timeout=DRYRUN_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun exited {p.returncode}:\n"
+                                 f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+        (rec,) = json.load(open(out))
+    if rec["status"] != "ok" or rec["n_devices"] != 256:
+        raise AssertionError(f"dryrun: {rec}")
+    cfg, shape = get_arch(ARCH), SHAPES["train_4k"]
+    plan = plan_for(cfg, shape, hbm_budget=H100_HBM_BYTES)
+    env_ = {"B": shape.global_batch, "S": shape.seq_len,
+            "M": plan.microbatches}
+    counts = archcount.counts_for(cfg, shape)
+    pv = evaluate_vector(counts.pv, env_)
+    model_flops = float(evaluate_vector({"f": counts.model_flops},
+                                        env_)["f"])
+    mesh = {"data": 16, "model": 16}
+    coll = {k: float(v) for k, v in evaluate_vector(
+        archcount.collective_counts(cfg, "train", plan, mesh),
+        env_).items()}
+    closed = {
+        "mxu_flops_per_device": sum(v for k, v in pv.items()
+                                    if k.startswith("mxu:")) / 256,
+        "model_flops_per_device": model_flops / 256,
+        "collective_bytes_per_device": coll,
+        "estimate_peak_bytes": predictor.estimate_peak_bytes(
+            cfg, shape, plan, mesh)}
+    return {"phase": "dryrun", "ok": True, "args": DRYRUN_ARGS,
+            "seconds": seconds, "record": rec, "closed_form": closed,
+            "flops_over_model_flops":
+                rec["flops_per_device"] / closed["model_flops_per_device"]}
+
+
+def phase_gspmd(seed: int) -> dict:
+    """The DTensor-sharded steps on a (1, 1) ``data, model`` mesh over the
+    one-rank NCCL group ``one_rank`` makes (``gspmd.train``,
+    ``gspmd.prefill`` on zamba2-2.7b, ``gspmd.ep`` on mixtral-8x7b at
+    ``MOE_LAYERS`` layers under ``moe_mode="ep"``, ``gspmd.decode``), each
+    beside its unsharded step, then the dry run.  Resets the launch counts
+    just before and -> reads them just after; fails unless they are the
+    ones the steps make (two of each kind of step, sharded and not)."""
+    from repro_torch.launch.mesh import make_mesh
+    reset_launches()
+    with one_rank():
+        mesh = make_mesh((1, 1), ("data", "model"), device=DEV)
+        emit(phase_gspmd_train(mesh, seed))
+        torch.cuda.empty_cache()
+        emit(phase_gspmd_prefill(mesh, get_arch(HYBRID), seed,
+                                 "gspmd.prefill"))
+        torch.cuda.empty_cache()
+        mixtral = dataclasses.replace(get_arch(MOE), n_layers=MOE_LAYERS)
+        emit(phase_gspmd_prefill(mesh, mixtral, seed, "gspmd.ep",
+                                 moe_mode="ep"))
+        torch.cuda.empty_cache()
+        emit(phase_gspmd_decode(mesh, seed))
+    launched = read_launches()
+    torch.cuda.empty_cache()
+    want = {"flash_attention": 2 * (
+        2 * get_arch(ARCH).n_layers * GSPMD_TRAIN_STEPS
+        + GSPMD_PREFILL_STEPS * (
+            launches_per_step(get_arch(HYBRID))["flash_attention"]
+            + MOE_LAYERS)),
+        "ssd_scan": 2 * GSPMD_PREFILL_STEPS * get_arch(HYBRID).n_layers,
+        "matmul": 0, "transpose": 0}
+    emit({"phase": "gspmd.launches", "ok": launched == want,
+          "launches": launched, "expected": want})
+    if launched != want:
+        raise AssertionError(f"gspmd: launches {launched}, expected {want}")
+    emit(phase_dryrun())
+    return launched
+
+
+# ---------------------------------------------------------------------------
 # online calibration and supervised recovery (robust.serve, robust.train,
 # robust.fleet)
 
@@ -3984,6 +4310,11 @@ def kernel_only(args, smi) -> int:
             phase_dp(args.seed)
         return finish(args, smi, {"ok": True, "scope": f"--only {args.only}",
                                   "main_paths": "dp only"})
+    if args.only == "gspmd":
+        with phase("gspmd"):
+            phase_gspmd(args.seed)
+        return finish(args, smi, {"ok": True, "scope": f"--only {args.only}",
+                                  "main_paths": "gspmd only"})
     if args.only == "autotune":
         reset_launches()
         with phase("autotune"):
@@ -4045,13 +4376,14 @@ def main() -> int:
                     help="also write every phase line to this JSON file")
     ap.add_argument("--only", choices=("fa-cases", "fa", "ssd-cases", "ssd",
                                        "mm-cases", "mm", "tr-cases", "tr",
-                                       "autotune", "dp"),
+                                       "autotune", "dp", "gspmd"),
                     default=None,
                     help="build, then only the flash-attention (fa), SSD-scan "
                          "(ssd), matmul (mm) or transpose (tr) cases (-cases) "
                          "or the cases and timings, or the autotune phase "
                          "under the analytic seed alone, or the "
-                         "data-parallel phase (dp) alone")
+                         "data-parallel phase (dp) or the sharded steps and "
+                         "the dry run (gspmd) alone")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4108,6 +4440,11 @@ def run(args, cache_dir: str) -> int:
     torch.cuda.empty_cache()
     with phase("dp"):
         launched["dp"] = phase_dp(args.seed)
+    torch.cuda.empty_cache()
+    # the DTensor-sharded steps on a one-rank NCCL group, then the dry run
+    # (its own reset and read of the counts)
+    with phase("gspmd"):
+        launched["gspmd"] = phase_gspmd(args.seed)
     torch.cuda.empty_cache()
 
     TB, TS = TRAIN_TOKENS

@@ -62,11 +62,14 @@ from __future__ import annotations
 import contextlib
 import math
 import operator
+import weakref
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.distributed.tensor import DTensor
 from torch.fx import GraphModule, Node
 from torch.utils import _python_dispatch
 from torch.utils import _pytree as pytree
@@ -814,3 +817,222 @@ def collective_property_vector(summary: Mapping[str, float]
     """``coll:*`` properties (bytes) from a ``count_collectives`` summary."""
     return {props.coll_key(_COLL_KEY_MAP.get(k, k)): float(v)
             for k, v in summary.items()}
+
+
+# ---------------------------------------------------------------------------
+# Costs of a sharded step, per rank (the counterpart of the reference's
+# ``extract_compiled``: the port has no compiled program, so the step is
+# run on fake tensors and its local ops are counted as they dispatch)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class CompiledCosts:
+    """The reference's record of a step's costs on one device.
+    ``xla_flops`` / ``xla_bytes`` are XLA's ``cost_analysis`` numbers in the
+    reference; the port compiles nothing, so they are 0 here."""
+    flops: float
+    bytes_accessed: float
+    collective_bytes: Dict[str, float]
+    peak_bytes_per_device: float
+    output_bytes: float
+    xla_flops: float = 0.0
+    xla_bytes: float = 0.0
+    #: kernels priced rather than run (fake tensors under
+    #: ``runtime.flags.price_kernels``): name -> {"calls", "flops", "bytes"}
+    kernels: Dict[str, Dict[str, float]] = field(default_factory=dict)
+
+
+#: ops that move data and compute nothing (the reference's rollup counts
+#: copies, gathers, concatenations and pads as bytes only)
+_MOVES = {"copy_", "clone", "cat", "stack", "index", "index_select",
+          "gather", "scatter", "scatter_add", "scatter_reduce", "index_put",
+          "index_put_", "embedding", "slice_scatter", "select_scatter",
+          "constant_pad_nd", "fill_", "zero_", "zeros", "zeros_like", "ones",
+          "ones_like", "full", "full_like", "empty", "empty_like",
+          "empty_strided", "new_zeros", "new_empty", "new_full",
+          "new_empty_strided", "arange", "repeat", "repeat_interleave",
+          "lift_fresh", "detach", "alias", "_unsafe_view", "set_",
+          "resize_", "as_strided_", "embedding_dense_backward"}
+
+#: the ``extract_step`` counters running: a list of the process, not of a
+#: thread, since autograd runs a CUDA backward (and the remat recompute
+#: whose kernels are priced) on a thread of its own
+_COUNTERS: List["_StepCounter"] = []
+
+
+def _tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def price_kernel(name: str, flops: float, inputs, outputs) -> None:
+    """A kernel call priced rather than run (a wrapper handed fake tensors
+    under ``runtime.flags.price_kernels``): its flops, and its bytes as
+    ``inputs`` read once
+    and ``outputs`` written once, go to every ``extract_step`` counting."""
+    nbytes = float(_tensor_bytes(inputs) + _tensor_bytes(outputs))
+    for c in _COUNTERS:
+        c.flops += float(flops)
+        c.bytes += nbytes
+        k = c.kernels.setdefault(name, {"calls": 0, "flops": 0.0,
+                                        "bytes": 0.0})
+        k["calls"] += 1
+        k["flops"] += float(flops)
+        k["bytes"] += nbytes
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """The tensors of a (nested list / tuple / dict) argument tree."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensors(x)]
+    if isinstance(tree, dict):
+        return [t for x in tree.values() for t in _tensors(x)]
+    return []
+
+
+def _op_flops(func, args, kwargs, out, ins, outs) -> float:
+    from torch.utils.flop_counter import flop_registry
+    count = flop_registry.get(func._overloadpacket)
+    if count is not None:
+        return float(count(*args, **kwargs, out_val=out))
+    if _name(func) in _MOVES or not outs or not outs[0].is_floating_point():
+        return 0.0
+    # elementwise: one a result; a reduction: one an operand element
+    return float(max(t.numel() for t in ins + outs))
+
+
+class _StepCounter(_python_dispatch.TorchDispatchMode):
+    """Counts what one rank computes, as its ops dispatch.  An op on
+    DTensors is handed on (``NotImplemented``): DTensor's dispatch then runs
+    it on the local shards, whose ops, redistributions included, come back
+    through this mode at their local shapes.  Per local op: flops (matrix
+    products by ``torch.utils.flop_counter``'s formulas, others one per
+    element as the reference's rollup counts them), bytes (operands read
+    and results written; views move nothing), collective operand bytes by
+    kind, and the live bytes of the storages the step holds (the inputs'
+    and each result's, until freed), whose maximum is the peak."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0.0
+        self.bytes = 0.0
+        self.coll: Dict[str, float] = {}
+        self.kernels: Dict[str, Dict[str, float]] = {}
+        self.live = 0
+        self.peak = 0
+        self._held: Dict[int, int] = {}
+        self.fake_mode = None   # the step's (None: real tensors)
+
+    def _counts(self, tensors) -> bool:
+        """Is an op on ``tensors`` (its operands and results) this rank's
+        work?  In a step on fake tensors, an op counts when it touches a
+        fake tensor of the step's mode and none of another: DTensor learns
+        an op's output on a propagation miss by running it on global-shape
+        stand-ins of a mode of its own (no rank's work), and its planner's
+        host arithmetic runs on real tensors.  In a step on real tensors,
+        an op counts when it touches no fake tensor."""
+        mine = False
+        for t in tensors:
+            if is_fake(t):
+                if t.fake_mode is not self.fake_mode:
+                    return False
+                mine = True
+        return mine or self.fake_mode is None
+
+    def hold(self, tensors) -> None:
+        """Count the storages of ``tensors`` as live."""
+        for t in tensors:
+            st = t.untyped_storage()
+            key = id(st)
+            if key in self._held:
+                continue
+            n = st.nbytes()
+            self._held[key] = n
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self.live -= self._held.pop(key, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func.namespace == "prim":
+            return out
+        ins, outs = _tensors((args, kwargs)), _tensors(out)
+        if not self._counts(ins + outs):
+            return out
+        hit = _collective(func)
+        out_bytes = sum(t.numel() * t.element_size() for t in outs)
+        if hit is not None:
+            kind, pos = hit
+            b = float(_tensor_bytes(args[pos]))
+            self.coll[kind] = self.coll.get(kind, 0.0) + b
+            self.bytes += b + out_bytes
+        elif not func.is_view:
+            self.bytes += out_bytes + sum(t.numel() * t.element_size()
+                                          for t in ins)
+            self.flops += _op_flops(func, args, kwargs, out, ins, outs)
+        self.hold(outs)
+        return out
+
+
+def _locals(tree):
+    """The local shards of every DTensor (and module parameter) of a tree."""
+    out = []
+    for x in pytree.tree_leaves(tree, is_leaf=lambda v: isinstance(
+            v, torch.nn.Module)):
+        if isinstance(x, torch.nn.Module):
+            out.extend(_locals(list(x.parameters())))
+        elif isinstance(x, DTensor):
+            out.append(x.to_local())
+        elif isinstance(x, torch.Tensor):
+            out.append(x)
+    return out
+
+
+def extract_step(step_fn, *args) -> CompiledCosts:
+    """Costs of ``step_fn(*args)`` on this rank, the counterpart of the
+    reference's ``extract_compiled``: ``flops`` and ``bytes_accessed`` per
+    rank counted on the local ops (a DTensor op counts what this rank's
+    shard computes, not the global shapes), ``collective_bytes`` by the
+    reference's keys (operand bytes a rank, ``all_gather``, ``all_reduce``,
+    ``reduce_scatter``, ``all_to_all``), ``peak_bytes_per_device`` the most
+    bytes live at once (the arguments and what the step allocates, freed as
+    it goes), ``output_bytes`` what the step returns.  Under
+    ``runtime.flags.price_kernels`` a kernel wrapper handed fake tensors is
+    priced, not run (``price_kernel``; ``kernels`` lists them).
+
+    Run it on fake tensors (made under a ``FakeTensorMode``, on a fake
+    process group) for a dry run: nothing is computed or allocated.  Ops on
+    fake tensors of another mode are not counted: on a sharding-cache miss
+    DTensor runs an op on global-shape stand-ins of its own to learn its
+    output, which is no rank's work.  Every layer dispatches eagerly, so
+    there is no loop whose
+    body a count would see once: the reference's loop-aware HLO rollup
+    (``hloparse.rollup``) has nothing to do here.  ``xla_flops`` and
+    ``xla_bytes``, XLA's own numbers in the reference, are 0."""
+    counter = _StepCounter()
+    local = _locals(args)
+    counter.fake_mode = next((t.fake_mode for t in local if is_fake(t)),
+                             None)
+    counter.hold(local)
+    _COUNTERS.append(counter)
+    try:
+        with counter:
+            out = step_fn(*args)
+    finally:
+        _COUNTERS.remove(counter)
+    return CompiledCosts(
+        flops=counter.flops, bytes_accessed=counter.bytes,
+        collective_bytes={_COLL_KEY_MAP.get(k, k): v
+                          for k, v in counter.coll.items()},
+        peak_bytes_per_device=float(counter.peak),
+        output_bytes=float(_tensor_bytes(_locals(out))),
+        kernels=counter.kernels)

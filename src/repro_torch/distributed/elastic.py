@@ -26,7 +26,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core import exprops, planspace, predictor
 from repro_torch.core import workload as wl
-from repro_torch.distributed.plan import Plan, plan_for
+from repro_torch.distributed.plan import H100_HBM_BYTES, Plan, plan_for
 
 #: incremental-rescore cache for the failure path: basis columns keyed by
 #: (term, its own free-variable values), so a replan after a device-count
@@ -98,18 +98,21 @@ def _factorizations(n: int) -> List[Tuple[int, int]]:
 
 
 def mesh_cells(cfg: ArchConfig, spec: wl.WorkloadSpec, n_devices: int,
-               max_candidates: int = 64
+               max_candidates: int = 64, *,
+               hbm_budget: float = H100_HBM_BYTES
                ) -> List[Tuple[Plan, Dict[str, int]]]:
     """The feasible (plan, mesh) cells for ``n_devices`` chips: every
     (data × model) factorization whose data way still divides the global
     batch (training keeps exact batch semantics across restarts), each
-    with its memory-aware default plan.  Shared by ``replan`` and the
-    fleet allocator's per-pool scoring."""
+    with its memory-aware default plan (``plan_for`` at ``hbm_budget``, a
+    device's memory).  Shared by ``replan`` and the fleet allocator's
+    per-pool scoring."""
     cells: List[Tuple[Plan, Dict[str, int]]] = []
     for dp, tp in _factorizations(n_devices)[:max_candidates]:
         if spec.phase == "train" and spec.global_batch % dp != 0:
             continue
-        plan = plan_for(cfg, spec, multi_pod=False, tp_size=tp)
+        plan = plan_for(cfg, spec, multi_pod=False, tp_size=tp,
+                        hbm_budget=hbm_budget)
         plan = dataclasses.replace(plan, dp_axes=("data",))
         cells.append((plan, {"data": dp, "model": tp}))
     return cells
@@ -121,7 +124,8 @@ def replan(cfg: ArchConfig, shape: wl.WorkloadLike, devices: DevicesArg,
            registry_dir: Optional[str] = None,
            models: Optional[Mapping[str, object]] = None,
            cache: Optional[exprops.BasisCache] = None,
-           kernels=None) -> List[MeshOption]:
+           kernels=None,
+           hbm_budget: float = H100_HBM_BYTES) -> List[MeshOption]:
     """Rank feasible (data × model) meshes for the surviving devices.
 
     ``devices`` is a survivor count (the classic 1-pool case) or a
@@ -144,12 +148,14 @@ def replan(cfg: ArchConfig, shape: wl.WorkloadLike, devices: DevicesArg,
     columns a device-count/shape delta actually touches recompute (the
     incremental-rescore contract, docs/MODEL.md §2.7).  ``kernels``: the
     registry the step programs compose (``predictor``'s; None, the card's).
+    ``hbm_budget``: a device's memory, which sizes each cell's plan.
     """
     spec = wl.as_spec(shape)    # any WorkloadLike; one currency from here
     opts: List[MeshOption] = []
     for device, n in as_pools(devices):
         model = _pool_model(device, weights, registry_dir, models)
-        cells = mesh_cells(cfg, spec, n, max_candidates)
+        cells = mesh_cells(cfg, spec, n, max_candidates,
+                           hbm_budget=hbm_budget)
         if not cells:
             continue
         space = planspace.PlanSpace.from_cells(cfg, spec, cells,

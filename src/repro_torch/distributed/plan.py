@@ -80,12 +80,21 @@ def default_plan(kind: str, multi_pod: bool) -> Plan:
     return Plan(dp_axes=dp, fsdp=False, sequence_parallel=False)
 
 
+#: device memory a plan is sized for by default: the H100 SXM's 80 GB of
+#: HBM3 (the ``gpu-h100`` catalog entry); on the card callers pass
+#: ``torch.cuda.get_device_properties(dev).total_memory``, and parity tests
+#: the reference's 16e9 (``core/predictor.HBM_BYTES``)
+H100_HBM_BYTES = 80e9
+
+
 def plan_for(cfg, shape, *, multi_pod: bool = False,
-             tp_size: int = 16, hbm_budget: float = 16e9) -> Plan:
+             tp_size: int = 16, hbm_budget: float = H100_HBM_BYTES) -> Plan:
     """Memory-aware default plan for an (arch × shape) cell.
 
     This is the *paper-faithful baseline* plan the dry-run lowers; the
     cost-model autosharding search (launch/autoshard.py) refines it.
+    ``hbm_budget``: one device's memory (it decides weight-distributed
+    serving).
     """
     dp = ("pod", "data") if multi_pod else ("data",)
     n_dev = (2 if multi_pod else 1) * 16 * tp_size

@@ -50,6 +50,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import _build
 from repro_torch.runtime import flags
@@ -321,6 +322,28 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
             f"aligned to 4 elements; got strides {t.stride()}")
 
 
+def _priced(q, k, v, causal, window, block_q, block_k, return_lse):
+    """A call on fake tensors under ``flags.price_kernels`` (the dry run:
+    no data, nothing to launch): the kernel is priced, not run.  Its
+    products are
+    ``schedule_props``' at the tile it would run (the causal tiles it
+    skips are not counted), its bytes q, k, v read once and o (and lse)
+    written once; the outputs are stand-ins of their shapes."""
+    from repro_torch.core import extract
+    from repro_torch.core import properties as props
+    B, H, Sq, dh = q.shape
+    bits = 16 if q.dtype == torch.bfloat16 else 32
+    vec = schedule_props(B, H, k.shape[1], Sq, k.shape[2], dh,
+                         causal=causal, window=window, block_q=block_q,
+                         block_k=block_k, bits=bits)
+    o = torch.empty_like(q)
+    lse = q.new_empty((B, H, Sq), dtype=torch.float32) if return_lse \
+        else None
+    extract.price_kernel("flash_attention", vec[props.mxu_key(bits)],
+                         (q, k, v), (o, lse))
+    return (o, lse) if return_lse else o
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     block_q: int = 128, block_k: int = 128,
@@ -334,8 +357,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the nearest tile it is built for (``pick_tiles``); the block sizes apply
     to the f32 kernel only.  The plain version is taken only for tensors that
     lie on the CPU, and under ``flags.use_kernels(False)`` (for
-    comparisons)."""
+    comparisons).  Under ``flags.price_kernels`` fake tensors are priced
+    (``_priced``)."""
     _check(q, k, v, window)
+    if flags.kernels_priced() and flags.kernels_enabled() and is_fake(q):
+        return _priced(q, k, v, causal, window, block_q, block_k, return_lse)
     if q.device.type == "cpu" or not flags.kernels_enabled():
         return attention_reference(q, k, v, causal=causal, window=window,
                                    return_lse=return_lse)

@@ -32,6 +32,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
@@ -52,8 +53,31 @@ def default_model(t: torch.Tensor) -> Optional[str]:
     model where a calibration wrote one, else its analytic datasheet seed.
     On a CPU tensor, None: the reference's default, the analytic v5e seed,
     so that the parity tests compare like with like (the plain version runs
-    there whatever the blocks, but for the SSD chunk's rounding)."""
-    return CARD_MODEL if t.device.type == "cuda" else None
+    there whatever the blocks, but for the SSD chunk's rounding).  Under
+    ``flags.price_kernels`` (the dry run's stand-ins for the card's
+    tensors), ``CARD_MODEL``."""
+    from repro_torch.runtime import flags
+    return CARD_MODEL if t.device.type == "cuda" or flags.kernels_priced() \
+        else None
+
+
+def _local(*tensors: torch.Tensor) -> None:
+    """Refuse a DTensor: a kernel reads raw pointers of one device's
+    memory, so a sharded tensor reaches it as this rank's shard
+    (``torch.distributed.tensor.experimental.local_map``, as the models
+    call it), never as the DTensor."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError("a kernel takes this rank's shard, not a DTensor: "
+                        "call it under local_map (or on .to_local())")
+
+
+def _base(t: torch.Tensor) -> int:
+    """The byte address of ``t``'s first element; for a fake or meta
+    tensor (no memory) its offset into its storage."""
+    if is_fake(t) or t.is_meta:
+        return t.storage_offset() * t.element_size()
+    return t.data_ptr()
 
 
 def _bits(t: torch.Tensor) -> int:
@@ -63,7 +87,7 @@ def _bits(t: torch.Tensor) -> int:
 def _rows16(t: torch.Tensor) -> bool:
     """Rows readable 16 bytes at a time: an aligned base and a leading
     stride of a multiple of 16 bytes."""
-    return t.data_ptr() % 16 == 0 and t.stride(0) * t.element_size() % 16 == 0
+    return _base(t) % 16 == 0 and t.stride(0) * t.element_size() % 16 == 0
 
 
 def flash_attention_shape(q: torch.Tensor, k: torch.Tensor, *,
@@ -87,7 +111,8 @@ def ssd_scan_shape(x: torch.Tensor, B: torch.Tensor,
     the chunk)."""
     Bz, H, L, P = x.shape
     return {"Bz": Bz, "H": H, "L": L, "P": P, "N": B.shape[3],
-            "bits": _bits(x), "tma": _ssd.tma_readable(x, B, C),
+            "bits": _bits(x),
+            "tma": _ssd.tma_readable(x, B, C, [_base(t) for t in (x, B, C)]),
             "grad": _under_autograd(x, B, C)}
 
 
@@ -135,7 +160,7 @@ def _resolve_blocks(kernel: str, shape: Callable[[], dict],
         if model is not None and not isinstance(model, str):
             return dict(autotune.best_block_sizes(kernel, shape(), model))
         key = (kernel, model, options,
-               *((t.shape, t.stride(), t.dtype, t.data_ptr() % 16)
+               *((t.shape, t.stride(), t.dtype, _base(t) % 16)
                  for t in tensors))
         blocks = _AUTO.get(key)
         if blocks is None:
@@ -159,6 +184,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     return_lse: bool = False):
     """q (B,H,Sq,dh) × k,v (B,KVH,Skv,dh) → (B,H,Sq,dh); with
     ``return_lse``, ``(o, lse (B,H,Sq) f32)``."""
+    _local(q, k, v)
     blocks = _resolve_blocks(
         "flash_attention",
         lambda: flash_attention_shape(q, k, causal=causal, window=window),
@@ -188,6 +214,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD: x (Bz,H,L,P), dt (Bz,H,L), A (H,), B/C (Bz,G,L,N) ->
     (y (Bz,H,L,P), h_final (Bz,H,P,N) f32)."""
+    _local(x, dt, A, B, C)
     chunk = ssd_chunk(x, B, C, chunk=chunk, block_sizes=block_sizes,
                       model=model)
     return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
@@ -197,6 +224,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
            block_n: int = 128, block_k: int = 128,
            block_sizes: BlockSizes = None, model=None) -> torch.Tensor:
     """(M, K) @ (K, N) with f32 sums, in the inputs' type."""
+    _local(a, b)
     blocks = _resolve_blocks(
         "matmul", lambda: matmul_shape(a, b), block_sizes,
         {"block_m": block_m, "block_n": block_n, "block_k": block_k},
@@ -208,6 +236,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,
 def transpose(x: torch.Tensor, *, block: int = 256,
               block_sizes: BlockSizes = None, model=None) -> torch.Tensor:
     """(M, N) -> (N, M), contiguous."""
+    _local(x)
     blocks = _resolve_blocks("transpose", lambda: transpose_shape(x),
                              block_sizes, {"block": block}, model, (x,))
     return _tr.transpose(x, block=blocks["block"])

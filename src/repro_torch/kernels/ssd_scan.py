@@ -54,6 +54,7 @@ import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import SMEM_LIMIT, tma_layout_error
@@ -365,6 +366,27 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
             f"aligned to 4 elements; got strides {t.stride()}")
 
 
+def _priced(x, dt, A, B, C, chunk: int):
+    """A call on fake tensors under ``flags.price_kernels`` (the dry run:
+    no data, nothing to launch): the kernel is priced, not run.  Its
+    products are
+    ``schedule_props``' for the kernel ``variant_rule`` names at this
+    chunk, its bytes x, dt, A, B, C read once and y, h written once; the
+    outputs are stand-ins of their shapes."""
+    from repro_torch.core import extract
+    from repro_torch.core import properties as props
+    Bz, H, L, P = x.shape
+    N = B.shape[3]
+    bits = 16 if x.dtype == torch.bfloat16 else 32
+    vec = schedule_props(Bz, H, L, P, N, chunk=chunk, bits=bits,
+                         tma=bits == 16 and P % 8 == 0 and N % 8 == 0)
+    flops = sum(v for key, v in vec.items() if key.startswith("mxu:"))
+    y = torch.empty_like(x)
+    h = x.new_empty((Bz, H, P, N), dtype=torch.float32)
+    extract.price_kernel("ssd_scan", flops, (x, dt, A, B, C), (y, h))
+    return y, h
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -372,13 +394,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     A CUDA tensor goes through the kernel ``pick_variant`` names, or the call
     raises.  The plain version is taken only for tensors that lie on the
-    CPU, and under ``flags.use_kernels(False)`` (for comparisons)."""
+    CPU, and under ``flags.use_kernels(False)`` (for comparisons).  Under
+    ``flags.price_kernels`` fake tensors are priced (``_priced``)."""
     _check(x, dt, A, B, C)
     Bz, H, L, P = x.shape
     G, N = B.shape[1], B.shape[3]
     chunk = min(int(chunk), L)
     if chunk < 1 or L % chunk:
         raise ValueError(f"L={L} is not a multiple of chunk={chunk}")
+    if flags.kernels_priced() and flags.kernels_enabled() and is_fake(x):
+        return _priced(x, dt, A, B, C, chunk)
     if x.device.type == "cpu" or not flags.kernels_enabled():
         return ssd_scan_reference(x, dt, A, B, C, chunk=chunk)
     if x.device.type != "cuda":

@@ -5,12 +5,14 @@
         --device cpu --steps 3
     python -m repro_torch.launch serve --arch llama3.2-3b --requests 4
     python -m repro_torch.launch autoshard --arch glm4-9b --shape train_4k
+    python -m repro_torch.launch dryrun --arch llama3.2-3b \
+        --shape train_4k --mesh single
 
 Each subcommand is the ``main(argv)`` of the matching
 ``repro_torch.launch`` module; the per-module entry points
 (``python -m repro_torch.launch.train``) keep working unchanged.
-``dryrun`` is listed as in the reference and waits for the GSPMD-style
-half of the multi-device slice (ROADMAP A14.2).
+``dryrun`` prices a cell on a fake world of 256 / 512 ranks; run it in a
+process of its own (the fake world is the process's default group).
 """
 from __future__ import annotations
 
@@ -31,10 +33,6 @@ def main(argv=None) -> None:
         print(f"unknown command {cmd!r}; expected one of "
               f"{', '.join(_COMMANDS)}", file=sys.stderr)
         raise SystemExit(2)
-    if cmd == "dryrun":
-        raise NotImplementedError("repro_torch.launch dryrun: the "
-                                  "multi-device dry run waits for the "
-                                  "DTensor-sharded steps (A14.2)")
     importlib.import_module(f"repro_torch.launch.{cmd}").main(rest)
 
 

@@ -14,7 +14,10 @@ materialised-logits ``_plain_attention`` below.  Under a sharding context
 whose model axis the heads cannot fill, the plain path splits q into
 ``context_parallel_factor`` slices (context parallelism); the kernel path
 ignores the split, as the reference's does.  Decode over the cache is plain
-tensor code, as in the reference.
+tensor code, as in the reference.  On DTensors (a sharded step) the kernel
+and the context-parallel slices run under ``local_map`` on each rank's
+shard, and the decode cache is written shard by shard
+(``sharding.write_rows``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import context_parallel_factor, logical
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
@@ -123,7 +127,7 @@ def _plain_attention(q, k, v, q_pos, k_pos, causal, window, scale):
     B, Sq, H, dh = q.shape
     KVH = k.shape[2]
     G = H // KVH
-    qg = q.reshape(B, Sq, KVH, G, dh)
+    qg = sharding.split_dim(q, 2, KVH)
     s = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k.float()) * scale
     m = _mask(q_pos, k_pos, causal, window)  # (Sq, Sk)
     s = torch.where(m[:, None, None, :], s, torch.full_like(s, NEG_INF))
@@ -139,12 +143,15 @@ _M_INIT = -1e4     # running-max floor; masked rows renormalise to 0
 CHUNKED_ABOVE = 2048 * 2048
 
 
+#: logical axes of the grouped layout (B, KVH, G, S, d) of the chunked path
+_GROUPED = ("act_batch", "act_kv_heads", "act_heads", None, None)
+
+
 def _grouped(t: torch.Tensor, KVH: int) -> torch.Tensor:
     """(B, S, H, d) -> (B, KVH, G, S, d) f32: a head's rows next to those
     of the other heads of its group, so that one product per (b, kv head)
     covers the whole group."""
-    B, S, H, d = t.shape
-    return t.float().reshape(B, S, KVH, H // KVH, d).permute(0, 2, 3, 1, 4)
+    return sharding.split_dim(t.float(), 2, KVH).permute(0, 2, 3, 1, 4)
 
 
 def _chunk_needed(q0, q1, k0, k1, causal, window) -> bool:
@@ -179,19 +186,20 @@ def _chunked_attention(q, k, v, q_offset, causal, window, scale,
     B, Sq, H, dh = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     G = H // KVH
-    qg = _grouped(q, KVH)                      # (B, KVH, G, Sq, dh)
+    # the grouped layout sharded on G (= H / KVH) where the model axis
+    # cannot shard KVH, as the reference's (its KVH < tp case)
+    qg = logical(_grouped(q, KVH), _GROUPED)   # (B, KVH, G, Sq, dh)
     kf = k.float().transpose(1, 2)             # (B, KVH, Skv, dh)
     vf = v.float().transpose(1, 2)
-    out = torch.empty((B, KVH, G, Sq, dh), dtype=torch.float32,
-                      device=q.device)
-    lse = torch.empty((B, KVH, G, Sq), dtype=torch.float32, device=q.device)
+    out = q.new_empty((B, KVH, G, Sq, dh), dtype=torch.float32)
+    lse = q.new_empty((B, KVH, G, Sq), dtype=torch.float32)
     for q0 in range(0, Sq, chunk_q):
         q1 = min(q0 + chunk_q, Sq)
         cq = q1 - q0
         qb = qg[:, :, :, q0:q1].reshape(B, KVH, G * cq, dh)
-        m_run = torch.full((B, KVH, G * cq, 1), _M_INIT, device=q.device)
-        l_run = torch.zeros((B, KVH, G * cq, 1), device=q.device)
-        acc = torch.zeros((B, KVH, G * cq, dh), device=q.device)
+        m_run = q.new_full((B, KVH, G * cq, 1), _M_INIT, dtype=torch.float32)
+        l_run = q.new_zeros((B, KVH, G * cq, 1), dtype=torch.float32)
+        acc = q.new_zeros((B, KVH, G * cq, dh), dtype=torch.float32)
         for k0 in range(0, Skv, chunk_kv):
             k1 = min(k0 + chunk_kv, Skv)
             a0, a1 = q_offset + q0, q_offset + q1
@@ -227,9 +235,12 @@ def _flash_bwd(q, k, v, o, lse, do, q_offset, causal, window, scale,
     B, Sq, H, dh = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     G = H // KVH
-    qg, dog = _grouped(q, KVH), _grouped(do, KVH)   # (B, KVH, G, Sq, dh)
-    D = (dog * _grouped(o, KVH)).sum(-1)            # (B, KVH, G, Sq)
-    lseg = lse.float().reshape(B, KVH, G, Sq)
+    # the reference's four annotations of the grouped layout
+    qg = logical(_grouped(q, KVH), _GROUPED)        # (B, KVH, G, Sq, dh)
+    dog = logical(_grouped(do, KVH), _GROUPED)
+    og = logical(_grouped(o, KVH), _GROUPED)
+    lseg = logical(lse.float().reshape(B, KVH, G, Sq), _GROUPED[:-1])
+    D = (dog * og).sum(-1)                          # (B, KVH, G, Sq)
     kf = k.float().transpose(1, 2)                  # (B, KVH, Skv, dh)
     vf = v.float().transpose(1, 2)
     dq = torch.zeros_like(qg)
@@ -320,6 +331,90 @@ class _FlashAttention(_FlashXLA):
         return dq, dk, dv, None, None, None, None
 
 
+def _kernel_attention(q, k, v, cfg):
+    S = q.shape[1]
+    return _FlashAttention.apply(q, k, v, cfg.sliding_window, min(1024, S),
+                                 min(1024, S), torch.is_grad_enabled())
+
+
+def _head_placements(q, k):
+    """(q's, k/v's, k/v's gradients') placements for a call on local heads:
+    the batch over the data axes, the heads over the model axis where they
+    divide it, the sequence whole.  Where q's heads are split and the kv
+    heads are not (``n_kv_heads`` does not divide the model axis), each
+    rank reads the kv heads its q heads use
+    (``sharding.groups_of_local_heads``), so the gradient of k / v is a
+    partial sum over the model axis."""
+    ctx = sharding.current()
+    q_pl = ctx.placements(ctx.act_spec(("act_batch", None, "act_heads",
+                                        None), q.shape))
+    kv_pl = ctx.placements(ctx.act_spec(("act_batch", None, "act_kv_heads",
+                                         None), k.shape))
+    tp = ctx.plan.tp_axis
+    split = sharding.is_sharded_on(q_pl, tp, 2) and \
+        not sharding.is_sharded_on(kv_pl, tp, 2)
+    grad_pl = sharding.partial_on(kv_pl, tp) if split else kv_pl
+    return q_pl, kv_pl, grad_pl, split
+
+
+def _kernel_on_local_heads(q, k, v, cfg):
+    """``_FlashAttention`` on plain tensors; on DTensors, under
+    ``local_map`` on each rank's shard (batch rows over the data axes,
+    heads over the model axis, the whole sequence), so that the kernel's
+    wrapper is handed this rank's tensors and never a DTensor."""
+    if not sharding.is_dtensor(q):
+        return _kernel_attention(q, k, v, cfg)
+    from torch.distributed.tensor.experimental import local_map
+    q_pl, kv_pl, grad_pl, split = _head_placements(q, k)
+    rank, n = sharding.axis_index(sharding.current().plan.tp_axis)
+    H = q.shape[2]
+
+    def local(ql, kl, vl):
+        if split:
+            kl = sharding.groups_of_local_heads(kl, 2, H, rank, n)
+            vl = sharding.groups_of_local_heads(vl, 2, H, rank, n)
+        return _kernel_attention(ql, kl, vl, cfg)
+
+    return local_map(local, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, grad_pl, grad_pl),
+                     device_mesh=sharding.current().mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def _context_parallel(qs, k, v, cfg):
+    """Each q slice of ``qs`` (B, cp, S/cp, H, dh) against the whole of k,
+    v at its own absolute offset, stacked on dim 1.  On DTensors each rank
+    of the model axis takes its own slice (``local_map``: qs sharded on
+    the slice dim, k / v whole there, their gradients partial sums), as
+    the reference's ``vmap`` over the sharded slice dim does."""
+    Scp = qs.shape[2]
+
+    def slices(ql, kl, vl, first: int = 0):
+        return torch.stack([attention_core(
+            ql[:, i], kl, vl, causal=True, window=cfg.sliding_window,
+            q_offset=(first + i) * Scp) for i in range(ql.shape[1])], dim=1)
+
+    if not sharding.is_dtensor(qs):
+        return slices(qs, k, v)
+    from torch.distributed.tensor.experimental import local_map
+    ctx = sharding.current()
+    q_pl = ctx.placements(ctx.act_spec(("act_batch", "act_cp", None, None,
+                                        None), qs.shape))
+    kv_pl = ctx.placements(ctx.act_spec(("act_batch", None, None, None),
+                                        k.shape))
+    grad_pl = sharding.partial_on(kv_pl, ctx.plan.tp_axis)
+    rank, n = sharding.axis_index(ctx.plan.tp_axis)
+
+    def local(ql, kl, vl):
+        return slices(ql, kl, vl, first=rank * ql.shape[1])
+
+    return local_map(local, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, grad_pl, grad_pl),
+                     device_mesh=ctx.mesh, redistribute_inputs=True)(qs, k, v)
+
+
 def attention_core(q, k, v, *, causal: bool = True,
                    window: Optional[int] = None, q_offset: int = 0,
                    chunk_q: int = 1024, chunk_kv: int = 1024,
@@ -391,9 +486,9 @@ def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
         offset = 0 if cache is None else cache_pos
         positions = _positions_for(cfg, B, S, offset, x.device)
 
-    q = p.wq(x).reshape(B, S, H, dh)
-    k = p.wk(x).reshape(B, S, KVH, dh)
-    v = p.wv(x).reshape(B, S, KVH, dh)
+    q = sharding.split_last(p.wq(x), H, dh)
+    k = sharding.split_last(p.wk(x), KVH, dh)
+    v = sharding.split_last(p.wv(x), KVH, dh)
     q = logical(q, ("act_batch", None, "act_heads", None))
     k = logical(k, ("act_batch", None, "act_kv_heads", None))
     v = logical(v, ("act_batch", None, "act_kv_heads", None))
@@ -413,11 +508,10 @@ def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
             o = v.repeat_interleave(H // KVH, dim=2)
         elif flags.kernels_enabled():
             # the kernel, differentiable, at the autotuner's tile (as the
-            # reference asks for it); its backward chunks as
-            # attention_core's chunked path does
-            o = _FlashAttention.apply(q, k, v, cfg.sliding_window,
-                                      min(1024, S), min(1024, S),
-                                      torch.is_grad_enabled())
+            # reference asks for it), on each rank's heads under a sharding
+            # context; its backward chunks as attention_core's chunked
+            # path does
+            o = _kernel_on_local_heads(q, k, v, cfg)
         elif cp > 1:
             # context parallelism: n_heads % tp != 0, so attention divides
             # over the model axis by q-SLICE instead of by head; k/v stay
@@ -425,9 +519,7 @@ def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
             Scp = S // cp
             qs = logical(q.reshape(B, cp, Scp, H, dh),
                          ("act_batch", "act_cp", None, None, None))
-            o = torch.stack([attention_core(
-                qs[:, i], k, v, causal=True, window=cfg.sliding_window,
-                q_offset=i * Scp) for i in range(cp)], dim=1)
+            o = _context_parallel(qs, k, v, cfg)
             o = logical(o, ("act_batch", "act_cp", None, None, None))
             o = o.reshape(B, S, H, dh)
         else:
@@ -442,13 +534,14 @@ def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
             raise ValueError(
                 f"KV cache is full: position {cache_pos} with a cache of "
                 f"{Smax} rows (max_len); raise max_len or end the sequence")
-        cache.k[:, slot:slot + S] = k  # in place
-        cache.v[:, slot:slot + S] = v
-        new_cache = cache
-        o = _decode_attention(q, cache.k, cache.v, cfg, cache_pos)
+        sharding.write_rows(cache.k, slot, k)  # in place
+        sharding.write_rows(cache.v, slot, v)
+        names = ("act_batch", "act_seq_dp", "act_kv_heads", None)
+        new_cache = KVCache(logical(cache.k, names), logical(cache.v, names))
+        o = _decode_attention(q, new_cache.k, new_cache.v, cfg, cache_pos)
 
     o = logical(o, ("act_batch", "act_seq", "act_heads", None))
-    out = p.wo(o.reshape(B, S, H * dh))
+    out = p.wo(sharding.merge_last(o))
     return out, new_cache
 
 
@@ -459,7 +552,7 @@ def _decode_attention(q, ck, cv, cfg, cache_pos: int):
     Smax, KVH = ck.shape[1], ck.shape[2]
     G = H // KVH
     scale = 1.0 / math.sqrt(dh)
-    qg = q.reshape(B, S, KVH, G, dh).float()
+    qg = sharding.split_dim(q, 2, KVH).float()
     s = torch.einsum("bqkgd,bskd->bqkgs", qg, ck.float()) * scale
     k_pos = torch.arange(Smax, device=q.device)
     if cfg.sliding_window is not None and Smax <= cfg.sliding_window:

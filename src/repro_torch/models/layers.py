@@ -14,6 +14,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch.distributed.sharding import (distribute_tensor_as,
+                                              grad_in_layout, is_dtensor,
+                                              replicate_dims)
 
 INIT_SCALE = 0.02
 
@@ -37,10 +42,22 @@ def normal_(shape, dtype, device, generator: torch.Generator) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def rows_whole(x: torch.Tensor) -> torch.Tensor:
+    """x (B, ..., d) with its inner dims gathered where a DTensor splits
+    them (the sequence of a sequence-parallel residual stream), its batch
+    kept split: Megatron's sequence parallelism gathers the sequence before
+    a projection.  DTensor would otherwise fold a batch split over one mesh
+    axis and a sequence split over another into one strided dim (the
+    projection's (B·S, d) view), whose planning costs far more than the
+    gather; the product is the same.  A plain tensor is returned as it
+    is."""
+    return replicate_dims(x, range(1, x.ndim - 1)) if x.ndim > 2 else x
+
+
 def dense(weight: torch.Tensor, x: torch.Tensor,
           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (..., in) · weightᵀ (out, in) [+ bias]."""
-    return F.linear(x, weight, bias)
+    return grad_in_layout(F.linear(rows_whole(x), weight, bias))
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
@@ -62,7 +79,10 @@ def embed(weight: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (...) int → (..., d_model); weight (vocab, d_model).  With a
     multi-codebook weight (n_codebooks, vocab, d_model) (MusicGen), tokens
     (..., n_codebooks) → the sum of the codebooks' embeddings, added in
-    codebook order."""
+    codebook order.  A DTensor weight is gathered along d_model first (its
+    FSDP shard): the lookup then runs vocab-parallel over the model
+    axis."""
+    weight = replicate_dims(weight, (-1,))
     if weight.ndim == 3:
         out = F.embedding(tokens[..., 0], weight[0])
         for c in range(1, weight.shape[0]):
@@ -74,16 +94,21 @@ def embed(weight: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def lm_head(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """weight (vocab, d_model): x (..., d_model) → (..., vocab).  With
     ``n_heads`` codebook heads, weight (n_heads, vocab, d_model): x (B, S,
-    d_model) → (B, S, n_heads, vocab)."""
+    d_model) → (B, S, n_heads, vocab).  A DTensor weight is gathered along
+    d_model first (see ``tied_lm_head``)."""
+    x, weight = rows_whole(x), replicate_dims(weight, (-1,))
     if weight.ndim == 3:
-        return torch.einsum("bsd,hvd->bshv", x, weight)
-    return F.linear(x, weight)
+        return grad_in_layout(torch.einsum("bsd,hvd->bshv", x, weight))
+    return grad_in_layout(F.linear(x, weight))
 
 
 def tied_lm_head(embed_weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """x · embedᵀ with embed (vocab, d_model)."""
+    """x · embedᵀ with embed (vocab, d_model).  A DTensor weight is
+    gathered along d_model first (its FSDP shard): the head then runs
+    vocab-parallel over the model axis, as the lookup does."""
     assert embed_weight.ndim == 2
-    return F.linear(x, embed_weight)
+    return grad_in_layout(F.linear(rows_whole(x),
+                                   replicate_dims(embed_weight, (-1,))))
 
 
 # ---------------------------------------------------------------------------
@@ -154,14 +179,63 @@ class LMHead(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log softmax(logits)[labels], f32 math.  A DTensor whose rows each
+    hold the whole vocabulary (a sequence-parallel plan gives the sequence
+    the model axis) computes it on each rank's rows (``local_map``); one
+    whose vocabulary is split computes it vocab-parallel."""
+    if is_dtensor(logits) and not any(
+            isinstance(p, Shard) and p.dim % logits.ndim == logits.ndim - 1
+            for p in logits.placements):
+        from torch.distributed.tensor.experimental import local_map
+        rows = list(logits.placements)
+        return local_map(_nll, out_placements=rows,
+                         in_placements=(rows, rows),
+                         device_mesh=logits.device_mesh,
+                         redistribute_inputs=True)(logits, labels)
+    logits = logits.float()
+    return _logsumexp(logits) - _label_logits(logits, labels)
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last dim.  On a DTensor, written out (the max,
+    the shifted exponentials summed, the log), as ``torch.logsumexp``
+    computes it: each reduction over a split vocabulary is then a partial
+    result reduced across ranks, where DTensor's ``logsumexp`` gathers the
+    whole vocabulary on every rank first."""
+    if not is_dtensor(logits):
+        return torch.logsumexp(logits, dim=-1)
+    m = logits.amax(-1, keepdim=True).detach()
+    return (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True))
+            )[..., 0]
+
+
+def _label_logits(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """logits (..., V) at ``labels`` (...).  On a DTensor whose vocabulary
+    is split over ranks, each rank compares the labels with the vocabulary
+    ids it holds and sums the one logit that matches (adding zeros: the
+    same value): DTensor's ``gather`` would gather the logits, and its
+    backward scatter into a whole-batch zero tensor, on every rank."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    V = logits.shape[-1]
+    pl = tuple(Shard(0) if isinstance(p, Shard)
+               and p.dim % logits.ndim == logits.ndim - 1 else Replicate()
+               for p in logits.placements)
+    ids = distribute_tensor_as(
+        torch.arange(V, device=logits.device), logits.device_mesh, pl)
+    hit = labels[..., None] == ids
+    return torch.where(hit, logits, torch.zeros((), dtype=logits.dtype,
+                                                device=logits.device)
+                       ).sum(-1)
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean cross-entropy; logits (..., V) in any float type (f32 math),
     labels (...) int; with ``mask`` (...), the mask-weighted mean."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    nll = _nll(logits, labels)
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

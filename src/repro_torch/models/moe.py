@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import logical
 from repro_torch.models import layers
 
@@ -112,6 +113,7 @@ def moe_apply(p: MoE, x: torch.Tensor,
     """x (B, S, d) -> (out (B, S, d), aux_loss f32 scalar)."""
     B, S, d = x.shape
     E, K = cfg.moe.n_experts, cfg.moe.top_k
+    x = layers.rows_whole(x)  # groups fold the batch and the sequence
     r = routing(p, x, cfg)
     G, tg = r.experts.shape[:2]
     C = _capacity(tg, E, K, cfg.moe.capacity_factor)
@@ -150,4 +152,9 @@ def moe_apply(p: MoE, x: torch.Tensor,
     h = logical(h, ("act_expert", "act_batch", None, "act_ff"))
     ye = torch.einsum("egcf,efd->egcd", h, p.down)            # (E, G, C, d)
     y = torch.einsum("egcd,gtec->gtd", ye, combine.to(x.dtype))
-    return y.reshape(B, S, d), aux.float()
+    if sharding.is_dtensor(y):
+        # the groups laid out as the tokens they fold, so that they unfold
+        # into (B, S) (DTensor may have split them over more ranks than
+        # divide the batch)
+        y = y.redistribute(xg.device_mesh, xg.placements)
+    return sharding.grad_in_layout(y.reshape(B, S, d)), aux.float()

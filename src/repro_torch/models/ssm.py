@@ -11,7 +11,9 @@ never its forward — recomputes the plain chunked math under autograd and
 returns ``torch.autograd.grad`` of it: the counterpart of ``jax.grad``
 through ``_ssd_chunked``, which is what the reference differentiates (it has
 no backward kernel), one layer at a time.  Decode is plain tensor code, as
-in the reference (which has no decode kernel either).
+in the reference (which has no decode kernel either).  On DTensors (a
+sharded step) the causal conv and the scan run under ``local_map`` on each
+rank's rows and heads.
 
 Layouts follow the reference: ``conv_w`` is ``(d_conv, conv_dim)`` and used as
 ``w[j]`` per tap; ``A_log``, ``D`` and ``dt_bias`` stay f32 whatever the
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import logical
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssd_scan import ssd_scan_reference
@@ -88,6 +91,33 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b)
 
 
+def _conv_on_local_rows(xbc: torch.Tensor, w: torch.Tensor,
+                        b: torch.Tensor) -> torch.Tensor:
+    """``_causal_conv`` on plain tensors; on DTensors, under ``local_map``
+    on each rank's rows (the sequence whole, the channels as they lie, the
+    weight and bias split as the channels are): a depthwise conv needs no
+    other rank's channels, and DTensor's padding op is not one to trust
+    with a layout (it loses a mesh axis of the placements in some PyTorch
+    versions).  Where the rows are split, the weight's and bias's local
+    gradients are partial sums over those axes."""
+    if not sharding.is_dtensor(xbc):
+        return _causal_conv(xbc, w, b)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    x_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                 for p in xbc.placements)
+    chan = [isinstance(p, Shard) and p.dim == 2 for p in x_pl]
+    w_pl = tuple(Shard(1) if c else Replicate() for c in chan)
+    b_pl = tuple(Shard(0) if c else Replicate() for c in chan)
+    return local_map(_causal_conv, out_placements=list(x_pl),
+                     in_placements=(x_pl, w_pl, b_pl),
+                     in_grad_placements=(
+                         x_pl, sharding.partial_over_rows(w_pl, x_pl),
+                         sharding.partial_over_rows(b_pl, x_pl)),
+                     device_mesh=xbc.device_mesh,
+                     redistribute_inputs=True)(xbc, w, b)
+
+
 class _SSDScan(torch.autograd.Function):
     """y of ``kops.ssd_scan`` (the kernel on a CUDA tensor), differentiable
     through a recompute of ``ssd_scan_reference`` in the backward.  Layouts
@@ -112,6 +142,53 @@ class _SSDScan(torch.autograd.Function):
                   for t in inputs), None)
 
 
+def _scan(x, dt, A, B, C, chunk: int) -> torch.Tensor:
+    """``_SSDScan`` at the autotuner's chunk, resolved here once, as in the
+    reference, so that the backward recomputes at the chunk the forward
+    ran (under autograd the tuner prices that recompute too)."""
+    chunk = kops.ssd_chunk(x, B, C, chunk=chunk, block_sizes="auto")
+    return _SSDScan.apply(x, dt, A, B, C, chunk)
+
+
+def _scan_on_local_heads(x, dt, A, B, C, chunk: int) -> torch.Tensor:
+    """``_scan`` on plain tensors; on DTensors, under ``local_map`` on each
+    rank's shard: the batch over the data axes, the SSD heads over the
+    model axis, the whole sequence.  B / C hold one entry per group of
+    heads: sharded with the heads where the model axis divides the
+    groups, else whole, each rank taking the groups its heads read (their
+    gradients then partial sums over the model axis); A, which has no
+    batch dim, gets a partial gradient over the axes that split the
+    batch."""
+    if not sharding.is_dtensor(x):
+        return _scan(x, dt, A, B, C, chunk)
+    from torch.distributed.tensor.experimental import local_map
+    ctx = sharding.current()
+    heads = ("act_batch", "act_ssm_heads", None, None)
+    x_pl = ctx.placements(ctx.act_spec(heads, x.shape))
+    dt_pl = ctx.placements(ctx.act_spec(heads[:3], dt.shape))
+    a_pl = ctx.placements(ctx.act_spec(heads[1:2], A.shape))
+    bc_pl = ctx.placements(ctx.act_spec(heads, B.shape))
+    tp = ctx.plan.tp_axis
+    split = sharding.is_sharded_on(x_pl, tp, 1) and \
+        not sharding.is_sharded_on(bc_pl, tp, 1)
+    grad_pl = sharding.partial_on(bc_pl, tp) if split else bc_pl
+    rank, n = sharding.axis_index(tp)
+    H = x.shape[1]
+
+    def local(xl, dtl, Al, Bl, Cl):
+        if split:
+            Bl = sharding.groups_of_local_heads(Bl, 1, H, rank, n)
+            Cl = sharding.groups_of_local_heads(Cl, 1, H, rank, n)
+        return _scan(xl, dtl, Al, Bl, Cl, chunk)
+
+    return local_map(
+        local, out_placements=list(x_pl),
+        in_placements=(x_pl, dt_pl, a_pl, bc_pl, bc_pl),
+        in_grad_placements=(x_pl, dt_pl, sharding.partial_over_rows(
+            a_pl, x_pl), grad_pl, grad_pl),
+        device_mesh=ctx.mesh, redistribute_inputs=True)(x, dt, A, B, C)
+
+
 def ssm_apply(p: SSM, x: torch.Tensor, cfg, *,
               state: Optional[SSMState] = None
               ) -> Tuple[torch.Tensor, Optional[SSMState]]:
@@ -129,25 +206,21 @@ def ssm_apply(p: SSM, x: torch.Tensor, cfg, *,
     dt = F.softplus(dt_raw.float() + p.dt_bias)  # (B, S, nH) f32
 
     if state is None:
-        xbc = _causal_conv(xbc, p.conv_w, p.conv_b)
+        xbc = _conv_on_local_rows(xbc, p.conv_w, p.conv_b)
         xin, Bm, Cm = xbc.split([din, G * N, G * N], dim=-1)
-        xin = logical(xin.reshape(Bsz, S, nH, P),
+        xin = logical(sharding.split_last(xin, nH, P),
                       ("act_batch", "act_seq", "act_heads", None))
-        Bm = Bm.reshape(Bsz, S, G, N)
-        Cm = Cm.reshape(Bsz, S, G, N)
+        Bm = sharding.split_last(Bm, G, N)
+        Cm = sharding.split_last(Cm, G, N)
         chunk = min(s.chunk, S)
         if S % chunk:
             raise ValueError(
                 f"prefill length {S} is not a multiple of the SSD chunk "
                 f"{chunk} (the reference asserts the same)")
-        # (B, H, S, ·) views, no copies; the chunk is the autotuner's, as
-        # in the reference, resolved here once so that the backward
-        # recomputes at the chunk the forward ran (under autograd the
-        # tuner prices that recompute too)
+        # (B, H, S, ·) views, no copies
         xs, Bs, Cs = xin.transpose(1, 2), Bm.transpose(1, 2), \
             Cm.transpose(1, 2)
-        chunk = kops.ssd_chunk(xs, Bs, Cs, chunk=chunk, block_sizes="auto")
-        y = _SSDScan.apply(xs, dt.transpose(1, 2), A, Bs, Cs, chunk)
+        y = _scan_on_local_heads(xs, dt.transpose(1, 2), A, Bs, Cs, chunk)
         y = y.transpose(1, 2)
         new_state = None
     else:
@@ -158,7 +231,7 @@ def ssm_apply(p: SSM, x: torch.Tensor, cfg, *,
                                    p.conv_w.to(ct)) + p.conv_b)[:, None]
         state.conv.copy_(conv_in[:, 1:])
         xin, Bm, Cm = feat.split([din, G * N, G * N], dim=-1)
-        xin = xin.reshape(Bsz, 1, nH, P).float()
+        xin = sharding.split_last(xin, nH, P).float()
         Bm = Bm.reshape(Bsz, G, N).repeat_interleave(nH // G, dim=1)  # (B,H,N)
         Cm = Cm.reshape(Bsz, G, N).repeat_interleave(nH // G, dim=1)
         dt1 = dt[:, 0]  # (B, H)

@@ -33,6 +33,7 @@ from torch import nn
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import logical
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
@@ -76,39 +77,67 @@ class SSMBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, cfg: ArchConfig, device, generator: torch.Generator):
+    """``place(module, name)``, called on each top-level part (the
+    embedding, each block, the shared block, the final norm, the head) as
+    soon as it is made, lays its parameters out (``init_params``' sharded
+    form); the random draws follow the construction order whatever it
+    does."""
+
+    def __init__(self, cfg: ArchConfig, device, generator: torch.Generator,
+                 place: Optional[Callable[[nn.Module, str], nn.Module]]
+                 = None):
         super().__init__()
+        place = place or (lambda m, name: m)
         dtype = layers.to_dtype(cfg.param_dtype)
-        self.embed = layers.Embedding(cfg.vocab_size, cfg.d_model, dtype,
-                                      device, generator,
-                                      cfg.n_input_codebooks)
+        self.embed = place(layers.Embedding(cfg.vocab_size, cfg.d_model,
+                                            dtype, device, generator,
+                                            cfg.n_input_codebooks), "embed")
         block = SSMBlock if _has_ssm(cfg) else DenseBlock
         self.blocks = nn.ModuleList(
-            block(cfg, dtype, device, generator) for _ in range(cfg.n_layers))
+            place(block(cfg, dtype, device, generator), f"blocks.{i}")
+            for i in range(cfg.n_layers))
         if cfg.family == "hybrid":
             if cfg.n_layers % cfg.hybrid.attn_every:
                 raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not "
                                  f"a multiple of attn_every "
                                  f"{cfg.hybrid.attn_every}")
             # ONE attention+MLP block, applied at every site
-            self.shared = DenseBlock(cfg, dtype, device, generator)
-        self.final_ln = layers.RMSNorm(cfg.d_model, dtype, device,
-                                       cfg.norm_eps)
-        self.head = None if cfg.tie_embeddings else layers.LMHead(
+            self.shared = place(DenseBlock(cfg, dtype, device, generator),
+                                "shared")
+        self.final_ln = place(layers.RMSNorm(cfg.d_model, dtype, device,
+                                             cfg.norm_eps), "final_ln")
+        self.head = None if cfg.tie_embeddings else place(layers.LMHead(
             cfg.d_model, cfg.vocab_size, dtype, device, generator,
-            cfg.n_output_heads)
+            cfg.n_output_heads), "head")
 
 
 def init_params(cfg: ArchConfig,
                 generator: Optional[torch.Generator] = None, *,
-                device="cuda", seed: int = 0) -> Transformer:
+                device="cuda", seed: int = 0, mesh=None,
+                plan=None) -> Transformer:
     """A model with seeded random weights (``N(0, INIT_SCALE²)``, norms at
     one), made on ``device``.  ``generator`` must live on ``device``; without
-    one, a new generator is seeded with ``seed``."""
+    one, a new generator is seeded with ``seed``.
+
+    With ``mesh`` and ``plan`` the parameters are DTensors laid out by the
+    plan's rules (``sharding.param_shardings`` of ``param_axes``), each
+    part sharded as soon as it is made: no rank ever holds more than one
+    block whole, and the values equal the unsharded model's."""
     device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(seed)
-    return Transformer(cfg, device, generator)
+    place = None
+    if mesh is not None:
+        specs = dict(Transformer(cfg, torch.device("meta"),
+                                 None).named_parameters())
+        placements = sharding.param_shardings(
+            mesh, plan, param_axes(cfg, specs), specs)
+
+        def place(module, name):
+            return sharding.distribute_params(
+                module, mesh, {k: placements[f"{name}.{k}"]
+                               for k, _ in module.named_parameters()})
+    return Transformer(cfg, device, generator, place)
 
 
 def param_count(model: nn.Module) -> int:
@@ -150,11 +179,13 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, torch.Tensor]:
     return Transformer(cfg, torch.device("meta"), None).state_dict()
 
 
-def param_axes(cfg: ArchConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+def param_axes(cfg: ArchConfig, shapes: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, Tuple[Optional[str], ...]]:
     """Logical axes of every ``state_dict`` entry, read off the model's
-    structure on the meta device (nothing allocated)."""
+    structure on the meta device (nothing allocated); ``shapes``: that
+    ``state_dict`` (or the named parameters) where the caller has it."""
     axes = {}
-    for name, t in param_shapes(cfg).items():
+    for name, t in (param_shapes(cfg) if shapes is None else shapes).items():
         if name == "embed.weight":
             ax = ("codebook", "vocab", "embed") if t.ndim == 3 \
                 else ("vocab", "embed")
@@ -210,17 +241,20 @@ def _remat(fn: Callable, policy: Optional[str]) -> Callable:
 
     The recompute runs inside the backward, which for CUDA tensors runs on
     autograd's own thread, where the thread-local ``runtime.flags`` are at
-    their defaults: the flags of the forward are captured here and set
-    again around every run of ``fn``, so that the recompute takes the same
-    path (kernel or plain) as the forward it replays."""
+    their defaults: the flags and the sharding state of the forward are
+    captured here and set again around every run of ``fn``, so that the
+    recompute takes the same path (kernel or plain, its layouts) as the
+    forward it replays."""
     if policy in (None, "none") or not torch.is_grad_enabled():
         return fn
     if policy not in ("full", "nothing", "dots"):
         raise ValueError(f"unknown remat policy {policy!r}")
     kernels, stub = flags.kernels_enabled(), flags.attention_stubbed()
+    priced, state = flags.kernels_priced(), sharding.snapshot()
 
     def run(*args):
-        with flags.use_kernels(kernels), flags.stub_attention(stub):
+        with flags.use_kernels(kernels), flags.stub_attention(stub), \
+                flags.price_kernels(priced), sharding.restored(state):
             return fn(*args)
 
     kw = {}

@@ -47,8 +47,8 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1,
           state_dtype: torch.dtype = torch.float32) -> Optimizer:
     def init(params: Tensors):
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+        def zeros(p):   # laid out as p (a DTensor parameter's shards)
+            return torch.zeros_like(p, dtype=state_dtype)
         return {"m": {n: zeros(p) for n, p in params.items()},
                 "v": {n: zeros(p) for n, p in params.items()},
                 "count": 0}
@@ -95,12 +95,11 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30,
                 return {"vr": torch.zeros(p.shape[:-1], dtype=f32, device=dev),
                         "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
                                           dtype=f32, device=dev)}
-            return {"v": torch.zeros(p.shape, dtype=f32, device=dev)}
+            return {"v": torch.zeros_like(p, dtype=f32)}
 
         st = {"v": {n: one(p) for n, p in params.items()}, "count": 0}
         if momentum is not None:
-            st["m"] = {n: torch.zeros(p.shape, dtype=momentum_dtype,
-                                      device=p.device)
+            st["m"] = {n: torch.zeros_like(p, dtype=momentum_dtype)
                        for n, p in params.items()}
         return st
 
@@ -151,8 +150,7 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30,
 
 def sgd(momentum: float = 0.9) -> Optimizer:
     def init(params: Tensors):
-        return {"m": {n: torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device)
+        return {"m": {n: torch.zeros_like(p, dtype=torch.float32)
                       for n, p in params.items()},
                 "count": 0}
 

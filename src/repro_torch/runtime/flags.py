@@ -19,6 +19,7 @@ class _Flags(threading.local):
     # without the caught AttributeError a getattr default costs per call
     kernels = True
     attn_stub = False
+    priced = False
 
 
 _tls = _Flags()
@@ -53,3 +54,22 @@ def stub_attention(enabled: bool = True):
         yield
     finally:
         _tls.attn_stub = prev
+
+
+def kernels_priced() -> bool:
+    return _tls.priced
+
+
+@contextmanager
+def price_kernels(enabled: bool = True):
+    """Fake tensors stand for the card's (the dry run): a kernel wrapper
+    handed fake tensors prices the kernel it would launch (its schedule's
+    products, the bytes it moves; ``core.extract.price_kernel``) instead of
+    running its plain version, and ``block_sizes="auto"`` scores through
+    the card's cost model."""
+    prev = _tls.priced
+    _tls.priced = enabled
+    try:
+        yield
+    finally:
+        _tls.priced = prev

@@ -8,12 +8,16 @@ optimizer, which updates the parameters in place.  ``make_step`` picks one
 of the three from a ``core.workload.WorkloadSpec``.
 ``make_manual_dp_train_step`` is the data-parallel train step with its
 gradient all-reduce written out in collectives, one process per rank.
+The steps also run as DTensor programs (``launch/specs.sharded``): under a
+sharding context the train step pins its gradients to the parameters'
+layout, and the serve step samples from whole logits.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.plan import Plan
@@ -43,6 +47,21 @@ def state_tree(state: TrainState) -> Dict[str, Any]:
             "opt_state": state.opt_state, "step": state.step}
 
 
+def _microbatch(v: torch.Tensor, i: int, M: int) -> torch.Tensor:
+    """The ``i``-th of ``M`` equal chunks of ``v``'s rows.  A DTensor's
+    rows split over the data axes are chunked on each rank, so that every
+    microbatch stays spread over the ranks: the chunks differ from a plain
+    tensor's, but their mean (the gradient the step applies) does not."""
+    if isinstance(v, DTensor):
+        local = v.to_local()
+        per = local.shape[0] // M
+        return DTensor.from_local(local[i * per:(i + 1) * per],
+                                  v.device_mesh, v.placements,
+                                  run_check=False)
+    per = v.shape[0] // M
+    return v[i * per:(i + 1) * per]
+
+
 def make_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
                     plan: Optional[Plan] = None, lr_schedule=None,
                     clip_norm: float = 1.0):
@@ -61,32 +80,43 @@ def make_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
         grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), dict(zip(params, grads))
 
-    # _pin_grads: the reference constrains gradients to the parameters'
-    # sharding; on one device there is nothing to constrain (multi-device
-    # training is the later slice A14)
+    axes = {}   # the parameters' logical axes, read once, when needed
+
+    def _pin_grads(g):
+        """Constrain gradients to the parameter sharding (no-op without a
+        sharding context or on plain tensors): a DTensor gradient's
+        ``Partial`` placements resolve here, reduce-scattered into the
+        sharded layout under FSDP, instead of being carried as partial
+        sums into the optimizer."""
+        from repro_torch.distributed import sharding as shard
+        if shard.current() is None:
+            return g
+        if not axes:
+            axes.update(transformer.param_axes(cfg))
+        return shard.constrain_like_params(g, axes)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.params
         params = dict(model.named_parameters())
         if M > 1:
-            per = {k: v.shape[0] // M for k, v in batch.items()}
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
-                     for n, p in params.items()}
+            grads = _pin_grads({n: torch.zeros_like(p, dtype=torch.float32)
+                                for n, p in params.items()})
             loss_sum = None
             for i in range(M):
-                one = {k: v[i * per[k]:(i + 1) * per[k]]
-                       for k, v in batch.items()}
+                one = {k: _microbatch(v, i, M) for k, v in batch.items()}
                 loss, g = value_and_grad(model, params, one)
+                g = _pin_grads(g)
                 for n, gi in g.items():
                     grads[n].add_(gi.float())
                 del g
+                grads = _pin_grads(grads)
                 loss_sum = loss if loss_sum is None else loss_sum + loss
             for gi in grads.values():
                 gi.div_(M)
             loss_val = loss_sum / M
         else:
             loss_val, grads = value_and_grad(model, params, batch)
+            grads = _pin_grads(grads)
         grads, gnorm = opt.clip_by_global_norm(grads, clip_norm)
         lr = lr_schedule(state.step)
         _, new_opt = optimizer.update(grads, state.opt_state, params, lr)
@@ -215,6 +245,11 @@ def make_serve_step(cfg: ArchConfig, sample: bool = True,
                    generator: Optional[torch.Generator] = None):
         logits, new_state = transformer.decode_step(model, cfg, state, tokens)
         last = logits[:, -1]                      # (B[, n_heads], V)
+        if isinstance(last, DTensor):
+            # logits sharded on act_vocab (and rows on the data axes) are
+            # made whole on every rank: each rank then samples from the
+            # same probabilities with a generator seeded alike
+            last = last.full_tensor()
         if sample:
             probs = torch.softmax(last.float() / temperature, dim=-1)
             next_tok = torch.multinomial(probs.reshape(-1, probs.shape[-1]),

@@ -12,6 +12,10 @@ this rank's results (``TASK.<rank>.npz``).  Tasks:
   more that rank 0 checkpoints for ``resume``; the meshes' refusals.
 * ``resume`` (2 ranks): the checkpoint restored, a fresh ``init_ef``, one
   step.
+* ``gspmd`` (4 ranks, a (2, 2) ``data, model`` mesh): the DTensor-sharded
+  steps of ``test_torch_gspmd.py`` (``GSPMD_CASES``), each from the
+  reference's parameters (``params.<case>.npz``): two train steps, a
+  prefill, or decode iterations; whole (replicated) results.
 """
 from __future__ import annotations
 
@@ -148,6 +152,139 @@ def resume(rank: int, world: int, data: str) -> dict:
             "loss": float(m["loss"])}
 
 
+#: the sharded cases of ``test_torch_gspmd.py``: (architecture, changes to
+#: its reduced f32 configuration, phase, plan changes)
+GSPMD_CASES = {
+    "train": ("smollm-360m", {}, "train", {}),
+    "hybrid": ("zamba2-2.7b", {}, "prefill", {}),
+    "decode": ("llama3.2-3b", {}, "decode", {}),
+    "ep": ("mixtral-8x7b", {}, "prefill", {"moe_mode": "ep"}),
+    "kvh": ("llama3.2-3b", {"n_kv_heads": 1}, "train", {}),
+    "adafactor": ("smollm-360m", {"optimizer": "adafactor"}, "train", {}),
+}
+GSPMD_B, GSPMD_S, GSPMD_DECODE_STEPS = 4, 32, 4
+
+
+def gspmd_cfg(case: str):
+    arch, edit, _, _ = GSPMD_CASES[case]
+    return dataclasses.replace(ARCHS[arch].reduced(), **DP_CFG, **edit)
+
+
+def gspmd_plan(case: str):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.plan import plan_for
+    _, _, phase, edit = GSPMD_CASES[case]
+    shape = ShapeConfig(phase, GSPMD_S, GSPMD_B, phase)
+    return shape, plan_for(gspmd_cfg(case), shape, tp_size=2,
+                           hbm_budget=16e9).with_(**edit)
+
+
+def gspmd(rank: int, world: int, data: str) -> dict:
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import specs
+    inp = np.load(os.path.join(data, "inputs.npz"))
+    mesh = lmesh.make_mesh((2, world // 2), ("data", "model"), device="cpu")
+    out = {}
+    for case, (_, _, phase, _) in GSPMD_CASES.items():
+        cfg = gspmd_cfg(case)
+        shape, plan = gspmd_plan(case)
+        params = _unflatten(dict(np.load(os.path.join(
+            data, f"params.{case}.npz"))))
+        step_fn, _, in_sh, out_sh = specs.phase_cell(cfg, shape, mesh, plan)
+        run = specs.sharded(step_fn, mesh, plan, in_sh, out_sh)
+        tokens = torch.from_numpy(inp[f"{case}_tokens"])
+        if phase == "train":
+            optimizer = opt.get_optimizer(cfg.optimizer)
+            if case == "train":
+                # built straight into its shards, as a user on many ranks
+                # builds it, then loaded with the reference's values
+                model = transformer.init_params(cfg, device="cpu", mesh=mesh,
+                                                plan=plan)
+                built_sharded = all(sharding.is_dtensor(p)
+                                    for p in model.parameters())
+                want = convert.params_from_reference(cfg, params)
+                with torch.no_grad():
+                    for n, p in model.named_parameters():
+                        p.to_local().copy_(sharding.distribute_tensor_as(
+                            want[n], mesh, p.placements).to_local())
+                st = specs.shard_args(steps.TrainState(
+                    model, optimizer.init(dict(model.named_parameters())),
+                    0), in_sh[0], mesh)
+                out[f"{case}_built_sharded"] = int(built_sharded and all(
+                    sharding.is_dtensor(t) for t in st.opt_state["m"].values()
+                ))
+            else:
+                st = specs.shard_args(_state(cfg, params, optimizer),
+                                      in_sh[0], mesh)
+            batch = {"tokens": tokens,
+                     "labels": torch.from_numpy(inp[f"{case}_labels"])}
+            # the gradients of the first step, pinned as the step pins them
+            model = st.params
+            named = dict(model.named_parameters())
+            with sharding.use_sharding(mesh, plan), implicit_replication():
+                loss, _ = transformer.loss_fn(
+                    model, cfg, specs.shard_args(batch, in_sh[1], mesh))
+                grads = dict(zip(named, torch.autograd.grad(
+                    loss, list(named.values()))))
+                raw = [type(p).__name__ for g in grads.values()
+                       for p in g.placements]
+                grads = sharding.constrain_like_params(
+                    grads, transformer.param_axes(cfg))
+                pinned = [type(p).__name__ for g in grads.values()
+                          for p in g.placements]
+            for n, g in grads.items():
+                out[f"{case}_grad/{n}"] = g.full_tensor().numpy()
+            out[f"{case}_raw_partial"] = int("Partial" in raw)
+            out[f"{case}_pinned_partial"] = int("Partial" in pinned)
+            losses, norms = [], []
+            for i in range(2):
+                with extract.count_collectives() as coll:
+                    st, m = run(st, batch)
+                losses.append(float(m["loss"].to_local()))
+                norms.append(float(m["grad_norm"].to_local()))
+            out[f"{case}_loss"] = np.array(losses)
+            out[f"{case}_grad_norm"] = np.array(norms)
+            out[f"{case}_bytes"] = json.dumps(coll)
+            out[f"{case}_steps"] = st.step
+            out[f"{case}_param_placements"] = json.dumps(sorted({
+                str(p.placements) for p in st.params.parameters()}))
+        elif phase == "prefill":
+            model = specs.shard_args(_model(cfg, params), in_sh[0], mesh)
+            with extract.count_collectives() as coll:
+                logits = run(model, {"tokens": tokens})
+            out[f"{case}_logits"] = logits.full_tensor().numpy()
+            out[f"{case}_bytes"] = json.dumps(coll)
+        else:
+            model = specs.shard_args(_model(cfg, params), in_sh[0], mesh)
+            state = specs.shard_args(transformer.init_decode_state(
+                cfg, GSPMD_B, GSPMD_S, device="cpu"), in_sh[1], mesh)
+            # the logits of each decode step, from the given tokens
+            feed = torch.from_numpy(inp[f"{case}_feed"])
+            logits = []
+            with sharding.use_sharding(mesh, plan), implicit_replication(), \
+                    torch.no_grad():
+                for i in range(GSPMD_DECODE_STEPS):
+                    tok = specs.shard_args(feed[:, i:i + 1], in_sh[2], mesh)
+                    lg, state = transformer.decode_step(model, cfg, state,
+                                                        tok)
+                    logits.append(lg.full_tensor().numpy())
+            out[f"{case}_logits"] = np.stack(logits)
+            # sampled tokens through the sharded serve step
+            state = specs.shard_args(transformer.init_decode_state(
+                cfg, GSPMD_B, GSPMD_S, device="cpu"), in_sh[1], mesh)
+            gen = torch.Generator().manual_seed(5)
+            tok, toks = feed[:, :1], []
+            for i in range(GSPMD_DECODE_STEPS):
+                nxt, state = run(model, state, tok, gen)
+                toks.append(nxt.numpy())
+                tok = nxt[:, None]
+            out[f"{case}_tokens"] = np.stack(toks)
+    return out
+
+
 def _unflatten(flat: dict) -> dict:
     """``a/b/c`` keys back into nested dicts."""
     tree: dict = {}
@@ -167,8 +304,8 @@ def main(task: str, rank: int, world: int, data: str) -> None:
                                      world),
         rank=rank, world_size=world)
     try:
-        out = {"collectives": collectives, "resume": resume}[task](
-            rank, world, data)
+        out = {"collectives": collectives, "resume": resume,
+               "gspmd": gspmd}[task](rank, world, data)
     finally:
         dist.destroy_process_group()
     np.savez(os.path.join(data, f"{task}.{rank}.npz"), **out)

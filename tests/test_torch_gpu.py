@@ -1115,3 +1115,61 @@ def test_dp_step_on_one_nccl_rank_equals_the_train_step(cuda, tmp_path):
     np.testing.assert_allclose(losses[None], ref_losses, rtol=1e-6)
     for a, b in zip(losses[None], losses["int8_ef"]):
         assert abs(a - b) / a < 0.05, (a, b)
+
+
+def test_local_map_launches_the_kernel_on_a_one_rank_mesh(cuda, tmp_path):
+    """Under a sharding context on a one-rank NCCL mesh, attention on
+    DTensors goes through ``local_map`` to the kernel (its launch count
+    rises by one a call), not to the plain version, and equals the call on
+    plain tensors."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.plan import Plan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention as attn
+    cfg = dataclasses.replace(ARCHS["llama3.2-3b"].reduced(),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    g = torch.Generator(cuda).manual_seed(2)
+    B, S, H, KVH, dh = 2, 128, 4, 2, 16
+    q, k, v = (torch.randn(B, S, h, dh, generator=g, device=cuda,
+                           dtype=torch.bfloat16) for h in (H, KVH, KVH))
+    want = attn._kernel_on_local_heads(q, k, v, cfg)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rep = [Replicate(), Replicate()]
+        qd, kd, vd = (DTensor.from_local(t, mesh, rep) for t in (q, k, v))
+        with sharding.use_sharding(mesh, Plan(dp_axes=("data",))), \
+                implicit_replication(), torch.no_grad():
+            for i in range(3):
+                before = fa.flash_attention.launches
+                got = attn._kernel_on_local_heads(qd, kd, vd, cfg)
+                assert fa.flash_attention.launches == before + 1
+        assert isinstance(got, DTensor)
+        assert torch.equal(got.to_local(), want)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_a_dtensor_handed_to_a_kernel_raises(cuda, tmp_path):
+    """A kernel reads one device's raw pointers: a DTensor handed to
+    ``kops.flash_attention`` is refused, never taken for a plain tensor."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.launch.mesh import make_mesh
+    q = torch.randn(1, 2, 64, 16, device=cuda, dtype=torch.bfloat16)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        qd = DTensor.from_local(q, mesh, [Replicate()])
+        before = fa.flash_attention.launches
+        with pytest.raises(TypeError, match="DTensor"):
+            kops.flash_attention(qd, qd, qd)
+        assert fa.flash_attention.launches == before
+    finally:
+        dist.destroy_process_group()

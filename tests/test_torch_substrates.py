@@ -109,7 +109,8 @@ def test_plan_for_matches_the_reference(arch):
     for shape in JSHAPES.values():
         for multi in (False, True):
             assert dataclasses.asdict(
-                tplan.plan_for(TARCHS[arch], shape, multi_pod=multi)) == \
+                tplan.plan_for(TARCHS[arch], shape, multi_pod=multi,
+                               hbm_budget=16e9)) == \
                 dataclasses.asdict(
                     jplan.plan_for(JARCHS[arch], shape, multi_pod=multi))
 

@@ -471,7 +471,8 @@ def test_make_step_train_takes_the_configs_optimizer():
                                           ("mixtral-8x7b", "prefill_32k", 32),
                                           ("zamba2-2.7b", "decode_32k", 8)])
 def test_elastic_replan_equals_the_reference(arch, shape, n):
-    a = elastic.replan(ARCHS[arch], SHAPES[shape], n, kernels=P)
+    a = elastic.replan(ARCHS[arch], SHAPES[shape], n, kernels=P,
+                       hbm_budget=16e9)
     b = jelastic.replan(JARCHS[arch], JSHAPES[shape], n)
     assert len(a) == len(b) > 0
     for x, y in zip(a, b):
