@@ -75,13 +75,29 @@ counts set to 0 just before the path and read just after):
   dry run, ``python -m repro_torch.launch dryrun`` of llama3.2-3b at
   ``train_4k`` on a fake world of 256 ranks in a process of its own, beside
   ``archcount``'s closed form and ``predictor.estimate_peak_bytes``;
+  ``roofline``: ``repro_torch.benchmarks.roofline`` on that record at the
+  H100's rates (compute / memory / collective terms, ``useful_ratio``);
 * the paper's calibration loop on the card: ``python -m
   repro_torch.calibration --device gpu-h100 --scale gpu`` (launch overhead,
   the 9 measurement classes timed under the 30-run/drop-4 protocol with
   their properties extracted from ATen graphs, the fit, the registry), then
-  the held-out step: the model loaded back by name predicts the 4 held-out
-  kernels, which are timed beside it — the ``matmul`` kernel (``mm_tiled``,
-  ``skinny_mm``) and the ``transpose`` kernel (the tiled transpose);
+  the held-out step (``benchmarks.paper_table1.heldout``): the model loaded
+  back by name predicts the 4 held-out kernels, which are timed beside it
+  — the ``matmul`` kernel (``mm_tiled``, ``skinny_mm``) and the
+  ``transpose`` kernel (the tiled transpose); ``table1`` is the paper's
+  Table 1 record and ``table2`` its Table 2 (the fitted weights beside the
+  ``gpu-h100`` and v5e seeds), both written under
+  ``chiprun_out/experiments``;
+* ``validate`` (``benchmarks.predictor_validation`` at the ``gpu`` scale):
+  every architecture's AdamW training step at full width, 2 x 2048, its
+  depth cut only as far as the card forces (llama3-405b a ``skip`` row),
+  its properties extracted from the step's ATen graph in processes of
+  their own, predicted by the fit and timed (10 calls of each step, the
+  ``flash_attention`` and ``ssd_scan`` kernels twice a layer a call);
+* ``kernel_roofline`` (``benchmarks.kernel_roofline`` in a process of its
+  own): glm4-9b ``prefill_32k`` at 4 of 40 layers on the fake 256-rank
+  world, attention's share of the plain path against the kernel's schedule
+  at the tiles ``gpu-h100`` picks;
 * the SSD chunk of a training step (``train.ssd_chunk``, zamba2): steps at
   the chunk ``"auto"`` picks under autograd (the backward's recompute
   priced), at the one it picks for the kernel alone and at the configured
@@ -167,6 +183,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -184,6 +201,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.benchmarks import kernel_roofline  # noqa: E402
+from repro_torch.benchmarks import paper_table1, paper_table2  # noqa: E402
+from repro_torch.benchmarks import predictor_validation  # noqa: E402
+from repro_torch.benchmarks import roofline  # noqa: E402
 from repro_torch.calibration import __main__ as calib_cli  # noqa: E402
 from repro_torch.calibration import registry, seeds  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
@@ -456,6 +477,35 @@ CALIB_SCALE = "gpu"
 # the cases whose timing goes through a hand-written kernel
 KERNEL_TIMED = {"mm_tiled_": "matmul", "skinny_mm_": "matmul",
                 "transpose_tiled_": "transpose"}
+# the evaluation scripts (``repro_torch.benchmarks``): their records go
+# under the checkout's ``chiprun_out/experiments``; the reference's keys
+# each record must hold
+EXPERIMENTS_OUT = os.path.join(ROOT, "chiprun_out", "experiments")
+TABLE1_KEYS = ("device", "launch_overhead_us", "n_measurement_kernels",
+               "fit_geomean_rel_err", "rows", "per_class_geomean",
+               "overall_geomean_rel_err", "paper_band")
+TABLE2_KEYS = ("fit", "gpu_h100_seed", "tpu_v5e_seed")
+VALIDATION_KEYS = ("rows", "geomean_rel_err", "geomean_rel_err_calibrated",
+                   "calibration_factor", "B", "S")
+VALIDATION_ROW_KEYS = ("arch", "predicted_ms", "actual_ms", "rel_err")
+#: the step traces run in processes of their own while the card times
+VALIDATE_TRACE_WORKERS = 4
+ROOFLINE_KEYS = ("arch", "shape", "mesh", "compute_s", "memory_s",
+                 "collective_s", "dominant", "model_flops", "useful_ratio",
+                 "roofline_fraction", "step_bound_s")
+#: the 256-rank llama3.2-3b train_4k cell counts 4.17x archcount's model
+#: flops (24 q and 8 kv heads do not divide 16 ranks)
+ROOFLINE_USEFUL = (0.2, 0.3)
+#: the reference's default cell, its depth cut to 4 of 40 layers (the
+#: plain chunked attention dispatches every chunk pair on fake tensors)
+KROOF_ARGS = ["--arch", "glm4-9b", "--shape", "prefill_32k", "--layers",
+              "4"]
+KROOF_TIMEOUT = 600
+KROOF_KEYS = ("arch", "shape", "n_devices", "autotuned_blocks",
+              "attention_attributable", "kernel_attention", "xla_terms_s",
+              "kernel_terms_s", "xla_dominant", "kernel_dominant",
+              "memory_term_reduction", "step_bound_xla_s",
+              "step_bound_kernel_s")
 
 LINES = []
 
@@ -1402,29 +1452,32 @@ def phase_calibrate(out_dir: str):
 
 
 def phase_heldout(out_dir: str, res):
-    """The held-out step: the model loaded back by name predicts the 16
-    test cases, which are timed under the same protocol."""
+    """The held-out step of Table 1 (``paper_table1.heldout``): the model
+    loaded back by name predicts the 16 test cases, which are timed under
+    the same protocol; then the Table 1 record and the model's file under
+    ``EXPERIMENTS_OUT``."""
     loaded = registry.load_model(CALIB_DEVICE, out_dir)
     if loaded.keys != res.model.keys \
             or not np.array_equal(loaded.weights, res.model.weights):
         raise AssertionError("the registered model differs from the fitted")
-    rows, records = [], []
-    with counted_timing(records), torch.no_grad():
-        for c in tkernels.test_cases(CALIB_SCALE, device=DEV):
-            pv = c.properties()
-            pred = loaded.predict(pv)
-            if pred != res.model.predict(pv) or not math.isfinite(pred):
-                raise AssertionError(f"{c.name}: prediction {pred!r} not "
-                                     "bit-identical to the fitted model's")
-            t = measure.time_kernel(
-                c.jitted(), min_time_s=4 * res.launch_overhead_s).min_s
-            count = check_counts(c.name, records[-1])
-            rows.append({"case": c.name, "class": c.klass, "actual_s": t,
-                         "predicted_s": pred,
-                         "rel_err": relative_error(pred, t),
-                         "calls": count["calls"],
-                         "launches": count["launches"]})
-            del c
+    records = []
+    with counted_timing(records):
+        got, pvs = paper_table1.heldout(loaded, CALIB_SCALE, DEV,
+                                        launch_s=res.launch_overhead_s)
+    if len(records) != len(got):
+        raise AssertionError(f"{len(records)} timings of {len(got)} cases")
+    rows = []
+    for r, pv, rec in zip(got, pvs, records):
+        pred = loaded.predict(pv)
+        if pred != res.model.predict(pv) or not math.isfinite(pred) or \
+                r["predicted_ms"] != pred * 1e3:
+            raise AssertionError(f"{r['kernel']}: prediction {pred!r} not "
+                                 "bit-identical to the fitted model's")
+        count = check_counts(r["kernel"], rec)
+        rows.append({"case": r["kernel"], "class": r["class"],
+                     "actual_s": r["actual_ms"] / 1e3, "predicted_s": pred,
+                     "rel_err": r["rel_err"], "calls": count["calls"],
+                     "launches": count["launches"]})
     classes = sorted({r["class"] for r in rows})
     per_class = {k: geomean(r["rel_err"] for r in rows if r["class"] == k)
                  for k in classes}
@@ -1433,7 +1486,158 @@ def phase_heldout(out_dir: str, res):
           "geomean_rel_err": geomean(r["rel_err"] for r in rows),
           "paper_geomeans": {"Titan X": 0.16, "C2070": 0.14, "K40": 0.06,
                              "R9 Fury": 0.42}})
+    table = paper_table1.record(loaded, res.launch_overhead_s,
+                                len(res.labels),
+                                res.report["geomean_rel_err"], got)
+    has_keys("table1", table, TABLE1_KEYS)
+    path = paper_table1.write(table, loaded, CALIB_SCALE, EXPERIMENTS_OUT)
+    emit({"phase": "table1", "ok": True, "device": table["device"],
+          "n_measurement_kernels": table["n_measurement_kernels"],
+          "fit_geomean_rel_err": table["fit_geomean_rel_err"],
+          "per_class_geomean": table["per_class_geomean"],
+          "overall_geomean_rel_err": table["overall_geomean_rel_err"],
+          "paper_band": table["paper_band"],
+          "launch_overhead_us": table["launch_overhead_us"],
+          "model_file": os.path.relpath(path, ROOT)})
     return rows
+
+
+def has_keys(name: str, rec: dict, keys) -> None:
+    """A record holds every key of the reference's."""
+    missing = [k for k in keys if k not in rec]
+    if missing:
+        raise AssertionError(f"{name}: the record lacks {missing}")
+
+
+def phase_table2(reg_dir: str) -> dict:
+    """``paper_table2`` on the model Table 1 wrote: the fitted weights
+    beside the ``gpu-h100`` and v5e (a TPU's) seeds; the ten most salient
+    by |weight| in the line."""
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        rec = paper_table2.table(CALIB_SCALE, DEV, EXPERIMENTS_OUT, reg_dir)
+    has_keys("table2", rec, TABLE2_KEYS)
+    fit = rec["fit"]
+    if not fit or not all(math.isfinite(w) for w in fit.values()):
+        raise AssertionError("table2: a fitted weight is not finite")
+    if "h100 seed" not in text.getvalue():
+        raise AssertionError("table2: no gpu-h100 seed column")
+    top = sorted(fit, key=lambda k: -abs(fit[k]))[:10]
+    line = {"phase": "table2", "ok": True, "device": rec["device"],
+            "n_weights": len(fit),
+            "top": [{"key": k, "fit": fit[k],
+                     "gpu_h100_seed": rec["gpu_h100_seed"].get(k),
+                     "tpu_v5e_seed": rec["tpu_v5e_seed"].get(k)}
+                    for k in top]}
+    emit(line)
+    return line
+
+
+def phase_validate(reg_dir: str) -> dict:
+    """``predictor_validation`` at the ``gpu`` scale on the model Table 1
+    wrote: every architecture's AdamW training step at full width (depth
+    cut only as far as the card forces), extracted, predicted and timed.
+    Each timed step launches its kernels twice a layer (remat ``full``:
+    the forward and the backward's recompute), once a call of the
+    timing.  -> the launch counts (set to 0 just before, read just
+    after)."""
+    name = paper_table1.model_name(DEV, CALIB_SCALE)
+    if not os.path.exists(paper_table1.model_path(EXPERIMENTS_OUT, name,
+                                                  CALIB_SCALE)):
+        raise AssertionError("validate: Table 1 wrote no model")
+    torch.cuda.empty_cache()
+    records = []
+    reset_launches()
+    with counted_timing(records):
+        res = predictor_validation.run(
+            scale=CALIB_SCALE, device=DEV, out=EXPERIMENTS_OUT,
+            registry=reg_dir, trace_workers=VALIDATE_TRACE_WORKERS,
+            verbose=False)
+    launched = read_launches()
+    has_keys("validate", res, VALIDATION_KEYS)
+    ok = [r for r in res["rows"] if r["status"] == "ok"]
+    if len(records) != len(ok):
+        raise AssertionError(f"validate: {len(records)} timings of "
+                             f"{len(ok)} steps")
+    want = {k: 0 for k in launched}
+    for r, rec in zip(ok, records):
+        has_keys(f"validate {r['arch']}", r, VALIDATION_ROW_KEYS)
+        if not (math.isfinite(r["predicted_ms"]) and r["predicted_ms"] > 0):
+            raise AssertionError(f"validate {r['arch']}: prediction "
+                                 f"{r['predicted_ms']!r}")
+        cfg = get_arch(r["arch"])
+        cfg = dataclasses.replace(cfg, n_layers=r["layers_run"]) \
+            if CALIB_SCALE == "gpu" else cfg.reduced()
+        per = train_launches_per_step(cfg)
+        r["calls"] = rec["calls"]
+        r["launches"] = rec["launches"]
+        if rec["launches"] != {k: rec["calls"] * per[k] for k in per}:
+            raise AssertionError(f"validate {r['arch']}: launches "
+                                 f"{rec['launches']}, {rec['calls']} calls "
+                                 f"of {per}")
+        for k in want:
+            want[k] += rec["launches"][k]
+    if launched != want:
+        raise AssertionError(f"validate: launches {launched}, expected "
+                             f"{want}")
+    emit({"phase": "validate", "ok": True, "device": res["device"],
+          "B": res["B"], "S": res["S"],
+          "geomean_rel_err": res["geomean_rel_err"],
+          "geomean_rel_err_calibrated": res["geomean_rel_err_calibrated"],
+          "calibration_factor": res["calibration_factor"],
+          "rows": res["rows"], "launches": launched})
+    return launched
+
+
+def phase_roofline() -> dict:
+    """``roofline`` on the dry run's record of the gspmd phase (the 16 x 16
+    llama3.2-3b ``train_4k`` cell) at the H100's rates."""
+    path = os.path.join(EXPERIMENTS_OUT, "dryrun_torch.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = roofline.main([path, "--mesh", "16x16", "--out",
+                              EXPERIMENTS_OUT])
+    if len(rows) != 1:
+        raise AssertionError(f"roofline: {len(rows)} rows")
+    (row,) = rows
+    has_keys("roofline", row, ROOFLINE_KEYS)
+    terms = [row[k] for k in ("compute_s", "memory_s", "collective_s")]
+    if not all(math.isfinite(t) and t > 0 for t in terms):
+        raise AssertionError(f"roofline: terms {terms}")
+    if not ROOFLINE_USEFUL[0] < row["useful_ratio"] < ROOFLINE_USEFUL[1]:
+        raise AssertionError(f"roofline: useful_ratio {row['useful_ratio']}")
+    line = {"phase": "roofline", "ok": True, "rates": {
+        "peak_bf16": roofline.PEAK, "hbm": roofline.HBM,
+        "link": roofline.LINK}, **row}
+    emit(line)
+    return line
+
+
+def phase_kernel_roofline() -> dict:
+    """``kernel_roofline`` on ``KROOF_ARGS`` in a process of its own (its
+    fake world of 256 ranks is that process's default group)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m",
+                        "repro_torch.benchmarks.kernel_roofline",
+                        *KROOF_ARGS, "--out", EXPERIMENTS_OUT], env=env,
+                       capture_output=True, text=True, timeout=KROOF_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"kernel_roofline exited {p.returncode}:\n"
+                             f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+    arch, shape = KROOF_ARGS[1], KROOF_ARGS[3]
+    with open(os.path.join(EXPERIMENTS_OUT, f"torch_kernel_roofline_{arch}_"
+                           f"{shape}.json")) as f:
+        rec = json.load(f)
+    has_keys("kernel_roofline", rec, KROOF_KEYS)
+    terms = [*rec["xla_terms_s"].values(), *rec["kernel_terms_s"].values()]
+    if not all(math.isfinite(t) and t >= 0 for t in terms) or \
+            rec["attention_attributable"]["flops"] <= 0 or \
+            rec["kernel_attention"]["flops"] <= 0:
+        raise AssertionError(f"kernel_roofline: {rec}")
+    line = {"phase": "kernel_roofline", "ok": True, "args": KROOF_ARGS,
+            "seconds": seconds, **rec}
+    emit(line)
+    return line
 
 
 def phase_closed_form():
@@ -3692,6 +3896,9 @@ def phase_dryrun() -> dict:
             raise AssertionError(f"dryrun exited {p.returncode}:\n"
                                  f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
         (rec,) = json.load(open(out))
+    os.makedirs(EXPERIMENTS_OUT, exist_ok=True)
+    with open(os.path.join(EXPERIMENTS_OUT, "dryrun_torch.json"), "w") as f:
+        json.dump([rec], f, indent=1)
     if rec["status"] != "ok" or rec["n_devices"] != 256:
         raise AssertionError(f"dryrun: {rec}")
     cfg, shape = get_arch(ARCH), SHAPES["train_4k"]
@@ -4446,6 +4653,8 @@ def run(args, cache_dir: str) -> int:
     with phase("gspmd"):
         launched["gspmd"] = phase_gspmd(args.seed)
     torch.cuda.empty_cache()
+    with phase("roofline"):
+        phase_roofline()
 
     TB, TS = TRAIN_TOKENS
     with phase("kernels.main_shape"):
@@ -4482,10 +4691,16 @@ def run(args, cache_dir: str) -> int:
         with phase("heldout"):
             phase_heldout(reg_dir, res)
         launched["calibration"] = read_launches()
+        with phase("table2"):
+            phase_table2(reg_dir)
         # the step predictor: the model just fitted, loaded back by name,
         # against every path measured above
         with phase("predict"):
             phase_predict(reg_dir, cache_dir)
+        # whole-step validation of the fit on every architecture (its own
+        # reset and read of the counts)
+        with phase("validate"):
+            launched["validate"] = phase_validate(reg_dir)
         # the autotuner: every candidate of every grid launched, with the
         # counts set to 0 just before it and read just after
         torch.cuda.empty_cache()
@@ -4519,6 +4734,8 @@ def run(args, cache_dir: str) -> int:
     torch.cuda.empty_cache()
     with phase("autoshard"):
         phase_autoshard()
+    with phase("kernel_roofline"):
+        phase_kernel_roofline()
     if args.profile:
         with phase("calibrate.profile"):
             phase_calibration_profile(args.seed)

@@ -672,13 +672,17 @@ def trace(fn, *args) -> GraphModule:
 
 def extract_graph(fn, *args, hints: Optional[Mapping[str, float]] = None,
                   extra_props: Optional[Mapping[str, float]] = None,
-                  group_size: int = GROUP_SIZE) -> props.PropertyVector:
+                  group_size: int = GROUP_SIZE,
+                  warnings: Optional[List[str]] = None
+                  ) -> props.PropertyVector:
     """Fully-automatic property extraction for ``fn(*args)`` (paper §3.2).
 
     Returns the finalized property vector (loads/stores by class, flops by
     kind, min(L,S), groups, const1).  ``extra_props`` lets tiled kernels add
     their schedule-derived properties (local loads, barriers).  ``args`` may
-    lie on any device: the trace runs on CPU stand-ins of them.
+    lie on any device: the trace runs on CPU stand-ins of them.  What the
+    walk could not see (an opaque higher-order op, a defaulted trip count)
+    is appended to ``warnings`` where given.
     """
     gm = trace(fn, *args)
     ext = Extraction()
@@ -705,6 +709,8 @@ def extract_graph(fn, *args, hints: Optional[Mapping[str, float]] = None,
             continue  # scatter store already counted
         ext.add_access(_Access(-1 - len(ext.accesses), _bits_of(val),
                                "store", 1, 0, elems))
+    if warnings is not None:
+        warnings.extend(ext.warnings)
     return ext.property_vector(group_size=group_size, extra=extra_props)
 
 

@@ -486,6 +486,7 @@ def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
         offset = 0 if cache is None else cache_pos
         positions = _positions_for(cfg, B, S, offset, x.device)
 
+    x = layers.rows_whole(x)    # gathered once for the three projections
     q = sharding.split_last(p.wq(x), H, dh)
     k = sharding.split_last(p.wk(x), KVH, dh)
     v = sharding.split_last(p.wv(x), KVH, dh)

@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed.sharding import (distribute_tensor_as,
                                               grad_in_layout, is_dtensor,
@@ -71,7 +71,8 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
 
 def ffn(gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
         x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: down(silu(gate x) ⊙ up x)."""
+    """SwiGLU: down(silu(gate x) ⊙ up x); x gathered once for both."""
+    x = rows_whole(x)
     return dense(down, F.silu(dense(gate, x)) * dense(up, x))
 
 
@@ -91,11 +92,41 @@ def embed(weight: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, weight)
 
 
+def _rows_split(x: torch.Tensor) -> bool:
+    """Does a DTensor split an inner dim of ``x`` (the sequence of a
+    sequence-parallel residual stream)?"""
+    return is_dtensor(x) and any(
+        isinstance(p, Shard) and 0 < p.dim % x.ndim < x.ndim - 1
+        for p in x.placements)
+
+
+def _head_on_rows(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The LM head on each rank's rows of a sequence-split ``x`` against the
+    whole weight (gathered once: its FSDP and vocabulary shards), so that
+    the logits come out in ``x``'s layout with the vocabulary whole, the
+    layout the sequence-parallel logits are annotated with.  GSPMD picks
+    this for the reference's annotation; computed vocab-parallel, the
+    logits (B, S, V) would cross the model axis both ways instead.  The
+    weight's gradient is each rank's sum over its rows: ``Partial`` over
+    the axes that split ``x``, reduce-scattered back to the weight's
+    layout."""
+    mesh = x.device_mesh
+    w = weight.redistribute(mesh, [Replicate()] * mesh.ndim)
+    partial = [Partial() if isinstance(p, Shard) else Replicate()
+               for p in x.placements]
+    wl, xl = w.to_local(grad_placements=partial), x.to_local()
+    out = (torch.einsum("bsd,hvd->bshv", xl, wl) if wl.ndim == 3
+           else F.linear(xl, wl))
+    return DTensor.from_local(out, mesh, x.placements, run_check=False)
+
+
 def lm_head(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """weight (vocab, d_model): x (..., d_model) → (..., vocab).  With
     ``n_heads`` codebook heads, weight (n_heads, vocab, d_model): x (B, S,
     d_model) → (B, S, n_heads, vocab).  A DTensor weight is gathered along
     d_model first (see ``tied_lm_head``)."""
+    if _rows_split(x):
+        return _head_on_rows(weight, x)
     x, weight = rows_whole(x), replicate_dims(weight, (-1,))
     if weight.ndim == 3:
         return grad_in_layout(torch.einsum("bsd,hvd->bshv", x, weight))
@@ -105,8 +136,11 @@ def lm_head(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def tied_lm_head(embed_weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """x · embedᵀ with embed (vocab, d_model).  A DTensor weight is
     gathered along d_model first (its FSDP shard): the head then runs
-    vocab-parallel over the model axis, as the lookup does."""
+    vocab-parallel over the model axis, as the lookup does; on a
+    sequence-split ``x`` it runs on each rank's rows (``_head_on_rows``)."""
     assert embed_weight.ndim == 2
+    if _rows_split(x):
+        return _head_on_rows(embed_weight, x)
     return grad_in_layout(F.linear(rows_whole(x),
                                    replicate_dims(embed_weight, (-1,))))
 

@@ -18,7 +18,9 @@ fit beside them on one card.  The step count is a host integer.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional
+import re
+from typing import (Any, Callable, Dict, Iterable, List, NamedTuple,
+                    Optional)
 
 import numpy as np
 import torch
@@ -82,9 +84,52 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 # ---------------------------------------------------------------------------
 
 
+#: a per-layer parameter name, ``blocks.{i}.<rest>``
+_LAYER_NAME = re.compile(r"blocks\.(\d+)\.(.+)")
+
+
+def stacked_groups(names: Iterable[str]) -> Dict[str, List[str]]:
+    """The reference's stacked leaves in the port's names: the per-layer
+    entries ``blocks.{i}.<rest>`` grouped by ``<rest>`` under the key
+    ``blocks.*.<rest>``, members in layer order (the reference stacks them
+    on a leading ``layers`` axis, ``src/repro/models/transformer.py``).
+    Every other name (the top-level leaves, the hybrid's ``shared.``
+    block, a flat dict's keys) is a group of its own under its name."""
+    groups: Dict[str, List[str]] = {}
+    layer: Dict[str, int] = {}
+    for n in names:
+        m = _LAYER_NAME.fullmatch(n)
+        key = f"blocks.*.{m.group(2)}" if m else n
+        groups.setdefault(key, []).append(n)
+        layer[n] = int(m.group(1)) if m else 0
+    return {k: sorted(v, key=layer.__getitem__) for k, v in groups.items()}
+
+
+def _stacked_1d(key: str, ndim: int) -> bool:
+    """A group whose stacked leaf is (L, d) in the reference: its second
+    moment is factored across the layers into one (L,) and one (d,)
+    moment, kept under the group's key."""
+    return key.startswith("blocks.*.") and ndim == 1
+
+
 def adafactor(decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0, momentum: Optional[float] = None,
               momentum_dtype: torch.dtype = torch.bfloat16) -> Optimizer:
+    """The reference's Adafactor over its stacked leaves.
+
+    A group of per-layer entries (``stacked_groups``) is one (L, *shape)
+    leaf of the reference.  A group of 1-D entries (norm scales, biases,
+    the SSM's ``conv_b`` / ``norm`` / ``A_log`` / ``D`` / ``dt_bias``) has
+    its second moment factored across the layers: ``v["blocks.*.<rest>"]
+    = {"vr": (L,), "vc": (d,)}``.  A group of entries of two or more
+    dimensions keeps one ``{"vr", "vc"}`` an entry, under the entry's
+    name: those are the reference's slices of its stacked moments.  The
+    update's RMS clip is taken over the whole group at once.  Momentum
+    stays one tensor a parameter.
+
+    A group is updated in three passes, so that no f32 temporary outgrows
+    that of its largest member: the moments; the sum of the squared
+    unclipped updates; the update recomputed, clipped and applied."""
     def _factored(p):
         return p.ndim >= 2
 
@@ -97,44 +142,82 @@ def adafactor(decay: float = 0.8, eps: float = 1e-30,
                                           dtype=f32, device=dev)}
             return {"v": torch.zeros_like(p, dtype=f32)}
 
-        st = {"v": {n: one(p) for n, p in params.items()}, "count": 0}
+        v = {}
+        for key, members in stacked_groups(params).items():
+            p = params[members[0]]
+            if _stacked_1d(key, p.ndim):
+                v[key] = {"vr": torch.zeros(len(members), dtype=torch.float32,
+                                            device=p.device),
+                          "vc": torch.zeros_like(p, dtype=torch.float32)}
+            else:
+                v.update({n: one(params[n]) for n in members})
+        st = {"v": v, "count": 0}
         if momentum is not None:
             st["m"] = {n: torch.zeros_like(p, dtype=momentum_dtype)
                        for n, p in params.items()}
         return st
+
+    def _unclipped(g, vr, vc, vr_mean):
+        """g / sqrt(v̂), v̂ the factored moment's outer product."""
+        denom = (vr[..., None] * vc[..., None, :]
+                 / torch.clamp(vr_mean[..., None], min=eps))
+        return g * torch.rsqrt(denom + eps)
 
     @torch.no_grad()
     def update(grads: Tensors, state, params: Tensors, lr: float):
         count = state["count"] + 1
         beta = _f32(1.0 - (np.float32(count) + np.float32(1.0))
                     ** np.float32(-decay))
-        for n, p in params.items():
-            g = grads[n].float()
-            g2 = g * g + eps
-            v = state["v"][n]
-            if _factored(p):
-                vr = v["vr"].mul(beta).add_(g2.mean(-1), alpha=1 - beta)
-                vc = v["vc"].mul(beta).add_(g2.mean(-2), alpha=1 - beta)
-                denom = (vr[..., None] * vc[..., None, :]
-                         / torch.clamp(vr.mean(-1, keepdim=True)[..., None],
-                                       min=eps))
-                u = g * torch.rsqrt(denom + eps)
-                del denom
+        for key, members in stacked_groups(params).items():
+            # 1. the second moments
+            if _stacked_1d(key, params[members[0]].ndim):
+                v = state["v"][key]
+                g2s = [grads[n].float().square().add_(eps) for n in members]
+                vr = v["vr"].mul(beta).add_(
+                    torch.stack([g2.mean() for g2 in g2s]), alpha=1 - beta)
+                vc = v["vc"].mul(beta).add_(sum(g2s) / len(members),
+                                            alpha=1 - beta)
+                del g2s
                 v["vr"].copy_(vr)
                 v["vc"].copy_(vc)
+                vr_mean = vr.mean(-1, keepdim=True)
+
+                def u_of(i, n):
+                    return _unclipped(grads[n].float()[None], vr[i:i + 1],
+                                      vc, vr_mean)[0]
             else:
-                vf = v["v"].mul(beta).add_(g2, alpha=1 - beta)
-                u = g * torch.rsqrt(vf + eps)
-                v["v"].copy_(vf)
-            del g2
-            # update clipping (RMS <= clip_threshold)
-            rms = torch.sqrt(torch.mean(u * u) + eps)
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            if momentum is not None:
-                m = state["m"][n]
-                u = momentum * m.float() + (1 - momentum) * u
-                m.copy_(u)
-            p.copy_(p.float() - _f32(lr) * u)
+                for n in members:
+                    g2 = grads[n].float().square().add_(eps)
+                    v = state["v"][n]
+                    if "vr" in v:
+                        v["vr"].mul_(beta).add_(g2.mean(-1), alpha=1 - beta)
+                        v["vc"].mul_(beta).add_(g2.mean(-2), alpha=1 - beta)
+                    else:
+                        v["v"].mul_(beta).add_(g2, alpha=1 - beta)
+                    del g2
+
+                def u_of(i, n):
+                    v = state["v"][n]
+                    if "vr" in v:
+                        return _unclipped(grads[n].float(), v["vr"], v["vc"],
+                                          v["vr"].mean(-1, keepdim=True))
+                    return grads[n].float() * torch.rsqrt(v["v"] + eps)
+            # 2. update clipping (RMS <= clip_threshold) over the group
+            sq = sum(torch.sum(u_of(i, n).square())
+                     for i, n in enumerate(members))
+            numel = sum(params[n].numel() for n in members)
+            rms = torch.sqrt(sq / numel + eps)
+            scale = torch.clamp(rms / clip_threshold, min=1.0)
+            # 3. the update
+            for i, n in enumerate(members):
+                u = u_of(i, n) / scale
+                if momentum is not None:
+                    m = state["m"][n]
+                    u = momentum * m.float() + (1 - momentum) * u
+                    m.copy_(u)
+                p = params[n]
+                p.copy_(p.float() - _f32(lr) * u)
+                del u
         new_state = {"v": state["v"], "count": count}
         if momentum is not None:
             new_state["m"] = state["m"]
@@ -217,10 +300,14 @@ def clip_by_global_norm(grads: Tensors, max_norm: float):
 
 def opt_state_axes(name: str, params_axes: Dict[str, tuple]):
     """Logical-axes tree mirroring ``get_optimizer(name).init(params)``,
-    keyed by parameter name as the state is.
+    keyed as the state is.
 
     Leaf-wise: AdamW m/v inherit the param axes; Adafactor's factored vr/vc
-    drop the last / second-to-last axis.  ``count`` is a replicated scalar.
+    drop the last / second-to-last axis.  A group of 1-D per-layer entries
+    (``stacked_groups``) has its moment under the group's key, as the
+    reference's (L, d) leaf: ``vr`` on the ``layers`` axis (which the rules
+    map to no mesh axis), ``vc`` on the members' axis.  ``count`` is a
+    replicated scalar.
     """
     if name == "adamw":
         return {"m": dict(params_axes), "v": dict(params_axes), "count": ()}
@@ -229,8 +316,14 @@ def opt_state_axes(name: str, params_axes: Dict[str, tuple]):
             if len(ax) >= 2:
                 return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
             return {"v": ax}
-        return {"v": {n: one(ax) for n, ax in params_axes.items()},
-                "count": ()}
+        v = {}
+        for key, members in stacked_groups(params_axes).items():
+            ax = params_axes[members[0]]
+            if _stacked_1d(key, len(ax)):
+                v[key] = {"vr": ("layers",), "vc": ax}
+            else:
+                v.update({n: one(params_axes[n]) for n in members})
+        return {"v": v, "count": ()}
     if name == "sgd":
         return {"m": dict(params_axes), "count": ()}
     raise KeyError(name)

@@ -14,7 +14,9 @@ the reference's device count is fixed before JAX starts.
   of 32 layers on both sides (every layer is priced alike; the whole depth
   takes about a minute of DTensor dispatch on a CPU).  Per-rank flops
   within 25 % of the reference's, its bar between extraction and closed
-  form (``tests/test_extraction.py:198``); collective bytes non-zero.
+  form (``tests/test_extraction.py:198``); collective bytes kind by kind
+  within 25 % of the reference's, or at a ratio pinned with the op that
+  issues the difference.
 * The expert-parallel cell of ``tests/test_multidevice.py``: mixtral-8x7b
   prefill at global batch 8 on a (1, 8) mesh under ``moe_mode="ep"``, at 2
   of 32 layers: collective bytes non-zero.
@@ -144,6 +146,39 @@ def test_sharded_train_step_moves_collective_bytes(costs):
         coll.get("reduce_scatter", 0) > 0, coll
     assert port["train"]["peak_bytes_per_device"] > 0
     assert port["train"]["xla_flops"] == port["train"]["xla_bytes"] == 0
+
+
+#: the parity cell's collective bytes a rank, the port's over the
+#: reference's compiled rollup, where they differ by more than the flops'
+#: 25 % bar (ROADMAP, Queue C watch-points: the ops that issue them).
+#: all-gather: ``layers.rows_whole`` gathers the sequence before each
+#: projection, the remat's recompute again, and ``sharding.split_last``
+#: the heads (15 on 4 ranks); the reduction kinds summed: the reference's
+#: CPU program has no reduce-scatter (all-reduce only), DTensor's sequence
+#: parallelism reduce-scatters each row-parallel output and each gathered
+#: input's gradient
+PINNED_OVER_REFERENCE = {"all_gather": 1.3210, "reductions": 3.7409}
+
+
+def test_collective_bytes_by_kind_against_the_compiled_rollup(costs):
+    """The parity cell's collective bytes kind by kind against the
+    reference's ``extract_compiled``: within 25 %, or at the pinned ratio
+    of a recorded deviation (2 %)."""
+    port, ref = costs
+    got, want = port["train"]["collective_bytes"], ref["collective_bytes"]
+    red = ("all_reduce", "reduce_scatter")
+    pairs = {"all_gather": (got.get("all_gather", 0),
+                            want.get("all_gather", 0)),
+             "reductions": (sum(got.get(k, 0) for k in red),
+                            sum(want.get(k, 0) for k in red))}
+    assert set(got) | set(want) <= {"all_gather", *red}, (got, want)
+    for kind, (a, b) in pairs.items():
+        assert b > 0, (kind, want)
+        pinned = PINNED_OVER_REFERENCE.get(kind)
+        if pinned is None:
+            assert abs(a - b) / b < 0.25, (kind, a, b)
+        else:
+            assert a / b == pytest.approx(pinned, rel=0.02), (kind, a, b)
 
 
 def test_expert_parallel_cell_moves_collective_bytes(costs):

@@ -203,18 +203,14 @@ def _close(got, want, rtol):
 
 @pytest.mark.parametrize("case", ["train", "kvh", "adafactor"])
 def test_sharded_train_steps_match_both_unsharded_steps(runs, case):
-    """Two steps' losses and gradient norms.  Adafactor's second loss is
-    held to the port's step only: the reference factors a stacked norm
-    scale's second moment over the layer axis, the port (one entry a
-    layer) keeps it whole, so their first updates differ."""
+    """Two steps' losses and gradient norms, against the reference's
+    unsharded step and the port's."""
     for out in runs["sharded"]:
         assert int(out[f"{case}_steps"]) == 2
         for key in ("loss", "grad_norm"):
-            got = out[f"{case}_{key}"]
-            ref = runs["ref"][f"{case}_{key}"]
-            if case == "adafactor":
-                got, ref = got[:1], ref[:1]
-            np.testing.assert_allclose(got, ref, rtol=REF_RTOL)
+            np.testing.assert_allclose(out[f"{case}_{key}"],
+                                       runs["ref"][f"{case}_{key}"],
+                                       rtol=REF_RTOL)
             np.testing.assert_allclose(out[f"{case}_{key}"],
                                        runs["port"][f"{case}_{key}"],
                                        rtol=PORT_RTOL)

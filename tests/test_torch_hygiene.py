@@ -15,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax", "benchmarks"}
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -55,7 +55,10 @@ def test_package_layout():
                  "calibration/telemetry.py", "calibration/online.py",
                  "runtime/faults.py", "runtime/supervisor.py",
                  "runtime/fleet_supervisor.py", "launch/fleet.py",
-                 "launch/__main__.py"):
+                 "launch/__main__.py", "benchmarks/__init__.py",
+                 "benchmarks/paper_table1.py", "benchmarks/paper_table2.py",
+                 "benchmarks/predictor_validation.py",
+                 "benchmarks/roofline.py", "benchmarks/kernel_roofline.py"):
         assert need in names, need
     for src in ("flash_attention.cu", "ssd_scan.cu", "matmul.cu",
                 "transpose.cu"):

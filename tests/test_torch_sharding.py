@@ -123,7 +123,13 @@ def test_opt_state_axes_mirror_the_optimizer_state(opt_name, name):
                 assert leaf.keys() == ax.keys()
                 for k, t in leaf.items():
                     assert len(ax[k]) == t.ndim, (n, k)
-                if "vr" in ax:
+                if n not in p_axes:   # a stacked 1-D leaf, (L, d)
+                    members = topt.stacked_groups(p_axes)[n]
+                    assert len(members) == cfg.n_layers
+                    assert ax == {"vr": ("layers",),
+                                  "vc": p_axes[members[0]]}
+                    assert len(p_axes[members[0]]) == 1
+                elif "vr" in ax:
                     assert ax == {"vr": p_axes[n][:-1],
                                   "vc": p_axes[n][:-2] + p_axes[n][-1:]}
             else:

@@ -31,6 +31,7 @@ from repro_torch.distributed.plan import plan_for
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.launch import specs
 from repro_torch.models import convert
+from repro_torch.optim import optimizers as topt
 
 torch.set_num_threads(1)
 
@@ -118,20 +119,29 @@ def _check_opt_state(cfg, name, t_state, t_sh, j_state, j_sh, ctx):
     # Adafactor factors a weight's second moment into rows and columns:
     # the port's (out, in) weight has the reference's (in, out) rows as its
     # columns.  The reference's stacked 1-D parameters (norm scales) are
-    # 2-D there and factored over the layer axis; the port keeps one entry
-    # per layer and their moments whole, so only the weights compare.
-    def moments(key):
+    # (L, d) there and factored over the layer axis; the port keeps that
+    # moment under the group's key (``blocks.*.<rest>``), laid out as the
+    # reference's whole (L,) and (d,) moments.
+    def moments(key, whole=False):
         def leaf(ax, layer, f32):
             if ax is None:
                 return None
-            return tuple(ax) if layer is None else tuple(ax)[1:]
+            return tuple(ax) if layer is None or whole else tuple(ax)[1:]
         return convert._convert(cfg, jax_map(lambda d: d.get(key), j_sh["v"]),
                                 leaf, lambda ax: ax)
     flipped = convert._convert(cfg, j_sh["v"], lambda ax, layer, f32: False,
                                lambda ax: True)
     rows, cols = moments("vc"), moments("vr")
-    compared = 0
+    groups = topt.stacked_groups(flipped)
+    compared = stacked = 0
     for n, t in t_state["v"].items():
+        if n in groups and n not in flipped:     # a stacked 1-D leaf
+            first = groups[n][0]
+            for k in ("vr", "vc"):
+                want = moments(k, whole=True)[first]
+                assert t_sh["v"][n][k] == ctx.placements(tuple(want)[:1]), n
+            stacked += 1
+            continue
         if "vr" not in t or n not in rows or rows[n] is None:
             continue
         if not flipped[n]:   # the embedding: the same layout in both
@@ -139,7 +149,7 @@ def _check_opt_state(cfg, name, t_state, t_sh, j_state, j_sh, ctx):
         assert t_sh["v"][n]["vr"] == ctx.placements(tuple(rows[n])[:1])
         assert t_sh["v"][n]["vc"] == ctx.placements(tuple(cols[n])[:1])
         compared += 1
-    assert compared > 0
+    assert compared > 0 and stacked > 0
 
 
 def jax_map(fn, tree):

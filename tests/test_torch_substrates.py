@@ -22,11 +22,13 @@ from repro.configs.base import SHAPES as JSHAPES
 from repro.configs.registry import ARCHS as JARCHS
 from repro.data import pipeline as jpipe
 from repro.distributed import plan as jplan
+from repro.models import transformer as jtransformer
 from repro.optim import optimizers as jopt
 from repro_torch.checkpoint import store
 from repro_torch.configs.registry import ARCHS as TARCHS
 from repro_torch.data import pipeline as tpipe
 from repro_torch.distributed import plan as tplan
+from repro_torch.models import convert
 from repro_torch.optim import optimizers as topt
 from repro_torch.runtime.straggler import StragglerMonitor
 
@@ -171,6 +173,90 @@ def test_optimizer_updates_match_the_reference(name, kw):
                               js, jp, jnp.float32(lr))
     _leaves_close(tp, jp)
     _leaves_close(ts, js)
+
+
+def _per_name(cfg, tree, flip):
+    """A reference tree of the parameters' layout (stacked) as the port's
+    names: each entry's slice of its layer (``flip`` swaps a dense weight's
+    last two axes), or, with ``flip=None``, the whole stacked leaf."""
+    def leaf(a, layer, f32):
+        if a is None:
+            return None
+        a = np.asarray(a, np.float32)
+        return a if layer is None or flip is None else a[layer]
+    return convert._convert(cfg, tree, leaf,
+                            (lambda a: a) if flip is None else flip)
+
+
+@pytest.mark.parametrize("momentum", [None, 0.9],
+                         ids=["no-momentum", "momentum"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "zamba2-2.7b"])
+def test_adafactor_over_a_model_tree_matches_the_stacked_reference(
+        arch, momentum):
+    """Adafactor over a converted model's parameters (one entry a layer)
+    against the reference's over its stacked tree: three updates,
+    parameters and the whole state at 1e-6.  The reference factors a
+    stacked 1-D leaf's moment across the layers and clips each stacked
+    leaf's update by its RMS over all layers."""
+    kw = dict(n_layers=3, param_dtype="float32")
+    jc = dataclasses.replace(JARCHS[arch].reduced(), **kw)
+    tc = dataclasses.replace(TARCHS[arch].reduced(), **kw)
+    jp, _ = jtransformer.init_params(jc, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(1)
+    grads = [jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
+        np.float32) * np.float32(rng.uniform(0.1, 3)), jp) for _ in range(3)]
+    mk = {} if momentum is None else dict(momentum=momentum)
+    t_opt = topt.adafactor(momentum_dtype=torch.float32, **mk)
+    j_opt = jopt.adafactor(momentum_dtype=jnp.float32, **mk)
+    tp = convert.params_from_reference(tc, jax.tree.map(np.asarray, jp))
+    ts, js = t_opt.init(tp), j_opt.init(jp)
+    for i, g in enumerate(grads):
+        lr = 1e-2 * (i + 1)
+        tp, ts = t_opt.update(convert.params_from_reference(tc, g), ts, tp,
+                              lr)
+        jp, js = j_opt.update(jax.tree.map(jnp.asarray, g), js, jp,
+                              jnp.float32(lr))
+    want = convert.params_from_reference(tc, jax.tree.map(np.asarray, jp))
+    assert sorted(tp) == sorted(want)
+    for n in tp:
+        np.testing.assert_allclose(tp[n].numpy(), want[n].numpy(),
+                                   err_msg=n, **TOL_OPT)
+    assert ts["count"] == int(js["count"]) == 3
+    if momentum is not None:
+        m = _per_name(tc, js["m"], lambda a: np.swapaxes(a, -1, -2))
+        for n in tp:
+            np.testing.assert_allclose(ts["m"][n].numpy(), m[n],
+                                       err_msg=n, **TOL_OPT)
+    whole = {k: _per_name(tc, jax_map(lambda d: d.get(k), js["v"]), None)
+             for k in ("v", "vr", "vc")}
+    flipped = convert._convert(tc, jax.tree.map(np.asarray, jp),
+                               lambda a, layer, f32: False, lambda a: True)
+    groups = topt.stacked_groups(tp)
+    stacked = 0
+    for key, v in ts["v"].items():
+        if key in groups and len(groups[key]) > 1:   # a stacked 1-D leaf
+            stacked += 1
+            n, layer = groups[key][0], None
+            assert v["vr"].shape == (3,) and v["vc"].shape == tp[n].shape
+        else:
+            n = key
+            layer = int(n.split(".")[1]) if n.startswith("blocks.") \
+                else None
+        for k, t in v.items():
+            rk = {"vr": "vc", "vc": "vr"}.get(k, k) if flipped[n] else k
+            ref = whole[rk][n]
+            ref = ref if layer is None else ref[layer]
+            np.testing.assert_allclose(t.numpy(), ref, err_msg=f"{key}/{k}",
+                                       **TOL_OPT)
+    assert stacked > 0
+
+
+def jax_map(fn, tree):
+    """``fn`` on each dict leaf of a reference Adafactor ``v`` tree."""
+    if isinstance(tree, dict) and ("vr" in tree or "v" in tree) and \
+            not any(isinstance(v, dict) for v in tree.values()):
+        return fn(tree)
+    return {k: jax_map(fn, v) for k, v in tree.items()}
 
 
 def test_adamw_keeps_the_parameter_type_and_updates_in_place():
