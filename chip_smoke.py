@@ -9,6 +9,8 @@
     python3 chip_smoke.py --only autotune       # the autotune phase alone
     python3 chip_smoke.py --only dp             # the data-parallel phase
     python3 chip_smoke.py --only gspmd          # the sharded steps, dry run
+    python3 chip_smoke.py --only engines        # the engine benchmarks
+    python3 chip_smoke.py --only examples       # the examples on the card
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
 source, all started together), holds each kernel against its plain PyTorch
@@ -136,6 +138,22 @@ counts set to 0 just before the path and read just after):
   beside ``simulate_serving``'s and the scorer's span predictions beside
   the measured spans;
 * ``autoshard``: one plan search on the host under ``gpu-h100``;
+* ``engines``: the planner's engine benchmarks (``python -m
+  repro_torch.benchmarks.search_bench``, ``fused_bench``, ``fleet_bench``
+  at their defaults under ``gpu-h100``, then ``run --only search_bench``),
+  each in a process of its own: every ratio beside the reference's bar (a
+  missed bar is reported with the scripts' WARNING, not fatal);
+* ``examples``: every ``repro_torch.examples`` module through its ``main``
+  on the card, each with its own assertions: ``quickstart`` (the tiny
+  ladder's tiled cases launch the ``matmul`` and ``transpose`` kernels),
+  ``kernel_autotune`` (``block_sizes="auto"`` launches the ``matmul``
+  kernel once), ``serve_decode``, ``train_smollm`` (the ~100M config 60
+  steps at 4 x 256, resumed for 60 more, then smollm-360m whole for 100:
+  the ``flash_attention`` kernel a layer a step, twice under remat
+  ``full``), ``fault_tolerance`` (replay and supervised losses at 1e-5),
+  ``fleet_churn``, ``autoshard_search``; the launches of each, counted
+  from its reset just before to its read just after, must equal its
+  reckoning;
 * online calibration and supervised recovery: ``robust.serve`` (llama3.2-3b,
   full width and depth, 8 slots x 2048 rows: two prefill steps through the
   attention kernel, then a ``DecodeServer`` under ``ServingSupervisor`` with
@@ -166,7 +184,8 @@ case table and (without ``-cases``) times it at the main paths' shapes, runs
 no main path, and says so in its last line; ``--only autotune`` builds and
 runs the autotune phase under the analytic seed alone, ``--only dp`` the
 data-parallel phase alone, ``--only gspmd`` the sharded steps and the dry
-run alone.  The ``kernels`` line
+run alone, ``--only engines`` / ``--only examples`` that phase alone.  The
+``kernels`` line
 gives each matmul kernel (``paper16``, ``fma128``, ``wgmma``), each SSD-scan
 kernel (``wgmma``, ``fma``) and each transpose kernel (``vec16``,
 ``scalar``) with its tile, registers and spills; the build fails if a tensor-core instance of
@@ -2541,6 +2560,226 @@ def phase_autoshard() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the planner's engine benchmarks and the examples
+
+#: the engine benchmarks, each ``python -m repro_torch.benchmarks.<name>`` at
+#: its defaults (10k cells, a 1M-cell stream; ``gpu-h100`` on the card's
+#: kernels) in a process of its own, so that its host seconds and peak RSS
+#: are its own, not those of a process holding full-width models
+ENGINES = ("search_bench", "fused_bench", "fleet_bench")
+ENGINE_TIMEOUT = 600
+#: the reference's bars: (record, key path, bar, "min" | "max"); a missed
+#: bar is reported (the script prints the reference's WARNING), not fatal
+ENGINE_BARS = {
+    "search_over_loop": ("search_bench", ("speedup",), 20.0, "min"),
+    "fused_over_columns": ("fused_bench", ("speedup",), 5.0, "min"),
+    "fused_over_loop": ("fused_bench", ("loop_speedup",), 100.0, "min"),
+    "obs_overhead": ("fused_bench", ("obs", "overhead"), 1.02, "max"),
+    "fleet_over_single": ("fleet_bench", ("warm_over_single_ratio",), 10.0,
+                          "max"),
+    "cache_reuse": ("fleet_bench", ("cache_reuse",), 0.5, "min"),
+}
+#: train_smollm's runs: the ~100M config until its loss falls, then resumed
+#: from its directory for as many steps again; the whole smollm-360m
+EXAMPLE_TOKENS = ["--batch", "4", "--seq", "256"]
+EXAMPLE_STEPS = 60
+EXAMPLE_FULL_STEPS = 100
+#: ``measure.time_kernel``'s calls of a case in the quickstart: the warm-up,
+#: the inner-repeat probe and 10 runs
+QUICKSTART_CALLS = 12
+
+
+def run_module(module: str, args: list, cwd: str, timeout: float):
+    """``python -m module *args`` from ``cwd``; a non-zero exit fails."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", module, *args], env=env,
+                       cwd=cwd, capture_output=True, text=True,
+                       timeout=timeout)
+    if p.returncode != 0:
+        raise AssertionError(f"{module} exited {p.returncode}:\n"
+                             f"{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+    return p.stdout, time.perf_counter() - t0
+
+
+def phase_engines() -> dict:
+    """The three engine benchmarks, then the dispatcher's ``--only
+    search_bench``, each in a process of its own writing into a temporary
+    directory; their records read back, each ratio beside its bar."""
+    recs, seconds, warnings = {}, {}, []
+    with tempfile.TemporaryDirectory(prefix="engines-") as d:
+        for name in ENGINES:
+            out = os.path.join(d, f"{name}.json")
+            text, seconds[name] = run_module(
+                f"repro_torch.benchmarks.{name}", ["--out", out], d,
+                ENGINE_TIMEOUT)
+            warnings += [l for l in text.splitlines()
+                         if l.startswith("WARNING")]
+            with open(out) as f:
+                recs[name] = json.load(f)
+        _, seconds["run"] = run_module(
+            "repro_torch.benchmarks.run", ["--only", "search_bench"], d,
+            ENGINE_TIMEOUT)
+        with open(os.path.join(d, "BENCH_torch_search.json")) as f:
+            via_run = json.load(f)
+    search, fused, fleet = (recs[n] for n in ENGINES)
+    if search["cells"] < 10000 or fused["stream"]["cells"] < 1_000_000 \
+            or {search["model"], fused["model"], via_run["model"]} \
+            != {kops.CARD_MODEL}:
+        raise AssertionError(f"engines: {search} {fused} {via_run}")
+    bars = {}
+    for key, (name, path, bar, kind) in ENGINE_BARS.items():
+        v = recs[name]
+        for k in path:
+            v = v[k]
+        bars[key] = {"value": v, "bar": bar, "kind": kind,
+                     "met": v >= bar if kind == "min" else v <= bar}
+    line = {"phase": "engines", "ok": True, "model": search["model"],
+            "bars": bars, "bars_met": all(b["met"] for b in bars.values()),
+            "warnings": warnings, "process_seconds": seconds,
+            "search": {k: search[k] for k in (
+                "cells", "loop_s", "batched_s", "us_per_cell", "speedup")},
+            "fused": {k: fused[k] for k in (
+                "cells", "fused_s", "columns_s", "loop_s", "speedup",
+                "loop_speedup", "hbm_budget")},
+            "obs": fused["obs"], "stream": fused["stream"],
+            "fleet": {k: fleet[k] for k in (
+                "cold_allocate_s", "warm_replan_s", "single_warm_replan_s",
+                "warm_over_single_ratio", "cache_reuse")},
+            "run_search_bench": {k: via_run[k] for k in (
+                "cells", "speedup")}}
+    emit(line)
+    return line
+
+
+def example_launches(**counts) -> dict:
+    return {"flash_attention": 0, "ssd_scan": 0, "matmul": 0,
+            "transpose": 0, **counts}
+
+
+def run_example(name: str, fn, argv: list, expect) -> tuple:
+    """One example's ``main(argv)`` on the card, its printout captured, the
+    launch counts set to 0 just before it and read just after; ``expect``
+    maps its result to the launches it must have made."""
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = fn(argv)
+    except BaseException:
+        print(buf.getvalue()[-6000:], file=sys.stderr, flush=True)
+        raise
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = read_launches()
+    want = expect(res)
+    if launched != want:
+        raise AssertionError(f"{name}: launches {launched}, expected {want}")
+    return res, buf.getvalue(), {"seconds": seconds, "launches": launched}
+
+
+def phase_examples() -> dict:
+    """Every example of ``repro_torch.examples`` through its ``main`` on the
+    card, each with its own assertions and the launches it must make."""
+    from repro_torch.examples import (autoshard_search, fault_tolerance,
+                                      fleet_churn, kernel_autotune,
+                                      quickstart, serve_decode, train_smollm)
+    runs, total = {}, example_launches()
+    tiny = [c.name for c in mkernels.measurement_cases("tiny", device="cpu")]
+    qs_mm = sum(n.startswith("mm_tiled_") for n in tiny)
+    qs_tr = sum(n.startswith("transpose_tiled_") for n in tiny)
+    hundred, full = (train_smollm.hundred_m_config(),
+                     get_arch("smollm-360m"))
+
+    def attention(cfg, steps):
+        per = 1 if cfg.remat_policy == "none" else 2
+        return example_launches(flash_attention=per * cfg.n_layers * steps)
+
+    with tempfile.TemporaryDirectory(prefix="examples-") as d:
+        plans = [
+            ("quickstart", quickstart.main, [],
+             lambda r: example_launches(matmul=QUICKSTART_CALLS * qs_mm,
+                                        transpose=QUICKSTART_CALLS * qs_tr)),
+            ("kernel_autotune", kernel_autotune.main, [],
+             lambda r: example_launches(matmul=1)),
+            ("serve_decode", serve_decode.main, [],
+             lambda r: example_launches()),
+            ("train_smollm", train_smollm.main,
+             EXAMPLE_TOKENS + ["--steps", str(EXAMPLE_STEPS),
+                               "--ckpt", os.path.join(d, "smollm")],
+             lambda r: attention(hundred, EXAMPLE_STEPS)),
+            ("train_smollm.resume", train_smollm.main,
+             EXAMPLE_TOKENS + ["--steps", str(2 * EXAMPLE_STEPS), "--resume",
+                               "--ckpt", os.path.join(d, "smollm")],
+             lambda r: attention(hundred, EXAMPLE_STEPS)),
+            ("train_smollm.full", train_smollm.main,
+             EXAMPLE_TOKENS + ["--full", "--steps", str(EXAMPLE_FULL_STEPS),
+                               "--ckpt", os.path.join(d, "smollm-full")],
+             lambda r: attention(full, EXAMPLE_FULL_STEPS)),
+            ("fault_tolerance", fault_tolerance.main,
+             ["--ckpt", os.path.join(d, "ft"),
+              "--chaos-ckpt", os.path.join(d, "ft-chaos")],
+             lambda r: attention(fault_tolerance.tiny_cfg(), r["steps_run"])),
+            ("fleet_churn", fleet_churn.main, [],
+             lambda r: example_launches()),
+            ("autoshard_search", autoshard_search.main, [],
+             lambda r: example_launches()),
+        ]
+        for name, fn, argv, expect in plans:
+            torch.cuda.empty_cache()
+            res, text, run = run_example(name, fn, argv, expect)
+            for k, n in run["launches"].items():
+                total[k] += n
+            runs[name] = {**run, **example_figures(name, res, text)}
+    emit({"phase": "examples", "ok": True, "launches": total,
+          "examples": runs})
+    return total
+
+
+def example_figures(name: str, res: dict, text: str) -> dict:
+    """The figures of one example's result that the examples line keeps,
+    and the checks the example's own assertions leave to its caller."""
+    if name == "quickstart":
+        if not (math.isfinite(res["predicted_s"]) and res["predicted_s"] > 0
+                and len(res["breakdown"]) == 5):
+            raise AssertionError(f"quickstart: {res}")
+        return {k: res[k] for k in ("cases", "fit_geomean_rel_err",
+                                    "predicted_s", "actual_s", "rel_err")}
+    if name == "kernel_autotune":
+        return {"winners": {s["kernel"]: {m: w["blocks"]
+                                          for m, w in s["winners"].items()}
+                            for s in res["sweeps"]},
+                "compiled_over_interpreted": {s["kernel"]: s["speedup"]
+                                              for s in res["sweeps"]},
+                "auto": res["auto"]}
+    if name == "serve_decode":
+        admits = [l for l in text.splitlines() if l.startswith("[admit]")]
+        if res["requests"] != 10 or len(admits) != 10 or \
+                not all("policy=model" in l for l in admits):
+            raise AssertionError(f"serve_decode: {res['requests']} requests, "
+                                 f"{len(admits)} [admit] lines")
+        return {k: res[k] for k in ("requests", "tokens", "tok_per_s",
+                                    "predicted_s", "predicted_half_s",
+                                    "simulated_mean_latency_s", "order")}
+    if name.startswith("train_smollm"):
+        if name == "train_smollm.resume" and res["start"] != EXAMPLE_STEPS:
+            raise AssertionError(f"resumed at {res['start']}")
+        return {k: res[k] for k in ("arch", "params", "start", "end",
+                                    "first_loss", "last_loss")} | {
+            "median_step_s": float(np.median(res["step_s"][1:]))}
+    if name == "fault_tolerance":
+        return {k: res[k] for k in ("replay_max_rel_diff", "survivors",
+                                    "recoveries", "mttr_s", "steps_run")}
+    if name == "fleet_churn":
+        return {"actions": res["actions"], "events": res["events"]}
+    return {"elastic": res["elastic"],
+            "balance": [(b["arch"], b["pool"], b["finish_s"])
+                        for b in res["balance"]],
+            "top": {k: v[0] for k, v in res["search"].items()}}
+
+
 def rel_frobenius(a, b) -> float:
     num = den = 0.0
     for i in range(a.shape[0]):  # row by row: the f32 copies stay small
@@ -4522,6 +4761,12 @@ def kernel_only(args, smi) -> int:
             phase_gspmd(args.seed)
         return finish(args, smi, {"ok": True, "scope": f"--only {args.only}",
                                   "main_paths": "gspmd only"})
+    if args.only in ("engines", "examples"):
+        with phase(args.only):
+            {"engines": phase_engines, "examples": phase_examples}[
+                args.only]()
+        return finish(args, smi, {"ok": True, "scope": f"--only {args.only}",
+                                  "main_paths": f"{args.only} only"})
     if args.only == "autotune":
         reset_launches()
         with phase("autotune"):
@@ -4583,14 +4828,16 @@ def main() -> int:
                     help="also write every phase line to this JSON file")
     ap.add_argument("--only", choices=("fa-cases", "fa", "ssd-cases", "ssd",
                                        "mm-cases", "mm", "tr-cases", "tr",
-                                       "autotune", "dp", "gspmd"),
+                                       "autotune", "dp", "gspmd",
+                                       "engines", "examples"),
                     default=None,
                     help="build, then only the flash-attention (fa), SSD-scan "
                          "(ssd), matmul (mm) or transpose (tr) cases (-cases) "
                          "or the cases and timings, or the autotune phase "
                          "under the analytic seed alone, or the "
                          "data-parallel phase (dp) or the sharded steps and "
-                         "the dry run (gspmd) alone")
+                         "the dry run (gspmd), or the engine benchmarks "
+                         "(engines) or the examples (examples) alone")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4734,6 +4981,13 @@ def run(args, cache_dir: str) -> int:
     torch.cuda.empty_cache()
     with phase("autoshard"):
         phase_autoshard()
+    # the planner's engine benchmarks in processes of their own, then every
+    # example on the card (each with its own reset and read of the counts)
+    with phase("engines"):
+        phase_engines()
+    with phase("examples"):
+        launched["examples"] = phase_examples()
+    torch.cuda.empty_cache()
     with phase("kernel_roofline"):
         phase_kernel_roofline()
     if args.profile:

@@ -94,9 +94,10 @@ def main(argv=None) -> None:
                     help="seed for fault payloads and backoff jitter")
     ap.add_argument("--devices", type=int, default=1,
                     help="fleet size the supervisor replans over")
-    ap.add_argument("--model", default=None, metavar="DEVICE",
+    ap.add_argument("--model", default=PREDICT_MODEL, metavar="DEVICE",
                     help="cost-model device name pricing the replan "
-                         "candidates (hardened registry lookup)")
+                         "candidates (hardened registry lookup; default: "
+                         "the card's)")
     ap.add_argument("--registry", default=None, metavar="DIR",
                     help="model-registry directory override")
     ap.add_argument("--watchdog-k", type=float, default=6.0,

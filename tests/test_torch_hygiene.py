@@ -15,7 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax", "benchmarks"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "flax", "optax", "benchmarks",
+             "examples"}
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -58,7 +59,14 @@ def test_package_layout():
                  "launch/__main__.py", "benchmarks/__init__.py",
                  "benchmarks/paper_table1.py", "benchmarks/paper_table2.py",
                  "benchmarks/predictor_validation.py",
-                 "benchmarks/roofline.py", "benchmarks/kernel_roofline.py"):
+                 "benchmarks/roofline.py", "benchmarks/kernel_roofline.py",
+                 "benchmarks/search_bench.py", "benchmarks/fused_bench.py",
+                 "benchmarks/fleet_bench.py", "benchmarks/run.py",
+                 "examples/__init__.py", "examples/quickstart.py",
+                 "examples/kernel_autotune.py", "examples/serve_decode.py",
+                 "examples/train_smollm.py", "examples/fault_tolerance.py",
+                 "examples/fleet_churn.py",
+                 "examples/autoshard_search.py"):
         assert need in names, need
     for src in ("flash_attention.cu", "ssd_scan.cu", "matmul.cu",
                 "transpose.cu"):
