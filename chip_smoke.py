@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only gspmd          # the sharded steps, dry run
     python3 chip_smoke.py --only engines        # the engine benchmarks
     python3 chip_smoke.py --only examples       # the examples on the card
+    python3 chip_smoke.py --only docs           # the documents' commands
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
 source, all started together), holds each kernel against its plain PyTorch
@@ -154,6 +155,15 @@ counts set to 0 just before the path and read just after):
   ``fleet_churn``, ``autoshard_search``; the launches of each, counted
   from its reset just before to its read just after, must equal its
   reckoning;
+* ``docs``: every command of ``docs/torch/*.md`` in its card form (full
+  width, ``--device`` at its default), each in a process of its own, the
+  commands under one heading in order in a temporary directory of their
+  own, every heading's side by side: each exits 0 and prints the lines its
+  document promises,
+  and a ``corrupt_registry`` run without ``--model`` leaves the registry's
+  ``gpu-h100`` file byte for byte; the line gives each command's seconds
+  and the bytes each heading's commands left behind (the phase runs
+  beside ``kernel_roofline``, which times nothing on the card);
 * online calibration and supervised recovery: ``robust.serve`` (llama3.2-3b,
   full width and depth, 8 slots x 2048 rows: two prefill steps through the
   attention kernel, then a ``DecodeServer`` under ``ServingSupervisor`` with
@@ -184,7 +194,8 @@ case table and (without ``-cases``) times it at the main paths' shapes, runs
 no main path, and says so in its last line; ``--only autotune`` builds and
 runs the autotune phase under the analytic seed alone, ``--only dp`` the
 data-parallel phase alone, ``--only gspmd`` the sharded steps and the dry
-run alone, ``--only engines`` / ``--only examples`` that phase alone.  The
+run alone, ``--only engines`` / ``--only examples`` / ``--only docs``
+that phase alone.  The
 ``kernels`` line
 gives each matmul kernel (``paper16``, ``fma128``, ``wgmma``), each SSD-scan
 kernel (``wgmma``, ``fma``) and each transpose kernel (``vec16``,
@@ -199,9 +210,11 @@ It needs a GPU (it fails where ``torch.cuda.is_available()`` is false) and
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import glob
 import io
 import json
 import math
@@ -2738,6 +2751,210 @@ def phase_examples() -> dict:
     return total
 
 
+#: the port's documents; their fenced blocks follow one convention, read by
+#: ``doc_blocks``: a ``bash`` block whose first line is ``# card``, ``# CPU``
+#: or ``# card, CPU`` is a command in that form, run as written; the
+#: commands of a form under one heading are a chain, run in order in one
+#: directory of their own; the ``text`` block right after a ``bash`` or
+#: ``python`` block is what it prints (for a command, lines it must print,
+#: ``…`` standing for any text within a line)
+DOCS_DIR = os.path.join(ROOT, "docs", "torch")
+DOC_TIMEOUT = 600
+_FENCE = re.compile(r"^```(\S*)\s*$")
+
+
+def doc_blocks(path: str) -> list:
+    """The fenced blocks of a document in order: ``lang``, ``code``, ``line``
+    (1-based, the opening fence), ``section`` (the heading above it),
+    ``tags`` (a ``bash`` block's forms) and ``expect`` (the ``text`` block
+    right after it, or None)."""
+    blocks, cur, gap, section = [], None, 0, ""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines, 1):
+        m = _FENCE.match(line)
+        if cur is None:
+            if m:
+                cur = {"lang": m.group(1), "line": i, "body": [],
+                       "after_gap": gap, "section": section}
+            elif line.strip():
+                gap += 1
+                if re.match(r"#{1,6} ", line):
+                    section = line.lstrip("#").strip()
+            continue
+        if m and not m.group(1):
+            code = "\n".join(cur.pop("body"))
+            head = code.splitlines()[0] if code else ""
+            tags = set()
+            if cur["lang"] == "bash" and head.startswith("#"):
+                tags = {w.strip() for w in head[1:].split(",")} \
+                    & {"card", "CPU"}
+            blocks.append({**cur, "code": code, "tags": tags,
+                           "expect": None})
+            cur, gap = None, 0
+        else:
+            cur["body"].append(line)
+    for prev, b in zip(blocks, blocks[1:]):
+        if b["lang"] == "text" and b["after_gap"] == 0 \
+                and prev["lang"] in ("bash", "python"):
+            prev["expect"] = b["code"]
+    return [b for b in blocks if b["lang"] != "text"]
+
+
+def unmet_lines(text: str, expect) -> list:
+    """The promised lines that no line of ``text`` matches: each promised
+    line's pieces between ``…`` must appear in order within one line."""
+    lines = text.splitlines()
+
+    def found(pattern: str) -> bool:
+        pieces = [p.strip() for p in pattern.split("…") if p.strip()]
+        for line in lines:
+            at = 0
+            for p in pieces:
+                at = line.find(p, at)
+                if at < 0:
+                    break
+                at += len(p)
+            else:
+                return True
+        return False
+
+    return [p for p in (expect or "").splitlines()
+            if p.strip() and not found(p)]
+
+
+def doc_env(workdir: str) -> dict:
+    """The environment a document's commands run in: the checkout's ``src``
+    on the path, ``python`` this interpreter, the default registry
+    (``experiments/registry`` under ``workdir``) and a compile cache of the
+    directory's own."""
+    shim = os.path.join(workdir, ".bin")
+    os.makedirs(shim, exist_ok=True)
+    exe = os.path.join(shim, "python")
+    if not os.path.exists(exe):
+        with open(exe, "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(exe, 0o755)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("REPRO_MODEL_REGISTRY", "PYTHONPATH")}
+    env.update(PYTHONPATH=os.path.join(ROOT, "src"),
+               PATH=shim + os.pathsep + env.get("PATH", ""),
+               REPRO_COMPILE_CACHE=os.path.join(workdir, ".exprops"))
+    return env
+
+
+def doc_chains(path: str, form: str) -> list:
+    """The command blocks of ``path`` in ``form`` ("card" or "CPU"), one
+    list a heading, in order."""
+    chains = {}
+    for b in doc_blocks(path):
+        if form in b["tags"]:
+            chains.setdefault(b["section"], []).append(b)
+    return list(chains.values())
+
+
+def run_doc_chain(path: str, blocks: list, workdir: str,
+                  timeout: float = DOC_TIMEOUT) -> list:
+    """The commands of one chain in order in ``workdir``: one row each with
+    its exit code, output, seconds, the promised lines it missed, and, for a
+    ``corrupt_registry`` run that names no ``--model``, whether the
+    registry's ``gpu-h100`` file kept its bytes."""
+    env = doc_env(workdir)
+    reg = os.path.join(workdir, "experiments", "registry", "gpu-h100.json")
+    rows = []
+    for b in blocks:
+        guard = "corrupt_registry" in b["code"] and "--model" not in b["code"]
+        before = None
+        if guard and os.path.exists(reg):
+            with open(reg, "rb") as f:
+                before = f.read()
+        t0 = time.perf_counter()
+        p = subprocess.run(["bash", "-c", "set -e\n" + b["code"]], cwd=workdir,
+                           env=env, capture_output=True, text=True,
+                           timeout=timeout)
+        row = {"doc": os.path.basename(path), "line": b["line"],
+               "rc": p.returncode,
+               "seconds": round(time.perf_counter() - t0, 3),
+               "out": p.stdout + p.stderr,
+               "missing": unmet_lines(p.stdout + p.stderr, b["expect"])}
+        if guard:
+            after = None
+            if os.path.exists(reg):
+                with open(reg, "rb") as f:
+                    after = f.read()
+            row["registry_kept"] = before is not None and after == before
+        rows.append(row)
+    return rows
+
+
+def run_doc_forms(path: str, form: str, workdir: str,
+                  timeout: float = DOC_TIMEOUT) -> list:
+    """Every chain of ``path`` in ``form``, one after another, each in a
+    directory of its own under ``workdir``."""
+    rows = []
+    for i, blocks in enumerate(doc_chains(path, form)):
+        d = os.path.join(workdir, f"chain{i}")
+        os.makedirs(d)
+        rows += run_doc_chain(path, blocks, d, timeout)
+    return rows
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs
+               if not os.path.islink(os.path.join(r, f)))
+
+
+def card_chain(chain: tuple) -> tuple:
+    """One chain's card forms in a temporary directory of its own; also the
+    bytes its commands left there."""
+    path, blocks = chain
+    with tempfile.TemporaryDirectory(prefix="docs-") as d:
+        rows = run_doc_chain(path, blocks, d)
+        return rows, dir_bytes(d)
+
+
+def docs_line() -> dict:
+    """Every card form of every command of ``docs/torch/*.md`` on the card:
+    each chain's commands in order in a temporary directory of its own (its
+    own registry, checkpoints and compile cache), every chain side by side.
+    Each command exits 0 and prints the lines its document promises,
+    and the ``corrupt_registry`` run without ``--model`` leaves the
+    registry's ``gpu-h100`` file byte for byte.  Returns the phase's line
+    (the caller emits it: it may run beside another phase)."""
+    t0 = time.perf_counter()
+    chains = [(p, blocks)
+              for p in sorted(glob.glob(os.path.join(DOCS_DIR, "*.md")))
+              for blocks in doc_chains(p, "card")]
+    with concurrent.futures.ThreadPoolExecutor(len(chains)) as pool:
+        done = list(pool.map(card_chain, chains))
+    rows = [r for chain_rows, _ in done for r in chain_rows]
+    bad = [r for r in rows if r["rc"] != 0 or r["missing"]
+           or r.get("registry_kept") is False]
+    if bad:
+        r = bad[0]
+        raise AssertionError(
+            f"{r['doc']}:{r['line']} exited {r['rc']}, missed "
+            f"{r['missing']}, registry kept {r.get('registry_kept')}:\n"
+            f"{r['out'][-6000:]}")
+    kept = [r["registry_kept"] for r in rows if "registry_kept" in r]
+    if len(rows) < 5 or kept != [True]:
+        raise AssertionError(f"docs: {len(rows)} card commands, "
+                             f"registry kept {kept}")
+    return {"phase": "docs", "ok": True, "commands": [
+        {k: r[k] for k in ("doc", "line", "seconds")} for r in rows],
+        "registry_kept": kept[0], "seconds": round(time.perf_counter() - t0, 3),
+        "bytes_left": [{"doc": os.path.basename(p), "line": blocks[0]["line"],
+                        "bytes": b}
+                       for (p, blocks), (_, b) in zip(chains, done)]}
+
+
+def phase_docs() -> dict:
+    line = docs_line()
+    emit(line)
+    return line
+
+
 def example_figures(name: str, res: dict, text: str) -> dict:
     """The figures of one example's result that the examples line keeps,
     and the checks the example's own assertions leave to its caller."""
@@ -4761,10 +4978,10 @@ def kernel_only(args, smi) -> int:
             phase_gspmd(args.seed)
         return finish(args, smi, {"ok": True, "scope": f"--only {args.only}",
                                   "main_paths": "gspmd only"})
-    if args.only in ("engines", "examples"):
+    if args.only in ("engines", "examples", "docs"):
         with phase(args.only):
-            {"engines": phase_engines, "examples": phase_examples}[
-                args.only]()
+            {"engines": phase_engines, "examples": phase_examples,
+             "docs": phase_docs}[args.only]()
         return finish(args, smi, {"ok": True, "scope": f"--only {args.only}",
                                   "main_paths": f"{args.only} only"})
     if args.only == "autotune":
@@ -4829,7 +5046,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("fa-cases", "fa", "ssd-cases", "ssd",
                                        "mm-cases", "mm", "tr-cases", "tr",
                                        "autotune", "dp", "gspmd",
-                                       "engines", "examples"),
+                                       "engines", "examples", "docs"),
                     default=None,
                     help="build, then only the flash-attention (fa), SSD-scan "
                          "(ssd), matmul (mm) or transpose (tr) cases (-cases) "
@@ -4837,7 +5054,8 @@ def main() -> int:
                          "under the analytic seed alone, or the "
                          "data-parallel phase (dp) or the sharded steps and "
                          "the dry run (gspmd), or the engine benchmarks "
-                         "(engines) or the examples (examples) alone")
+                         "(engines), the examples (examples) or the "
+                         "documents' commands (docs) alone")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4988,8 +5206,16 @@ def run(args, cache_dir: str) -> int:
     with phase("examples"):
         launched["examples"] = phase_examples()
     torch.cuda.empty_cache()
-    with phase("kernel_roofline"):
-        phase_kernel_roofline()
+    # every card form of the documents' commands, each in a process of its
+    # own (what those processes launch is not counted here), beside the
+    # kernel roofline, whose process prices fake tensors on the host and
+    # times nothing on the card
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        docs = pool.submit(docs_line)
+        with phase("kernel_roofline"):
+            phase_kernel_roofline()
+        with phase("docs"):
+            emit(docs.result())
     if args.profile:
         with phase("calibrate.profile"):
             phase_calibration_profile(args.seed)

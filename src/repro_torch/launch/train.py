@@ -29,9 +29,12 @@ refit models, ``--calib-auto-register`` writes them into the registry).
 ``--supervise`` (implied by ``--fault-plan``) trains under the
 ``Supervisor``: watchdog deadlines, backoff, elastic replan and checkpoint
 resume on device loss.  ``--devices N`` is the fleet size the replan prices
-meshes over (with ``--model``'s cost model from ``--registry``); the run
-itself stays on one card: training across several cards waits for the
-multi-device slice.
+meshes over (with ``--model``'s cost model from ``--registry``, ``gpu-h100``
+when ``--model`` is not given); the run itself stays on one card: training
+across several cards waits for the multi-device slice.  A
+``corrupt_registry`` fault damages the registry file of the ``--model`` the
+user gave; without ``--model`` it has no target and damages nothing, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -94,10 +97,11 @@ def main(argv=None) -> None:
                     help="seed for fault payloads and backoff jitter")
     ap.add_argument("--devices", type=int, default=1,
                     help="fleet size the supervisor replans over")
-    ap.add_argument("--model", default=PREDICT_MODEL, metavar="DEVICE",
+    ap.add_argument("--model", default=None, metavar="DEVICE",
                     help="cost-model device name pricing the replan "
-                         "candidates (hardened registry lookup; default: "
-                         "the card's)")
+                         "candidates (hardened registry lookup; unset: the "
+                         "card's, gpu-h100) and the target of a "
+                         "corrupt_registry fault (unset: none)")
     ap.add_argument("--registry", default=None, metavar="DIR",
                     help="model-registry directory override")
     ap.add_argument("--watchdog-k", type=float, default=6.0,
@@ -153,7 +157,7 @@ def main(argv=None) -> None:
             lambda mesh: Trainer(cfg, dc, tc, injector=injector,
                                  device=args.device),
             args.steps, cfg=ARCHS[args.arch], workload=workload,
-            n_devices=args.devices, model=args.model,
+            n_devices=args.devices, model=args.model or PREDICT_MODEL,
             registry_dir=args.registry, injector=injector,
             watchdog_k=args.watchdog_k,
             backoff=BackoffPolicy(seed=args.chaos_seed),

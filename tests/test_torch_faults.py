@@ -605,3 +605,87 @@ def test_evicted_request_resumes_from_prefix(serve_setup):
     while not req.done:
         srv.step()
     assert req.out[:2] == produced and len(req.out) <= 6
+
+
+# ---------------------------------------------------------------------------
+# The train launcher's chaos target: the reference's and the port's CLI
+# ---------------------------------------------------------------------------
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: a few steps of reduced smollm-360m: the registry corrupted at step 2,
+#: then a device lost at step 3, so the replan reads the registry after the
+#: corruption
+_CHAOS_ARGV = ["--arch", "smollm-360m", "--reduced", "--steps", "4",
+               "--batch", "2", "--seq", "32", "--ckpt-every", "2",
+               "--devices", "8",
+               "--fault-plan", "corrupt_registry@2;device_loss@3"]
+
+
+def _chaos_cli(tmp_path, name, module, extra):
+    """One run of ``module``'s training CLI with ``_CHAOS_ARGV``, its
+    registry a temporary directory holding a fitted-looking ``gpu-h100``
+    model; returns (stdout, the registry directory, the model file's bytes
+    before the run)."""
+    import subprocess
+    import sys
+    reg = tmp_path / f"{name}-reg"
+    path = registry.save_model(_chaos_model("gpu-h100"), str(reg))
+    with open(path, "rb") as f:
+        before = f.read()
+    env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"),
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               REPRO_MODEL_REGISTRY=str(reg),
+               REPRO_COMPILE_CACHE=str(tmp_path / f"{name}-cc"))
+    p = subprocess.run(
+        [sys.executable, "-m", *module, *_CHAOS_ARGV, "--ckpt",
+         str(tmp_path / f"{name}-ck"), *extra],
+        capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        timeout=600)
+    assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-3000:]
+    return p.stdout, reg, path, before
+
+
+def _fault_lines(text, kind):
+    return [l for l in text.splitlines()
+            if l.startswith("[faults]") and f"kind={kind}" in l]
+
+
+def test_train_cli_without_model_leaves_the_registry_alone(tmp_path):
+    """Without ``--model`` a ``corrupt_registry`` fault has no target: the
+    reference's launcher records ``<no registry device wired>`` and touches
+    nothing, and so does the port's, although its replan still prices
+    through ``gpu-h100`` (whose file it reads, intact)."""
+    ref, _, ref_path, ref_before = _chaos_cli(
+        tmp_path, "ref", ["repro.launch.train"], [])
+    port, _, path, before = _chaos_cli(
+        tmp_path, "port", ["repro_torch.launch", "train"],
+        ["--device", "cpu"])
+    with open(ref_path, "rb") as f:
+        assert f.read() == ref_before
+    with open(path, "rb") as f:
+        assert f.read() == before
+    assert not os.path.exists(path + ".corrupt")
+    want = ["[faults] step=2 kind=corrupt_registry "
+            "detail=<no registry device wired>"]
+    assert _fault_lines(ref, "corrupt_registry") == want
+    assert _fault_lines(port, "corrupt_registry") == want
+    assert "action=fallback" not in port
+    for text in (ref, port):
+        assert "cause=device_loss action=replan" in text
+        assert "recoveries=1" in text
+
+
+def test_train_cli_with_model_corrupts_and_falls_back(tmp_path):
+    """With ``--model gpu-h100`` the fault lands on that model's file; the
+    replan after the device loss quarantines it and falls back."""
+    port, reg, path, before = _chaos_cli(
+        tmp_path, "port", ["repro_torch.launch", "train"],
+        ["--device", "cpu", "--model", "gpu-h100"])
+    assert _fault_lines(port, "corrupt_registry") == [
+        f"[faults] step=2 kind=corrupt_registry detail={path}"]
+    with open(path + ".corrupt", "rb") as f:
+        assert f.read() != before
+    assert any(l.startswith("[registry]") and "device=gpu-h100" in l
+               and "action=fallback" in l for l in port.splitlines())
+    assert "cause=device_loss action=replan" in port
+    assert "recoveries=1" in port
