@@ -103,8 +103,8 @@ counts set to 0 just before the path and read just after):
   at the tiles ``gpu-h100`` picks;
 * the SSD chunk of a training step (``train.ssd_chunk``, zamba2): steps at
   the chunk ``"auto"`` picks under autograd (the backward's recompute
-  priced), at the one it picks for the kernel alone and at the configured
-  one, in turns;
+  priced: 256, which the tensor-core kernel walks in halves of 128), at the
+  one it picks for the kernel alone and at the configured one, in turns;
 * the step predictor (``predict`` lines): for every path measured above (the
   prefill steps, the servers' decode iterations with their slots, mean
   occupancy and cache rows, the train steps, the second f32 prefill step of
@@ -382,10 +382,10 @@ TOL_REPLAY = 1e-5
 # The reference's own case table for the SSD scan, plus edges: a chunk that
 # is not a multiple of the FP32 kernel's 32-row strip, mamba2-370m's d_state
 # at chunk 128, two groups, and the largest chunk at the largest d_state; then
-# bf16 cases for the tensor-core kernel (chunk 64 and 128, N 16/32/64/80/128,
-# G 2, P 16/32/48/64/128, at least 8 chunks so the state carries, and one
-# chunk alone) and bf16 the variant rule
-# sends to the FP32 kernel.  x is in the case's type; B and C are in the
+# bf16 cases for the tensor-core kernel (chunk 64, 128 and 256, N
+# 16/32/64/80/128, G 2, P 16/32/48/64/128, at least 8 chunks so the state
+# carries, and one chunk alone: at 256 its two halves) and bf16 the variant
+# rule sends to the FP32 kernel.  x is in the case's type; B and C are in the
 # case's B/C type in the contiguous layout, and in x's type in the main
 # path's layout (slices of x's tensor).  The last two fields: the kernel each
 # layout must land on (contiguous, main path's).
@@ -421,12 +421,22 @@ SSD_CASES = [
      ("wgmma", "wgmma")),
     ("wg_p48_n80", 1, 2, 1, 1024, 48, 80, 128, BF16, BF16,
      ("wgmma", "wgmma")),
+    # chunk 256, walked as two halves of 128 rows: N 64 and 128, G 2, P in
+    # two slices, one chunk alone
+    ("wg_q256_n64_g2", 2, 4, 2, 2048, 64, 64, 256, BF16, BF16,
+     ("wgmma", "wgmma")),
+    ("wg_q256_n128", 1, 4, 1, 2048, 64, 128, 256, BF16, BF16,
+     ("wgmma", "wgmma")),
+    ("wg_q256_p128_n16", 1, 2, 1, 2048, 128, 16, 256, BF16, BF16,
+     ("wgmma", "wgmma")),
+    ("wg_q256_one_chunk", 2, 4, 1, 256, 64, 64, 256, BF16, BF16,
+     ("wgmma", "wgmma")),
     ("bf16_chunk32", 1, 4, 1, 256, 32, 16, 32, BF16, BF16, ("fma", "fma")),
     ("bf16_p40_n24", 1, 2, 1, 512, 40, 24, 128, BF16, BF16, ("fma", "fma")),
 ]
 # the reference's own tolerances (tests/test_kernels.py): y f32 5e-4, y bf16
 # 3e-2, h_final 5e-4; chunk invariance 1e-4 (y of f32 inputs, and h_final of
-# bf16 inputs on the tensor-core kernel, chunk 64 against 128)
+# bf16 inputs on the tensor-core kernel, chunk 64 against 128 and 256)
 SSD_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
 SSD_TOL_H = 5e-4
 SSD_TOL_CHUNKS = 1e-4
@@ -996,14 +1006,14 @@ def phase_ssd_cases(gen):
     outs = [kops.ssd_scan(x, dt, A, B, C, chunk=c)[0]
             for c in (32, 64, 128, 256)]
     x, dt, A, B, C = ssd_inputs(2, 4, 1, 1024, 64, 64, torch.bfloat16, gen)
-    hs = [kops.ssd_scan(x, dt, A, B, C, chunk=c)[1] for c in (64, 128)]
+    hs = [kops.ssd_scan(x, dt, A, B, C, chunk=c)[1] for c in (64, 128, 256)]
     torch.cuda.synchronize()
     inv = max(float((outs[0] - o).abs().max()) for o in outs[1:])
-    inv_h = float((hs[0] - hs[1]).abs().max())
+    inv_h = max(float((hs[0] - h).abs().max()) for h in hs[1:])
     if not all(torch.allclose(outs[0], o, atol=SSD_TOL_CHUNKS,
                               rtol=SSD_TOL_CHUNKS) for o in outs[1:]) \
-            or not torch.allclose(hs[0], hs[1], atol=SSD_TOL_CHUNKS,
-                                  rtol=SSD_TOL_CHUNKS):
+            or not all(torch.allclose(hs[0], h, atol=SSD_TOL_CHUNKS,
+                                      rtol=SSD_TOL_CHUNKS) for h in hs[1:]):
         raise AssertionError(f"chunk invariance broken: y (f32) {inv:.3e}, "
                              f"h_final (bf16, wgmma) {inv_h:.3e} beyond "
                              f"{SSD_TOL_CHUNKS:g} abs/rel")
@@ -1021,7 +1031,9 @@ def phase_ssd_main_shape(cfg, B, S, gen, train: bool = False):
     """ssd_scan at a main path's shape, in the main path's layout, with A
     as the model makes it, at the chunk the path resolves (``"auto"``; a
     training path calls under autograd, where the backward's recompute is
-    priced too): error, times, bound."""
+    priced too), on the tensor-core kernel: error, times, bound, the FP32
+    kernel on the same values (the earlier design) and, at chunk 256 (two
+    halves of 128 rows), the same kernel at chunk 128."""
     from repro_torch.kernels import autotune
     s = cfg.ssm
     H, P, N, G = cfg.ssm_heads, s.head_dim, s.d_state, s.n_groups
@@ -1051,27 +1063,35 @@ def phase_ssd_main_shape(cfg, B, S, gen, train: bool = False):
     def fp32_kernel():
         kops.ssd_scan(x, dt, A, Bf, Cf, chunk=Q)
 
+    def at_128():
+        kops.ssd_scan(x, dt, A, Bm, Cm, chunk=128)
+
     if ssd.tile_for(x, Bf, Cf, Q).variant != "fma":
         raise AssertionError("mixed types must go to the FP32 kernel")
     ms_a = time_ms(kernel, 2, 10)
     plain_ms = time_ms(plain, 1, 3)
     fma_ms = time_ms(fp32_kernel, 1, 5)
+    ms_128 = time_ms(at_128, 1, 10) if Q == 256 else None
     ms_b = time_ms(kernel, 1, 10)
 
-    # operations as the reference's schedule_props counts them; bytes: each
+    t = ssd.tile_for(x, Bm, Cm, Q)
+    if t.variant != "wgmma":
+        raise AssertionError(f"{cfg.name}: the main path's SSD scan is served "
+                             f"by {t.variant}, not the tensor-core kernel")
+
+    # operations as the reference's schedule_props counts them, at the chunk
+    # rows the kernel walks (two halves of 128 at chunk 256); bytes: each
     # input read once, each output written once
-    cells = B * H * (S // Q)
-    flops = cells * 2.0 * (Q * Q * N + Q * Q * P + 2 * Q * P * N)
+    def schedule_flops(q):
+        return B * H * (S // q) * 2.0 * (q * q * N + q * q * P + 2 * q * P * N)
+
+    flops = schedule_flops(ssd.wgmma_rows(Q))
     nbytes = (2 * x.numel() * x.element_size()           # x in, y out
               + dt.numel() * 4 + A.numel() * 4
               + (Bm.numel() + Cm.numel()) * Bm.element_size()
               + B * H * P * N * 4)                         # h_final out
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     ms = min(ms_a, ms_b)
-    t = ssd.tile_for(x, Bm, Cm, Q)
-    if not train and t.variant != "wgmma":
-        raise AssertionError(f"{cfg.name}: the main path's SSD scan is served "
-                             f"by {t.variant}, not the tensor-core kernel")
     bound = max(t_ops, t_bytes) * 1e3
     return {
         "arch": cfg.name,
@@ -1088,6 +1108,11 @@ def phase_ssd_main_shape(cfg, B, S, gen, train: bool = False):
         "fp32_kernel_ms": fma_ms,
         "fp32_kernel_note": "ssd_fwd_kernel on the same values (B and C in "
                             "f32), timed in the same run",
+        **({"wgmma_ms_at_chunk_128": ms_128,
+            "chunk_256_note": "walked as two halves of 128 rows by the "
+                              "chunk-128 instance",
+            "ops_ms_one_256_chunk": schedule_flops(Q) / PEAK_BF16_FLOPS * 1e3}
+           if Q == 256 else {}),
         "bound_ms": bound, "share_of_bound": bound / ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3,
@@ -2094,8 +2119,8 @@ def instance_pattern(kernel: str, shape: dict, blocks: dict,
     if kernel == "ssd_scan":
         n = shape["N"]
         if variant == "wgmma":
-            chunk = min(blocks["chunk"], shape["L"])
-            return (rf"ssd_wgmma_kernelILi{chunk}"
+            rows = ssd.wgmma_rows(min(blocks["chunk"], shape["L"]))
+            return (rf"ssd_wgmma_kernelILi{rows}"
                     rf"ELi{64 if n <= 64 else 128}E")
         return rf"ssd_fwd_kernelILi{ssd._padded_state(n)}ELi{blocks['p_block']}E"
     if kernel == "matmul":
@@ -4947,8 +4972,9 @@ def ssd_extra(ss_ptxas: list) -> dict:
     """The ssd_scan fields beyond the common ones: the variant rule, and the
     registers and spills of every instance of both kernels, from the build
     log."""
-    return {"variants": {"bf16 x, B, C; chunk 64/128; P, N multiples of 16 "
-                         "up to 128; TMA-readable": "wgmma",
+    return {"variants": {"bf16 x, B, C; chunk 64/128/256 (256 in halves of "
+                         "128); P, N multiples of 16 up to 128; "
+                         "TMA-readable": "wgmma",
                          "anything else": "fma"},
             "ptxas": ss_ptxas}
 
@@ -5014,10 +5040,13 @@ def kernel_only(args, smi) -> int:
     elif args.only == "ssd":
         with phase("kernels.ssd.main_shape"):
             B, S = PREFILL_TOKENS
+            TB, TS = TRAIN_TOKENS
             emit({"phase": "kernels.ssd.main_shape", "ok": True,
                   "kernel": "ssd_scan",
                   "shapes": [phase_ssd_main_shape(get_arch(a), B, S, gen)
-                             for a in (HYBRID, SSM)],
+                             for a in (HYBRID, SSM)]
+                  + [phase_ssd_main_shape(get_arch(HYBRID), TB, TS, gen,
+                                          train=True)],
                   **ssd_extra(ptx["ssd_scan"])})
     elif args.only == "mm":
         with phase("kernels.matmul.main_shape"):

@@ -287,12 +287,14 @@ def ssd_scan_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: ExprLike,
     or a slice that holds all of P: the reference's cells).
 
     The products are the kernels' own: ``wgmma`` skips the 64 x 64 tiles
-    of C·Bᵀ and W above the diagonal; the FP32 kernel builds W a strip of
-    32 rows at a time in blocks of 64 columns, over the state padded to
-    16/32/64/128, each product's operands read from shared memory (a thread
-    owns 2 x 4 or 4 x 4 outputs: 0.75 reads a product, 0.5 in the state
-    update); its waits on tiles loaded from device memory (one a chunk,
-    one a strip) count ``MEMORY_WAIT_BARRIERS`` barriers each.
+    of C·Bᵀ and W above the diagonal, and walks a chunk of 256 as two
+    halves of 128 rows (``ssd_scan.wgmma_rows``: a cell, and a step of the
+    walk, a half); the FP32 kernel builds W a strip of 32 rows at a time in
+    blocks of 64 columns, over the state padded to 16/32/64/128, each
+    product's operands read from shared memory (a thread owns 2 x 4 or 4 x
+    4 outputs: 0.75 reads a product, 0.5 in the state update); its waits on
+    tiles loaded from device memory (one a chunk, one a strip) count
+    ``MEMORY_WAIT_BARRIERS`` barriers each.
 
     ``backward``: the call runs under autograd, so the chunk also sets the
     backward's recompute: the plain chunked version, forward and backward,
@@ -324,9 +326,14 @@ def ssd_scan_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: ExprLike,
     from repro_torch.kernels import ssd_scan as ssd
     _need_resident(variant, resident)
     waves, slots = _waves(blocks, resident)
+    steps = nc
     if variant == "wgmma":
-        tri = (Q + 64) / (2 * Q)      # 64 x 64 tiles on and below the diagonal
-        prod = tri * Q * Q * (N_ + Pc) + 2 * Q * Pc * N_
+        Qk = Min(Q, Const(ssd.WGMMA_ROWS))     # the instance's chunk rows
+        steps = CeilDiv(as_expr(L), Qk)
+        cells = blocks * steps
+        local = cells * (Qk * Pc + 2 * Qk * N_ + Pc * N_)
+        tri = (Qk + 64) / (2 * Qk)    # 64 x 64 tiles on and below the diagonal
+        prod = tri * Qk * Qk * (N_ + Pc) + 2 * Qk * Pc * N_
         syncs: ExprLike = ssd.WGMMA_SYNCS_PER_CHUNK
     else:
         NP = ssd._padded_state(int(N))
@@ -343,7 +350,7 @@ def ssd_scan_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: ExprLike,
             * ssd.fma_memory_waits_per_chunk(Q)
     out = {props.local_key(bits): local,
            props.mxu_key(bits): 2 * cells * prod * slots,
-           **_grid_keys(waves, nc, syncs)}
+           **_grid_keys(waves, steps, syncs)}
     if backward:
         rows = as_expr(Bz) * as_expr(H) * nc
         P_, key = as_expr(P), props.mxu_key(32)

@@ -31,8 +31,8 @@
 // The variant is chosen before the launch, by the caller (`pick_variant` in
 // kernels/ssd_scan.py), and passed in; ssd_scan_tile reports its tile.
 //
-// bf16 (ssd_wgmma_kernel: x, B and C all bf16, chunk 64 or 128, P and N
-// multiples of 16 up to 128, every operand readable by TMA):
+// bf16 (ssd_wgmma_kernel: x, B and C all bf16, chunk 64, 128 or 256, P and
+// N multiples of 16 up to 128, every operand readable by TMA):
 //   * The chunk has the shape of attention with a decay mask: C plays q, B
 //     plays k, x plays v and W plays P.  Q / 64 consumer warpgroups of 64
 //     chunk rows and a producer.  At chunk 128 the producer is a warpgroup:
@@ -72,6 +72,17 @@
 //     state update).  h_final is written once, f32.
 //   Shared memory at chunk 128: 3 x 48 KB + 16 KB at N <= 64, 2 x 80 KB +
 //   32 KB at N 128; one block per SM.
+//   * A chunk of 256 is walked as two halves of 128 rows by the chunk-128
+//     instance (`wg_rows`): the same two consumer warpgroups, the state
+//     carried in the owner's registers from one half to the next.  The
+//     chunked recurrence is exact for any chunk, so the halves' y and
+//     h_final equal the 256-step chunk's in exact arithmetic (and the
+//     cumsum restarts every 128 steps).  A true 256-row chunk would double
+//     the quadratic products of a row (C B^T and W x grow with the chunk),
+//     hold 4 consumer warpgroups at 120 registers a thread against the 128
+//     one 64 x 256 f32 accumulator needs, and fit 2 ring stages at N 64, 1
+//     at N 128.  So the training step's chunk of 256, which suits the
+//     backward's recompute, runs on the tensor cores at the cost of 128.
 //
 // f32 and mixed types, and bf16 the rule above sends elsewhere
 // (ssd_fwd_kernel): all arithmetic in f32 on the FP32 pipes, which alone
@@ -913,14 +924,17 @@ cudaError_t launch_wgmma(const CUtensorMap& tx, const CUtensorMap& tb,
 }
 
 bool wg_shape_ok(int P, int N, int chunk) {
-  return (chunk == 64 || chunk == 128) && P > 0 && P <= 128 && P % 16 == 0
-         && N > 0 && N <= 128 && N % 16 == 0;
+  return (chunk == 64 || chunk == 128 || chunk == 256) && P > 0 && P <= 128
+         && P % 16 == 0 && N > 0 && N <= 128 && N % 16 == 0;
 }
+
+// The chunk rows of the instance that walks `chunk`: 256 in halves of 128.
+int wg_rows(int chunk) { return chunk == 256 ? 128 : chunk; }
 
 int wg_state(int N) { return N <= 64 ? 64 : 128; }
 
 void wg_tile(int N, int chunk, int* stages, long long* smem) {
-  const bool q128 = chunk == 128, n64 = wg_state(N) == 64;
+  const bool q128 = wg_rows(chunk) == 128, n64 = wg_state(N) == 64;
   *stages = q128 ? (n64 ? WgTile<128, 64>::kStages : WgTile<128, 128>::kStages)
                  : (n64 ? WgTile<64, 64>::kStages : WgTile<64, 128>::kStages);
   *smem = static_cast<long long>(
@@ -962,10 +976,11 @@ extern "C" int ssd_scan_tile(int P, int N, int chunk, int variant,
 //   0: chunk in [1, 256] dividing L; N at most 128 and P any size, both
 //      multiples of 4; every row of x, B, C and y (pointer and strides)
 //      16-byte aligned for f32, 8-byte for bf16.
-//   1: x, B, C and y bf16; chunk 64 or 128 dividing L; P and N multiples of
-//      16 up to 128; bases of x, B and C 16-byte aligned and their strides
-//      (of dimensions of extent > 1) multiples of 8 elements, else
-//      cudaErrorMisalignedAddress; y's strides even.
+//   1: x, B, C and y bf16; chunk 64, 128 or 256 dividing L (256 walked in
+//      halves of 128); P and N multiples of 16 up to 128; bases of x, B
+//      and C 16-byte aligned and their strides (of dimensions of extent
+//      > 1) multiples of 8 elements, else cudaErrorMisalignedAddress; y's
+//      strides even.
 extern "C" int ssd_scan_forward(
     const void* x, const void* dt, const void* A, const void* B,
     const void* C, void* y, void* h_out, int Bz, int H, int G, int L, int P,
@@ -982,13 +997,14 @@ extern "C" int ssd_scan_forward(
   if (variant == 1) {
     if (!x_bf16 || !bc_bf16 || !wg_shape_ok(P, N, chunk))
       return static_cast<int>(cudaErrorInvalidValue);
+    const int rows = wg_rows(chunk);
     CUtensorMap tx, tb, tc;
     cudaError_t err =
-        encode_map(&tx, x, Bz, H, L, P, x_sb, x_sh, x_sl, chunk);
+        encode_map(&tx, x, Bz, H, L, P, x_sb, x_sh, x_sl, rows);
     if (err == cudaSuccess)
-      err = encode_map(&tb, B, Bz, G, L, N, b_sb, b_sg, b_sl, chunk);
+      err = encode_map(&tb, B, Bz, G, L, N, b_sb, b_sg, b_sl, rows);
     if (err == cudaSuccess)
-      err = encode_map(&tc, C, Bz, G, L, N, c_sb, c_sg, c_sl, chunk);
+      err = encode_map(&tc, C, Bz, G, L, N, c_sb, c_sg, c_sl, rows);
     if (err != cudaSuccess) return static_cast<int>(err);
     WgParams p;
     p.dt = static_cast<const float*>(dt);
@@ -998,7 +1014,7 @@ extern "C" int ssd_scan_forward(
     p.H = H; p.G = G; p.L = L; p.P = P; p.N = N;
     p.dt_sb = dt_sb; p.dt_sh = dt_sh; p.dt_sl = dt_sl;
     p.y_sb = y_sb; p.y_sh = y_sh; p.y_sl = y_sl;
-    if (chunk == 128)
+    if (rows == 128)
       err = wg_state(N) == 64 ? launch_wgmma<128, 64>(tx, tb, tc, p, Bz, s)
                               : launch_wgmma<128, 128>(tx, tb, tc, p, Bz, s);
     else

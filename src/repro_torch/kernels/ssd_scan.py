@@ -22,15 +22,18 @@ y out dominate; the operations, 2·(Q²N + Q²P + 2QPN) per (b, h, chunk), take
 less time on the bf16 tensor cores).  ``pick_variant`` chooses the kernel
 before the launch, from types, shapes, strides and bases alone:
 
-* ``"wgmma"`` (``ssd_wgmma_kernel``): x, B and C all bf16, chunk 64 or 128,
-  P and N multiples of 16 up to 128, and each of x, B, C readable by TMA (a
-  16-byte-aligned base, the last dimension contiguous, the other strides
-  multiples of 16 bytes).  The serving paths of zamba2-2.7b and mamba2-370m
-  hand over exactly that.  Its four products run on the bf16 tensor cores
-  with f32 accumulators, fed by a TMA ring of chunk stages; the f32
-  intermediates W, h and x·w_end enter the products as hi + lo bf16 pairs,
-  so it rounds nothing the f32 plain version does not.  A P slice of 64 per
-  block; the state in registers.
+* ``"wgmma"`` (``ssd_wgmma_kernel``): x, B and C all bf16, chunk 64, 128
+  or 256, P and N multiples of 16 up to 128, and each of x, B, C readable
+  by TMA (a 16-byte-aligned base, the last dimension contiguous, the other
+  strides multiples of 16 bytes).  The serving and training paths of
+  zamba2-2.7b and mamba2-370m hand over exactly that.  Its four products
+  run on the bf16 tensor cores with f32 accumulators, fed by a TMA ring of
+  chunk stages; the f32 intermediates W, h and x·w_end enter the products
+  as hi + lo bf16 pairs, so it rounds nothing the f32 plain version does
+  not.  A P slice of 64 per block; the state in registers.  A chunk of 256
+  (the training step's, which suits the backward's recompute) is walked as
+  two halves of 128 rows by the chunk-128 instance (``wgmma_rows``): the
+  chunked recurrence is exact for any chunk.
 * ``"fma"`` (``ssd_fwd_kernel``): everything else (f32, mixed types, other
   chunks, layouts TMA cannot read).  All arithmetic in f32 on the FP32
   pipes, which alone take about ten times the byte bound; the state in
@@ -67,8 +70,10 @@ MAX_CHUNK = 256
 
 #: the kernels of the CUDA source, by the number it takes them by
 VARIANTS = ("fma", "wgmma")
-#: chunks the tensor-core kernel is built for
-WGMMA_CHUNKS = (64, 128)
+#: chunks the tensor-core kernel takes
+WGMMA_CHUNKS = (64, 128, 256)
+#: the most chunk rows an instance of the tensor-core kernel walks at a time
+WGMMA_ROWS = 128
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 15 + [ctypes.c_int] * 3
@@ -148,6 +153,13 @@ def variant_rule(P: int, N: int, chunk: int, tma: bool) -> str:
     return "wgmma"
 
 
+def wgmma_rows(chunk: int) -> int:
+    """The chunk rows of the ``ssd_wgmma_kernel`` instance that runs
+    ``chunk``, its step through L: the chunk itself, or halves of 128 for
+    256 (``wg_rows`` in the CUDA source)."""
+    return min(chunk, WGMMA_ROWS)
+
+
 def pick_variant(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
                  chunk: int, bases: Optional[Sequence[int]] = None) -> str:
     """The kernel a call goes to, from types, shapes, strides and base
@@ -180,6 +192,7 @@ def _fma_smem(chunk: int, N: int, p_block: int) -> int:
 
 
 def _wgmma_smem(chunk: int, N: int, stages: int) -> int:
+    chunk = wgmma_rows(chunk)                    # the instance's stage rows
     halves = 1 if N <= 64 else 2                 # 64-column halves of N
     stage = chunk * _WG_ROW + 2 * halves * chunk * _WG_ROW
     h_bytes = halves * _WG_P_BLOCK * _WG_ROW
@@ -214,8 +227,9 @@ def tile_rule(P: int, N: int, chunk: int, variant: str = "fma") -> Tile:
 #: what a block of each kernel holds besides shared memory: threads, and
 #: registers a thread as ``nvcc -Xptxas -v`` reports them for this source
 #: (CUDA 12.9, sm_90a): the FP32 kernel's instances by (padded N, P slice),
-#: the tensor-core kernel's by (chunk, padded N), its threads by chunk (a
-#: consumer warpgroup per 64 rows and a producer warp, or warpgroup at 128).
+#: the tensor-core kernel's by (chunk rows of the instance, ``wgmma_rows``;
+#: padded N), its threads by those rows (a consumer warpgroup per 64 rows
+#: and a producer warp, or warpgroup at 128).
 #: ``chip_smoke.py`` holds them against the build's report,
 #: ``tests/test_torch_gpu.py`` the blocks an SM holds against the CUDA
 #: occupancy calculator.
@@ -266,8 +280,9 @@ def block_resources(variant: str, chunk: int, N: int,
     """(threads, registers a thread) of the block that runs ``variant`` at
     (chunk, N, P slice)."""
     if variant == "wgmma":
-        return (WGMMA_THREADS[chunk],
-                WGMMA_REGISTERS[(chunk, 64 if N <= 64 else 128)])
+        rows = wgmma_rows(chunk)
+        return (WGMMA_THREADS[rows],
+                WGMMA_REGISTERS[(rows, 64 if N <= 64 else 128)])
     return FMA_THREADS, FMA_REGISTERS[(_padded_state(N), p_block)]
 
 
@@ -278,9 +293,11 @@ def schedule_props(Bz: int, H: int, L: int, P: int, N: int, *,
     ``src/repro/kernels/ssd_scan.py:125``: per (batch, head, chunk) cell the
     x/B/C blocks move on chip and the (P, N) state stays there) at the
     chunk the call runs (clipped to L), counted on the kernel that runs it:
-    ``wgmma`` (bf16 ``mxu:16`` and ``local:16``) or the FP32 kernel
-    (``mxu:32``, ``local:32``: it holds everything in f32), a cell per P
-    slice of a thread block (``tile_rule``; each recomputes C·Bᵀ).
+    ``wgmma`` (bf16 ``mxu:16`` and ``local:16``; a cell per chunk rows its
+    instance walks, ``wgmma_rows``: two halves of 128 at chunk 256) or the
+    FP32 kernel (``mxu:32``, ``local:32``: it holds everything in f32), a
+    cell per P slice of a thread block (``tile_rule``; each recomputes
+    C·Bᵀ).
     ``tma``: x, B, C bf16 and readable by TMA (default: ``bits == 16`` with
     P and N multiples of 8, contiguous).  Where the kernel computes in the
     input's type and one slice holds all of P, this is the reference's
@@ -291,6 +308,8 @@ def schedule_props(Bz: int, H: int, L: int, P: int, N: int, *,
         tma = bits == 16 and P % 8 == 0 and N % 8 == 0
     t = tile_rule(P, N, chunk, variant_rule(P, N, chunk, tma))
     kbits = 16 if t.variant == "wgmma" else 32
+    if t.variant == "wgmma":
+        chunk = wgmma_rows(chunk)
     Pc = min(P, t.p_block)
     cells = Bz * H * -(-L // chunk) * -(-P // t.p_block)
     local = cells * (chunk * Pc + 2 * chunk * N + Pc * N)

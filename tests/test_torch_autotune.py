@@ -420,6 +420,43 @@ def test_ssd_pick_on_the_main_paths_is_a_tensor_core_chunk(name, B, S):
     assert kernelmodel.get("ssd_scan").variant(shape, best) == "wgmma"
 
 
+@pytest.mark.parametrize("name,B,S", [("zamba2-2.7b", 2, 4096),
+                                      ("mamba2-370m", 2, 4096),
+                                      ("zamba2-2.7b", 4, 2048)])
+def test_ssd_pick_under_autograd_is_a_tensor_core_chunk(name, B, S):
+    """A training step calls the scan under autograd, where the chunk also
+    sets the backward's chunk-by-chunk recompute: ``"auto"`` picks 256,
+    and ``pick_variant`` sends it to ``ssd_wgmma_kernel`` (two halves of
+    128 rows), not the FP32 kernel."""
+    from repro_torch.configs.registry import ARCHS
+    cfg = ARCHS[name]
+    shape = {"Bz": B, "H": cfg.ssm_heads, "L": S, "P": cfg.ssm.head_dim,
+             "N": cfg.ssm.d_state, "bits": 16, "tma": True, "grad": True}
+    best = autotune.best_block_sizes("ssd_scan", shape, "gpu-h100")
+    assert best["chunk"] == 256
+    assert kernelmodel.get("ssd_scan").variant(shape, best) == "wgmma"
+    assert tssd.variant_rule(cfg.ssm.head_dim, cfg.ssm.d_state, 256,
+                             True) == "wgmma"
+
+
+def test_ssd_wgmma_tiles_at_chunk_256_fit_shared_memory():
+    """Every tensor-core tile at chunk 256 is the chunk-128 instance's
+    (its 128-row stage ring) and fits a block's shared memory; the CUDA
+    registry's footprint and blocks an SM say the same."""
+    km = kernelmodel.get("ssd_scan")
+    for P in range(16, 129, 16):
+        for N in range(16, 129, 16):
+            t = tssd.tile_rule(P, N, 256, "wgmma")
+            assert t == tssd.tile_rule(P, N, 128, "wgmma")
+            assert t.smem <= tssd.SMEM_LIMIT
+            shape = {"Bz": 2, "H": 8, "L": 4096, "P": P, "N": N, "bits": 16,
+                     "tma": True}
+            cands = {c["chunk"]: c for c in km.candidates(shape)}
+            assert km.variant(shape, cands[256]) == "wgmma"
+            assert km.footprint(shape, cands[256]) == t.smem
+            assert cands[256]["resident"] == cands[128]["resident"] >= 1
+
+
 def test_candidates_respect_the_budget_passed():
     shape = CARD_SHAPES[3][1]
     km = kernelmodel.get("flash_attention")
@@ -509,7 +546,7 @@ def test_matmul_schedule_props_bf16_on_the_fp32_pipes():
 
 @pytest.mark.parametrize("N,chunk,bits,tma,ref_bits", [
     (128, 64, 32, None, 32), (64, 256, 32, None, 32), (128, 64, 16, None, 16),
-    (128, 128, 16, True, 16), (128, 32, 16, None, 32), (64, 256, 16, None, 32),
+    (128, 128, 16, True, 16), (128, 32, 16, None, 32), (64, 256, 16, False, 32),
     (128, 128, 16, False, 32)])
 def test_ssd_schedule_props(N, chunk, bits, tma, ref_bits):
     """On the kernel that runs the chunk: ``wgmma`` counts as the
@@ -519,6 +556,30 @@ def test_ssd_schedule_props(N, chunk, bits, tma, ref_bits):
     assert tssd.tile_rule(64, N, chunk, "fma").p_block == 64
     got = tssd.schedule_props(*args, chunk=chunk, bits=bits, tma=tma)
     _close(got, jssd.schedule_props(*args, chunk=chunk, bits=ref_bits))
+
+
+@pytest.mark.parametrize("N", [64, 128])
+def test_ssd_schedule_props_at_chunk_256_count_the_halves(N):
+    """On ``wgmma`` a chunk of 256 runs as two halves of 128 rows: the
+    reference's bf16 vector at chunk 128.  The CUDA vector's kernel keys
+    equal chunk 128's; under autograd only the recompute (at 256) differs."""
+    args = (2, 8, 1024, 64, N)
+    got = tssd.schedule_props(*args, chunk=256, bits=16, tma=True)
+    _close(got, jssd.schedule_props(*args, chunk=128, bits=16))
+    vec = {c: evaluate_vector(kernelmodel.ssd_scan_vector(
+        *args, chunk=c, bits=16, variant="wgmma", p_block=64, resident=1),
+        {}) for c in (128, 256)}
+    assert vec[256] == vec[128]
+    assert vec[256][props.BARRIER] == 1 * (1024 // 128) \
+        * tssd.WGMMA_SYNCS_PER_CHUNK
+    bwd = {c: evaluate_vector(kernelmodel.ssd_scan_vector(
+        *args, chunk=c, bits=16, variant="wgmma", p_block=64, resident=1,
+        backward=True), {}) for c in (128, 256)}
+    assert bwd[256][props.CONST1] == 1 + (1024 // 256) \
+        * tssd.RECOMPUTE_DISPATCHES_PER_CHUNK
+    kernel_keys = set(vec[256]) - {props.CONST1}
+    assert {k: bwd[256][k] for k in kernel_keys} \
+        == {k: vec[256][k] for k in kernel_keys}
 
 
 def test_ssd_schedule_props_count_the_p_slices():
@@ -702,21 +763,24 @@ CARD_MS = {
         {"Bz": 4, "H": 32, "L": 2048, "P": 64, "N": 128, "bits": 32},
         {(16,): 1.5726, (32,): 1.0895, (64,): 1.0681, (128,): 1.192,
          (256,): 4.6689}),
+    # the bf16 SSD rows: a later run of the same phase, once chunk 256 ran
+    # on the tensor-core kernel (two halves of 128 rows; before, on the
+    # FP32 kernel: 2.68, 4.43 and 3.56 ms)
     "zamba2-bf16-ssd": (
         {"Bz": 4, "H": 80, "L": 2048, "P": 64, "N": 64, "bits": 16,
          "tma": True},
-        {(16,): 2.1958, (32,): 1.608, (64,): 0.2242, (128,): 0.1839,
-         (256,): 2.6839}),
+        {(16,): 2.2195, (32,): 1.6045, (64,): 0.2207, (128,): 0.1785,
+         (256,): 0.1773}),
     "mamba2-bf16-ssd": (
         {"Bz": 4, "H": 32, "L": 2048, "P": 64, "N": 128, "bits": 16,
          "tma": True},
-        {(16,): 1.5875, (32,): 1.079, (64,): 0.085, (128,): 0.0885,
-         (256,): 4.4315}),
+        {(16,): 1.5872, (32,): 1.0928, (64,): 0.0799, (128,): 0.0834,
+         (256,): 0.0835}),
     "zamba2-train-bf16-ssd": (
         {"Bz": 2, "H": 80, "L": 4096, "P": 64, "N": 64, "bits": 16,
          "tma": True},
-        {(16,): 2.6118, (32,): 1.7114, (64,): 0.2315, (128,): 0.2382,
-         (256,): 3.5642}),
+        {(16,): 2.5953, (32,): 1.6931, (64,): 0.2238, (128,): 0.2299,
+         (256,): 0.231}),
     "transpose-f32": ({"M": 16384, "N": 16384, "bits": 32},
                       {(16,): 0.8037, (32,): 1.0839, (64,): 0.9509}),
     "transpose-bf16": ({"M": 16384, "N": 16384, "bits": 16},
@@ -774,8 +838,9 @@ def test_bf16_main_path_picks_are_the_tiles_they_run():
     shapes.  The kernel alone at zamba2's training shape picks 64 (2
     blocks an SM, one wave, the card's fastest there); the training path
     calls it under autograd, where the chunk also sets the backward's
-    chunk-by-chunk recompute, and picks 256 (the card: 3.5 s a step
-    against 5.0 at 128 and 8.8 at 64)."""
+    chunk-by-chunk recompute, and picks 256, which the tensor-core kernel
+    walks as two halves of 128 rows (the card: 3.0 s a step against 5.1 at
+    128 and 8.8 at 64; 3.6 s while 256 ran on the FP32 kernel)."""
     for dh in (64, 80, 128):
         shape = dict(CARD_MS["llama-f32-attention"][0], dh=dh, bits=16)
         bq, bk = tfa.tile_rule(dh)[:2]
@@ -789,8 +854,8 @@ def test_bf16_main_path_picks_are_the_tiles_they_run():
         pick = autotune.best_block_sizes("ssd_scan", shape, "gpu-h100")
         assert pick["chunk"] == chunk and km.variant(shape, pick) == "wgmma"
     train = dict(CARD_MS["zamba2-train-bf16-ssd"][0], grad=True)
-    assert autotune.best_block_sizes("ssd_scan", train, "gpu-h100")[
-        "chunk"] == 256
+    pick = autotune.best_block_sizes("ssd_scan", train, "gpu-h100")
+    assert pick["chunk"] == 256 and km.variant(train, pick) == "wgmma"
 
 
 def test_f32_ssd_leaves_chunk_256_at_zamba2():
@@ -831,8 +896,16 @@ def test_residency_mirrors_are_the_sources_launch_geometry():
                                       <= tfa.SMEM_LIMIT}
     assert set(tssd.FMA_REGISTERS) == {(n, p) for n in (16, 32, 64, 128)
                                        for p in (16, 32, 64)}
-    assert set(tssd.WGMMA_REGISTERS) == {(c, n) for c in tssd.WGMMA_CHUNKS
-                                         for n in (64, 128)}
+    # the tensor-core kernel's instances by their chunk rows: chunk 256 runs
+    # the chunk-128 instance in halves
+    assert tssd.WGMMA_CHUNKS == (64, 128, 256)
+    assert set(tssd.WGMMA_REGISTERS) == {(tssd.wgmma_rows(c), n)
+                                         for c in tssd.WGMMA_CHUNKS
+                                         for n in (64, 128)} \
+        == {(c, n) for c in (64, 128) for n in (64, 128)}
+    for n in (16, 64, 80, 128):
+        assert tssd.block_resources("wgmma", 256, n, 64) \
+            == tssd.block_resources("wgmma", 128, n, 64)
     # every candidate of the main shapes carries the blocks its kernel's
     # mirrors give
     for name, (shape, _) in CARD_MS.items():

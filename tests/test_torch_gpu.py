@@ -260,6 +260,8 @@ def test_ssd_output_keeps_the_inputs_layout(cuda):
     (64, 128, 128, "wgmma", 64, 2),    # mamba2-370m: 2 stages fit at N 128
     (128, 128, 64, "wgmma", 64, 3),
     (32, 16, 64, "wgmma", 64, 3),
+    (64, 64, 256, "wgmma", 64, 3),     # zamba2's training chunk: halves
+    (64, 128, 256, "wgmma", 64, 2),    # of 128 rows, chunk 128's ring
 ])
 def test_ssd_tile_fits_shared_memory(P, N, chunk, variant, want_pb,
                                      want_stages, cuda):
@@ -286,6 +288,10 @@ WGMMA_CASES = [
     (2, 4, 1, 128, 64, 64, 128, "bfloat16"),    # one chunk: the walk's ends
     (1, 4, 1, 512, 16, 32, 64, "bfloat16"),     # the reduced configs' P
     (1, 2, 1, 1024, 48, 80, 128, "bfloat16"),   # N 80 inside the 128 state
+    # chunk 256, walked as two halves of 128 rows
+    (2, 4, 2, 2048, 64, 64, 256, "bfloat16"),
+    (1, 4, 1, 2048, 64, 128, 256, "bfloat16"),
+    (2, 4, 1, 256, 64, 64, 256, "bfloat16"),    # one chunk: its two halves
 ]
 
 
@@ -311,6 +317,31 @@ def test_ssd_wgmma_kernel_matches_recurrence_and_plain_version(
         torch.testing.assert_close(y.float(), yr.float(), atol=3e-2,
                                    rtol=3e-2)
         torch.testing.assert_close(h, hr, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("N", [64, 128])
+def test_ssd_wgmma_chunk_256_walks_the_chunk_128_instance(N, cuda):
+    """Chunk 256 on the tensor-core kernel: the C query reports the
+    chunk-128 tile, as ``tile_rule`` does; the launch is the chunk-128
+    instance's walk, so y and h_final equal a launch at 128 bit for bit, and
+    the plain version at chunk 256 within the reference's bf16 tolerances
+    (y 3e-2, h_final 5e-4)."""
+    from repro_torch.kernels import ssd_scan
+    case = (2, 80, 1, 1024, 64, N, 256, "bfloat16")   # zamba2's heads
+    x, dt, A, B, C = _ssd_inputs(case, cuda, main_layout=True)
+    t = ssd_scan.tile_for(x, B, C, 256)
+    assert t.variant == "wgmma"
+    assert t == ssd_scan.tile(64, N, 128, "wgmma") \
+        == ssd_scan.tile_rule(64, N, 256, "wgmma")
+    before = ssd_scan.ssd_scan.launches
+    y, h = kops.ssd_scan(x, dt, A, B, C, chunk=256)
+    y128, h128 = kops.ssd_scan(x, dt, A, B, C, chunk=128)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_scan.launches == before + 2
+    assert torch.equal(y, y128) and torch.equal(h, h128)
+    yp, hp = ssd_scan.ssd_scan_reference(x, dt, A, B, C, chunk=256)
+    torch.testing.assert_close(y.float(), yp.float(), atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(h, hp, atol=5e-4, rtol=5e-4)
 
 
 def test_ssd_variant_rule_on_the_card(cuda):
@@ -694,6 +725,45 @@ def test_ssd_function_gradients_match_the_cpu(dtype, cuda):
     tol = 1e-5 if dtype == "float32" else 1e-2
     for name, a, b in zip(("y", "x", "dt", "A", "B", "C"), out["cuda"],
                           out["cpu"]):
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+def test_ssd_function_at_chunk_256_matches_the_plain_path(cuda):
+    """``_SSDScan`` at chunk 256 in bf16, the training step's chunk under
+    autograd: the forward on the tensor-core kernel (two halves of 128
+    rows), against the same Function under ``use_kernels(False)`` on the
+    card.  A loss that reads y (0.5 |y|² + g·y) makes the gradients depend
+    on the forward.  y relative Frobenius 1e-2, the gradients of x, dt, A,
+    B, C ``chip_smoke.py``'s ``TOL_TRAIN_GRAD`` (5e-2)."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import ssm
+    rng = np.random.default_rng(6)
+    Bz, H, G, L, P, N, chunk = 2, 8, 1, 1024, 64, 64, 256
+    arrs = [(0.5 * rng.standard_normal((Bz, H, L, P))).astype(np.float32),
+            (0.05 + 0.1 * rng.random((Bz, H, L))).astype(np.float32),
+            -(0.5 + rng.random(H)).astype(np.float32),
+            (0.3 * rng.standard_normal((Bz, G, L, N))).astype(np.float32),
+            (0.3 * rng.standard_normal((Bz, G, L, N))).astype(np.float32),
+            rng.standard_normal((Bz, H, L, P)).astype(np.float32)]
+    types = (torch.bfloat16, torch.float32, torch.float32, torch.bfloat16,
+             torch.bfloat16)
+    out = {}
+    for kernels in (True, False):
+        ts = [torch.from_numpy(a).to(device=cuda, dtype=t).requires_grad_()
+              for a, t in zip(arrs[:5], types)]
+        if kernels:
+            with torch.no_grad():
+                assert ssd.pick_variant(ts[0], ts[3], ts[4], chunk) == "wgmma"
+        g = torch.from_numpy(arrs[5]).to(cuda)
+        before = ssd.ssd_scan.launches
+        with flags.use_kernels(kernels):
+            y = ssm._SSDScan.apply(*ts, chunk)
+            (0.5 * y.float().square() + g * y.float()).sum().backward()
+        assert ssd.ssd_scan.launches == before + kernels
+        out[kernels] = [y] + [t.grad for t in ts]
+    for name, a, b in zip(("y", "x", "dt", "A", "B", "C"), out[True],
+                          out[False]):
+        tol = 1e-2 if name == "y" else 5e-2
         assert _rel(a, b) <= tol, (name, _rel(a, b))
 
 

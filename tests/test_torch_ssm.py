@@ -299,6 +299,8 @@ def test_wgmma_variant_rule_takes_the_main_path_views(name):
         * cfg.ssm.d_state   # strided rows, handed over without a copy
     assert _variant((x, B, C), cfg.ssm.chunk) == "wgmma"
     assert _variant((x, B, C), 64) == "wgmma"
+    # the training step's chunk under autograd: halves of 128 rows
+    assert _variant((x, B, C), 256) == "wgmma"
 
 
 @pytest.mark.parametrize("name", SSM_ARCHS)
@@ -336,8 +338,10 @@ def _bf16_split(v: torch.Tensor):
 def _emulate_wgmma_kernel(x, dt, A, B, C, chunk):
     """The tensor-core kernel's arithmetic on the CPU: x, B, C exact in bf16;
     S = C Bᵀ formed once; W, the state h and x·w_end each fed to a product
-    as hi + lo bf16; every sum in f32; y = exp(cum) (C hᵀ) + W x.  -> (y f32,
-    h_final f32)."""
+    as hi + lo bf16; every sum in f32; y = exp(cum) (C hᵀ) + W x; the chunk
+    walked in the rows of its instance (``wgmma_rows``: 256 in halves of
+    128).  -> (y f32, h_final f32)."""
+    chunk = tssd.wgmma_rows(chunk)
     Bz, H, L, P = x.shape
     rep = H // B.shape[1]
     xf = x.float()
@@ -406,6 +410,60 @@ def test_wgmma_arithmetic_matches_the_plain_version_in_f32(case):
     y, h = _emulate_wgmma_kernel(x, dt, A, B, C, case[6])
     yp, hp = tssd.ssd_scan_reference(x.float(), dt, A, B.float(), C.float(),
                                      chunk=case[6])
+    torch.testing.assert_close(y, yp, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, hp, atol=1e-4, rtol=1e-4)
+
+
+# chunk 256, the training step's under autograd, at the reduced configs'
+# SSM shape (both SSM architectures reduce to H 8, P 16, N 16, G 1)
+CHUNK256_CASE = (2, 8, 1, 512, 16, 16, 256)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_plain_version_at_chunk_256_matches_the_reference(dtype):
+    """The port's plain version at chunk 256 against the reference's
+    ``_ssd_chunked`` and its Pallas kernel in interpret mode at chunk 256,
+    at the reference's tolerances (y f32 5e-4, bf16 3e-2; h_final 5e-4)."""
+    cfg = TARCHS["zamba2-2.7b"].reduced()
+    s = cfg.ssm
+    assert CHUNK256_CASE[1:6] == (cfg.ssm_heads, s.n_groups, 512, s.head_dim,
+                                  s.d_state)
+    (x, dt, A, B, C), (jx, jdt, jA, jB, jC) = _ssd_inputs(*CHUNK256_CASE[:6],
+                                                          dtype)
+    y, h = tssd.ssd_scan_reference(x, dt, A, B, C, chunk=256)
+    yc, hc = jssm._ssd_chunked(jx.transpose(0, 2, 1, 3),
+                               jdt.transpose(0, 2, 1), jA,
+                               jB.transpose(0, 2, 1, 3),
+                               jC.transpose(0, 2, 1, 3), 256)
+    yk, hk = pallas_ssd(jx, jdt, jA, jB, jC, chunk=256, interpret=True)
+    for ry, rh in ((yc.transpose(0, 2, 1, 3), hc), (yk, hk)):
+        np.testing.assert_allclose(_np(y), _np(ry), **_ssd_tol(dtype))
+        np.testing.assert_allclose(_np(h), _np(rh), **TOL_SSD)
+
+
+def test_wgmma_halves_at_chunk_256_match_pallas_interpret_and_oracle():
+    """The tensor-core kernel's arithmetic at chunk 256 (two halves of 128
+    rows, the hi + lo operands) against the reference's Pallas kernel in
+    interpret mode at chunk 256 and its sequential oracle, at the
+    reference's bf16 tolerances: y 3e-2, h_final 5e-4."""
+    (x, dt, A, B, C), (jx, jdt, jA, jB, jC) = _bf16_inputs(CHUNK256_CASE)
+    assert tssd.pick_variant(x, B, C, 256) == "wgmma"
+    y, h = _emulate_wgmma_kernel(x, dt, A, B, C, 256)
+    yk, hk = pallas_ssd(jx, jdt, jA, jB, jC, chunk=256, interpret=True)
+    yr, hr = jref.ssd(jx, jdt, jA, jB, jC)
+    for ry, rh in ((yk, hk), (yr, hr)):
+        np.testing.assert_allclose(_np(y.bfloat16()), _np(ry), **TOL_BF16)
+        np.testing.assert_allclose(_np(h), _np(rh), **TOL_SSD)
+
+
+def test_wgmma_halves_match_the_plain_version_at_chunk_256_in_f32():
+    """The halves against the port's plain version at chunk 256 (one
+    256-step chunk) on the same bf16 values in f32: 1e-4, the class of f32
+    arithmetic; the chunked recurrence is exact for any chunk."""
+    (x, dt, A, B, C), _ = _bf16_inputs(CHUNK256_CASE)
+    y, h = _emulate_wgmma_kernel(x, dt, A, B, C, 256)
+    yp, hp = tssd.ssd_scan_reference(x.float(), dt, A, B.float(), C.float(),
+                                     chunk=256)
     torch.testing.assert_close(y, yp, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(h, hp, atol=1e-4, rtol=1e-4)
 
