@@ -200,7 +200,10 @@ that phase alone.  The
 gives each matmul kernel (``paper16``, ``fma128``, ``wgmma``), each SSD-scan
 kernel (``wgmma``, ``fma``) and each transpose kernel (``vec16``,
 ``scalar``) with its tile, registers and spills; the build fails if a tensor-core instance of
-any kernel, or an instance of the transpose's vector kernel, spills.  The
+any kernel, or an instance of the transpose's vector kernel, spills, if
+an ``fa_wgmma_kernel`` instance of a padded head width is missing or its
+SASS touches local memory (the line gives the highest register each
+names).  The
 transpose is timed at the calibration's four sizes beside the empty kernel
 over the same grid (the floor one block per tile sets).
 
@@ -293,8 +296,12 @@ MOE_LAYERS = 16
 MOE_F32_LAYERS = 8
 PREFILL_TOKENS = (4, 2048)   # (batch, sequence) of one prefill step
 PREFILL_STEPS = 3
+# The server feeds a prompt token by token, one host-bound decode call a
+# token: prompts of 4-16 tokens keep a whole run inside its time limit on a
+# busy host (16-64 took ~700 calls a server); slots, cache rows, requests
+# and new tokens are the measured decode's
 SERVE = dict(slots=8, max_len=2048, requests=16, max_new=32,
-             prompt_len=(16, 64))
+             prompt_len=(4, 16))
 # The training paths: the reference's train_4k sequence length; one card
 # holds two sequences of llama3.2-3b with its f32 AdamW state
 TRAIN_TOKENS = (2, 4096)     # (batch, sequence) of one train step
@@ -346,6 +353,11 @@ FA_CASES = [
     ("gqa7_dh128", 1, 28, 4, 256, 256, 128, True, None, torch.float32),
     ("bf16_mha_dh64", 1, 24, 24, 256, 256, 64, True, None, torch.bfloat16),
     ("mha_dh64", 1, 24, 24, 256, 256, 64, True, None, torch.float32),
+    # the two padded head widths no case above reaches (96, 112), at
+    # lengths ragged against the 128-key tile, one under a window
+    ("bf16_ragged_dh96", 1, 8, 2, 301, 301, 96, True, None, torch.bfloat16),
+    ("bf16_ragged_swa_dh112", 1, 8, 2, 517, 517, 112, True, 200,
+     torch.bfloat16),
 ]
 # bf16: the reference's own tolerance.  f32: the reference's 3e-5 loosened
 # to 1e-4 because the kernel sums the products in another order (4-wide
@@ -662,6 +674,36 @@ def wgmma_ptxas(entries: list) -> list:
     return [e for e in entries if "fa_wgmma_kernel" in e["function"]]
 
 
+#: padded head widths the bf16 attention kernel is built for
+FA_WGMMA_WIDTHS = (16, 32, 48, 64, 80, 96, 112, 128)
+
+
+def sass_registers(source: str, kernel: str) -> dict:
+    """The highest register each instance of ``kernel`` in the built
+    ``lib<source>.so`` names in its SASS (``cuobjdump -sass``), by its first
+    template argument, with its local-memory loads and stores.  ``ptxas
+    -v`` reports the registers a thread is launched with; a warp-specialised
+    kernel's consumers run at what ``setmaxnreg`` gives them, which only the
+    code shows."""
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                             "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(_build.build_dir() / f"lib{source}.so")],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0]
+        m = re.search(r"ILi(\d+)E", name)
+        if kernel not in name or not m:
+            continue
+        out[int(m.group(1))] = {
+            "max_register": max(int(r) for r in
+                                re.findall(r"\bR(\d+)\b", part)),
+            "local_loads": len(re.findall(r"\bLDL\b", part)),
+            "local_stores": len(re.findall(r"\bSTL\b", part))}
+    return out
+
+
 def ssd_ptxas(entries: list) -> list:
     """Every SSD-scan kernel instance among ``ptxas_entries``: its variant,
     template arguments (wgmma: chunk, padded N; fma: padded N, P slice),
@@ -763,10 +805,21 @@ def phase_build():
     serialised = sorted({m.group(1) for m in re.finditer(
         r"\((C75\d\d)\) Potential Performance Loss.*fa_wgmma_kernel",
         logs.get("flash_attention", ""))})
-    if not wg or any(e["spill_store_bytes"] or e["spill_load_bytes"]
-                     for e in wg):
-        raise AssertionError(f"the bf16 flash-attention kernel spills or "
-                             f"was not compiled: {wg}")
+    if sorted(int(re.search(r"ILi(\d+)E", e["function"]).group(1))
+              for e in wg) != list(FA_WGMMA_WIDTHS) \
+            or any(e["spill_store_bytes"] or e["spill_load_bytes"]
+                   for e in wg):
+        raise AssertionError(f"an fa_wgmma_kernel instance spills or was "
+                             f"not compiled: {wg}")
+    wg_sass = sass_registers("flash_attention", "fa_wgmma_kernel")
+    if sorted(wg_sass) != list(FA_WGMMA_WIDTHS) or any(
+            r["local_loads"] or r["local_stores"] for r in wg_sass.values()):
+        raise AssertionError(f"an fa_wgmma_kernel instance touches local "
+                             f"memory: {wg_sass}")
+    # ptxas's notes on the bf16 kernel's setmaxnreg (C7508: ignored)
+    maxnreg_notes = sorted({m.group(0) for m in re.finditer(
+        r"\(C75\d\d\)[^\n]*setmaxnreg[^\n]*",
+        logs.get("flash_attention", ""))})
     mmx = mm_ptxas(entries.get("matmul", []))
     if {e["variant"] for e in mmx} != set(MM_KERNELS.values()) or any(
             e["spill_store_bytes"] or e["spill_load_bytes"] for e in mmx):
@@ -790,11 +843,17 @@ def phase_build():
                                for e in tr_vec):
         raise AssertionError(f"a transpose_vec_kernel instance spills or was "
                              f"not compiled: {tr_vec}")
+    # the toolkit that built them: the registers the mirrors pin are its
+    nvcc = subprocess.run([_build.find_nvcc(), "--version"], check=True,
+                          capture_output=True, text=True, timeout=60)
     emit({"phase": "build", "ok": True,
           "seconds": round(time.perf_counter() - t0, 2),
+          "nvcc": nvcc.stdout.strip().splitlines()[-1],
           "build_dir": os.path.relpath(_build.build_dir(), ROOT),
           "sources": info, "flash_attention_wgmma_ptxas": wg,
           "flash_attention_wgmma_serialised": serialised,
+          "flash_attention_wgmma_sass": wg_sass,
+          "flash_attention_wgmma_setmaxnreg_notes": maxnreg_notes,
           "matmul_ptxas": mmx, "matmul_wgmma_serialised": mm_serialised,
           "ssd_scan_ptxas": ssx, "ssd_scan_wgmma_serialised": ssd_serialised,
           "transpose_ptxas": trx})
@@ -865,9 +924,14 @@ def phase_lse_cases(gen):
 
 
 def phase_kernel_main_shape(cfg, B, S, gen):
-    """flash_attention at a main path's shape: error, times, bound."""
+    """flash_attention at a main path's shape: error, times, bound, and the
+    tile the bf16 kernel ran (its C query, held to ``tile_rule``)."""
     H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     dtype = torch.bfloat16
+    tile = fa.tile(dh)
+    if tile != fa.tile_rule(dh):
+        raise AssertionError(f"the bf16 kernel runs {tile} at head_dim {dh}; "
+                             f"tile_rule says {fa.tile_rule(dh)}")
     q, k, v = fa_inputs(B, H, KVH, S, S, dh, dtype, gen)
     o = kops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     torch.cuda.synchronize()
@@ -920,7 +984,7 @@ def phase_kernel_main_shape(cfg, B, S, gen):
                   "window": cfg.sliding_window},
         "variant": VARIANT[dtype],
         "tile": dict(zip(("block_q", "block_k", "stages", "smem_bytes"),
-                         fa.tile(dh))),
+                         tile)),
         "max_abs_err": err, "tol": TOL[dtype],
         "ms": ms, "kernel_ms": ms, "kernel_ms_runs": [ms_a, ms_b],
         "lse_ms": min(lse_a, lse_b), "lse_ms_runs": [lse_a, lse_b],
@@ -5032,8 +5096,11 @@ def kernel_only(args, smi) -> int:
     if args.only == "fa":
         with phase("kernels.main_shape"):
             B, S = PREFILL_TOKENS
+            TB, TS = TRAIN_TOKENS
             rows = [phase_kernel_main_shape(get_arch(a), B, S, gen)
                     for a in (ARCH, HYBRID, MOE, VLM, AUDIO)]
+            rows += [phase_kernel_main_shape(get_arch(a), TB, TS, gen)
+                     for a in (ARCH, HYBRID)]
             emit({"phase": "kernels.main_shape", "ok": True,
                   "kernel": "flash_attention", "shapes": rows,
                   **fa_extra(ptx["flash_attention"])})

@@ -266,7 +266,7 @@ def flash_attention_vector(B_: ExprLike, H: ExprLike, KVH: ExprLike,
         local = local + reads * _unhidden(fa.F32_THREADS, resident)
     return {props.local_key(bits): local,
             props.mxu_key(bits): mxu * slots,
-            **_grid_keys(waves, steps, fa.SYNCS_PER_TILE)}
+            **_grid_keys(waves, steps, fa.SYNCS_PER_TILE[variant])}
 
 
 def ssd_scan_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: ExprLike,

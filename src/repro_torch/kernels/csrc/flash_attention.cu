@@ -32,55 +32,60 @@
 //
 // bf16 (fa_wgmma_kernel, every bf16 call): the products run on the tensor
 // cores, in the FA3 shape.
-//   * S = Q K^T is a chain of wgmma.mma_async m64nKk16 (K keys of a tile)
-//     with Q and K read
-//     from shared memory through descriptors (K-major, 128-byte swizzle).
-//     P (f32, as in the reference, which keeps it f32 for P V) is split in
-//     registers into hi = bf16(P) and lo = bf16(P - hi), both fed back as
-//     A operands of O += P_hi V + P_lo V (m64nNk16, N =
-//     16..64 per 64-column chunk of the head), V the B operand read
-//     MN-major from its (keys, dh) tile through the transpose bit.  hi + lo
-//     holds P to about 2^-16, where bf16(P) alone holds it to 2^-8: the
-//     kernel then rounds nothing the f32 plain version does not but its
-//     output, at twice the P V products.  Accumulators are f32 in
+//   * S = Q K^T is a chain of wgmma.mma_async m64n128k16 (128 keys a tile)
+//     with Q and K read from shared memory through descriptors (K-major,
+//     128-byte swizzle).  P (f32, as in the reference, which keeps it f32
+//     for P V) is split into hi = bf16(P) and lo = bf16(P - hi), both fed to
+//     O += P_hi V + P_lo V, one m64nDHPk16 product each a 16-key step, V the
+//     B operand read MN-major from its (keys, dh) tile through the transpose
+//     bit, the descriptor's LBO stepping from one 64-column chunk to the
+//     next.  hi + lo holds P to about 2^-16, where bf16(P) alone holds it to
+//     2^-8: the kernel then rounds nothing the f32 plain version does not but
+//     its output, at twice the P V products.  Accumulators are f32 in
 //     registers; the softmax uses ex2.approx with the scale folded into
 //     scale * log2(e).
-//   * Tiles of 128 queries x 128 keys (64 at heads above 96).  A block is
-//     three warpgroups: one
-//     producer (one thread issues every copy) and two consumers of 64 query
-//     rows each (while one runs its softmax, the other's products can hold
-//     the tensor cores).  The producer loads Q once and
-//     streams K/V through a ring of two stages (four of 64 keys) in shared
-//     memory with TMA
+//   * P_lo goes through shared memory: each consumer stores it with
+//     stmatrix as its 64 x 128 K-major A tile in the 128-byte swizzle (the
+//     16-byte unit of keys at its index XOR the row's), fences it for the
+//     async proxy, and P_lo V reads it by descriptor.  P_hi stays a register
+//     A operand up to a head of 80; above, it takes the same path (below).
+//   * Tiles of 128 queries x 128 keys at every head width.  A block is three
+//     warpgroups: one producer (one thread issues every copy) and two
+//     consumers of 64 query rows each.  The producer loads Q once and
+//     streams K/V through a ring of two stages in shared memory with TMA
 //     (cp.async.bulk.tensor, 4-D tensor maps over (dh, S, H, B) with the
 //     caller's strides, so strided views need no copy), signalled by
 //     mbarriers (full: bytes arrived; empty, for K and V apart: the eight
 //     consumer warps are done with them).  setmaxnreg hands the producer's
 //     registers to the consumers (24 / 240).
-//   * A consumer runs a tile's steps in order: S, the softmax, P V.  S
-//     and P hold registers only while they are used: the first k-step of
-//     Q K^T writes S without reading it, and P (hi + lo) replaces S once
-//     split, K / 2 registers each.  ptxas gives a thread of a 384-thread
-//     block 168 registers (setmaxnreg raises a consumer's at run time, not
-//     the compiler's budget), of which O takes DHP / 2: with 128 keys a
-//     tile the kernel spills at heads of 112 and 128, which therefore take
-//     64 keys.  (FA3's intra-warpgroup overlap of one tile's P V with the
-//     next tile's S and softmax, which this kernel ran up to a head of 80
-//     while P was bf16(P), needs S, P and O at once.)
+//   * Ping-pong and overlap.  The consumers take turns at the tensor cores
+//     (two named barriers, one a consumer): a turn issues S of tile i and
+//     P V of tile i - 1 together, then the warpgroup runs the softmax of
+//     tile i while its P V and the other consumer's turn hold the tensor
+//     cores; the S and P registers are split only after that P V is done.
+//   * Registers.  ptxas -v reports the 168 a thread of the 384-thread block
+//     is launched with; after setmaxnreg.inc 240 the consumers' code uses
+//     more (their SASS names registers above R168), so the budget is
+//     setmaxnreg's.  Yet with S (64 registers), O (DHP / 2) and P_hi (32)
+//     all live across the overlapped products, ptxas serialises the
+//     products for want of registers (C7512) and spills at heads of 96, 112
+//     and 128 (40, 152, 252 bytes, CUDA 12.9).  There P_hi goes through
+//     shared memory as well, and S + O fit without a spill at every width.
 //   * A row of a 64-column chunk is 128 bytes, the swizzle span; a head
 //     wider than 64 is two chunks (two TMA boxes).  Columns past dh and rows
 //     past Sq / Skv are TMA's out-of-bounds zeros, and the products run only
-//     over dh rounded up to 16 (zamba2's dh 80: 5 k-steps for Q K^T, N = 64
-//     + 16 for P V), so no product is padded to 128.
+//     over dh rounded up to 16 (zamba2's dh 80: 5 k-steps for Q K^T, N = 80
+//     for P V), so no product is padded to 128.
 //   * Masks are evaluated only on tiles that need them: the diagonal tiles
 //     under a causal mask, the edge tiles of a window and the ragged last
 //     k-tile, each judged per consumer warpgroup.  A fully visible tile runs
 //     no mask arithmetic.
-//   Shared memory: Q 32 KB + 2 stages x (K 32 KB + V 32 KB) at heads of 80
-//   and 96 (4 stages of 16 + 16 KB above 96; half of both at heads up to
-//   64), one block per SM.  TMA needs a 16-byte-aligned base
-//   and strides that are multiples of 16 bytes; the wrapper refuses other
-//   layouts.
+//   Shared memory: Q 16 KB a chunk, 2 stages x (K + V) of 16 KB a chunk
+//   each, and the P tiles, 16 KB each a consumer (P_lo; and P_hi above a
+//   head of 80): 115,784 bytes at heads up to 64, 197,704 at 80 and
+//   230,472 above, of 232,448; one block per SM.  TMA needs a 16-byte-
+//   aligned base and strides that are multiples of 16 bytes; the wrapper
+//   refuses other layouts.
 //
 // f32 (fa_fwd_kernel): f32 inputs must hold a 1e-4 tolerance, which bf16
 // tensor cores cannot give, and no main path runs attention in f32, so both
@@ -406,18 +411,26 @@ constexpr int kChunkCols = 64;     // bf16 columns of one 128-byte row chunk
 constexpr int kRowBytes = 128;     // = the 128-byte swizzle span
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
+constexpr int kBarTurn = 1;        // named barriers 1, 2: consumer 0's, 1's
 
 template <int DHP>
 struct Tile {
   static constexpr int kChunks = (DHP + kChunkCols - 1) / kChunkCols;
-  // keys of a tile and stages of the K/V ring: S and P (hi + lo) of 128
-  // keys take 64 registers each, which with O fits ptxas's 168 up to a head
-  // of 96; wider heads take 64 keys, and twice the stages
-  static constexpr int kBK = DHP <= 96 ? 128 : 64;
-  static constexpr int kStages = DHP <= 96 ? 2 : 4;
+  // keys of a tile and stages of the K/V ring (a third stage does not fit
+  // at heads above 64)
+  static constexpr int kBK = 128;
+  static constexpr int kStages = 2;
   static constexpr int kQBytes = kChunks * kBQ * kRowBytes;
   static constexpr int kKVBytes = kChunks * kBK * kRowBytes;  // one stage
-  static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
+  // P_hi in shared memory too above a head of 80: S, O and P_hi live across
+  // the overlapped products do not fit the consumers' registers there
+  static constexpr bool kHiSmem = DHP > 80;
+  // a P tile of one consumer: its 64 rows x kBK keys, K-major, in 64-key
+  // chunks; P_lo, after P_hi where P_hi is in shared memory
+  static constexpr int kPTile = kBK / kChunkCols * 64 * kRowBytes;
+  static constexpr int kPBytes = (kHiSmem ? 2 : 1) * kPTile;
+  static constexpr int kPOffset = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr int kBarOffset = kPOffset + 2 * kPBytes;
   // 1024 bytes of slack to align the tiles to the swizzle atom
   static constexpr int kSmem = 1024 + kBarOffset + 8 * (1 + 4 * kStages);
 };
@@ -435,9 +448,9 @@ struct BParams {
 
 // S (64 x 128) = Q K^T over this warpgroup's 64 rows: one committed group.
 // `qd`, `kd`: descriptors of the Q rows and the K stage.  The caller fences
-// the registers (wgmma_fence) before the first product of a pipeline stage.
-// The first k-step writes S without reading it, so S's registers are free
-// from the split of P until here.
+// the registers (wgmma_fence) before the first product of a turn.  The
+// first k-step writes S without reading it, so S's registers are free from
+// the split of P until here.
 template <int DHP>
 __device__ __forceinline__ void issue_qk(float* sc, uint64_t qd,
                                          uint64_t kd) {
@@ -447,38 +460,28 @@ __device__ __forceinline__ void issue_qk(float* sc, uint64_t qd,
     const uint32_t col = (kk & 3) * 32;     // 16 columns = 32 bytes
     const uint64_t a = desc_at(qd, (kk >> 2) * kBQ * kRowBytes + col);
     const uint64_t b = desc_at(kd, (kk >> 2) * kBK * kRowBytes + col);
-    if constexpr (kBK == 128) {
-      if (kk == 0) wgmma_ss_n128_fresh(sc, a, b);
-      else wgmma_ss_n128(sc, a, b, 1);
-    } else {
-      if (kk == 0) wgmma_ss_n64_fresh(sc, a, b);
-      else wgmma_ss_n64(sc, a, b, 1);
-    }
+    if (kk == 0) wgmma_ss_n128_fresh(sc, a, b);
+    else wgmma_ss_n128(sc, a, b, 1);
   }
   wgmma_commit();
 }
 
-// O (64 x DHP) += P V with P in registers as hi (`pa`) + lo (`pl`) bf16 A
-// fragments: one committed group.  `vd`: the descriptor of the V stage.
+// O (64 x DHP) += P_hi V + P_lo V: one committed group, two products over
+// the whole head a 16-key step.  P_lo is in shared memory at `pd` (after
+// P_hi's tile where P_hi is there too), P_hi otherwise in registers as bf16
+// A fragments (`pa`); `vd`: the descriptor of the V stage, whose LBO steps
+// from one 64-column chunk to the next.
 template <int DHP>
 __device__ __forceinline__ void issue_pv(float* o, const uint32_t (*pa)[4],
-                                         const uint32_t (*pl)[4],
-                                         uint64_t vd) {
-  constexpr int kBK = Tile<DHP>::kBK;
+                                         uint64_t pd, uint64_t vd) {
+  using T = Tile<DHP>;
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint32_t row = kk * 16 * kRowBytes;  // 16 keys
-#pragma unroll
-    for (int part = 0; part < 2; ++part) {
-      const uint32_t* a = part ? pl[kk] : pa[kk];
-      if constexpr (Tile<DHP>::kChunks == 2) {
-        wgmma_rs<kChunkCols>(o, a, desc_at(vd, row));
-        wgmma_rs<DHP - kChunkCols>(o + kChunkCols / 2, a,
-                                   desc_at(vd, row + kBK * kRowBytes));
-      } else {
-        wgmma_rs<DHP>(o, a, desc_at(vd, row));
-      }
-    }
+  for (int kk = 0; kk < T::kBK / 16; ++kk) {
+    const uint64_t v = desc_at(vd, kk * 16 * kRowBytes);    // 16 keys
+    const uint32_t a = (kk >> 2) * 64 * kRowBytes + (kk & 3) * 32;
+    if constexpr (T::kHiSmem) wgmma_ss_t<DHP>(o, desc_at(pd, a), v);
+    else wgmma_rs<DHP>(o, pa[kk], v);
+    wgmma_ss_t<DHP>(o, desc_at(pd, (T::kHiSmem ? T::kPTile : 0) + a), v);
   }
   wgmma_commit();
 }
@@ -539,16 +542,33 @@ __device__ __forceinline__ float2 softmax_tile(float* sc, Rows& st, bool edge,
   return alpha;
 }
 
-// P (f32, in the accumulator layout of S) to the hi and lo bf16 A fragments
-// of P V: the two 8-column blocks of a 16-key step are one m64k16 fragment.
-template <int kBK>
+// P (f32, in the accumulator layout of S) split into hi and lo bf16, the
+// A fragments of P V (`pa`: the two 8-column blocks of a 16-key step are one
+// m64k16 fragment).  lo, and hi where kHiSmem, go into this warpgroup's P
+// tiles in shared memory, the same fragments stored by stmatrix.
+// `st_row`: the shared address of the row this lane addresses (lanes
+// 8m..8m+7 the rows of matrix m: rows + 8 for odd m, the second 8-key block
+// for m >= 2, `odd`); a 16-byte unit of keys lands at its index XOR the
+// row's (`row7`), the 128-byte swizzle that the descriptors and TMA use.
+template <int kBK, int kPTile, bool kHiSmem>
 __device__ __forceinline__ void pack_p(const float* sc, uint32_t (*pa)[4],
-                                       uint32_t (*pl)[4]) {
+                                       uint32_t st_row, int odd, int row7) {
 #pragma unroll
-  for (int j = 0; j < kBK / 8; ++j) {
-    const int f = j >> 1, e = (j & 1) * 2;
-    split_pair(sc[4 * j], sc[4 * j + 1], pa[f][e], pl[f][e]);
-    split_pair(sc[4 * j + 2], sc[4 * j + 3], pa[f][e + 1], pl[f][e + 1]);
+  for (int f = 0; f < kBK / 16; ++f) {
+    uint32_t lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 2 * f + (e >> 1), h = 2 * (e & 1);   // block, row half
+      split_pair(sc[4 * j + h], sc[4 * j + h + 1], pa[f][e], lo[e]);
+    }
+    const uint32_t unit = (2 * (f & 3) + odd) ^ row7;
+    const uint32_t at = st_row + (f >> 2) * 64 * kRowBytes + unit * 16;
+    if constexpr (kHiSmem) {
+      stmatrix_x4(at, pa[f]);
+      stmatrix_x4(at + kPTile, lo);
+    } else {
+      stmatrix_x4(at, lo);
+    }
   }
 }
 
@@ -639,12 +659,20 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int lane = ct & 31;
     const int wq_lo = q0 + cw * 64;          // this warpgroup's query rows
     const int wq_hi = wq_lo + 63;
-    const int r0 = wq_lo + ((ct >> 5) & 3) * 16 + (lane >> 2);  // and r0 + 8
+    const int wq = (ct >> 5) & 3;            // warp of the warpgroup
+    const int r0 = wq_lo + wq * 16 + (lane >> 2);  // and r0 + 8
     const int cq = 2 * (lane & 3);
     // one descriptor is held (the tiles' base); Q's rows of this warpgroup
     // and the K and V stages are offsets from it, formed at each product
     const uint64_t base_desc = smem_desc(smem_u32(q_s));
+    // V, the B operand of one product over the whole head: LBO steps from
+    // one 64-column chunk to the next
+    const uint64_t v_desc = smem_desc(smem_u32(q_s), kBK * kRowBytes);
     const uint32_t q_off = cw * 64 * kRowBytes;
+    const uint32_t p_off = T::kPOffset + cw * T::kPBytes;
+    // the P row this lane addresses for stmatrix (its warp's 16 rows)
+    const uint32_t st_row = smem_u32(q_s) + p_off
+        + (wq * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kRowBytes;
 
     // masks only where a pair of this warpgroup may be hidden
     auto edge = [&](int k0) {
@@ -661,35 +689,27 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < DHP / 2; ++i) o[i] = 0.f;
     Rows st = {kNegInf, kNegInf, 0.f, 0.f};
     float sc[kBK / 2];          // S, then P in f32
-    uint32_t pa[kBK / 16][4];   // P's hi and lo bf16 parts: the A
-    uint32_t pl[kBK / 16][4];   // fragments of P V
+    uint32_t pa[kBK / 16][4];   // P_hi: the A fragments of P V
 
     auto parity = [](int i) { return static_cast<uint32_t>(i / kStages) & 1; };
-    // the start of a pipeline stage: no register of a product in flight is
-    // touched by anything but the products from here to their wait.  S is
-    // not fenced before Q K^T (its first step only writes S), nor P before
-    // the next tile: each holds its registers only while it is used
-    auto fence_pv = [&]() {
-      fence_regs<DHP / 2>(o);
-      fence_regs<kBK / 4>(&pa[0][0]);
-      fence_regs<kBK / 4>(&pl[0][0]);
-      wgmma_fence();
-    };
+    // from a turn to its wait no register of a product in flight is touched
+    // by anything but the products.  S is not fenced before Q K^T (its
+    // first step only writes S): it holds its registers only while used
     auto qk = [&](int s) {
       issue_qk<DHP>(sc, opaque(desc_at(base_desc, q_off)),
                     opaque(desc_at(base_desc,
                                    T::kQBytes + s * T::kKVBytes)));
     };
     auto pv = [&](int s) {
-      issue_pv<DHP>(o, pa, pl,
-                    opaque(desc_at(base_desc, T::kQBytes + (kStages + s)
+      issue_pv<DHP>(o, pa, opaque(desc_at(base_desc, p_off)),
+                    opaque(desc_at(v_desc, T::kQBytes + (kStages + s)
                                                   * T::kKVBytes)));
     };
     auto softmax = [&](int i) {
       const int k0 = (kt_begin + i) * kBK;
       return softmax_tile<kBK>(sc, st, edge(k0), r0, k0 + cq, p);
     };
-    auto rescale_and_pack = [&](float2 alpha) {
+    auto rescale = [&](float2 alpha) {
 #pragma unroll
       for (int j = 0; j < DHP / 8; ++j) {
         o[4 * j] *= alpha.x;
@@ -697,29 +717,78 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         o[4 * j + 2] *= alpha.y;
         o[4 * j + 3] *= alpha.y;
       }
-      pack_p<kBK>(sc, pa, pl);
+    };
+    auto pack = [&]() {
+      pack_p<kBK, T::kPTile, T::kHiSmem>(sc, pa, st_row, lane >> 4,
+                                         lane & 7);
+      fence_proxy_async();   // the P tiles, for the product that reads them
+    };
+    // the registers the products of a turn read or write, written before it
+    auto fence_turn = [&]() {
+      fence_regs<DHP / 2>(o);
+      if constexpr (!T::kHiSmem) fence_regs<kBK / 4>(&pa[0][0]);
     };
 
-    if (n_tiles > 0) mbar_wait(q_full, 0);
-    // S, softmax, P V of a tile in order
-    for (int i = 0; i < n_tiles; ++i) {
-      const int s = i % kStages;
-      mbar_wait(k_full + s, parity(i));
-      fence_regs<DHP / 2>(o);
+    // Ping-pong: the consumers take turns at the tensor cores (named
+    // barrier kBarTurn + w is consumer w's turn; the other arrives on it
+    // once its own turn is issued), so one's softmax runs under the other's
+    // products.  Both walk the same n_tiles and take n_tiles + 1 turns
+    // whatever their masks; consumer 1 arrives on consumer 0's barrier
+    // before its first turn and not after its last, so no arrival is left
+    // over.  The turn barrier also orders every warp's P stores (fenced for
+    // the async proxy) before the product that reads them.
+    auto turn_begin = [&]() { named_sync(kBarTurn + cw, 256); };
+    auto turn_end = [&](bool last) {
+      if (!(last && cw == 1)) named_arrive(kBarTurn + (cw ^ 1), 256);
+    };
+    if (n_tiles > 0) {
+      mbar_wait(q_full, 0);
+      if (cw == 1) named_arrive(kBarTurn, 256);   // consumer 0 goes first
+      // the first turn: S of the first tile alone
+      mbar_wait(k_full, 0);
+      turn_begin();
       wgmma_fence();
-      qk(s);
+      qk(0);
+      turn_end(false);
       wgmma_wait<0>();
       fence_regs<kBK / 2>(sc);
+      release(k_empty);
+      softmax(0);            // O is still 0: nothing to rescale
+      pack();
+    }
+    // turn i: S of tile i beside P V of tile i - 1, then the softmax of
+    // tile i while that P V is in flight
+    for (int i = 1; i < n_tiles; ++i) {
+      const int s = i % kStages, sp = (i - 1) % kStages;
+      mbar_wait(k_full + s, parity(i));
+      mbar_wait(v_full + sp, parity(i - 1));
+      fence_turn();
+      turn_begin();
+      wgmma_fence();
+      qk(s);
+      pv(sp);
+      turn_end(false);
+      wgmma_wait<1>();       // S of tile i
+      fence_regs<kBK / 2>(sc);
       release(k_empty + s);
-      rescale_and_pack(softmax(i));
-      mbar_wait(v_full + s, parity(i));
-      fence_pv();
-      pv(s);
+      const float2 alpha = softmax(i);
+      wgmma_wait<0>();       // P V of tile i - 1: O, P_hi and P_lo free
+      fence_turn();
+      release(v_empty + sp);
+      rescale(alpha);
+      pack();
+    }
+    if (n_tiles > 0) {
+      // the last turn: P V of the last tile
+      const int sl = (n_tiles - 1) % kStages;
+      mbar_wait(v_full + sl, parity(n_tiles - 1));
+      fence_turn();
+      turn_begin();
+      wgmma_fence();
+      pv(sl);
+      turn_end(true);
       wgmma_wait<0>();
       fence_regs<DHP / 2>(o);
-      fence_regs<kBK / 4>(&pa[0][0]);
-      fence_regs<kBK / 4>(&pl[0][0]);
-      release(v_empty + s);
     }
 
     // ---- o = acc / max(l, 1e-20) ------------------------------------------

@@ -6,20 +6,22 @@ Replaces the TPU kernel ``repro.kernels.flash_attention.flash_attention``
 compiled at the first call on a CUDA tensor (``_build.load``) and bound with
 ``ctypes``.
 
-What bounds it on an H100: operations, not bytes — q, k, v and o cross device
-memory once each, while the two products cost ``4·B·H·dh`` operations per
-visible (q, k) pair.  The CUDA source holds two kernels, chosen by the input
-type alone.  bf16 goes to a Hopper kernel whose products run on the bf16
-tensor cores (``wgmma``), fed from shared memory by TMA through a two-stage
-K/V ring, with a producer warpgroup and two consumer warpgroups of 64 query
-rows; P enters P V as hi + lo bf16 parts, so the kernel keeps P as the
-reference does, in f32 to about 2^-16; its tile is chosen in the CUDA source
-(``tile``).  f32 goes to a kernel
-whose products run on the FP32 pipes, since f32 must hold 1e-4, which bf16
-tensor cores cannot give.  Both keep the running max, running sum and f32
-accumulator in registers over the whole walk along the keys, read K/V at
-``h // G`` (no repeat of K/V), and cut fully masked key tiles from their loop
-bounds; see the note at the top of the CUDA source.
+What bounds it on an H100: operations, not bytes — q, k, v and o cross
+device memory once each, while the two products cost ``4·B·H·dh`` operations
+per visible (q, k) pair.  The CUDA source holds two kernels, chosen by the
+input type alone.  bf16 goes to a Hopper kernel whose products run on the
+bf16 tensor cores (``wgmma``), fed from shared memory by TMA through a
+two-stage K/V ring, with a producer warpgroup and two consumer warpgroups of
+64 query rows that take turns at the tensor cores; P enters P V as hi + lo
+bf16 parts (lo through shared memory, hi too above a head of 80), so the
+kernel keeps P as the reference does, in f32 to about 2^-16; its tile is
+chosen in the CUDA source (``tile``): 128 queries x 128 keys at every head
+width.  f32 goes to a kernel whose products run on the FP32 pipes, since f32
+must hold 1e-4, which bf16 tensor cores cannot give.  Both keep the running
+max, running sum and f32 accumulator in registers over the whole walk along
+the keys, read K/V at ``h // G`` (no repeat of K/V), and cut fully masked
+key tiles from their loop bounds; see the note at the top of the CUDA
+source.
 
 Accepted shapes: q ``(B, H, Sq, dh)``, k and v ``(B, KVH, Skv, dh)`` with
 ``H % KVH == 0``, any ``Sq, Skv >= 1`` (the kernel masks the ragged edge
@@ -129,9 +131,12 @@ def tile_rule(dh: int) -> Tuple[int, int, int, int]:
         raise ValueError(f"the bf16 kernel takes no head_dim {dh}")
     dhp = (dh + 15) // 16 * 16
     chunks = (dhp + 63) // 64            # 128-byte row chunks of a row
-    keys, stages = (128, 2) if dhp <= 96 else (64, 4)
+    keys, stages = 128, 2
     q_bytes, kv_bytes = chunks * 128 * 128, chunks * keys * 128
-    smem = 1024 + q_bytes + 2 * stages * kv_bytes + 8 * (1 + 4 * stages)
+    # each consumer's 64 x keys P tiles: P_lo, and P_hi above a head of 80
+    p_bytes = 2 * (2 if dhp > 80 else 1) * (keys // 64) * 64 * 128
+    smem = 1024 + q_bytes + 2 * stages * kv_bytes + p_bytes \
+        + 8 * (1 + 4 * stages)
     return 128, keys, stages, smem
 
 
@@ -172,9 +177,10 @@ F32_REGISTERS = {
     (32, 64, 16): 92, (32, 32, 128): 64, (32, 32, 64): 74, (32, 32, 32): 64,
     (32, 32, 16): 52,
 }
-#: block-wide waits of one key tile on the critical path: the FP32 kernel's
-#: two ``__syncthreads``, the bf16 consumers' K and V ``mbarrier`` waits
-SYNCS_PER_TILE = 2
+#: block-wide waits of one key tile on the critical path, by kernel: the
+#: FP32 kernel's two ``__syncthreads``; the bf16 consumers' K and V
+#: ``mbarrier`` waits and their turn at the tensor cores (a named barrier)
+SYNCS_PER_TILE = {"fma": 2, "wgmma": 3}
 
 
 def block_resources(bits: int, block_q: int, block_k: int,

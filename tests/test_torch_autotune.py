@@ -390,8 +390,8 @@ def test_attention_grids(dh):
             tfa.smem_bytes(c["block_q"], c["block_k"], dh))
     bf16 = autotune.candidate_configs("flash_attention",
                                       dict(shape, bits=16))
-    assert bf16 == [{"block_q": 128, "block_k": 128 if dh <= 96 else 64,
-                     "resident": 1}]
+    # 128 keys at every head width since P_lo went through shared memory
+    assert bf16 == [{"block_q": 128, "block_k": 128, "resident": 1}]
 
 
 def test_bf16_attention_auto_builds_nothing():
@@ -504,7 +504,7 @@ def test_flash_attention_schedule_props_skip_count():
     (64, 32, 32, 32, True, None), (64, 128, 64, 32, True, 96),
     (64, 64, 128, 32, False, None), (128, 128, 64, 32, True, None),
     (64, 128, 128, 16, True, None), (80, 128, 128, 16, True, 256),
-    (128, 128, 64, 16, True, None)])
+    (128, 128, 128, 16, True, None)])
 def test_flash_attention_schedule_props_where_the_tile_is_the_request(
         dh, bq, bk, bits, causal, window):
     args = (2, 4, 2, 512, 512, dh)
@@ -514,11 +514,11 @@ def test_flash_attention_schedule_props_where_the_tile_is_the_request(
 
 
 def test_flash_attention_schedule_props_count_the_served_tile():
-    # bf16 at dh 128 runs 128 x 64 whatever the request
+    # bf16 at dh 128 runs 128 x 128 whatever the request
     got = tfa.schedule_props(2, 4, 2, 512, 512, 128, block_q=32,
                              block_k=32, bits=16)
     _close(got, jfa.schedule_props(2, 4, 2, 512, 512, 128, block_q=128,
-                                   block_k=64, bits=16))
+                                   block_k=128, bits=16))
 
 
 @pytest.mark.parametrize("req,served,bits", [

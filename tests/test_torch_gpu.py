@@ -48,6 +48,9 @@ FA_CASES = [
     (1, 28, 4, 256, 256, 128, True, None, "float32"),
     (1, 24, 24, 256, 256, 64, True, None, "bfloat16"),
     (1, 24, 24, 256, 256, 64, True, None, "float32"),
+    # the padded head widths 96 and 112, ragged against the 128-key tile
+    (1, 8, 2, 301, 301, 96, True, None, "bfloat16"),
+    (1, 8, 2, 517, 517, 112, True, 200, "bfloat16"),
 ]
 
 
@@ -136,12 +139,12 @@ def test_forward_through_the_kernel_matches_plain_path(name, dtype, cuda):
         assert rel <= 5e-2, rel
 
 
-@pytest.mark.parametrize("dh", [16, 48, 64, 80, 128])
+@pytest.mark.parametrize("dh", [16, 32, 48, 64, 80, 96, 112, 128])
 def test_bf16_tile_fits_shared_memory(dh, cuda):
     bq, bk, stages, nbytes = fa.tile(dh)
-    # 128 keys a tile up to a head of 96; 64 above, where S, P (hi + lo)
-    # and O of 128 keys do not fit ptxas's 168 registers a thread
-    assert (bq, bk) == (128, 128 if dh <= 96 else 64) and stages >= 2
+    # 128 keys a tile at every head width, P_lo through shared memory
+    assert (bq, bk) == (128, 128) and stages == 2
+    assert (bq, bk, stages, nbytes) == fa.tile_rule(dh)
     assert nbytes <= 232448  # what one block may use on sm_90
     with pytest.raises(ValueError, match="head_dim"):
         fa.tile(132)
@@ -659,6 +662,59 @@ def test_cuda_kernel_lse_matches_plain_version(case, cuda):
     assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
     torch.testing.assert_close(lse, rlse, atol=tol, rtol=tol)
     torch.testing.assert_close(o.float(), r.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dh", [112, 128])
+def test_bf16_lse_on_128_key_tiles_at_wide_heads(dh, cuda):
+    """The training path's call (output and row lse) at the widest heads,
+    which run 128-key tiles since P_lo went through shared memory: GQA, a
+    length ragged against the tile, both against the plain version at the
+    bf16 tolerance 2e-2."""
+    assert fa.tile(dh)[1] == 128
+    case = (2, 8, 2, 389, 389, dh, True, None, "bfloat16")
+    q, k, v = _qkv(case, cuda)
+    o, lse = kops.flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    r, rlse = fa.attention_reference(q, k, v, causal=True, return_lse=True)
+    torch.testing.assert_close(lse, rlse, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(), r.float(), atol=2e-2, rtol=2e-2)
+
+
+def _single_rounding(q, k, v):
+    """Causal attention with P rounded once to bf16 before P V (f32
+    otherwise): what the bf16 kernel would give without its lo product."""
+    G = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    s = q.float() @ kf.transpose(-1, -2) / q.shape[-1] ** 0.5
+    n = s.shape[-1]
+    seen = torch.ones(n, n, dtype=torch.bool, device=s.device).tril()
+    s = s.masked_fill(~seen, fa.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * seen
+    return (p.to(torch.bfloat16).float() @ vf) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("dh", [64, 80, 128])
+def test_bf16_kernel_rounds_nothing_but_its_output(dh, cuda):
+    """hi + lo P: the kernel's output lies as close to the f32 result on
+    the same bf16 inputs as rounding that result to bf16 does (within 2 %
+    of its relative error), where one bf16 rounding of P lands measurably
+    further (more than 10 % further).  A P_lo tile stored or read at the
+    wrong place would show here, not at the 2e-2 tolerance."""
+    case = (2, 8, 2, 640, 640, dh, True, None, "bfloat16")
+    q, k, v = _qkv(case, cuda)
+    o = kops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    exact = fa.attention_reference(q.float(), k.float(), v.float(),
+                                   causal=True)
+
+    def rel(a):
+        return float((a.float() - exact).norm() / exact.norm())
+
+    rounding = rel(exact.to(torch.bfloat16))
+    assert rel(o) <= 1.02 * rounding, (rel(o), rounding)
+    one = rel(_single_rounding(q, k, v).to(torch.bfloat16))
+    assert one > 1.1 * rounding, (one, rounding)
 
 
 def _rel(a, b) -> float:

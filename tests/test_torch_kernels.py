@@ -164,6 +164,99 @@ def test_pick_tiles_fits_shared_memory(req, dh, want):
     assert got[0] in tfa.TILES and got[1] in tfa.TILES
 
 
+@pytest.mark.parametrize("dhp", range(16, 129, 16))
+def test_bf16_tile_fits_shared_memory_with_its_p_tiles(dhp):
+    """``tile_rule`` at every padded head width: 128 queries x 128 keys, a
+    two-stage K/V ring and each consumer's 64 x 128 bf16 P tiles (P_lo, and
+    P_hi above a head of 80), within one block's shared memory; a third
+    stage would not fit at heads above 64."""
+    bq, bk, stages, smem = tfa.tile_rule(dhp)
+    chunks = -(-dhp // 64)                   # 128-byte row chunks of a row
+    q_bytes, kv_bytes = chunks * bq * 128, chunks * bk * 128
+    p_tiles = 2 * (2 if dhp > 80 else 1) * 64 * bk * 2
+    assert (bq, bk, stages) == (128, 128, 2)
+    assert smem == 1024 + q_bytes + 2 * stages * kv_bytes + p_tiles \
+        + 8 * (1 + 4 * stages)
+    assert smem <= tfa.SMEM_LIMIT
+    assert (smem + 2 * kv_bytes + 32 > tfa.SMEM_LIMIT) == (dhp > 64)
+    for dh in range(dhp - 12, dhp + 1, 4):   # every dh that pads to dhp
+        assert tfa.tile_rule(dh) == (bq, bk, stages, smem)
+
+
+def _p_emulation(q, k, v, causal, window, *, split):
+    """The bf16 kernel's arithmetic, in f32 on the CPU: key tiles of 128
+    (from key 0, so lengths that are not a multiple of it end in a ragged
+    tile), the online softmax (running max, sums of the f32 P, rescale of
+    the accumulator), P V summed in f32 from P_hi = bf16(P) and P_lo =
+    bf16(P - P_hi) (``split``) or from bf16(P) alone.  Returns the f32
+    output before its rounding to bf16."""
+    B, H, Sq, dh = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // KVH, dim=1)
+    vf = v.float().repeat_interleave(H // KVH, dim=1)
+    scale = 1.0 / np.sqrt(dh)
+    m = torch.full((B, H, Sq, 1), tfa.NEG_INF)
+    l = torch.zeros((B, H, Sq, 1))
+    o = torch.zeros((B, H, Sq, dh))
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, 128):
+        cols = torch.arange(k0, min(k0 + 128, Skv))[None, :]
+        seen = torch.ones((Sq, cols.shape[1]), dtype=torch.bool)
+        if causal:
+            seen &= rows >= cols
+        if window is not None:
+            seen &= rows - cols < window
+        s = q.float() @ kf[:, :, k0:k0 + 128].transpose(-1, -2)
+        s = torch.where(seen, s, torch.full_like(s, tfa.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp((m - m_new) * scale)
+        # a row that has seen no key yet keeps P = 0
+        mc = torch.where(m_new == tfa.NEG_INF, torch.zeros_like(m_new), m_new)
+        p = torch.exp((s - mc) * scale)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        vt = vf[:, :, k0:k0 + 128]
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vt
+        o = o * alpha + pv
+        m = m_new
+    return o / l.clamp_min(1e-20)
+
+
+@pytest.mark.parametrize("case", [
+    # B, H, KVH, Sq, Skv, dh, causal, window: GQA at dh 64, a window at dh
+    # 128, MQA without a mask; every length ragged against 128 keys
+    (1, 4, 2, 192, 192, 64, True, None),
+    (1, 4, 2, 320, 320, 128, True, 96),
+    (1, 2, 1, 128, 320, 128, False, None),
+], ids=["gqa_dh64", "gqa_window_dh128", "mqa_noncausal_dh128"])
+def test_hi_lo_p_emulation_holds_the_references(case):
+    """The numerics the bf16 kernel keeps (P_hi and P_lo, the same two
+    roundings, wherever the kernel keeps them), emulated in f32, against the
+    reference's Pallas kernel in interpret mode and the port's plain
+    version at the reference's bf16 tolerance 2e-2; against the f32 result
+    on the same bf16 inputs, hi + lo lands more than 10x closer than one
+    bf16 rounding of P, which is why the lo product stays."""
+    (q, k, v), (jq, jk, jv) = _inputs(case + ("bfloat16",))
+    causal, window = case[6], case[7]
+    emu = _p_emulation(q, k, v, causal, window, split=True)
+    one = _p_emulation(q, k, v, causal, window, split=False)
+    out = emu.to(torch.bfloat16)
+    pallas = pallas_fa(jq, jk, jv, causal=causal, window=window,
+                       block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol("bfloat16"))
+    plain = tfa.attention_reference(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(_np(out), _np(plain), **_tol("bfloat16"))
+    exact = tfa.attention_reference(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window)
+
+    def rel(a):
+        return float((a - exact).norm() / exact.norm())
+
+    assert rel(one) > 10 * rel(emu), (rel(one), rel(emu))
+
+
 def _attention_configs():
     from repro_torch.configs.registry import ARCHS
     out = []
