@@ -1,0 +1,10 @@
+"""peak_mem_gib.train: the allocator's peak over the window of a train cell
+(``torch.cuda.max_memory_allocated`` after a reset at the window's
+start), in GiB."""
+
+
+def read(ctx):
+    peak = ctx.result.window_peak_bytes
+    if ctx.kind != "train" or not peak:
+        return None
+    return peak / 2**30
