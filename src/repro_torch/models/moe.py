@@ -8,7 +8,9 @@ load-balancing loss are computed in f32; the combine weights are
 renormalised over the K picks and cast to the activations' type before the
 last product.  The dispatch, the expert products and the combine are
 ``torch.einsum`` contractions, as the reference's are XLA einsums: there is
-no TPU kernel to port here.
+no TPU kernel to port here.  ``moe_apply``'s four phases are the spans
+``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
+(``obs/trace``).
 
 The parameters keep the reference's layout, so the contractions read the
 same: ``router`` (d, E), ``gate`` and ``up`` (E, d, ff), ``down`` (E, ff,
@@ -26,6 +28,7 @@ from torch import nn
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import logical
 from repro_torch.models import layers
+from repro_torch.obs import trace as _obs_trace
 
 GROUP_TOKENS = 2048  # dispatch group size (tokens)
 
@@ -114,47 +117,54 @@ def moe_apply(p: MoE, x: torch.Tensor,
     B, S, d = x.shape
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     x = layers.rows_whole(x)  # groups fold the batch and the sequence
-    r = routing(p, x, cfg)
-    G, tg = r.experts.shape[:2]
-    C = _capacity(tg, E, K, cfg.moe.capacity_factor)
-    xg = x.reshape(G, tg, d)
+    tracer = _obs_trace.get_tracer()
+    with tracer.span("moe.route"):
+        r = routing(p, x, cfg)
+    with tracer.span("moe.dispatch"):
+        G, tg = r.experts.shape[:2]
+        C = _capacity(tg, E, K, cfg.moe.capacity_factor)
+        xg = x.reshape(G, tg, d)
 
-    combine = xg.new_zeros((G, tg, E, C), dtype=torch.float32)
-    gates_sum = xg.new_zeros((G, tg), dtype=torch.float32)
-    for k in range(K):
-        mask = F.one_hot(r.experts[..., k], E).float()        # (G, t, E)
-        # a dropped pick (slot >= C) has gate 0; its slot is clamped and
-        # masked, where the reference's one_hot of an index >= C gives 0
-        keep = r.keep[..., k]
-        slot = F.one_hot(r.slots[..., k].long().clamp(max=C - 1), C) \
-            .float() * keep[..., None]                        # (G, t, C)
-        gate = r.gates[..., k]
-        combine = combine + (gate[..., None] * mask)[..., None] \
-            * slot[:, :, None, :]
-        gates_sum = gates_sum + gate
+        combine = xg.new_zeros((G, tg, E, C), dtype=torch.float32)
+        gates_sum = xg.new_zeros((G, tg), dtype=torch.float32)
+        for k in range(K):
+            mask = F.one_hot(r.experts[..., k], E).float()    # (G, t, E)
+            # a dropped pick (slot >= C) has gate 0; its slot is clamped and
+            # masked, where the reference's one_hot of an index >= C gives 0
+            keep = r.keep[..., k]
+            slot = F.one_hot(r.slots[..., k].long().clamp(max=C - 1), C) \
+                .float() * keep[..., None]                    # (G, t, C)
+            gate = r.gates[..., k]
+            combine = combine + (gate[..., None] * mask)[..., None] \
+                * slot[:, :, None, :]
+            gates_sum = gates_sum + gate
 
-    # normalise the combine weights over the K picks (Mixtral renormalises
-    # its top-k)
-    combine = combine / torch.clamp(gates_sum, min=1e-9)[..., None, None]
-    dispatch = (combine > 0.0).to(x.dtype)
+        # normalise the combine weights over the K picks (Mixtral
+        # renormalises its top-k)
+        combine = combine / torch.clamp(gates_sum, min=1e-9)[..., None, None]
+        dispatch = (combine > 0.0).to(x.dtype)
 
-    # aux load-balancing loss (Switch / GShard style, over the first choice)
-    frac_tokens = torch.mean(F.one_hot(r.experts[..., 0], E).float(), dim=1)
-    frac_probs = torch.mean(r.probs, dim=1)                   # (G, E)
-    aux = E * torch.mean(torch.sum(frac_tokens * frac_probs, dim=-1))
+        # aux load-balancing loss (Switch / GShard style, over the first
+        # choice)
+        frac_tokens = torch.mean(F.one_hot(r.experts[..., 0], E).float(),
+                                 dim=1)
+        frac_probs = torch.mean(r.probs, dim=1)               # (G, E)
+        aux = E * torch.mean(torch.sum(frac_tokens * frac_probs, dim=-1))
 
-    # dispatch -> expert FFN -> combine
-    xe = torch.einsum("gtec,gtd->egcd", dispatch, xg)         # (E, G, C, d)
-    xe = logical(xe, ("act_expert", "act_batch", None, "act_embed"))
-    h_g = torch.einsum("egcd,edf->egcf", xe, p.gate)
-    h_u = torch.einsum("egcd,edf->egcf", xe, p.up)
-    h = F.silu(h_g) * h_u
-    h = logical(h, ("act_expert", "act_batch", None, "act_ff"))
-    ye = torch.einsum("egcf,efd->egcd", h, p.down)            # (E, G, C, d)
-    y = torch.einsum("egcd,gtec->gtd", ye, combine.to(x.dtype))
-    if sharding.is_dtensor(y):
-        # the groups laid out as the tokens they fold, so that they unfold
-        # into (B, S) (DTensor may have split them over more ranks than
-        # divide the batch)
-        y = y.redistribute(xg.device_mesh, xg.placements)
+        # dispatch -> expert FFN -> combine
+        xe = torch.einsum("gtec,gtd->egcd", dispatch, xg)     # (E, G, C, d)
+        xe = logical(xe, ("act_expert", "act_batch", None, "act_embed"))
+    with tracer.span("moe.experts"):
+        h_g = torch.einsum("egcd,edf->egcf", xe, p.gate)
+        h_u = torch.einsum("egcd,edf->egcf", xe, p.up)
+        h = F.silu(h_g) * h_u
+        h = logical(h, ("act_expert", "act_batch", None, "act_ff"))
+        ye = torch.einsum("egcf,efd->egcd", h, p.down)        # (E, G, C, d)
+    with tracer.span("moe.combine"):
+        y = torch.einsum("egcd,gtec->gtd", ye, combine.to(x.dtype))
+        if sharding.is_dtensor(y):
+            # the groups laid out as the tokens they fold, so that they
+            # unfold into (B, S) (DTensor may have split them over more
+            # ranks than divide the batch)
+            y = y.redistribute(xg.device_mesh, xg.placements)
     return sharding.grad_in_layout(y.reshape(B, S, d)), aux.float()

@@ -40,6 +40,7 @@ from repro_torch.distributed.sharding import logical
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssd_scan import ssd_scan_reference
 from repro_torch.models import layers
+from repro_torch.obs import trace as _obs_trace
 
 
 class SSMState(NamedTuple):
@@ -120,8 +121,9 @@ def _conv_on_local_rows(xbc: torch.Tensor, w: torch.Tensor,
 
 class _SSDScan(torch.autograd.Function):
     """y of ``kops.ssd_scan`` (the kernel on a CUDA tensor), differentiable
-    through a recompute of ``ssd_scan_reference`` in the backward.  Layouts
-    as the wrapper's: x (Bz,H,L,P), dt (Bz,H,L), A (H,), B/C (Bz,G,L,N)."""
+    through a recompute of ``ssd_scan_reference`` in the backward (the span
+    ``ssd.backward``).  Layouts as the wrapper's: x (Bz,H,L,P), dt
+    (Bz,H,L), A (H,), B/C (Bz,G,L,N)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
@@ -132,14 +134,18 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            y, _ = ssd_scan_reference(*inputs, chunk=ctx.chunk)
-        want = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(y, want, dy))
-        return (*(next(grads) if t.requires_grad else None
-                  for t in inputs), None)
+        saved = ctx.saved_tensors
+        Bz, H, L, P = saved[0].shape
+        with _obs_trace.get_tracer().span("ssd.backward", Bz=Bz, H=H, L=L,
+                                          P=P, chunk=ctx.chunk):
+            inputs = [t.detach().requires_grad_(need) for t, need in
+                      zip(saved, ctx.needs_input_grad)]
+            with torch.enable_grad():
+                y, _ = ssd_scan_reference(*inputs, chunk=ctx.chunk)
+            want = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, want, dy))
+            return (*(next(grads) if t.requires_grad else None
+                      for t in inputs), None)
 
 
 def _scan(x, dt, A, B, C, chunk: int) -> torch.Tensor:

@@ -18,19 +18,36 @@ Usage::
     tracer.save("trace.json")     # Perfetto-loadable
 
 Spans nest via a per-thread stack; completed spans record (name, start,
-duration, depth, predicted seconds, free-form args).  A **disabled**
-tracer is a true no-op: ``span()`` returns one shared null context
-manager, no clock is read, nothing allocates — the near-zero-overhead
-path production code keeps on by default.
+duration, depth, predicted seconds, free-form args) and an id, their
+parent's id and their thread.  A span opened on a thread with no open
+span of its own (the autograd engine's device thread, running a
+backward) takes as parent the innermost span open on the thread that
+opened the outermost open span (the main thread, blocked in
+``torch.autograd.grad``).  A **disabled** tracer is a true no-op:
+``span()`` returns one shared null context manager, no clock is read,
+nothing allocates — the near-zero-overhead path production code keeps on
+by default.
+
+**The device trace's clock.**  While a ``torch.profiler`` records the
+thread a span opens on, the span also holds a profiler range named
+``repro::<span name>``: the profiler then holds the span on its own
+clock, beside the operations run and the kernels launched inside it.
+The range is an operator-kind range (``_RecordFunctionFast``), not a
+``record_function`` user annotation: on the card the profiler gives a
+user annotation a device-side event spanning its kernels and the idle
+time between them, which a reader of device events would count as
+device work.  Without a recording profiler no range is entered.
 
 The module-level tracer (``get_tracer`` / ``set_tracer``) is what library
 code consults; it defaults to a disabled instance, and CLI entry points
 swap in an enabled one under ``--trace-json``.
 
-Zero dependencies; imports nothing from the rest of ``repro_torch``.
+Imports nothing from the rest of ``repro_torch``; ``torch`` is imported
+on the enabled path only, at the first span.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import tempfile
@@ -47,21 +64,47 @@ __all__ = [
 MEASURED_TID = 0
 PREDICTED_TID = 1
 
+#: the prefix of a span's profiler range
+RANGE_PREFIX = "repro::"
+
+#: torch's "does a profiler record this thread" check, once imported
+_recording = None
+
+
+def _profiler_recording() -> bool:
+    global _recording
+    if _recording is None:
+        import torch
+        _recording = torch._C._autograd._profiler_enabled
+    return _recording()
+
+
+def _enter_range(name: str):
+    """The entered profiler range ``repro::<name>``."""
+    import torch
+    rf = torch._C._profiler._RecordFunctionFast(RANGE_PREFIX + name)
+    rf.__enter__()
+    return rf
+
 
 class Span:
     """One finished (or in-flight) span."""
 
     __slots__ = ("name", "t_start_s", "duration_s", "predicted_s", "depth",
-                 "args")
+                 "args", "id", "parent", "thread")
 
     def __init__(self, name: str, t_start_s: float, depth: int,
-                 predicted_s: Optional[float], args: Dict[str, object]):
+                 predicted_s: Optional[float], args: Dict[str, object],
+                 id: int, parent: Optional[int], thread: int):
         self.name = name
         self.t_start_s = t_start_s      # seconds since the tracer's epoch
         self.duration_s: Optional[float] = None
         self.predicted_s = predicted_s
         self.depth = depth
         self.args = args
+        self.id = id                    # unique within its tracer, from 1
+        self.parent = parent            # the enclosing span's id, or None
+        self.thread = thread            # threading.get_ident() of its opener
 
     @property
     def gap_s(self) -> Optional[float]:
@@ -100,19 +143,23 @@ _NULL_SPAN = _NullSpan()
 
 
 class _LiveSpan:
-    """Context manager recording one span into its tracer."""
+    """Context manager recording one span into its tracer (and holding its
+    profiler range, if one was entered)."""
 
-    __slots__ = ("_tracer", "span")
+    __slots__ = ("_tracer", "span", "_range")
 
-    def __init__(self, tracer: "Tracer", span: Span):
+    def __init__(self, tracer: "Tracer", span: Span, rng=None):
         self._tracer = tracer
         self.span = span
+        self._range = rng
 
     def __enter__(self) -> "_LiveSpan":
         return self
 
     def __exit__(self, *exc) -> bool:
         self._tracer._finish(self.span)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
     def set(self, predicted_s: Optional[float] = None, **kw) -> None:
@@ -152,7 +199,10 @@ class Tracer:
         self.spans: List[Span] = []        # completed spans
         self.instants: List[Span] = []     # zero-duration marker events
         self.process_name = process_name
-        self.dropped = 0                   # spans opened while disabled
+        self._ids = itertools.count(1)
+        # the open-span stack of the thread that opened the outermost open
+        # span: where a span opened on a thread with none takes its parent
+        self._outer: Optional[list] = None
 
     # -- recording ---------------------------------------------------------
     def _stack(self) -> list:
@@ -161,19 +211,39 @@ class Tracer:
             st = self._tls.stack = []
         return st
 
+    def _new(self, name: str, st: list, predicted_s: Optional[float],
+             args: Dict[str, object]) -> Span:
+        """A span opened now on the thread whose stack is ``st``."""
+        if st:
+            parent = st[-1]
+        else:
+            outer = self._outer
+            # a slice, so that the other thread's pop cannot race the read
+            top = outer[-1:] if outer is not None and outer is not st \
+                else []
+            if not top:
+                self._outer = st
+            parent = top[0] if top else None
+        return Span(name, self._clock() - self._epoch,
+                    0 if parent is None else parent.depth + 1, predicted_s,
+                    args, next(self._ids),
+                    None if parent is None else parent.id,
+                    threading.get_ident())
+
     def span(self, name: str, *, predicted_s: Optional[float] = None,
              **args):
         """Open a nested span; use as a context manager.  On a disabled
         tracer this returns the shared null span — no clock read, no
-        allocation."""
+        allocation, no torch call."""
         if not self.enabled:
             return _NULL_SPAN
         st = self._stack()
-        sp = Span(name, self._clock() - self._epoch, len(st),
-                  None if predicted_s is None else float(predicted_s),
-                  dict(args))
+        sp = self._new(name, st,
+                       None if predicted_s is None else float(predicted_s),
+                       dict(args))
         st.append(sp)
-        return _LiveSpan(self, sp)
+        rng = _enter_range(name) if _profiler_recording() else None
+        return _LiveSpan(self, sp, rng)
 
     def _finish(self, sp: Span) -> None:
         st = self._stack()
@@ -192,8 +262,7 @@ class Tracer:
         events…)."""
         if not self.enabled:
             return
-        sp = Span(name, self._clock() - self._epoch, len(self._stack()),
-                  None, dict(args))
+        sp = self._new(name, self._stack(), None, dict(args))
         sp.duration_s = 0.0
         with self._lock:
             self.instants.append(sp)
@@ -243,7 +312,8 @@ class Tracer:
         ``predicted_s`` additionally emits a sibling complete event on the
         ``predicted`` track at the same start timestamp, whose duration is
         the *predicted* seconds — the two tracks line up so the gap is the
-        visible overhang.  Instants are ``ph="i"`` marks."""
+        visible overhang.  Instants are ``ph="i"`` marks.  Every event's
+        ``args`` carry its span's ``id``, ``parent`` and ``thread``."""
         pid = 0
         ev: List[Dict[str, object]] = [
             {"ph": "M", "pid": pid, "tid": MEASURED_TID,
@@ -259,7 +329,8 @@ class Tracer:
         for sp in spans:
             ts = sp.t_start_s * 1e6
             dur = (sp.duration_s or 0.0) * 1e6
-            args = dict(sp.args)
+            args = dict(sp.args, id=sp.id, parent=sp.parent,
+                        thread=sp.thread)
             if sp.predicted_s is not None:
                 args["predicted_s"] = sp.predicted_s
                 args["gap_s"] = sp.gap_s
@@ -276,7 +347,9 @@ class Tracer:
         for sp in instants:
             ev.append({"name": sp.name, "ph": "i", "pid": pid,
                        "tid": MEASURED_TID, "ts": sp.t_start_s * 1e6,
-                       "s": "t", "args": dict(sp.args)})
+                       "s": "t", "args": dict(sp.args, id=sp.id,
+                                              parent=sp.parent,
+                                              thread=sp.thread)})
         return {"traceEvents": ev, "displayTimeUnit": "ms",
                 "otherData": {"producer": "repro_torch.obs.trace"}}
 

@@ -4,8 +4,11 @@ All run eagerly; prefill and serve without autograd.  The train step takes
 the gradient of ``transformer.loss_fn`` with torch autograd, accumulates
 microbatches in f32 when the plan asks for several (one microbatch's
 activations live at a time), clips by the global norm and applies the
-optimizer, which updates the parameters in place.  ``make_step`` picks one
-of the three from a ``core.workload.WorkloadSpec``.
+optimizer, which updates the parameters in place; its phases are the
+spans ``train.forward`` and ``train.backward`` (one each a microbatch)
+and ``train.optimizer`` (``obs/trace``).  The step never synchronizes,
+so those spans time the host's issue of the work, not the device's.
+``make_step`` picks one of the three from a ``core.workload.WorkloadSpec``.
 ``make_manual_dp_train_step`` is the data-parallel train step with its
 gradient all-reduce written out in collectives, one process per rank.
 The steps also run as DTensor programs (``launch/specs.sharded``): under a
@@ -22,6 +25,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.plan import Plan
 from repro_torch.models import transformer
+from repro_torch.obs import trace as _obs_trace
 from repro_torch.optim import optimizers as opt
 
 
@@ -75,9 +79,12 @@ def make_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
     remat = plan.remat_policy or cfg.remat_policy
     M = plan.microbatches
 
-    def value_and_grad(model, params, batch):
-        loss, _ = transformer.loss_fn(model, cfg, batch, remat_policy=remat)
-        grads = torch.autograd.grad(loss, list(params.values()))
+    def value_and_grad(model, params, batch, tracer):
+        with tracer.span("train.forward"):
+            loss, _ = transformer.loss_fn(model, cfg, batch,
+                                          remat_policy=remat)
+        with tracer.span("train.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach(), dict(zip(params, grads))
 
     axes = {}   # the parameters' logical axes, read once, when needed
@@ -96,6 +103,7 @@ def make_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
         return shard.constrain_like_params(g, axes)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        tracer = _obs_trace.get_tracer()
         model = state.params
         params = dict(model.named_parameters())
         if M > 1:
@@ -104,7 +112,7 @@ def make_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
             loss_sum = None
             for i in range(M):
                 one = {k: _microbatch(v, i, M) for k, v in batch.items()}
-                loss, g = value_and_grad(model, params, one)
+                loss, g = value_and_grad(model, params, one, tracer)
                 g = _pin_grads(g)
                 for n, gi in g.items():
                     grads[n].add_(gi.float())
@@ -115,11 +123,12 @@ def make_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
                 gi.div_(M)
             loss_val = loss_sum / M
         else:
-            loss_val, grads = value_and_grad(model, params, batch)
+            loss_val, grads = value_and_grad(model, params, batch, tracer)
             grads = _pin_grads(grads)
-        grads, gnorm = opt.clip_by_global_norm(grads, clip_norm)
-        lr = lr_schedule(state.step)
-        _, new_opt = optimizer.update(grads, state.opt_state, params, lr)
+        with tracer.span("train.optimizer"):
+            grads, gnorm = opt.clip_by_global_norm(grads, clip_norm)
+            lr = lr_schedule(state.step)
+            _, new_opt = optimizer.update(grads, state.opt_state, params, lr)
         del grads
         return (TrainState(model, new_opt, state.step + 1),
                 {"loss": loss_val, "grad_norm": gnorm, "lr": lr})
