@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only engines        # the engine benchmarks
     python3 chip_smoke.py --only examples       # the examples on the card
     python3 chip_smoke.py --only docs           # the documents' commands
+    python3 chip_smoke.py --only train.ssd_chunk  # zamba2's step by SSD chunk
 
 Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
 source, all started together), holds each kernel against its plain PyTorch
@@ -102,9 +103,12 @@ counts set to 0 just before the path and read just after):
   world, attention's share of the plain path against the kernel's schedule
   at the tiles ``gpu-h100`` picks;
 * the SSD chunk of a training step (``train.ssd_chunk``, zamba2): steps at
-  the chunk ``"auto"`` picks under autograd (the backward's recompute
-  priced: 256, which the tensor-core kernel walks in halves of 128), at the
-  one it picks for the kernel alone and at the configured one, in turns;
+  the chunk ``"auto"`` picks under autograd (the backward kernels priced,
+  the same at every chunk: 64, the pick for the kernel alone) and at 64,
+  128 and 256, in turns, with the pick's seconds over the fastest's; the
+  training path's bf16 backward runs on the SSD backward kernels (four
+  launches a layer a step, counted from just before the counted steps to
+  just after);
 * the step predictor (``predict`` lines): for every path measured above (the
   prefill steps, the servers' decode iterations with their slots, mean
   occupancy and cache rows, the train steps, the second f32 prefill step of
@@ -192,7 +196,8 @@ exit code.  The last line is ``{"ok": true, "device": {...}}``.  With
 ``ssd``; matmul: ``mm``; transpose: ``tr``) against its plain version at its
 case table and (without ``-cases``) times it at the main paths' shapes, runs
 no main path, and says so in its last line; ``--only autotune`` builds and
-runs the autotune phase under the analytic seed alone, ``--only dp`` the
+runs the autotune phase under the analytic seed alone, ``--only
+train.ssd_chunk`` zamba2's trainer and that phase alone, ``--only dp`` the
 data-parallel phase alone, ``--only gspmd`` the sharded steps and the dry
 run alone, ``--only engines`` / ``--only examples`` / ``--only docs``
 that phase alone.  The
@@ -1185,6 +1190,85 @@ def phase_ssd_main_shape(cfg, B, S, gen, train: bool = False):
     }
 
 
+def phase_ssd_backward_main_shape(cfg, B, S, gen) -> dict:
+    """The SSD scan's backward kernels at a training path's shape, in the
+    main path's layout: each gradient against ``torch.autograd.grad``
+    through the plain version in f32 at the chunk the path picks, held to
+    its own limit (``TOL_SSD_BACKWARD``), the kernels' time (CUDA events),
+    the function's bound and the time of the plain recompute it replaced
+    (``ssd_scan_reference`` and its autograd at that chunk, host clock: it
+    is host-bound).  The bound is what the function must do, not what the
+    kernels do: its products a step of ``ssd.BACKWARD_STEP`` rows, each
+    MAC once, at the bf16 peak, or its inputs read once and its gradients
+    written once at the memory peak, whichever is longer; the kernels'
+    workspaces (f32 states, per-head shares) are theirs, not the
+    function's."""
+    from repro_torch.kernels import autotune
+    s = cfg.ssm
+    H, P, N, G = cfg.ssm_heads, s.head_dim, s.d_state, s.n_groups
+    x, dt, A, Bm, Cm = ssd_inputs(B, H, G, S, P, N, torch.bfloat16, gen)
+    if ssd.backward_path(x, dt, A, Bm, Cm) != "kernel":
+        raise AssertionError(f"{cfg.name}: the training path's SSD backward "
+                             "does not go to the backward kernels")
+    Q = autotune.best_block_sizes(
+        "ssd_scan", dict(kops.ssd_scan_shape(x, Bm, Cm), grad=True),
+        kops.CARD_MODEL)["chunk"]
+    dy = torch.randn(x.shape, device=DEV, generator=gen).to(x.dtype)
+    before = ssd.ssd_scan_backward.launches
+    got = kops.ssd_scan_backward(x, dt, A, Bm, Cm, dy)
+    launches = ssd.ssd_scan_backward.launches - before
+    torch.cuda.synchronize()
+
+    def plain():
+        ins = [t.detach().float().requires_grad_()
+               for t in (x, dt, A, Bm, Cm)]
+        yr, _ = ssd.ssd_scan_reference(*ins, chunk=Q)
+        return torch.autograd.grad(yr, ins, dy.float())
+
+    want = plain()
+    errs = {n: rel_diff(a, b) for n, a, b in zip(("x", "dt", "A", "B", "C"),
+                                                 got, want)}
+    del got, want
+    ms = time_ms(lambda: kops.ssd_scan_backward(x, dt, A, Bm, Cm, dy), 2, 10)
+    plain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / 2 * 1e3
+    # a step of T rows: C Bᵀ, dy xᵀ, Wᵀ dy, dS B and dSᵀ C over T × T (the
+    # masked ones counted whole, as the forward's schedule counts them), the
+    # two state terms, and the three products with h and dh
+    T = ssd.BACKWARD_STEP
+    flops = B * H * (S // T) * 2.0 * (T * T * (3 * N + 2 * P)
+                                      + 5 * T * P * N)
+    # x and dy in, dx out; dt in, ddt out; A in, dA out; B and C in, dB and
+    # dC out
+    nbytes = (3 * x.numel() * x.element_size()
+              + 2 * dt.numel() * 4 + 2 * A.numel() * 4
+              + 2 * (Bm.numel() + Cm.numel()) * Bm.element_size())
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    bound = max(t_ops, t_bytes) * 1e3
+    ok = all(errs[n] <= TOL_SSD_BACKWARD[n] for n in errs) \
+        and launches == ssd.BACKWARD_LAUNCHES
+    return {"arch": cfg.name, "ok": ok,
+            "shape": {"Bz": B, "H": H, "G": G, "L": S, "P": P, "N": N,
+                      "chunk": Q, "x_strides": list(x.stride())},
+            "rel_err": errs, "tol": TOL_SSD_BACKWARD,
+            "launches": launches, "step": ssd.BACKWARD_STEP,
+            "ms": ms, "plain_ms": plain_ms,
+            "plain_note": "ssd_scan_reference and torch.autograd.grad at "
+                          "the chunk, f32, host clock",
+            "bound_ms": bound, "share_of_bound": bound / ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops * 1e3, "bytes_ms": t_bytes * 1e3,
+            "flops": flops, "bytes": nbytes,
+            "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+            "pipes": "TF32 mma.sync, f32 operands as hi + lo pairs; the "
+                     "bound counts each MAC once at the bf16 peak"}
+
+
 # ---------------------------------------------------------------------------
 # matmul and transpose, and the calibration path that runs them
 
@@ -1688,7 +1772,7 @@ def phase_validate(reg_dir: str) -> dict:
         cfg = get_arch(r["arch"])
         cfg = dataclasses.replace(cfg, n_layers=r["layers_run"]) \
             if CALIB_SCALE == "gpu" else cfg.reduced()
-        per = train_launches_per_step(cfg)
+        per = train_launches_per_step(cfg, res["S"])
         r["calls"] = rec["calls"]
         r["launches"] = rec["launches"]
         if rec["launches"] != {k: rec["calls"] * per[k] for k in per}:
@@ -1830,7 +1914,8 @@ def _idle_by_events(fn, calls: int) -> dict:
 # the main paths
 
 KERNELS = {"flash_attention": fa.flash_attention, "ssd_scan": ssd.ssd_scan,
-           "matmul": mm.matmul, "transpose": tr.transpose}
+           "matmul": mm.matmul, "transpose": tr.transpose,
+           "ssd_scan_backward": ssd.ssd_scan_backward}
 
 
 def reset_launches() -> None:
@@ -1846,9 +1931,9 @@ def launches_per_step(cfg) -> dict:
     """The kernel launches one prefill step of ``cfg`` must make: one
     ``flash_attention`` a layer for the attention families (dense, moe, vlm,
     audio); one ``ssd_scan`` a layer, and one ``flash_attention`` a site of
-    the shared block, for ssm and hybrid."""
+    the shared block, for ssm and hybrid; no ``ssd_scan_backward``."""
     counts = {"flash_attention": 0, "ssd_scan": 0, "matmul": 0,
-              "transpose": 0}
+              "transpose": 0, "ssd_scan_backward": 0}
     if cfg.family == "hybrid":
         counts.update(flash_attention=cfg.n_layers // cfg.hybrid.attn_every,
                       ssd_scan=cfg.n_layers)
@@ -2757,7 +2842,7 @@ def phase_engines() -> dict:
 
 def example_launches(**counts) -> dict:
     return {"flash_attention": 0, "ssd_scan": 0, "matmul": 0,
-            "transpose": 0, **counts}
+            "transpose": 0, "ssd_scan_backward": 0, **counts}
 
 
 def run_example(name: str, fn, argv: list, expect) -> tuple:
@@ -3622,11 +3707,20 @@ def phase_profile(cfg, model, batch, seed, serve: bool):
 # the training paths
 
 
-def train_launches_per_step(cfg) -> dict:
-    """The kernel launches one train step of ``cfg`` must make under remat
-    ``full``: each attention and SSD layer's forward, and again in the
-    backward's recompute."""
-    return {n: 2 * k for n, k in launches_per_step(cfg).items()}
+def train_launches_per_step(cfg, L: int) -> dict:
+    """The kernel launches one train step of ``cfg`` at sequence length
+    ``L`` must make under remat ``full``: each attention and SSD layer's
+    forward, and again in the backward's recompute; and each SSD layer's
+    backward kernels (``ssd.BACKWARD_LAUNCHES``) where ``backward_rule``
+    takes the layer's inputs in the model's compute type."""
+    counts = {n: 2 * k for n, k in launches_per_step(cfg).items()}
+    s = cfg.ssm
+    if counts["ssd_scan"] and ssd.backward_rule(
+            s.head_dim, s.d_state, L,
+            cfg.compute_dtype == "bfloat16") == "kernel":
+        counts["ssd_scan_backward"] = \
+            ssd.BACKWARD_LAUNCHES * launches_per_step(cfg)["ssd_scan"]
+    return counts
 
 
 def new_trainer(cfg, seed, ckpt_dir=None, save_on_exit=True) -> Trainer:
@@ -3716,7 +3810,7 @@ def phase_train_compare(cfg, seed) -> dict:
     batch = {k: torch.from_numpy(v).to(DEV)
              for k, v in PackedLoader(dc).batch(0).items()}
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    want = train_launches_per_step(cfg)
+    want = train_launches_per_step(cfg, S)
 
     def run(cfg_, kernels, events=None):
         before = read_launches()
@@ -3725,7 +3819,8 @@ def phase_train_compare(cfg, seed) -> dict:
         torch.cuda.synchronize()
         after = read_launches()
         launched = {n: after[n] - before[n] for n in after}
-        if launched != (want if kernels else {n: 0 for n in want}):
+        per = train_launches_per_step(cfg_, S)
+        if launched != (per if kernels else {n: 0 for n in per}):
             raise AssertionError(f"{cfg_.name}: loss + backward launched "
                                  f"{launched} (kernels {kernels})")
         return float(loss), grads
@@ -3903,18 +3998,25 @@ def phase_train_profile(cfg, trainer):
           "train_step": prof})
 
 
+#: the SSD backward kernels' gradients against autograd of the plain
+#: version in f32, relative Frobenius, each its own: bf16 dx, dB, dC round
+#: once (1.65-1.66e-3); f32 ddt and dA read 1e-6 to 6e-5 with the products'
+#: f32 operands as hi + lo pairs, 3-4e-5 and 1e-4 with one TF32 each, and
+#: 2.5-3.2e-4 and 5e-4 to 1.3e-3 (dx, dB, dC 2.3e-3) rounded once to bf16
+TOL_SSD_BACKWARD = {"x": 2e-3, "dt": 1e-5, "A": 1e-4, "B": 2e-3, "C": 2e-3}
+
 #: train steps timed at each SSD chunk of ``phase_train_ssd_chunk``
 SSD_CHUNK_STEPS = 2
 
 
 def phase_train_ssd_chunk(cfg, trainer) -> dict:
     """The training step at the SSD chunk ``"auto"`` picks under autograd
-    (the backward's chunk-by-chunk recompute priced), beside the chunk it
-    picks for the kernel alone (no autograd: the autotune phase's row) and
-    the model's configured chunk, in turns (auto, kernel-only, configured,
-    auto): ``SSD_CHUNK_STEPS`` steps each, the chunk pinned by wrapping
-    ``ops.ssd_chunk``.  Steps of the same trainer (the weights move on), so
-    the seconds compare the chunks, not the losses."""
+    (the backward kernels priced, the same at every chunk) and at 64, 128
+    and 256, in turns (the pick first and last): ``SSD_CHUNK_STEPS`` steps
+    each, the chunk pinned by wrapping ``ops.ssd_chunk``.  Steps of the
+    same trainer (the weights move on), so the seconds compare the chunks,
+    not the losses.  ``pick_over_fastest``: the pick's median over the
+    fastest chunk's."""
     from repro_torch.kernels import autotune
     B, S = TRAIN_TOKENS
     s = cfg.ssm
@@ -3924,20 +4026,23 @@ def phase_train_ssd_chunk(cfg, trainer) -> dict:
         "ssd_scan", dict(shape, grad=grad), kops.CARD_MODEL)["chunk"]
         for name, grad in (("autograd", True), ("kernel_only", False))}
     picks["configured"] = min(s.chunk, S)
+    chunks = [picks["autograd"]] + [c for c in (64, 128, 256)
+                                    if c != picks["autograd"]]
     resolve = kops.ssd_chunk
-    times = {name: [] for name in picks}
+    times = {c: [] for c in chunks}
     try:
-        for name in ("autograd", "kernel_only", "configured", "autograd"):
-            kops.ssd_chunk = lambda *a, _c=picks[name], **k: _c
+        for c in chunks + chunks[:1]:
+            kops.ssd_chunk = lambda *a, _c=c, **k: _c
             hist = trainer.train(SSD_CHUNK_STEPS, on_metrics=quiet)
-            times[name] += [m["time_s"] for m in hist[-SSD_CHUNK_STEPS:]]
+            times[c] += [m["time_s"] for m in hist[-SSD_CHUNK_STEPS:]]
     finally:
         kops.ssd_chunk = resolve
+    med = {c: float(np.median(t)) for c, t in times.items()}
     out = {"phase": "train.ssd_chunk", "ok": True, "arch": cfg.name,
            "tokens": [B, S], "chunks": picks,
-           "seconds": times,
-           "seconds_median": {n: float(np.median(t))
-                              for n, t in times.items()}}
+           "seconds": {str(c): t for c, t in times.items()},
+           "seconds_median": {str(c): m for c, m in med.items()},
+           "pick_over_fastest": med[picks["autograd"]] / min(med.values())}
     emit(out)
     return out
 
@@ -3960,8 +4065,8 @@ def drive_train(cfg, args) -> dict:
         phase_train_steps(cfg, trainer, TRAIN_STEPS)
     launched = read_launches()
     # ---- read just after ---------------------------------------------------
-    want = {n: k * TRAIN_STEPS
-            for n, k in train_launches_per_step(cfg).items()}
+    per = train_launches_per_step(cfg, TRAIN_TOKENS[1])
+    want = {n: k * TRAIN_STEPS for n, k in per.items()}
     if launched != want:
         raise AssertionError(f"{name}: kernel launches on the training path "
                              f"{launched}, expected {want}")
@@ -4501,7 +4606,7 @@ def phase_gspmd(seed: int) -> dict:
             launches_per_step(get_arch(HYBRID))["flash_attention"]
             + MOE_LAYERS)),
         "ssd_scan": 2 * GSPMD_PREFILL_STEPS * get_arch(HYBRID).n_layers,
-        "matmul": 0, "transpose": 0}
+        "matmul": 0, "transpose": 0, "ssd_scan_backward": 0}
     emit({"phase": "gspmd.launches", "ok": launched == want,
           "launches": launched, "expected": want})
     if launched != want:
@@ -4864,7 +4969,7 @@ def phase_robust_train(reg_dir: str, seed: int):
         rebuilt = exprops.DISK_STATS["errors"] - errors
         del sup.trainer
     torch.cuda.empty_cache()
-    per_step = train_launches_per_step(cfg)
+    per_step = train_launches_per_step(cfg, TRAIN_TOKENS[1])
     want_launches = {n: k * len(cal.rows) for n, k in per_step.items()}
     if launched != want_launches:
         raise AssertionError(f"robust.train launches {launched}, expected "
@@ -5052,6 +5157,21 @@ def tr_extra(tr_ptx: list) -> dict:
             "ptxas": tr_ptx}
 
 
+def emit_ssd_backward(gen) -> list:
+    """The kernels line of the SSD backward at the training paths' shape
+    (zamba2-2.7b; mamba2-370m's N of 128) -> its rows."""
+    TB, TS = TRAIN_TOKENS
+    rows = [phase_ssd_backward_main_shape(get_arch(a), TB, TS, gen)
+            for a in (HYBRID, SSM)]
+    line = {"phase": "kernels.ssd_backward.main_shape",
+            "ok": all(r["ok"] for r in rows),
+            "kernel": "ssd_scan_backward", "shapes": rows}
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"the SSD backward kernels: {rows}")
+    return rows
+
+
 def kernel_only(args, smi) -> int:
     """``--only fa-cases|fa|ssd-cases|ssd|mm-cases|mm|tr-cases|tr``: the
     build, one kernel's case table, and (without ``-cases``) its timings at
@@ -5074,6 +5194,14 @@ def kernel_only(args, smi) -> int:
              "docs": phase_docs}[args.only]()
         return finish(args, smi, {"ok": True, "scope": f"--only {args.only}",
                                   "main_paths": f"{args.only} only"})
+    if args.only == "train.ssd_chunk":
+        cfg = get_arch(HYBRID)
+        with phase(f"{cfg.name}:train.init"):
+            trainer = phase_train_init(cfg, args.seed)
+        with phase(f"{cfg.name}:train.ssd_chunk"):
+            phase_train_ssd_chunk(cfg, trainer)
+        return finish(args, smi, {"ok": True, "scope": f"--only {args.only}",
+                                  "main_paths": "train.ssd_chunk only"})
     if args.only == "autotune":
         reset_launches()
         with phase("autotune"):
@@ -5115,6 +5243,8 @@ def kernel_only(args, smi) -> int:
                   + [phase_ssd_main_shape(get_arch(HYBRID), TB, TS, gen,
                                           train=True)],
                   **ssd_extra(ptx["ssd_scan"])})
+        with phase("kernels.ssd_backward.main_shape"):
+            emit_ssd_backward(gen)
     elif args.only == "mm":
         with phase("kernels.matmul.main_shape"):
             emit({"phase": "kernels.matmul.main_shape", "ok": True,
@@ -5142,7 +5272,8 @@ def main() -> int:
     ap.add_argument("--only", choices=("fa-cases", "fa", "ssd-cases", "ssd",
                                        "mm-cases", "mm", "tr-cases", "tr",
                                        "autotune", "dp", "gspmd",
-                                       "engines", "examples", "docs"),
+                                       "engines", "examples", "docs",
+                                       "train.ssd_chunk"),
                     default=None,
                     help="build, then only the flash-attention (fa), SSD-scan "
                          "(ssd), matmul (mm) or transpose (tr) cases (-cases) "
@@ -5151,7 +5282,8 @@ def main() -> int:
                          "data-parallel phase (dp) or the sharded steps and "
                          "the dry run (gspmd), or the engine benchmarks "
                          "(engines), the examples (examples) or the "
-                         "documents' commands (docs) alone")
+                         "documents' commands (docs) alone, or zamba2's "
+                         "training step by SSD chunk (train.ssd_chunk)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5233,6 +5365,9 @@ def run(args, cache_dir: str) -> int:
         emit({"phase": "kernels.ssd.main_shape", "ok": True,
               "kernel": "ssd_scan", "shapes": ssd_rows,
               **ssd_extra(ptx["ssd_scan"])})
+    torch.cuda.empty_cache()
+    with phase("kernels.ssd_backward.main_shape"):
+        bwd_rows = emit_ssd_backward(gen)
     torch.cuda.empty_cache()
 
     with phase("kernels.matmul.cases"):
@@ -5346,6 +5481,15 @@ def run(args, cache_dir: str) -> int:
                      "src/repro/kernels/transpose.py:30",
                      {a: n["transpose"] for a, n in launched.items()},
                      tr_rows, tr_cases, **tr_extra(ptx["transpose"])),
+        {**bwd_rows[0], "name": "ssd_scan_backward", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+         "replaces": "models/ssm._SSDScan.backward's recompute of "
+                     "ssd_scan_reference (the reference has no backward "
+                     "kernel)",
+         "launches": sum(n["ssd_scan_backward"] for n in launched.values()),
+         "launches_by_path": {a: n["ssd_scan_backward"]
+                              for a, n in launched.items()},
+         "shapes": bwd_rows},
     ]}
     for k in kernels["kernels"]:
         if k["launches"] == 0:

@@ -296,11 +296,15 @@ def ssd_scan_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: ExprLike,
     tiles loaded from device memory (one a chunk, one a strip) count
     ``MEMORY_WAIT_BARRIERS`` barriers each.
 
-    ``backward``: the call runs under autograd, so the chunk also sets the
-    backward's recompute: the plain chunked version, forward and backward,
-    dispatched operator by operator on the host (``const1`` each,
-    ``ssd_scan.RECOMPUTE_DISPATCHES_PER_CHUNK`` a chunk), its products
-    three times the reference's count in f32 (``mxu:32``)."""
+    ``backward``: the call runs under autograd, so its backward is priced
+    too, on the path ``ssd_scan.backward_rule`` names for the input's bits
+    and widths: the backward kernels (``ssd_backward_vector``, the same at
+    every chunk), or the plain path's recompute at the chunk: the plain
+    chunked version, forward and backward, dispatched operator by operator
+    on the host (``const1`` each, ``ssd_scan.RECOMPUTE_DISPATCHES_PER_CHUNK``
+    a chunk), its products three times the reference's count in f32
+    (``mxu:32``)."""
+    in_bits = bits
     bits = _pipe_bits(variant, bits)
     Q = as_expr(chunk)
     nc = CeilDiv(as_expr(L), Q)
@@ -351,6 +355,9 @@ def ssd_scan_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: ExprLike,
     out = {props.local_key(bits): local,
            props.mxu_key(bits): 2 * cells * prod * slots,
            **_grid_keys(waves, steps, syncs)}
+    if backward and ssd.backward_rule(int(P), int(N), int(L),
+                                      in_bits == 16) == "kernel":
+        return add_vectors(out, ssd_backward_vector(Bz, H, L, P, N))
     if backward:
         rows = as_expr(Bz) * as_expr(H) * nc
         P_, key = as_expr(P), props.mxu_key(32)
@@ -358,6 +365,46 @@ def ssd_scan_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: ExprLike,
         out[key] = as_expr(out.get(key, 0)) + recompute
         out[props.CONST1] = 1.0 + nc * ssd.RECOMPUTE_DISPATCHES_PER_CHUNK
     return out
+
+
+def ssd_backward_vector(Bz: ExprLike, H: ExprLike, L: ExprLike, P: int,
+                        N: int) -> Dict[str, ExprLike]:
+    """One call of the SSD scan's backward kernels (``csrc/ssd_scan_bwd.cu``),
+    whatever chunk the forward ran: steps of ``ssd_scan.BACKWARD_STEP`` rows
+    over P and N padded to 64 or 128.  Their products run on the tensor
+    cores in TF32, at half the bf16 rate, so each MAC counts twice under
+    ``mxu:16``, and twice again where an f32 operand enters as a hi + lo
+    pair: each step's state terms x^T (B w) and dy^T (C e^cum) (pairs);
+    C·Bᵀ and dy·xᵀ (bf16 operands, exact); Wᵀ·dy, dS·B and dSᵀ·C over the
+    rows on and below a warp's diagonal block (pairs); the three products
+    with h and dh (pairs).  Shared-memory operand reads (``local:32``):
+    3/32 a MAC (a warp owns 16 rows and 32 columns of a 64-column block).
+    The device-memory accesses of the four kernels (x, dy, B, C read by two
+    of them, per head; the f32 states and their gradients written, scanned
+    in place and read; dx, ddt and each head's shares of dB and dC
+    written, the shares read back and summed; the group's dB, dC counted
+    at one group); one ``const1`` a launch."""
+    from repro_torch.kernels import ssd_scan as ssd
+    T = ssd.BACKWARD_STEP
+    PP, NP = (64 if v <= 64 else 128 for v in (int(P), int(N)))
+    rows = as_expr(Bz) * as_expr(H) * as_expr(L)
+    steps = rows * (1.0 / T)
+    tri = (T + 16) / (2 * T)      # the rows i >= j a warp's loop walks
+    exact = T * T * (NP + PP)
+    paired = 2 * T * PP * NP + tri * T * T * (PP + 2 * NP) + 3 * T * PP * NP
+    states = steps * (int(P) * int(N))
+    return {
+        props.mxu_key(16): steps * (2 * 2 * (exact + 2 * paired)),
+        props.local_key(32): steps * (3 / 32 * (exact + paired)),
+        props.mem_key("load", 16, "s1"): rows * (4 * int(P) + 4 * int(N)),
+        props.mem_key("load", 32, "s1"): 2 * rows + 4 * states
+        + rows * (2 * int(N)),
+        props.mem_key("store", 32, "s1"): 4 * states + rows
+        + rows * (2 * int(N)),
+        props.mem_key("store", 16, "s1"): rows * int(P)
+        + as_expr(Bz) * as_expr(L) * (2 * int(N)),
+        props.CONST1: float(ssd.BACKWARD_LAUNCHES),
+    }
 
 
 def transpose_vector(M: ExprLike, N: ExprLike, *, block: ExprLike = 256,

@@ -12,8 +12,10 @@ Model code calls these.  Every wrapper accepts ``block_sizes``:
 
 ``"auto"`` resolution happens in plain Python before the kernel is called,
 so it runs once per (shape, model) and is memoized.  The SSD scan's chunk
-under autograd (``ssd_scan_shape``'s ``grad``) is priced with the
-backward's chunk-by-chunk recompute (``models/ssm._SSDScan``).
+under autograd (``ssd_scan_shape``'s ``grad``) is priced with the backward
+``models/ssm._SSDScan`` runs for those inputs: the backward kernels
+(``ssd_scan_backward``, the same price at every chunk), or the
+chunk-by-chunk recompute of the plain version.
 
 Block sizes are requests: flash attention's f32 kernel serves them with the
 nearest tile it is built for (``flash_attention.pick_tiles``), its bf16
@@ -218,6 +220,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     chunk = ssd_chunk(x, B, C, chunk=chunk, block_sizes=block_sizes,
                       model=model)
     return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+
+def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The SSD scan's gradients at ``dy`` on its backward kernels (the
+    inputs ``ssd_scan.backward_path`` sends there) -> (dx, ddt, dA, dB,
+    dC).  Nothing to tune: the kernels walk their own step whatever chunk
+    the forward ran."""
+    _local(x, dt, A, B, C, dy)
+    return _ssd.ssd_scan_backward(x, dt, A, B, C, dy)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 128,

@@ -31,9 +31,8 @@ before the launch, from types, shapes, strides and bases alone:
   chunk stages; the f32 intermediates W, h and x·w_end enter the products
   as hi + lo bf16 pairs, so it rounds nothing the f32 plain version does
   not.  A P slice of 64 per block; the state in registers.  A chunk of 256
-  (the training step's, which suits the backward's recompute) is walked as
-  two halves of 128 rows by the chunk-128 instance (``wgmma_rows``): the
-  chunked recurrence is exact for any chunk.
+  is walked as two halves of 128 rows by the chunk-128 instance
+  (``wgmma_rows``): the chunked recurrence is exact for any chunk.
 * ``"fma"`` (``ssd_fwd_kernel``): everything else (f32, mixed types, other
   chunks, layouts TMA cannot read).  All arithmetic in f32 on the FP32
   pipes, which alone take about ten times the byte bound; the state in
@@ -41,6 +40,17 @@ before the launch, from types, shapes, strides and bases alone:
 
 See the note at the top of the CUDA source.  ``tile`` and ``tile_for``
 report the variant, P slice, ring stages and shared memory of a launch.
+
+The backward (``ssd_scan_backward``, ``csrc/ssd_scan_bwd.cu``): four
+kernels whatever L, walking steps of ``BACKWARD_STEP`` rows whatever
+chunk the forward ran (the steps' own state terms; a pass over the steps
+for h at each step's start and dh at its end; each step's gradients,
+with C Bᵀ, W and dS kept on chip; the sums of dB, dC over a group's
+heads and of dA, in a fixed order), every product on the tensor cores
+in TF32 with each f32 operand as a hi + lo pair.  ``backward_path``
+decides before the launch which inputs it takes (bf16 x, B, C; the rest
+keeps the recompute of ``ssd_scan_reference`` under autograd);
+``ssd_scan_backward_reference`` is its arithmetic in plain PyTorch.
 
 Accepted shapes: x ``(Bz, H, L, P)``, dt ``(Bz, H, L)`` f32, A ``(H,)`` f32,
 B and C ``(Bz, G, L, N)`` with ``H % G == 0``; ``chunk`` (clipped to L, as in
@@ -268,11 +278,21 @@ def fma_memory_waits_per_chunk(chunk):
 
 
 #: the operators one chunk of the plain version dispatches forward and
-#: backward: the cost, chunk by chunk, of the training path's backward, which
+#: backward: the cost, chunk by chunk, of the backward's plain path, which
 #: recomputes ``ssd_scan_reference`` under autograd at the chunk the forward
-#: ran (``models/ssm._SSDScan``); ``tests/test_torch_ssm.py`` counts them
+#: ran (``models/ssm._SSDScan``, for the inputs ``backward_path`` does not
+#: send to the backward kernels); ``tests/test_torch_ssm.py`` counts them
 #: (each chunk past the first, PyTorch 2.13 on meta tensors)
 RECOMPUTE_DISPATCHES_PER_CHUNK = 175
+
+#: the rows the backward kernels (csrc/ssd_scan_bwd.cu, ``kT``) walk a step,
+#: whatever chunk the forward ran: the chunked recurrence is exact for any
+#: chunk
+BACKWARD_STEP = 64
+#: the kernels one ``ssd_scan_backward`` call launches, whatever L: the steps'
+#: own state terms, the pass over the steps, the gradients of each step, the
+#: sums over heads
+BACKWARD_LAUNCHES = 4
 
 
 def block_resources(variant: str, chunk: int, N: int,
@@ -376,10 +396,16 @@ def _check(x, dt, A, B, C) -> None:
         raise ValueError("x, dt, A, B, C lie on different devices")
 
 
+def _rows_of_4(t: torch.Tensor, base: int) -> bool:
+    """The last dimension contiguous, and every row aligned to 4 elements
+    (the kernels move 4 elements at a time: 16 bytes of f32, 8 of bf16).
+    ``base``: the byte address of the first element."""
+    return t.stride(-1) == 1 and not any(s % 4 for s in t.stride()[:-1]) \
+        and base % (4 * t.element_size()) == 0
+
+
 def _check_layout(name: str, t: torch.Tensor) -> None:
-    # the kernel moves 4 elements at a time (16 bytes of f32, 8 of bf16)
-    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) \
-            or t.data_ptr() % (4 * t.element_size()):
+    if not _rows_of_4(t, t.data_ptr()):
         raise ValueError(
             f"{name}: the last dimension must be contiguous and every row "
             f"aligned to 4 elements; got strides {t.stride()}")
@@ -431,9 +457,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             t.requires_grad for t in (x, dt, A, B, C)):
         raise NotImplementedError(
             "the SSD-scan kernel is differentiated only through "
-            "repro_torch.models.ssm._SSDScan (its backward recomputes the "
-            "plain chunked math); call the kernel directly under "
-            "torch.no_grad()")
+            "repro_torch.models.ssm._SSDScan (its backward runs "
+            "ssd_scan_backward or recomputes the plain chunked math); call "
+            "the kernel directly under torch.no_grad()")
     if chunk > MAX_CHUNK:
         raise ValueError(f"chunk {chunk} > {MAX_CHUNK} is not supported by "
                          "the kernel")
@@ -471,3 +497,174 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 #: how many times the kernel was launched (and only that: the plain version
 #: does not count)
 ssd_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the backward (csrc/ssd_scan_bwd.cu)
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
+                 + [ctypes.c_longlong] * 18 + [ctypes.c_void_p])
+
+
+def backward_rule(P: int, N: int, L: int, bf16: bool) -> str:
+    """``backward_path`` on what it reads of the shapes and types: the
+    backward kernels (``"kernel"``) take x, B and C in bf16 with dt and A
+    in f32, P and N multiples of 16 up to 128 and L a multiple of
+    ``BACKWARD_STEP``; everything else keeps the recompute of
+    ``ssd_scan_reference`` (``"plain"``)."""
+    if not bf16 or P % 16 or N % 16 or not 0 < P <= 128 \
+            or not 0 < N <= 128 or L % BACKWARD_STEP:
+        return "plain"
+    return "kernel"
+
+
+def backward_path(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor,
+                  bases: Optional[Sequence[int]] = None) -> str:
+    """Where ``models/ssm._SSDScan``'s backward goes for these inputs, from
+    devices, types, shapes, strides and base addresses alone, before any
+    launch: ``"kernel"`` (``ssd_scan_backward``) or ``"plain"`` (the
+    recompute of ``ssd_scan_reference`` under autograd).  CPU tensors and
+    ``flags.use_kernels(False)`` are plain; so are the inputs
+    ``backward_rule`` refuses, and x, B or C with a row not aligned to 4
+    elements.  ``bases``: the byte addresses of x, B, C (default their
+    ``data_ptr()``; for meta tensors the storage offset in bytes)."""
+    if x.device.type == "cpu" or not flags.kernels_enabled():
+        return "plain"
+    bf16 = all(t.dtype == torch.bfloat16 for t in (x, B, C)) \
+        and dt.dtype == torch.float32 and A.dtype == torch.float32
+    if backward_rule(x.shape[3], B.shape[3], x.shape[2], bf16) == "plain":
+        return "plain"
+    if bases is None:
+        bases = [t.data_ptr() for t in (x, B, C)]
+    if not all(_rows_of_4(t, base) for t, base in zip((x, B, C), bases)):
+        return "plain"
+    return "kernel"
+
+
+def ssd_scan_backward_reference(x: torch.Tensor, dt: torch.Tensor,
+                                A: torch.Tensor, B: torch.Tensor,
+                                C: torch.Tensor, dy: torch.Tensor, *,
+                                step: int = BACKWARD_STEP
+                                ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernels' arithmetic in plain PyTorch, f32, vectorised
+    over (batch, head, step): per step of ``step`` rows the step's own state
+    terms, the pass over the steps for h at each step's start and dh at its
+    end, then each step's gradients from them (see the note at the top of
+    ``csrc/ssd_scan_bwd.cu``).  Equals ``torch.autograd.grad`` through
+    ``ssd_scan_reference`` up to rounding.
+
+    -> (dx, ddt, dA, dB, dC), each f32."""
+    Bz, H, L, P = x.shape
+    G, N = B.shape[1], B.shape[3]
+    rep, T = H // G, step
+    nc = L // T
+    xs = x.float().reshape(Bz, H, nc, T, P)
+    dys = dy.float().reshape(Bz, H, nc, T, P)
+    Bs = B.float().repeat_interleave(rep, 1).reshape(Bz, H, nc, T, N)
+    Cs = C.float().repeat_interleave(rep, 1).reshape(Bz, H, nc, T, N)
+    dts = dt.float().reshape(Bz, H, nc, T)
+    Af = A.float()[None, :, None, None]
+    cum = torch.cumsum(dts * Af, -1)
+    cend = cum[..., -1:]
+    decay = torch.exp(cend)                                   # (Bz,H,nc,1)
+    wx = torch.exp(cend - cum)
+    w, ecum = dts * wx, torch.exp(cum)
+    s = (xs * w[..., None]).transpose(-1, -2) @ Bs            # (…,P,N)
+    u = (dys * ecum[..., None]).transpose(-1, -2) @ Cs
+    hs, dhs = [], []
+    hv = dv = torch.zeros_like(s[:, :, 0])
+    for c in range(nc):
+        hs.append(hv)
+        hv = decay[:, :, c, :, None] * hv + s[:, :, c]
+    for c in reversed(range(nc)):
+        dhs.append(dv)
+        dv = decay[:, :, c, :, None] * dv + u[:, :, c]
+    h, dh = torch.stack(hs, 2), torch.stack(dhs[::-1], 2)
+    tri = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+    diff = torch.where(tri, cum[..., :, None] - cum[..., None, :],
+                       torch.full_like(cum[..., None], NEG_INF))
+    dec = torch.exp(diff)
+    S = Cs @ Bs.transpose(-1, -2)
+    dW = dys @ xs.transpose(-1, -2)
+    W = S * dec * dts[..., None, :]
+    dS = dW * dec * dts[..., None, :]
+    Hm = dW * S * dec
+    xdh, dyh = xs @ dh, dys @ h
+    dx = W.transpose(-1, -2) @ dys + w[..., None] * (Bs @ dh.transpose(-1, -2))
+    dC = dS @ Bs + ecum[..., None] * dyh
+    dB = dS.transpose(-1, -2) @ Cs + w[..., None] * xdh
+    dw = (xdh * Bs).sum(-1)
+    colH = Hm.sum(-2)
+    dcum = (Hm * dts[..., None, :]).sum(-1) - dts * colH \
+        + ecum * (dyh * Cs).sum(-1) - w * dw
+    dcum[..., -1] += (w * dw).sum(-1) + decay[..., 0] * (dh * h).sum((-1, -2))
+    da = dcum.flip(-1).cumsum(-1).flip(-1)
+    ddt = da * Af + colH + dw * wx
+    return (dx.reshape(Bz, H, L, P), ddt.reshape(Bz, H, L),
+            (da * dts).sum((0, 2, 3)),
+            dB.reshape(Bz, G, rep, L, N).sum(2),
+            dC.reshape(Bz, G, rep, L, N).sum(2))
+
+
+def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of ``ssd_scan``'s y at ``dy`` on the backward kernels:
+    x (Bz,H,L,P), dt (Bz,H,L), A (H,), B/C (Bz,G,L,N), dy like x ->
+    (dx in x's type and dimension order, ddt (Bz,H,L) f32, dA (H,) f32,
+    dB and dC (Bz,G,L,N) in B's type).  Takes only inputs
+    ``backward_path`` sends to the kernels, else raises; a dy of another
+    type or layout is copied to x's type, contiguous.  Four launches
+    (``BACKWARD_LAUNCHES``) whatever L; f32 workspaces of
+    2·Bz·H·(L/64)·P·N + 2·Bz·H·L·N elements live for the call."""
+    _check(x, dt, A, B, C)
+    if backward_path(x, dt, A, B, C) != "kernel":
+        raise ValueError(
+            f"the SSD backward kernels do not take these inputs (x "
+            f"{tuple(x.shape)} {x.dtype}, B {tuple(B.shape)} {B.dtype}, "
+            f"strides {x.stride()}, {B.stride()}); see backward_path")
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} is not x's shape "
+                         f"{tuple(x.shape)}")
+    if dy.dtype != x.dtype or not _rows_of_4(dy, dy.data_ptr()):
+        dy = dy.to(x.dtype).contiguous()
+    Bz, H, L, P = x.shape
+    G, N = B.shape[1], B.shape[3]
+    nc = L // BACKWARD_STEP
+    f32, dev = torch.float32, x.device
+    dx = torch.empty_like(x)
+    ddt = torch.empty((Bz, H, L), dtype=f32, device=dev)
+    dA = torch.empty((H,), dtype=f32, device=dev)
+    dB = torch.empty((Bz, G, L, N), dtype=B.dtype, device=dev)
+    dC = torch.empty_like(dB)
+    states = torch.empty((Bz, H, nc, P, N), dtype=f32, device=dev)
+    dstates = torch.empty_like(states)
+    decay = torch.empty((Bz, H, nc), dtype=f32, device=dev)
+    dA_part = torch.empty_like(decay)
+    dB_part = torch.empty((Bz, H, L, N), dtype=f32, device=dev)
+    dC_part = torch.empty_like(dB_part)
+    A = A.contiguous()
+
+    fn = _build.load("ssd_scan_bwd").ssd_scan_backward
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(*(t.data_ptr() for t in (
+                     x, dt, A, B, C, dy, dx, ddt, dA, dB, dC, states, dstates,
+                     decay, dB_part, dC_part, dA_part)),
+                 Bz, H, G, L, P, N, *x.stride()[:3], *dt.stride(),
+                 *B.stride()[:3], *C.stride()[:3], *dy.stride()[:3],
+                 *dx.stride()[:3],
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"ssd_scan_backward: CUDA error {err} at launch (x "
+            f"{tuple(x.shape)}, B {tuple(B.shape)})")
+    ssd_scan_backward.launches += BACKWARD_LAUNCHES
+    return dx, ddt, dA, dB, dC
+
+
+#: how many kernels the backward launched (and only that: the plain
+#: recompute does not count)
+ssd_scan_backward.launches = 0

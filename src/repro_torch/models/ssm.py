@@ -6,11 +6,15 @@ Train and prefill go through ``_SSDScan``, an autograd Function around
 SSD-scan kernel on a CUDA tensor, and its plain chunked version
 (``ssd_scan_reference``, the reference's ``_ssd_chunked`` in the kernel's
 layout) on a CPU tensor or under ``flags.use_kernels(False)``; the wrapper
-makes that choice, and the forward saves only the inputs.  Its BACKWARD —
-never its forward — recomputes the plain chunked math under autograd and
-returns ``torch.autograd.grad`` of it: the counterpart of ``jax.grad``
-through ``_ssd_chunked``, which is what the reference differentiates (it has
-no backward kernel), one layer at a time.  Decode is plain tensor code, as
+makes that choice, and the forward saves only the inputs.  Its backward
+goes where ``ssd_scan.backward_path`` sends the saved inputs, decided from
+their types, shapes and strides before any launch: bf16 inputs on the card
+to the hand-written backward kernels (``kops.ssd_scan_backward``, four
+launches a layer whatever the chunk), everything else (f32, CPU tensors,
+``flags.use_kernels(False)``) to a recompute of the plain chunked math under
+autograd, returning ``torch.autograd.grad`` of it: the counterpart of
+``jax.grad`` through ``_ssd_chunked``, which is what the reference
+differentiates (it has no backward kernel).  Decode is plain tensor code, as
 in the reference (which has no decode kernel either).  On DTensors (a
 sharded step) the causal conv and the scan run under ``local_map`` on each
 rank's rows and heads.
@@ -38,9 +42,10 @@ from torch import nn
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import logical
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ssd_scan import ssd_scan_reference
+from repro_torch.kernels.ssd_scan import backward_path, ssd_scan_reference
 from repro_torch.models import layers
 from repro_torch.obs import trace as _obs_trace
+from repro_torch.runtime import flags
 
 
 class SSMState(NamedTuple):
@@ -121,37 +126,48 @@ def _conv_on_local_rows(xbc: torch.Tensor, w: torch.Tensor,
 
 class _SSDScan(torch.autograd.Function):
     """y of ``kops.ssd_scan`` (the kernel on a CUDA tensor), differentiable
-    through a recompute of ``ssd_scan_reference`` in the backward (the span
-    ``ssd.backward``).  Layouts as the wrapper's: x (Bz,H,L,P), dt
-    (Bz,H,L), A (H,), B/C (Bz,G,L,N)."""
+    through the backward kernels or a recompute of ``ssd_scan_reference``,
+    as ``backward_path`` says (the span ``ssd.backward``, its arg ``path``
+    ``"kernel"`` or ``"plain"``).  Layouts as the wrapper's: x (Bz,H,L,P),
+    dt (Bz,H,L), A (H,), B/C (Bz,G,L,N).  The backward runs under the
+    forward's ``flags.use_kernels``: for CUDA tensors autograd runs it on a
+    thread of its own, where the thread-local flags are at their
+    defaults."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
         y, _ = kops.ssd_scan(x, dt, A, B, C, chunk=chunk)
         ctx.save_for_backward(x, dt, A, B, C)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.kernels = chunk, flags.kernels_enabled()
         return y
 
     @staticmethod
     def backward(ctx, dy):
         saved = ctx.saved_tensors
         Bz, H, L, P = saved[0].shape
-        with _obs_trace.get_tracer().span("ssd.backward", Bz=Bz, H=H, L=L,
-                                          P=P, chunk=ctx.chunk):
-            inputs = [t.detach().requires_grad_(need) for t, need in
-                      zip(saved, ctx.needs_input_grad)]
-            with torch.enable_grad():
-                y, _ = ssd_scan_reference(*inputs, chunk=ctx.chunk)
-            want = [t for t in inputs if t.requires_grad]
-            grads = iter(torch.autograd.grad(y, want, dy))
-            return (*(next(grads) if t.requires_grad else None
-                      for t in inputs), None)
+        with flags.use_kernels(ctx.kernels):
+            path = backward_path(*saved)
+            with _obs_trace.get_tracer().span(
+                    "ssd.backward", Bz=Bz, H=H, L=L, P=P, chunk=ctx.chunk,
+                    path=path):
+                if path == "kernel":
+                    grads = kops.ssd_scan_backward(*saved, dy)
+                    return (*(g if need else None for g, need in
+                              zip(grads, ctx.needs_input_grad)), None)
+                inputs = [t.detach().requires_grad_(need) for t, need in
+                          zip(saved, ctx.needs_input_grad)]
+                with torch.enable_grad():
+                    y, _ = ssd_scan_reference(*inputs, chunk=ctx.chunk)
+                want = [t for t in inputs if t.requires_grad]
+                grads = iter(torch.autograd.grad(y, want, dy))
+                return (*(next(grads) if t.requires_grad else None
+                          for t in inputs), None)
 
 
 def _scan(x, dt, A, B, C, chunk: int) -> torch.Tensor:
     """``_SSDScan`` at the autotuner's chunk, resolved here once, as in the
-    reference, so that the backward recomputes at the chunk the forward
-    ran (under autograd the tuner prices that recompute too)."""
+    reference, so that a plain backward recomputes at the chunk the forward
+    ran (under autograd the tuner prices the backward too)."""
     chunk = kops.ssd_chunk(x, B, C, chunk=chunk, block_sizes="auto")
     return _SSDScan.apply(x, dt, A, B, C, chunk)
 

@@ -424,19 +424,24 @@ def test_ssd_pick_on_the_main_paths_is_a_tensor_core_chunk(name, B, S):
                                       ("mamba2-370m", 2, 4096),
                                       ("zamba2-2.7b", 4, 2048)])
 def test_ssd_pick_under_autograd_is_a_tensor_core_chunk(name, B, S):
-    """A training step calls the scan under autograd, where the chunk also
-    sets the backward's chunk-by-chunk recompute: ``"auto"`` picks 256,
-    and ``pick_variant`` sends it to ``ssd_wgmma_kernel`` (two halves of
-    128 rows), not the FP32 kernel."""
+    """A training step calls the scan under autograd, where its bf16
+    backward runs on the backward kernels, priced the same at every chunk:
+    ``"auto"`` picks the forward kernel's own chunk, the pick without
+    autograd, and ``pick_variant`` sends it to ``ssd_wgmma_kernel``, not
+    the FP32 kernel."""
     from repro_torch.configs.registry import ARCHS
     cfg = ARCHS[name]
     shape = {"Bz": B, "H": cfg.ssm_heads, "L": S, "P": cfg.ssm.head_dim,
              "N": cfg.ssm.d_state, "bits": 16, "tma": True, "grad": True}
     best = autotune.best_block_sizes("ssd_scan", shape, "gpu-h100")
-    assert best["chunk"] == 256
+    alone = autotune.best_block_sizes("ssd_scan", dict(shape, grad=False),
+                                      "gpu-h100")
+    assert best == alone and best["chunk"] in tssd.WGMMA_CHUNKS
     assert kernelmodel.get("ssd_scan").variant(shape, best) == "wgmma"
-    assert tssd.variant_rule(cfg.ssm.head_dim, cfg.ssm.d_state, 256,
-                             True) == "wgmma"
+    assert tssd.variant_rule(cfg.ssm.head_dim, cfg.ssm.d_state,
+                             best["chunk"], True) == "wgmma"
+    assert tssd.backward_rule(cfg.ssm.head_dim, cfg.ssm.d_state, S,
+                              True) == "kernel"
 
 
 def test_ssd_wgmma_tiles_at_chunk_256_fit_shared_memory():
@@ -562,7 +567,8 @@ def test_ssd_schedule_props(N, chunk, bits, tma, ref_bits):
 def test_ssd_schedule_props_at_chunk_256_count_the_halves(N):
     """On ``wgmma`` a chunk of 256 runs as two halves of 128 rows: the
     reference's bf16 vector at chunk 128.  The CUDA vector's kernel keys
-    equal chunk 128's; under autograd only the recompute (at 256) differs."""
+    equal chunk 128's; under autograd the backward kernels add their own
+    keys, the same at both chunks, and their launches."""
     args = (2, 8, 1024, 64, N)
     got = tssd.schedule_props(*args, chunk=256, bits=16, tma=True)
     _close(got, jssd.schedule_props(*args, chunk=128, bits=16))
@@ -575,11 +581,59 @@ def test_ssd_schedule_props_at_chunk_256_count_the_halves(N):
     bwd = {c: evaluate_vector(kernelmodel.ssd_scan_vector(
         *args, chunk=c, bits=16, variant="wgmma", p_block=64, resident=1,
         backward=True), {}) for c in (128, 256)}
-    assert bwd[256][props.CONST1] == 1 + (1024 // 256) \
+    assert bwd[256][props.CONST1] == 1 + tssd.BACKWARD_LAUNCHES
+    assert bwd[256] == bwd[128]
+    kern = evaluate_vector(kernelmodel.ssd_backward_vector(*args), {})
+    assert bwd[256] == {k: vec[256].get(k, 0) + kern.get(k, 0)
+                        for k in set(vec[256]) | set(kern)}
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+def test_ssd_backward_vector_does_not_grow_with_the_chunk(chunk):
+    """Under autograd, bf16 with P, N multiples of 16 up to 128: the SSD
+    vector adds ``ssd_backward_vector`` (the backward kernels' TF32
+    products on the tensor cores, shared-memory reads, device-memory
+    accesses and ``BACKWARD_LAUNCHES`` launches) and nothing that grows
+    with the number of chunks; f32 keeps the plain path's recompute, 175
+    dispatches a chunk."""
+    args = (2, 80, 4096, 64, 64)
+    kw = dict(chunk=chunk, p_block=64, resident=1)
+    fwd = evaluate_vector(kernelmodel.ssd_scan_vector(
+        *args, bits=16, variant="wgmma", **kw), {})
+    bwd = evaluate_vector(kernelmodel.ssd_scan_vector(
+        *args, bits=16, variant="wgmma", backward=True, **kw), {})
+    kern = evaluate_vector(kernelmodel.ssd_backward_vector(*args), {})
+    assert bwd[props.CONST1] == fwd[props.CONST1] + tssd.BACKWARD_LAUNCHES
+    assert bwd == {k: fwd.get(k, 0) + kern.get(k, 0)
+                   for k in set(fwd) | set(kern)}
+    assert props.mxu_key(16) in kern and props.mxu_key(32) not in kern
+    # products: at least four times the forward's count at chunk 64 (TF32
+    # at half the bf16 rate, the backward's own products at least twice
+    # the forward's), at most sixteen times
+    Bz, H, L, P, N = args
+    fwd64 = 2 * Bz * H * (L // 64) * (64 * 64 * (N + P) + 2 * 64 * P * N)
+    assert 4 * fwd64 < kern[props.mxu_key(16)] < 16 * fwd64
+    f32 = evaluate_vector(kernelmodel.ssd_scan_vector(
+        *args, bits=32, variant="fma", backward=True, **kw), {})
+    assert f32[props.CONST1] == 1 + (L // chunk) \
         * tssd.RECOMPUTE_DISPATCHES_PER_CHUNK
-    kernel_keys = set(vec[256]) - {props.CONST1}
-    assert {k: bwd[256][k] for k in kernel_keys} \
-        == {k: vec[256][k] for k in kernel_keys}
+
+
+def test_ssd_prefill_picks_are_unchanged_by_the_backward():
+    """Without autograd (the prefill paths) the SSD pick reads no
+    backward: 128 at the prefill shapes of zamba2-2.7b and mamba2-370m
+    (4 x 2048), 64 at zamba2's training shape."""
+    from repro_torch.configs.registry import ARCHS
+    for name, B, S, want in (("zamba2-2.7b", 4, 2048, 128),
+                             ("mamba2-370m", 4, 2048, 128),
+                             ("zamba2-2.7b", 2, 4096, 64)):
+        cfg = ARCHS[name]
+        shape = {"Bz": B, "H": cfg.ssm_heads, "L": S, "P": cfg.ssm.head_dim,
+                 "N": cfg.ssm.d_state, "bits": 16, "tma": True}
+        for grad in (None, False):
+            sh = shape if grad is None else dict(shape, grad=grad)
+            assert autotune.best_block_sizes("ssd_scan", sh, "gpu-h100")[
+                "chunk"] == want, (name, B, S)
 
 
 def test_ssd_schedule_props_count_the_p_slices():
@@ -837,10 +891,10 @@ def test_bf16_main_path_picks_are_the_tiles_they_run():
     (``tile_rule(dh)``) and the SSD's tensor-core chunk 128 at the prefill
     shapes.  The kernel alone at zamba2's training shape picks 64 (2
     blocks an SM, one wave, the card's fastest there); the training path
-    calls it under autograd, where the chunk also sets the backward's
-    chunk-by-chunk recompute, and picks 256, which the tensor-core kernel
-    walks as two halves of 128 rows (the card: 3.0 s a step against 5.1 at
-    128 and 8.8 at 64; 3.6 s while 256 ran on the FP32 kernel)."""
+    calls it under autograd, where the backward kernels cost the same at
+    every chunk, and picks 64 too (until the backward kernels, the
+    chunk-by-chunk recompute made it 256: 3.0 s a step against 5.1 at 128
+    and 8.8 at 64 on the card)."""
     for dh in (64, 80, 128):
         shape = dict(CARD_MS["llama-f32-attention"][0], dh=dh, bits=16)
         bq, bk = tfa.tile_rule(dh)[:2]
@@ -855,7 +909,7 @@ def test_bf16_main_path_picks_are_the_tiles_they_run():
         assert pick["chunk"] == chunk and km.variant(shape, pick) == "wgmma"
     train = dict(CARD_MS["zamba2-train-bf16-ssd"][0], grad=True)
     pick = autotune.best_block_sizes("ssd_scan", train, "gpu-h100")
-    assert pick["chunk"] == 256 and km.variant(train, pick) == "wgmma"
+    assert pick["chunk"] == 64 and km.variant(train, pick) == "wgmma"
 
 
 def test_f32_ssd_leaves_chunk_256_at_zamba2():

@@ -823,6 +823,52 @@ def test_ssd_function_at_chunk_256_matches_the_plain_path(cuda):
         assert _rel(a, b) <= tol, (name, _rel(a, b))
 
 
+#: the backward kernels' gradients against autograd of the plain version in
+#: f32, relative Frobenius, each its own (``chip_smoke.TOL_SSD_BACKWARD``):
+#: bf16 dx, dB, dC round once (1.66e-3; 2.3e-3 with the products' f32
+#: operands rounded once to bf16); ddt and dA read 1e-6 to 6e-5 with them
+#: as hi + lo pairs, 3-4e-5 and 1e-4 with one TF32 each
+SSD_BACKWARD_TOL = {"x": 2e-3, "dt": 1e-5, "A": 1e-4, "B": 2e-3, "C": 2e-3}
+
+
+@pytest.mark.parametrize("case,chunk", [
+    ((2, 80, 1, 4096, 64, 64, 0, "bfloat16"), 256),    # zamba2-2.7b's step
+    ((2, 80, 1, 4096, 64, 64, 0, "bfloat16"), 128),
+    ((2, 32, 1, 4096, 64, 128, 0, "bfloat16"), 128),   # mamba2-370m's N
+    ((1, 40, 1, 4096, 64, 64, 0, "bfloat16"), 256),    # a rank's shard of it
+], ids=["zamba2-256", "zamba2-128", "mamba2-128", "shard-256"])
+def test_ssd_backward_kernels_match_autograd_of_the_plain_version(
+        case, chunk, cuda):
+    """``_SSDScan``'s backward at the training shapes, in the main path's
+    strided views: the backward kernels (four launches a call), against
+    ``torch.autograd.grad`` through ``ssd_scan_reference`` in f32 from the
+    same bf16 inputs at the forward's chunk: dx, ddt, dA, dB and dC each
+    within its limit of ``SSD_BACKWARD_TOL``, relative Frobenius; dA, dB
+    and dC bit-equal over two calls."""
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import ssm
+    x, dt, A, B, C = _ssd_inputs(case, cuda, main_layout=True)
+    assert ssd.backward_path(x, dt, A, B, C) == "kernel"
+    gy = torch.randn(x.shape, generator=torch.Generator(cuda).manual_seed(1),
+                     device=cuda).to(x.dtype)
+    ins = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
+    before = ssd.ssd_scan_backward.launches
+    y = ssm._SSDScan.apply(*ins, chunk)
+    got = torch.autograd.grad(y, ins, gy)
+    assert ssd.ssd_scan_backward.launches == before + ssd.BACKWARD_LAUNCHES
+    again = kops.ssd_scan_backward(x, dt, A, B, C, gy)
+    assert ssd.ssd_scan_backward.launches \
+        == before + 2 * ssd.BACKWARD_LAUNCHES
+    for name, a, b in zip(("A", "B", "C"), got[2:], again[2:]):
+        assert torch.equal(a, b), name
+    f32 = [t.detach().float().requires_grad_() for t in (x, dt, A, B, C)]
+    yr, _ = ssd.ssd_scan_reference(*f32, chunk=chunk)
+    want = torch.autograd.grad(yr, f32, gy.float())
+    for name, a, b in zip(("x", "dt", "A", "B", "C"), got, want):
+        assert a.dtype == (x.dtype if name in "xBC" else torch.float32)
+        assert _rel(a, b) <= SSD_BACKWARD_TOL[name], (name, _rel(a, b))
+
+
 @pytest.mark.parametrize("name", ["llama3.2-3b", "zamba2-2.7b"])
 def test_train_step_through_the_kernels_matches_the_plain_path(name, cuda):
     """One ``make_train_step`` (adamw, remat full) at reduced size in f32

@@ -694,3 +694,147 @@ def test_recompute_dispatches_per_chunk_are_the_plain_versions():
     # past the first chunk, each adds the same operators
     assert count(48) - count(32) == (count(128) - count(64)) // 4 \
         == tssd.RECOMPUTE_DISPATCHES_PER_CHUNK
+
+
+# ---------------------------------------------------------------------------
+# the backward: which inputs go to its kernels, and their arithmetic
+
+
+def _meta_scan_inputs(Bz=2, H=80, G=1, L=4096, P=64, N=64,
+                      dtype=torch.bfloat16, shift=0):
+    """x, dt, A, B, C on the meta device in the training path's layout:
+    column slices of one (Bz, L, width) tensor viewed as (Bz, H, L, P) /
+    (Bz, G, L, N), dt a (Bz, H, L) view of (Bz, L, H); ``shift`` moves the
+    slices ``shift`` elements into the row."""
+    d = H * P
+    xbc = torch.empty((Bz, L, shift + d + 2 * G * N), dtype=dtype,
+                      device="meta")[..., shift:]
+    x = xbc[..., :d].unflatten(-1, (H, P)).transpose(1, 2)
+    B = xbc[..., d:d + G * N].unflatten(-1, (G, N)).transpose(1, 2)
+    C = xbc[..., d + G * N:].unflatten(-1, (G, N)).transpose(1, 2)
+    dt = torch.empty((Bz, L, H), device="meta").transpose(1, 2)
+    A = torch.empty((H,), device="meta")
+    return x, dt, A, B, C
+
+
+def _bases(*ts):
+    return [t.storage_offset() * t.element_size() for t in ts]
+
+
+@pytest.mark.parametrize("kw,want", [
+    ({}, "kernel"),                                  # zamba2-2.7b's step
+    ({"N": 128, "H": 32}, "kernel"),                 # mamba2-370m's
+    ({"H": 40, "Bz": 1}, "kernel"),                  # a rank's shard of it
+    ({"P": 128, "N": 128, "H": 4, "G": 2}, "kernel"),
+    ({"P": 48, "N": 16, "H": 6, "G": 3}, "kernel"),
+    ({"dtype": torch.float32}, "plain"),             # f32 inputs
+    ({"P": 16, "N": 16, "L": 96}, "plain"),          # L not a step multiple
+    ({"P": 8}, "plain"), ({"N": 144}, "plain"), ({"P": 160}, "plain"),
+    ({"shift": 2}, "plain"),                         # rows not 4-aligned
+    ({"shift": 4}, "kernel"),
+], ids=["zamba2", "mamba2", "shard", "p128n128", "p48n16", "f32", "L96",
+        "P8", "N144", "P160", "shift2", "shift4"])
+def test_backward_path_rule_on_meta_tensors(kw, want):
+    x, dt, A, B, C = _meta_scan_inputs(**kw)
+    assert tssd.backward_path(x, dt, A, B, C, _bases(x, B, C)) == want
+    assert tssd.backward_rule(x.shape[3], B.shape[3], x.shape[2],
+                              x.dtype == torch.bfloat16) \
+        == ("kernel" if kw.get("shift") == 2 else want)
+
+
+def test_backward_path_keeps_the_recompute_off_the_kernels():
+    """CPU tensors, ``use_kernels(False)``, and dt or A in another type than
+    f32 keep the plain recompute."""
+    x, dt, A, B, C = _meta_scan_inputs()
+    bases = _bases(x, B, C)
+    with tflags.use_kernels(False):
+        assert tssd.backward_path(x, dt, A, B, C, bases) == "plain"
+    assert tssd.backward_path(x, dt.to(torch.bfloat16), A, B, C,
+                              bases) == "plain"
+    assert tssd.backward_path(x, dt, A.double(), B, C, bases) == "plain"
+    cpu = [torch.zeros(t.shape, dtype=t.dtype) for t in (x, dt, A, B, C)]
+    assert tssd.backward_path(*cpu) == "plain"
+    with pytest.raises(ValueError, match="do not take"):
+        tssd.ssd_scan_backward(*cpu, torch.zeros(x.shape, dtype=x.dtype))
+
+
+@pytest.mark.parametrize("Bz,H,G,L,P,N,chunk,step", [
+    (2, 4, 2, 256, 16, 32, 128, 64), (1, 3, 1, 192, 32, 16, 64, 64),
+    (1, 2, 1, 256, 16, 16, 256, 32), (1, 2, 1, 128, 64, 128, 128, 64)])
+def test_backward_kernels_arithmetic_equals_autograd(Bz, H, G, L, P, N,
+                                                     chunk, step):
+    """The backward kernels' step decomposition in plain PyTorch
+    (``ssd_scan_backward_reference``: state terms, the pass over the
+    steps, each step's gradients) equals ``torch.autograd.grad`` through
+    ``ssd_scan_reference``, at a step other than the forward's chunk (both
+    f32: within 2e-5 relative Frobenius)."""
+    g = torch.Generator().manual_seed(L + P + N)
+    x = 0.5 * torch.randn(Bz, H, L, P, generator=g)
+    dt = 0.05 + 0.1 * torch.rand(Bz, H, L, generator=g)
+    A = -(0.5 + torch.rand(H, generator=g))
+    B = 0.3 * torch.randn(Bz, G, L, N, generator=g)
+    C = 0.3 * torch.randn(Bz, G, L, N, generator=g)
+    dy = torch.randn(Bz, H, L, P, generator=g)
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+    y, _ = tssd.ssd_scan_reference(*ins, chunk=chunk)
+    want = torch.autograd.grad(y, ins, dy)
+    got = tssd.ssd_scan_backward_reference(x, dt, A, B, C, dy, step=step)
+    for name, a, b in zip(("x", "dt", "A", "B", "C"), got, want):
+        assert a.shape == b.shape, name
+        err = float((a - b).norm() / b.norm())
+        assert err < 2e-5, (name, err)
+
+
+def test_ssd_backward_span_says_which_path_ran():
+    """``_SSDScan``'s backward on CPU tensors keeps the recompute, and its
+    span ``ssd.backward`` says so (``path="plain"``); the backward kernels'
+    launch count does not move."""
+    from repro_torch.obs import trace as ttrace
+    g = torch.Generator().manual_seed(3)
+    x, B, C = (torch.randn(1, n, 64, 16, generator=g).to(torch.bfloat16)
+               .requires_grad_() for n in (2, 1, 1))
+    dt = (0.1 * torch.rand(1, 2, 64, generator=g)).requires_grad_()
+    A = (-torch.ones(2)).requires_grad_()
+    tracer, prev = ttrace.Tracer(), ttrace.get_tracer()
+    ttrace.set_tracer(tracer)
+    before = tssd.ssd_scan_backward.launches
+    try:
+        tssm._SSDScan.apply(x, dt, A, B, C, 32).float().sum().backward()
+    finally:
+        ttrace.set_tracer(prev)
+    spans = [s for s in tracer.spans if s.name == "ssd.backward"]
+    assert len(spans) == 1 and spans[0].args["path"] == "plain"
+    assert spans[0].args["chunk"] == 32
+    assert tssd.ssd_scan_backward.launches == before
+    assert all(t.grad is not None for t in (x, dt, A, B, C))
+
+
+@pytest.mark.parametrize("kernels", [True, False], ids=["on", "off"])
+def test_ssd_backward_decides_under_the_forwards_flags(kernels, monkeypatch):
+    """``_SSDScan``'s backward asks ``backward_path`` under the forward's
+    ``flags.use_kernels``, on another thread whose flag says the opposite
+    (for CUDA tensors autograd runs the backward on a thread of its own,
+    its flags at their defaults)."""
+    import threading
+    seen, real = [], tssm.backward_path
+
+    def spy(*args, **kw):
+        seen.append(tflags.kernels_enabled())
+        return real(*args, **kw)
+    monkeypatch.setattr(tssm, "backward_path", spy)
+    g = torch.Generator().manual_seed(5)
+    x, B, C = (torch.randn(1, n, 64, 16, generator=g).to(torch.bfloat16)
+               .requires_grad_() for n in (2, 1, 1))
+    dt = (0.1 * torch.rand(1, 2, 64, generator=g)).requires_grad_()
+    A = (-torch.ones(2)).requires_grad_()
+    with tflags.use_kernels(kernels):
+        y = tssm._SSDScan.apply(x, dt, A, B, C, 32)
+
+    def backward():
+        with tflags.use_kernels(not kernels):
+            y.float().sum().backward()
+    t = threading.Thread(target=backward)
+    t.start()
+    t.join()
+    assert seen == [kernels]
+    assert all(v.grad is not None for v in (x, dt, A, B, C))
