@@ -7,6 +7,7 @@ HBM3 bandwidth), the numbers the program's ``gpu-h100`` seed states.
 """
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Optional
 
 from benchkit.weights import ssm_sizes
@@ -64,12 +65,16 @@ def bound_s(ops: float, nbytes: float) -> float:
     return max(ops / PEAK_FLOPS, nbytes / PEAK_BYTES_S)
 
 
-def forward_flops(cfg: dict, B: int, S: int) -> int:
+def forward_flops(cfg: dict, B: int, S: int,
+                  ref: Optional[ModuleType] = None) -> int:
     """Model FLOPs of one forward pass over B sequences of S tokens:
-    2·m·n a token for every weight matrix the token passes through (the
-    MoE's experts only for the top-k routed tokens, no capacity slack;
-    not the embedding lookup), plus attention and the SSD as counted
-    above."""
+    ``ref``'s ``forward_flops(cfg, B, S)`` where the configuration's
+    reference module defines one; else, for today's families, 2·m·n a
+    token for every weight matrix the token passes through (the MoE's
+    experts only for the top-k routed tokens, no capacity slack; not the
+    embedding lookup), plus attention and the SSD as counted above."""
+    if hasattr(ref, "forward_flops"):
+        return ref.forward_flops(cfg, B, S)
     d, V = cfg["d_model"], cfg["vocab_size"]
     T = B * S
     flops = 2 * T * d * V  # LM head
@@ -101,7 +106,8 @@ def forward_flops(cfg: dict, B: int, S: int) -> int:
     return flops
 
 
-def train_flops(cfg: dict, B: int, S: int) -> int:
+def train_flops(cfg: dict, B: int, S: int,
+                ref: Optional[ModuleType] = None) -> int:
     """Forward + backward, the backward counted as twice the forward;
     remat's recompute is not counted."""
-    return 3 * forward_flops(cfg, B, S)
+    return 3 * forward_flops(cfg, B, S, ref)

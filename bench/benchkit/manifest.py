@@ -6,6 +6,24 @@ traffic mix (``bench/traffic/<traffic>.json``); its limits are
 ``bench/reference/<config>.py``; a per-layer metric's reader is
 ``bench/metrics/<metric>.py``.  Adding a cell, a configuration or a
 metric adds files and entries; nothing here changes.
+
+What is particular to an architecture comes with its files:
+
+* the configuration file's keys are the fields of the program's
+  ``ArchConfig`` and of its groups' dataclasses, beside the documentary
+  ones and copies of the source's own keys that ``published`` holds
+  (``program.arch_config``);
+* the reference module defines ``logits`` and ``loss``, and may define
+  ``param_spec(cfg) -> [weights.Leaf]`` (the weights' names, shapes, types
+  and draws), ``forward_flops(cfg, B, S) -> int`` (the model FLOPs the MFU
+  readers take) and ``routed_layers(cfg) -> int`` (the layers whose
+  experts' picks a prefill's check replays); where it does not, the
+  functions of ``weights``, ``counts`` and ``prefill`` for today's
+  families apply;
+* a reader defines ``read(ctx) -> float or None`` and may export
+  ``ENTRY = (module, function name, describe)``: an entry point of the
+  program that the traced run then wraps in a range, whose calls and
+  device seconds ``ctx.calls(name)`` returns (``entries``).
 """
 from __future__ import annotations
 

@@ -6,9 +6,10 @@ from the seed, binds the weights into the program's model and runs
 ``warmup_steps`` steps.  The window then runs steps until ``seconds``
 have passed, each timed on the host clock to a synchronize.  A seeded
 reservoir keeps the outputs of ``sampled_steps`` of the window's steps
-(and, for an MoE, the experts the program picked in each layer); once the
-window has closed, the plain reference recomputes those steps in f32 and
-``compare`` judges them.
+(and, for an MoE, the experts the program picked in each routed layer);
+once the window has closed, the plain reference recomputes those steps in
+f32 and ``compare`` judges them.  The traced run holds the program's
+tracer on for its window (``Window.tracing``); the timed run runs none.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ def run(cfg: dict, traffic: dict, ref, seed: int, seconds: float,
         win: Window, device) -> Result:
     arch = program.arch_config(cfg)
     B, S, P = traffic["batch"], traffic["seq_len"], traffic["pool"]
-    weights = W.make(cfg, seed, device)
+    weights = W.make(cfg, seed, device, ref)
     model = program.model_with(arch, weights)
     step = program.prefill_step(arch, B, S)
     gen = torch.Generator(device).manual_seed(int(seed) * 2 + 1)
@@ -84,7 +85,8 @@ def run(cfg: dict, traffic: dict, ref, seed: int, seconds: float,
             n += 1
             return dt
 
-        res = win.run(one, seconds, traffic["profiled_steps"])
+        with win.tracing():
+            res = win.run(one, seconds, traffic["profiled_steps"])
     finally:
         if picks:
             picks.restore()
@@ -107,17 +109,27 @@ def run(cfg: dict, traffic: dict, ref, seed: int, seconds: float,
     return res
 
 
+def routed_layers(cfg: dict, ref=None) -> int:
+    """The layers that route tokens to experts: ``ref``'s
+    ``routed_layers(cfg)`` where the configuration's reference module
+    defines one, else every layer."""
+    if hasattr(ref, "routed_layers"):
+        return ref.routed_layers(cfg)
+    return cfg["n_layers"]
+
+
 def check_step(cfg: dict, ref, weights, tokens: torch.Tensor,
                out: torch.Tensor, picks: Optional[List[torch.Tensor]]
                ) -> dict:
     """The numbers of one step: ``out`` (and ``picks``) of the program, or
     of the control, against the reference in f32 on ``tokens``.  Picks
-    that are not one (groups, tokens, top_k) tensor a layer for these
-    tokens are no routing: the reference then routes by itself and the
-    regret is infinite."""
+    that are not one (groups, tokens, top_k) tensor a routed layer
+    (``routed_layers``) for these tokens are no routing: the reference
+    then routes by itself and the regret is infinite."""
     record: dict = {}
     moe = cfg.get("moe")
-    whole = moe and picks is not None and len(picks) == cfg["n_layers"] \
+    whole = moe and picks is not None \
+        and len(picks) == routed_layers(cfg, ref) \
         and all(p.numel() == tokens.numel() * moe["top_k"] for p in picks)
     want = ref.logits(weights, cfg, tokens, precision="f32",
                       picks=picks if whole else None, record=record)

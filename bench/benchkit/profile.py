@@ -59,14 +59,16 @@ class Calls:
         setattr(self.module, self.attr, self.orig)
 
 
-def capture(run: Callable[[], None]):
-    """Profiles ``run`` inside the window range, to a synchronize."""
+def capture(run: Callable[[], None], cuda: bool = True):
+    """Profiles ``run`` inside the window range, to a synchronize (on the
+    card; ``cuda`` false: the host alone, as the CPU tests run it)."""
     from torch.profiler import ProfilerActivity, profile, record_function
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
         with record_function(WINDOW):
             run()
-            torch.cuda.synchronize()
+            if cuda:
+                torch.cuda.synchronize()
     return prof
 
 

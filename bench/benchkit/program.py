@@ -5,14 +5,15 @@ the benchmark imports the program.
 """
 from __future__ import annotations
 
+import dataclasses
+import typing
 from typing import Dict
 
 import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import (ArchConfig, HybridConfig, MoEConfig,
-                                      SSMConfig)
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.workload import WorkloadSpec
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.models import moe as _moe
@@ -20,29 +21,71 @@ from repro_torch.models import transformer
 from repro_torch.runtime import steps
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-_FIELDS = ("name", "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
-           "d_ff", "vocab_size", "head_dim", "rope_theta", "sliding_window",
-           "norm_eps", "tie_embeddings", "param_dtype", "compute_dtype",
-           "optimizer", "remat_policy")
+#: keys of a configuration file that document it and set nothing of the
+#: program (``init_scale`` is the benchmark's, for its weights;
+#: ``published`` holds the source's own values)
+DOCUMENTARY = ("source", "deployment", "reduced", "published", "assumed",
+               "departures", "init_scale")
+
+
+def _dataclass_in(hint):
+    """The dataclass a field's type names (``Optional[X]`` -> X), or
+    None."""
+    for t in (hint,) + typing.get_args(hint):
+        if dataclasses.is_dataclass(t):
+            return t
+    return None
+
+
+def _build(cls, values: dict, where: str):
+    """``cls`` from ``values``, each key a field of ``cls`` (read with
+    ``dataclasses.fields``); a dict for a field whose type is a dataclass
+    is built into it the same way, a list becomes a tuple.  A key that
+    names no field is refused, by its path in the file."""
+    fields = {f.name for f in dataclasses.fields(cls)}
+    hints = typing.get_type_hints(cls)
+    kw = {}
+    for k, v in values.items():
+        if k not in fields:
+            raise ValueError(f"the configuration's key {where + k!r} "
+                             f"names no field of the program's "
+                             f"{cls.__name__}")
+        sub = _dataclass_in(hints[k])
+        if sub is not None and isinstance(v, dict):
+            v = _build(sub, v, f"{where}{k}.")
+        elif isinstance(v, list):
+            v = tuple(v)
+        kw[k] = v
+    return cls(**kw)
 
 
 def arch_config(cfg: dict) -> ArchConfig:
-    """The configuration file as the program's ``ArchConfig``."""
-    kw = {k: cfg[k] for k in _FIELDS}
-    if cfg.get("ssm"):
-        kw["ssm"] = SSMConfig(**cfg["ssm"])
-    if cfg.get("hybrid"):
-        kw["hybrid"] = HybridConfig(**cfg["hybrid"])
-    moe = cfg.get("moe")
-    if moe:
+    """The configuration file as the program's ``ArchConfig``: every key
+    but the ``DOCUMENTARY`` ones is a field of it or of the dataclass of
+    its group (``ssm``, ``hybrid``, ``moe``, ...), and passes through as
+    it is.  ``published`` holds the source's values: a key it holds has
+    that value or is one that ``reduced`` names, and a top-level key that
+    names no field passes only as such a copy (a catalog model's file
+    holds the catalog's config at the top level).  ``moe.group_tokens``,
+    where the file gives it, is checked against the group the program
+    routes in."""
+    fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    published = cfg.get("published") or {}
+    for k in published.keys() & cfg.keys():
+        if cfg[k] != published[k] and k not in cfg.get("reduced", ()):
+            raise ValueError(f"the configuration's key {k!r} is "
+                             f"{cfg[k]!r}, its source's {published[k]!r}, "
+                             f"and 'reduced' does not name it")
+    kw = {k: v for k, v in cfg.items() if k not in DOCUMENTARY
+          and (k in fields or k not in published)}
+    moe = kw.get("moe")
+    if moe and "group_tokens" in moe:
         if moe["group_tokens"] != _moe.GROUP_TOKENS:
             raise ValueError(f"the program routes in groups of "
                              f"{_moe.GROUP_TOKENS} tokens, the configuration "
                              f"states {moe['group_tokens']}")
-        kw["moe"] = MoEConfig(n_experts=moe["n_experts"], top_k=moe["top_k"],
-                              capacity_factor=moe["capacity_factor"],
-                              aux_loss_weight=moe["aux_loss_weight"])
-    return ArchConfig(**kw)
+        kw["moe"] = {k: v for k, v in moe.items() if k != "group_tokens"}
+    return _build(ArchConfig, kw, "")
 
 
 def _check_names(model: nn.Module, weights: Dict[str, torch.Tensor]) -> None:

@@ -55,7 +55,7 @@ def run(cfg: dict, traffic: dict, ref, seed: int, seconds: float,
     arch = program.arch_config(cfg)
     B, S, V = traffic["batch"], traffic["seq_len"], cfg["vocab_size"]
     n_checked = traffic["checked_steps"]
-    weights = W.make(cfg, seed, device)
+    weights = W.make(cfg, seed, device, ref)
     feed = program.Feed(lambda step: batch(seed, step, B, S, V))
     tr = program.trainer(arch, traffic, weights, feed, device)
     b1 = traffic["optimizer"]["b1"]
@@ -71,11 +71,6 @@ def run(cfg: dict, traffic: dict, ref, seed: int, seconds: float,
             "change": change}
     del weights, params
 
-    tracer = None
-    if win.trace:
-        from repro_torch.obs import trace as obs_trace
-        tracer = obs_trace.Tracer()
-        obs_trace.set_tracer(tracer)
     walls: List[float] = []
 
     def one() -> float:
@@ -85,11 +80,8 @@ def run(cfg: dict, traffic: dict, ref, seed: int, seconds: float,
         walls.append(dt)
         return dt
 
-    try:
+    with win.tracing() as tracer:
         res = win.run(one, seconds, traffic["profiled_steps"])
-    finally:
-        if tracer is not None:
-            obs_trace.set_tracer(None)
     window_losses = [h["loss"] for h in tr.history[n_checked:]]
     tokens = B * S
     res.metrics = {"train_tokens_per_s": res.steps * tokens / res.span_s}
@@ -116,7 +108,7 @@ def follow(ref, cfg: dict, traffic: dict, seed: int, device,
     every update, as the program keeps them; all else is f32."""
     B, S, V = traffic["batch"], traffic["seq_len"], cfg["vocab_size"]
     opt, clip = traffic["optimizer"], traffic["clip_norm"]
-    start = W.make(cfg, seed, device)
+    start = W.make(cfg, seed, device, ref)
     leaves = {n: t.to(torch.float32, copy=True).requires_grad_()
               for n, t in start.items()}
     m = {n: torch.zeros_like(p) for n, p in leaves.items()}

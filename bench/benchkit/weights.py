@@ -2,7 +2,9 @@
 
 ``param_spec`` lists every parameter as the program names and shapes it
 (``(out, in)`` for a dense layer, the MoE's ``(E, d, ff)`` layout), with
-its type and how it is drawn.  ``make`` draws all the random leaves of one
+its type and how it is drawn: the configuration's reference module's own
+``param_spec(cfg)`` where it defines one, else the list this module builds
+for today's families.  ``make`` draws all the random leaves of one
 type with a few large calls into one flat buffer and hands out views of
 it; the constant leaves (norm scales, the SSM's A_log, D, dt_bias, biases)
 are set directly.  The same tensors go to the program and to the plain
@@ -11,7 +13,8 @@ reference, which only reads them.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Tuple
+from types import ModuleType
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -88,8 +91,11 @@ def _ssm_block(p: str, cfg: dict, dt) -> List[Leaf]:
                  "normal")]
 
 
-def param_spec(cfg: dict) -> List[Leaf]:
-    """Every parameter of ``cfg``'s model, by the program's name."""
+def param_spec(cfg: dict, ref: Optional[ModuleType] = None) -> List[Leaf]:
+    """Every parameter of ``cfg``'s model, by the program's name: ``ref``'s
+    ``param_spec(cfg)`` where the reference module defines one."""
+    if hasattr(ref, "param_spec"):
+        return ref.param_spec(cfg)
     dt = DTYPES[cfg["param_dtype"]]
     d, V = cfg["d_model"], cfg["vocab_size"]
     ssm = cfg["family"] in ("ssm", "hybrid")
@@ -104,8 +110,8 @@ def param_spec(cfg: dict) -> List[Leaf]:
     return spec
 
 
-def n_params(cfg: dict) -> int:
-    return sum(math.prod(leaf.shape) for leaf in param_spec(cfg))
+def n_params(cfg: dict, ref: Optional[ModuleType] = None) -> int:
+    return sum(math.prod(leaf.shape) for leaf in param_spec(cfg, ref))
 
 
 def _constant(leaf: Leaf, device) -> torch.Tensor:
@@ -120,12 +126,13 @@ def _constant(leaf: Leaf, device) -> torch.Tensor:
     raise ValueError(f"{leaf.name}: unknown init {leaf.init!r}")
 
 
-def make(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
+def make(cfg: dict, seed: int, device, ref: Optional[ModuleType] = None
+         ) -> Dict[str, torch.Tensor]:
     """name -> tensor on ``device``: the random leaves N(0, init_scale²)
     drawn by a generator on ``device`` seeded with ``seed``, one flat
     buffer a type filled in calls of at most ``CHUNK`` elements, in the
-    order of ``param_spec``."""
-    spec = param_spec(cfg)
+    order of ``param_spec(cfg, ref)``."""
+    spec = param_spec(cfg, ref)
     scale = float(cfg["init_scale"])
     gen = torch.Generator(device).manual_seed(int(seed))
     out: Dict[str, torch.Tensor] = {}

@@ -5,39 +5,29 @@ which ends in a synchronize and returns its host-clock seconds) until
 ``seconds`` have passed since the window opened; the step that crosses
 the deadline completes and counts.  Set-up ends where the window opens.
 In the traced run ``profiled`` steps run under the profiler (from the
-third step of the window on), with the program's kernel entry points in
-ranges (``profile.Calls``); they are left out of the host-clock step
-times the per-layer metrics read.
+third step of the window on), with the entry points that the cell's
+readers declare in ranges (``entries``, ``profile.Calls``) and the
+program's tracer on for the window (``tracing``); they are left out of the
+host-clock step times the per-layer metrics read.  The trace is reduced
+twice before it is freed: to the device's busy time, the ranges' device
+seconds and the breakdown (``profile.reduce``, on the card), and to the
+program's spans (``spans.ranges``).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import importlib
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from benchkit import profile
+from benchkit import profile, spans
 
 #: the window step at which the traced run starts its profile
 PROFILE_AT = 2
-
-
-def _describe_attention(q, k, v, *args, causal=True, window=None,
-                        return_lse=False, **kwargs) -> dict:
-    B, Hq, Sq, dh = q.shape
-    return {"B": B, "Hq": Hq, "Hkv": k.shape[1], "Sq": Sq,
-            "Skv": k.shape[2], "dh": dh, "causal": causal, "window": window,
-            "lse": bool(return_lse), "itemsize": q.element_size()}
-
-
-def _describe_ssd(x, dt, A, B, C, *args, **kwargs) -> dict:
-    Bz, H, L, P = x.shape
-    return {"B": Bz, "H": H, "L": L, "P": P, "G": B.shape[1],
-            "N": B.shape[3], "x_size": x.element_size(),
-            "dt_size": dt.element_size(), "a_size": A.element_size(),
-            "bc_size": B.element_size(), "y_size": x.element_size()}
 
 
 @dataclass
@@ -48,7 +38,9 @@ class Result:
     setup_s: float = 0.0
     window_peak_bytes: int = 0      # allocator peak inside the window
     memory_peak_bytes: int = 0      # process peak up to the window's close
-    profile: Optional[dict] = None
+    profiled: int = 0               # steps under the profiler
+    profile: Optional[dict] = None  # profile.reduce (on the card)
+    spans: Optional[dict] = None    # spans.ranges
     calls: Dict[str, List[dict]] = field(default_factory=dict)
     host_ms: List[float] = field(default_factory=list)
     attempted: int = 0
@@ -58,18 +50,34 @@ class Result:
 
 
 class Window:
-    def __init__(self, device, t0: float, trace: bool):
+    def __init__(self, device, t0: float, trace: bool,
+                 entries: Sequence[tuple] = ()):
+        """``entries``: the ``(module, function name, describe)`` of each
+        entry point the traced run wraps (``entries.union``)."""
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.t0 = t0
         self.trace = trace
         self.calls: List[profile.Calls] = []
         if trace:
-            from repro_torch.kernels import ops
-            self.calls = [
-                profile.Calls(ops, "flash_attention", "flash_attention",
-                              _describe_attention),
-                profile.Calls(ops, "ssd_scan", "ssd_scan", _describe_ssd)]
+            self.calls = [profile.Calls(importlib.import_module(mod), attr,
+                                        attr, describe)
+                          for mod, attr, describe in entries]
+
+    @contextlib.contextmanager
+    def tracing(self):
+        """The program's tracer, enabled while the traced run's window runs
+        (None in the timed run, which runs no tracer)."""
+        if not self.trace:
+            yield None
+            return
+        from repro_torch.obs import trace as obs_trace
+        tracer = obs_trace.Tracer()
+        prev = obs_trace.set_tracer(tracer)
+        try:
+            yield tracer
+        finally:
+            obs_trace.set_tracer(prev)
 
     def synchronize(self) -> None:
         if self.cuda:
@@ -96,10 +104,14 @@ class Window:
         would walk them while they live."""
         for c in self.calls:
             c.clear()
-        prof = profile.capture(lambda: [one() for _ in range(profiled)])
+        prof = profile.capture(lambda: [one() for _ in range(profiled)],
+                               self.cuda)
         res.steps += profiled
+        res.profiled = profiled
         res.calls = {c.name: list(c.shapes) for c in self.calls}
-        res.profile = profile.reduce(prof, [c.name for c in self.calls])
+        if self.cuda:
+            res.profile = profile.reduce(prof, [c.name for c in self.calls])
+        res.spans = spans.ranges(prof)
         del prof
         gc.collect()
 

@@ -3,7 +3,9 @@
 roofline bound over the sum of its device seconds, in %.  A call's bound
 is the larger of 4·B·Hq·(visible pairs)·dh operations at the bf16 peak
 and q, k, v read and o (and lse) written once at the memory peak."""
-from benchkit import counts
+from benchkit import counts, entries
+
+ENTRY = entries.FLASH_ATTENTION
 
 
 def bound_s(c: dict) -> float:

@@ -4,7 +4,9 @@ call's roofline bound over the sum of its device seconds, in %.  A call's
 bound is the larger of the recurrent form's 4·B·H·L·N·P operations at
 the bf16 peak and x, dt, A, B, C read and y written once at the memory
 peak."""
-from benchkit import counts
+from benchkit import counts, entries
+
+ENTRY = entries.SSD_SCAN
 
 
 def bound_s(c: dict) -> float:

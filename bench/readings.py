@@ -68,7 +68,7 @@ def main(argv=None) -> int:
     for s in [int(x) for x in args.control_seeds.split(",") if x]:
         t = time.perf_counter()
         if traffic["kind"] == "prefill":
-            w = W.make(cfg, s, "cuda")
+            w = W.make(cfg, s, "cuda", ref)
             g = torch.Generator("cuda").manual_seed(s * 2 + 1)
             pool = torch.randint(0, cfg["vocab_size"],
                                  (traffic["pool"], traffic["batch"],

@@ -3,10 +3,10 @@
     python3 bench/span_report.py --workload <cell> --seed <n> \
         [--seconds 51] [--out <file.json>]
 
-Runs the cell's traced window (``run.py --trace 1``'s path, but for the
-profiled steps, which come last) with the program's tracer on in every
-kind of cell and each window step inside a span ``window_step``, and
-prints one JSON object:
+Runs the cell's traced window (``run.py --trace 1``'s path, with the
+entry points its readers declare and the program's tracer on, but for the
+profiled steps, which come last) with each window step inside a span
+``window_step``, and prints one JSON object:
 
 * ``steps``, ``profiled`` (the window's steps the profiler recorded),
   ``timed_mean_s`` (the mean host-clock seconds of the unprofiled steps),
@@ -21,7 +21,9 @@ prints one JSON object:
 * ``idle_inside_pct``: by span name, the idle share of the time inside
   its ranges, %;
 * ``device_ms``: by span name, the device seconds of the operations
-  launched inside its ranges, a profiled step, ms.
+  launched inside its ranges, a profiled step, ms;
+* ``per_layer``: the cell's per-layer metrics, read by their readers from
+  this window (null where a reader finds nothing to read).
 
 The spans inside a step time the host's issue of the work: the program
 synchronizes only at a step's end.
@@ -31,7 +33,6 @@ import time
 T0 = time.perf_counter()
 
 import argparse  # noqa: E402
-import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import statistics  # noqa: E402
@@ -50,16 +51,15 @@ def report(cell: str, seed: int, seconds: float, device="cuda",
     """The report of one traced window of ``cell``; ``cfg`` / ``traffic``
     replace the cell's files (a rehearsal at a small size)."""
     import torch
-    from benchkit import compare, manifest, prefill, profile, spans, train
+    from benchkit import cells, compare, entries, manifest, spans
     from benchkit.window import Window
     from repro_torch.obs import trace as obs_trace
 
     class SpanWindow(Window):
-        """The window with a span around each step, keeping the program's
-        ranges of the profiled steps before the profile is freed."""
+        """The window with a span around each step, its profiled steps
+        last."""
         tracer = None
         profiled = range(0)
-        ranges = None
 
         def run(self, one, seconds, profiled):
             # the tracer the cell's run function set for its window
@@ -80,30 +80,21 @@ def report(cell: str, seed: int, seconds: float, device="cuda",
                 and time.perf_counter() >= self.deadline
 
         def _profile(self, one, profiled, res):
-            for c in self.calls:
-                c.clear()
             self.profiled = range(res.steps, res.steps + profiled)
-            prof = profile.capture(lambda: [one() for _ in range(profiled)])
-            res.steps += profiled
-            res.calls = {c.name: list(c.shapes) for c in self.calls}
-            res.profile = profile.reduce(prof, [c.name for c in self.calls])
-            self.ranges = spans.ranges(prof)
-            del prof
-            gc.collect()
+            super()._profile(one, profiled, res)
 
     man = manifest.manifest()
     c = manifest.cell(man, cell)
     cfg = cfg or manifest.config(man, c["config"])
     traffic = traffic or manifest.traffic(c["traffic"])
-    win = SpanWindow(device, T0, True)
-    prev = obs_trace.set_tracer(obs_trace.Tracer())
+    ref = manifest.reference(c["config"])
+    read = cells.readers(man, cell)
+    win = SpanWindow(device, T0, True, entries.union(read.values()))
     try:
-        kind = {"prefill": prefill.run, "train": train.run}[traffic["kind"]]
-        res = kind(cfg, traffic, manifest.reference(c["config"]), seed,
-                   seconds, win, device)
+        res = cells.DRIVERS[traffic["kind"]](cfg, traffic, ref, seed,
+                                             seconds, win, device)
     finally:
         win.close()
-        obs_trace.set_tracer(prev)
     correct, _ = compare.judge(res.numbers, manifest.limits(cell)["limits"])
     steps = spans.per_step(win.tracer.spans, STEP)
 
@@ -113,7 +104,7 @@ def report(cell: str, seed: int, seconds: float, device="cuda",
         return {n: 1e3 * statistics.fmean(steps[i].get(n, 0.0) for i in idx)
                 for n in names} if idx else {}
 
-    r, n_prof = win.ranges, len(win.profiled)
+    r, n_prof = res.spans, len(win.profiled)
     dev = torch.device(device)
     out = {"cell": cell, "seed": seed,
            "device": torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -141,6 +132,8 @@ def report(cell: str, seed: int, seconds: float, device="cuda",
         out["idle_inside_pct"] = inside
         out["device_ms"] = {n: 1e3 * spans.device_s(r, [n]) / n_prof
                             for n in sorted(r["device"])}
+    ctx = cells.Context(c, cfg, traffic, res, ref)
+    out["per_layer"] = {m: reader.read(ctx) for m, reader in read.items()}
     return out
 
 

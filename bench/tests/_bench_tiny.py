@@ -18,12 +18,15 @@ B, S = 2, 64
 
 def config(name: str, dtype: str = "bfloat16") -> dict:
     cfg = manifest.config(manifest.manifest(), name)
-    cfg.update(n_layers=2, d_model=64, n_heads=4, head_dim=16, d_ff=128,
-               vocab_size=256, param_dtype=dtype, compute_dtype=dtype)
+    cfg.update(n_layers=2, d_model=64, vocab_size=256, param_dtype=dtype,
+               compute_dtype=dtype)
+    if cfg["n_heads"]:
+        cfg.update(n_heads=4, head_dim=16, d_ff=128)
+    if cfg.get("ssm"):
+        cfg["ssm"] = dict(cfg["ssm"], d_state=16, head_dim=16, chunk=16)
     if cfg["family"] == "hybrid":
         cfg.update(n_kv_heads=4, hybrid={"attn_every": 1})
-        cfg["ssm"] = dict(cfg["ssm"], d_state=16, head_dim=16, chunk=16)
-    else:
+    elif cfg.get("moe"):
         cfg.update(n_kv_heads=2, sliding_window=16)
         cfg["moe"] = dict(cfg["moe"], n_experts=4)
     return cfg

@@ -14,13 +14,13 @@ from benchkit import cells, compare, manifest, prefill, train
 from benchkit import weights as W
 
 SEED = 2**31 + 21
-PREFILL = ["mixtral-prefill", "zamba2-prefill"]
+PREFILL = ["mixtral-prefill", "zamba2-prefill", "mamba2-prefill"]
 
 
 def prefill_control(cell, cfg, traffic, device):
     c = manifest.cell(manifest.manifest(), cell)
     ref = manifest.reference(c["config"])
-    w = W.make(cfg, SEED, device)
+    w = W.make(cfg, SEED, device, ref)
     g = torch.Generator(device).manual_seed(SEED * 2 + 1)
     tok = torch.randint(0, cfg["vocab_size"],
                         (traffic["batch"], traffic["seq_len"]),

@@ -67,15 +67,19 @@ def test_forward_flops_by_hand():
         3 * counts.forward_flops(HYBRID, 1, 3)
 
 
-@pytest.mark.parametrize("name", ["zamba2-2.7b", "mixtral-8x7b-16l"])
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "mixtral-8x7b-16l",
+                                  "mamba2-370m"])
 def test_forward_flops_follow_the_weights(name):
     """At one token the model FLOPs are twice the weights the token
-    multiplies (experts: top_k of n_experts; no embedding, no conv), plus
-    one attention pair a head and the SSD's 4·H·N·P."""
+    multiplies (experts: top_k of n_experts; no embedding lookup, no conv;
+    a tied head once), plus one attention pair a head and the SSD's
+    4·H·N·P."""
     cfg = manifest.config(manifest.manifest(), name)
     moe = cfg.get("moe")
-    sites = cfg["n_layers"] // cfg["hybrid"]["attn_every"] \
-        if cfg["family"] == "hybrid" else cfg["n_layers"]
+    if cfg["family"] == "hybrid":
+        sites = cfg["n_layers"] // cfg["hybrid"]["attn_every"]
+    else:
+        sites = 0 if cfg["family"] == "ssm" else cfg["n_layers"]
     mult = 0
     for leaf in weights.param_spec(cfg):
         n = math.prod(leaf.shape)
@@ -88,8 +92,10 @@ def test_forward_flops_follow_the_weights(name):
         if leaf.name.startswith("shared."):
             n *= sites   # the one shared block, applied at every site
         mult += n
+    if cfg["tie_embeddings"]:
+        mult += cfg["vocab_size"] * cfg["d_model"]   # the head
     extra = 0
-    if cfg["family"] == "hybrid":
+    if cfg.get("ssm"):
         z = weights.ssm_sizes(cfg)
         s = cfg["ssm"]
         extra += cfg["n_layers"] * 4 * z["heads"] * s["d_state"] \

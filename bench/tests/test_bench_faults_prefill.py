@@ -11,7 +11,7 @@ import _bench_tiny
 from benchkit import cells, manifest
 from repro_torch.runtime import steps
 
-CELLS = ["mixtral-prefill", "zamba2-prefill"]
+CELLS = ["mixtral-prefill", "zamba2-prefill", "mamba2-prefill"]
 
 
 def stale(make):

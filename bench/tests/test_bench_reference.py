@@ -9,7 +9,7 @@ import torch
 import _bench_tiny
 from benchkit import manifest, program, weights
 
-CONFIGS = ["zamba2-2.7b", "mixtral-8x7b-16l"]
+CONFIGS = ["zamba2-2.7b", "mixtral-8x7b-16l", "mamba2-370m"]
 
 
 def _tokens(seed=0, V=256, extra=0):
