@@ -123,10 +123,11 @@ def step_properties(cfg, optimizer, state: steps.TrainState,
     traced ones), so that nothing of ``state`` is touched."""
     step_fn = steps.make_train_step(cfg, optimizer)
     model = state.params
+    trains = steps.trainable(model)
     warnings: list = []
 
     def fn(params, opt_state, batch):
-        params = {n: p.detach().requires_grad_(True)
+        params = {n: p.detach().requires_grad_(n in trains)
                   for n, p in params.items()}
         with _bound(model, params):
             _, metrics = step_fn(steps.TrainState(model, opt_state,

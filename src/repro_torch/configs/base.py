@@ -23,6 +23,16 @@ class MoEConfig:
     capacity_factor: float = 1.25
     # router jitter / aux loss weight
     aux_loss_weight: float = 0.01
+    # the picks' weights, renormalised over the top_k, are scaled by this
+    routed_scale: float = 1.0
+    # width of one shared expert every token passes through (0: none)
+    shared_ff: int = 0
+    # False: GShard's capacity-bounded dense dispatch of softmax-routed
+    # SwiGLU experts.  True: no capacity, every pick computed (index-based
+    # dispatch), of relu² experts (down(relu(up x)^2), no gate) routed by a
+    # sigmoid of each logit with a correction bias that steers the picks
+    # only (the router and its bias held in f32)
+    dropless: bool = False
 
 
 @dataclass(frozen=True)
@@ -35,6 +45,9 @@ class SSMConfig:
     head_dim: int = 64  # P
     n_groups: int = 1
     chunk: int = 128  # SSD chunk length
+    # SSD heads; 0 -> expand * d_model / head_dim (d_inner = heads *
+    # head_dim where set)
+    heads: int = 0
 
 
 @dataclass(frozen=True)
@@ -53,7 +66,7 @@ class HybridConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    family: str  # dense | moe | ssm | hybrid | vlm | audio | pattern
     n_layers: int
     d_model: int
     n_heads: int  # 0 for attention-free archs
@@ -63,6 +76,7 @@ class ArchConfig:
     head_dim: int = 0  # 0 -> d_model // n_heads
     # --- positional encoding ---
     rope_theta: float = 10000.0
+    use_rope: bool = True  # False: attention turns no q, k (NoPE)
     m_rope: bool = False  # Qwen2-VL multi-dimensional RoPE
     mrope_sections: Tuple[int, ...] = (16, 24, 24)  # splits of head_dim//2
     # --- attention variants ---
@@ -72,6 +86,9 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
+    # the pattern family: block i is the i-th letter, "M" a Mamba2 mixer,
+    # "E" the MoE, "*" attention, each one pre-norm residual block
+    block_pattern: Optional[str] = None
     # --- heads / embeddings ---
     tie_embeddings: bool = False
     n_output_heads: int = 1  # MusicGen: 4 codebook heads
@@ -87,6 +104,14 @@ class ArchConfig:
     optimizer: str = "adamw"  # adamw | adafactor
     remat_policy: str = "full"  # none | dots | full (full = save block
     # boundaries only; required for the large-arch dry-runs to fit HBM)
+
+    def __post_init__(self):
+        if self.block_pattern is not None and (
+                len(self.block_pattern) < self.n_layers
+                or set(self.block_pattern) - set("ME*")):
+            raise ValueError(f"{self.name}: block_pattern "
+                             f"{self.block_pattern!r} is not {self.n_layers} "
+                             f"or more letters of M, E and *")
 
     # ------------------------------------------------------------------
     @property
@@ -112,7 +137,20 @@ class ArchConfig:
     @property
     def d_inner(self) -> int:
         assert self.ssm is not None
+        if self.ssm.heads:
+            return self.ssm.heads * self.ssm.head_dim
         return self.ssm.expand * self.d_model
+
+    @property
+    def blocks(self) -> str:
+        """The pattern family's blocks, a letter each: the first
+        ``n_layers`` of ``block_pattern`` (fewer layers cut the model's
+        depth, as in the other families)."""
+        return self.block_pattern[:self.n_layers]
+
+    def blocks_of(self, kind: str) -> int:
+        """How many of ``blocks`` are of ``kind`` (M, E or *)."""
+        return self.blocks.count(kind)
 
     @property
     def ssm_heads(self) -> int:
@@ -137,6 +175,12 @@ class ArchConfig:
         def ffn_params(dff: int) -> int:
             return 3 * d * dff  # SwiGLU
 
+        def expert_params() -> int:
+            m = self.moe
+            per = (2 if m.dropless else 3) * d * ff
+            return d * m.n_experts + (m.n_experts if m.dropless else 0) \
+                + m.n_experts * per + 2 * d * m.shared_ff
+
         def ssm_params() -> int:
             s = self.ssm
             din = self.d_inner
@@ -149,7 +193,11 @@ class ArchConfig:
             return in_proj + conv + out_proj + extra
 
         per_layer = 0
-        if self.family == "ssm":
+        if self.family == "pattern":
+            total += self.blocks_of("M") * (ssm_params() + d)
+            total += self.blocks_of("E") * (expert_params() + d)
+            total += self.blocks_of("*") * (attn_params() + d)
+        elif self.family == "ssm":
             per_layer = ssm_params() + d  # + norm
             total += L * per_layer
         elif self.family == "hybrid":
@@ -171,6 +219,12 @@ class ArchConfig:
         """Active (per-token) parameter count — differs for MoE."""
         if self.moe is None:
             return self.n_params()
+        if self.family == "pattern":
+            m = self.moe
+            per = (2 if m.dropless else 3) * self.d_model \
+                * self.d_ff
+            return self.n_params() \
+                - self.blocks_of("E") * (m.n_experts - m.top_k) * per
         dense_like = dataclasses.replace(self, moe=None)
         base = dense_like.n_params()
         # dense counted 1 FFN / layer; MoE activates top_k + router
@@ -181,6 +235,8 @@ class ArchConfig:
     # ------------------------------------------------------------------
     def reduced(self) -> "ArchConfig":
         """Tiny same-family variant for CPU smoke tests."""
+        if self.family == "pattern":
+            return self._reduced_pattern()
         kw = dict(
             name=self.name + "-smoke",
             n_layers=min(self.n_layers, 2),
@@ -207,6 +263,19 @@ class ArchConfig:
         if self.sliding_window is not None:
             kw["sliding_window"] = 16
         return dataclasses.replace(self, **kw)
+
+    def _reduced_pattern(self) -> "ArchConfig":
+        """Every letter of the pattern once or twice, at tiny widths; the
+        SSD heads in 4 groups, the router's kind, scale and experts'
+        function kept."""
+        ssm = dataclasses.replace(self.ssm, d_state=16, head_dim=16,
+                                  heads=8, n_groups=4, chunk=16)
+        moe = dataclasses.replace(self.moe, n_experts=8, top_k=2,
+                                  shared_ff=48 if self.moe.shared_ff else 0)
+        return dataclasses.replace(
+            self, name=self.name + "-smoke", block_pattern="MEM*E",
+            n_layers=5, d_model=64, n_heads=4, n_kv_heads=2, d_ff=32,
+            vocab_size=256, head_dim=16, ssm=ssm, moe=moe)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ from repro_torch.configs import (
     mamba2_370m,
     mixtral_8x22b,
     mixtral_8x7b,
+    nemotron3_nano_30b_a3b,
 )
 
 _MODULES = (
@@ -28,6 +29,7 @@ _MODULES = (
     mamba2_370m,
     mixtral_8x22b,
     mixtral_8x7b,
+    nemotron3_nano_30b_a3b,
 )
 
 ARCHS: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}

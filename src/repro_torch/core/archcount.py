@@ -113,6 +113,16 @@ def _ssm_macs(cfg: ArchConfig) -> Expr:
     return proj + conv + ssd
 
 
+def _dropless_moe_macs(cfg: ArchConfig) -> int:
+    """A dropless MoE block's per-token MACs: the router, the top_k routed
+    experts and the shared expert, each computed once (no capacity slack,
+    no dispatch product: the rows are gathered by index)."""
+    m = cfg.moe
+    per = 2 * cfg.d_model  # relu²: up and down
+    return cfg.d_model * m.n_experts + per * (m.top_k * cfg.d_ff
+                                              + m.shared_ff)
+
+
 def _moe_dispatch_macs(cfg: ArchConfig, tokens: ExprLike = None) -> Expr:
     """Dense GShard dispatch/combine einsum MACs per token.
 
@@ -137,6 +147,8 @@ def _moe_dispatch_macs(cfg: ArchConfig, tokens: ExprLike = None) -> Expr:
 
 
 def _vpu_layer(cfg: ArchConfig) -> Dict[str, ExprLike]:
+    if cfg.family == "pattern":
+        return _pattern_mean(cfg, _vpu_layer)
     d = cfg.d_model
     out: Dict[str, ExprLike] = {}
     add = mul = div = exp = special = as_expr(0)
@@ -172,8 +184,12 @@ def _vpu_layer(cfg: ArchConfig) -> Dict[str, ExprLike]:
         exp = exp + E            # router softmax
         add = add + 3 * E
         div = div + E
-        special = special + cfg.moe.top_k * cfg.moe.capacity_factor * cfg.d_ff
-        mul = mul + cfg.moe.top_k * cfg.moe.capacity_factor * cfg.d_ff
+        if cfg.moe.dropless:     # relu² of every routed and shared row
+            act = cfg.moe.top_k * cfg.d_ff + cfg.moe.shared_ff
+        else:
+            act = cfg.moe.top_k * cfg.moe.capacity_factor * cfg.d_ff
+        special = special + act
+        mul = mul + act
     b = _bits(cfg)
     for k, v in (("add", add), ("mul", mul), ("div", div), ("exp", exp),
                  ("special", special)):
@@ -203,8 +219,36 @@ class StepCounts:
         return e.eval(full) if isinstance(e, Expr) else float(e)
 
 
+def _pattern_kinds(cfg: ArchConfig) -> Dict[str, ArchConfig]:
+    """The pattern family's three kinds of block, each as the config of a
+    model of that block alone: "M" a Mamba2 mixer, "E" the (dropless) MoE,
+    "*" attention with no FFN."""
+    from dataclasses import replace
+    return {"M": replace(cfg, family="ssm", block_pattern=None, n_heads=0,
+                         n_kv_heads=0, moe=None, d_ff=0),
+            "E": replace(cfg, family="moe", block_pattern=None, n_heads=0,
+                         n_kv_heads=0, ssm=None),
+            "*": replace(cfg, family="dense", block_pattern=None, ssm=None,
+                         moe=None, d_ff=0)}
+
+
+def _pattern_mean(cfg: ArchConfig, per_layer) -> Dict[str, ExprLike]:
+    """``per_layer``'s vector averaged over the pattern's blocks."""
+    out: Dict[str, ExprLike] = {}
+    for kind, sub in _pattern_kinds(cfg).items():
+        out = add_vectors(out, scale_vector(
+            per_layer(sub), cfg.blocks_of(kind) / cfg.n_layers))
+    return out
+
+
 def _layer_macs(cfg: ArchConfig) -> Expr:
     """Per-token MACs of one *average* layer (MoE: active experts)."""
+    if cfg.family == "pattern":
+        total = as_expr(_ssm_macs(cfg)) * cfg.blocks_of("M") \
+            + as_expr(_dropless_moe_macs(cfg)) * cfg.blocks_of("E") \
+            + (as_expr(_attn_proj_macs(cfg)) + _attn_score_macs_train(cfg)) \
+            * cfg.blocks_of("*")
+        return total * (1.0 / cfg.n_layers)
     if cfg.family == "ssm":
         return as_expr(_ssm_macs(cfg))
     if cfg.family == "hybrid":
@@ -289,6 +333,8 @@ def train_counts(cfg: ArchConfig,
 def _n_attn_layers(cfg: ArchConfig) -> int:
     if not cfg.n_heads:
         return 0
+    if cfg.family == "pattern":
+        return cfg.blocks_of("*")
     return (cfg.n_layers // cfg.hybrid.attn_every
             if cfg.family == "hybrid" else cfg.n_layers)
 
@@ -303,7 +349,9 @@ def _cache_write_elems(cfg: ArchConfig) -> ExprLike:
         out = out + as_expr(2 * cfg.n_kv_heads * cfg.head_dim_
                             * n_attn) * B * S
     if cfg.ssm is not None:
-        out = out + as_expr(cfg.n_layers * cfg.ssm_heads * cfg.ssm.head_dim
+        n_ssm = cfg.blocks_of("M") if cfg.family == "pattern" \
+            else cfg.n_layers
+        out = out + as_expr(n_ssm * cfg.ssm_heads * cfg.ssm.head_dim
                             * cfg.ssm.d_state) * B
     return out
 
@@ -366,14 +414,22 @@ def decode_counts(cfg: ArchConfig,
         attn_flops = as_expr(0)
     else:
         proj = _attn_proj_macs(cfg)
-        if cfg.moe is not None:
-            expert = as_expr(_ffn_macs(cfg, _moe_active(cfg)))
+        if cfg.family == "pattern":
+            expert = as_expr(_dropless_moe_macs(cfg))
             if "mi" in flags:
                 expert = expert * MI
-            ff = expert + _moe_dispatch_macs(cfg, tokens=tok)  # group = tok
+            per_layer = (as_expr(_ssm_macs(cfg)) * cfg.blocks_of("M")
+                         + expert * cfg.blocks_of("E")
+                         + as_expr(proj) * cfg.blocks_of("*")) * (1.0 / L)
         else:
-            ff = as_expr(_ffn_macs(cfg))
-        per_layer = as_expr(proj) + ff
+            if cfg.moe is not None:
+                expert = as_expr(_ffn_macs(cfg, _moe_active(cfg)))
+                if "mi" in flags:
+                    expert = expert * MI
+                ff = expert + _moe_dispatch_macs(cfg, tokens=tok)  # group
+            else:
+                ff = as_expr(_ffn_macs(cfg))
+            per_layer = as_expr(proj) + ff
         if cfg.family == "hybrid":
             k = cfg.hybrid.attn_every
             per_layer = as_expr(_ssm_macs(cfg)) \
@@ -388,8 +444,9 @@ def decode_counts(cfg: ArchConfig,
             attn_flops = attn_flops * SL
         cache_elems = (as_expr(2 * cfg.n_kv_heads * cfg.head_dim_ * n_attn)
                        * ctx_total)
-        if cfg.family == "hybrid":
-            cache_elems = cache_elems + as_expr(L) * rows * (
+        if cfg.family in ("hybrid", "pattern"):
+            n_ssm = cfg.blocks_of("M") if cfg.family == "pattern" else L
+            cache_elems = cache_elems + as_expr(n_ssm) * rows * (
                 cfg.ssm_heads * cfg.ssm.head_dim * cfg.ssm.d_state)
     pv[props.mxu_key(bits)] = \
         as_expr(2) * (mac + _embed_head_macs(cfg)) * tok + attn_flops

@@ -819,6 +819,18 @@ def _ffn_matmul_shapes(cfg, T: ExprLike) -> List[Tuple[ExprLike, ExprLike,
             (T, cfg.d_model, cfg.d_ff)]
 
 
+def _dropless_matmul_shapes(cfg, T: ExprLike) -> List[Tuple[
+        ExprLike, ExprLike, ExprLike, float]]:
+    """(M, N, K, times) of one dropless MoE block's products: the router,
+    top_k routed experts' up and down a token, the shared expert's."""
+    m, d = cfg.moe, cfg.d_model
+    out = [(T, m.n_experts, d, 1.0), (T, cfg.d_ff, d, float(m.top_k)),
+           (T, d, cfg.d_ff, float(m.top_k))]
+    if m.shared_ff:
+        out += [(T, m.shared_ff, d, 1.0), (T, d, m.shared_ff, 1.0)]
+    return out
+
+
 def _is_cuda(kernels) -> bool:
     return all(km.schedule == "cuda"
                for km in (KERNELS if kernels is None else kernels).values())
@@ -898,7 +910,14 @@ def step_kernel_vectors(cfg, workload="train", kernels=None
 
     mm_shapes: List[Tuple[ExprLike, ExprLike, ExprLike, ExprLike]] = []
     n_attn = 0
-    if cfg.family == "ssm":
+    if cfg.family == "pattern":
+        n_ssm, n_attn = cfg.blocks_of("M"), cfg.blocks_of("*")
+        for (m, n, k, times) in _dropless_matmul_shapes(cfg, T):
+            mult: ExprLike = times * cfg.blocks_of("E")
+            if decode and "mi" in flags:
+                mult = as_expr(mult) * archcount.MI
+            mm_shapes.append((m, n, k, mult))
+    elif cfg.family == "ssm":
         n_ssm = L
     elif cfg.family == "hybrid":
         n_ssm = L
@@ -910,6 +929,7 @@ def step_kernel_vectors(cfg, workload="train", kernels=None
     if n_attn:
         for (m, n, k) in _attn_matmul_shapes(cfg, T):
             mm_shapes.append((m, n, k, float(n_attn)))
+    if n_attn and cfg.family != "pattern":  # the FFN or experts after
         if cfg.moe is not None:
             active = cfg.moe.top_k * cfg.moe.capacity_factor
             expert_mult: ExprLike = float(n_attn) * active
@@ -973,7 +993,7 @@ def step_kernel_vectors(cfg, workload="train", kernels=None
     # forms so the kernel-composed mxu total replaces the step count
     # without dropping terms (MoE dense dispatch/combine, SSM short conv)
     extra = as_expr(0)
-    if n_attn and cfg.moe is not None:
+    if n_attn and cfg.moe is not None and not cfg.moe.dropless:
         dispatch = archcount._moe_dispatch_macs(cfg, tokens=T) if decode \
             else archcount._moe_dispatch_macs(cfg)
         extra = extra + dispatch * float(n_attn)

@@ -50,6 +50,7 @@ from repro_torch.core import extract as cx
 from repro_torch.distributed.plan import H100_HBM_BYTES, Plan, plan_for
 from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_fake_production_mesh
+from repro_torch.models import moe
 from repro_torch.runtime import flags
 
 
@@ -96,6 +97,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     ok, why = shape_applicable(cfg, shape)
     rec: Dict = {"arch": arch, "shape": shape_name,
                  "mesh": "2x16x16" if multi_pod else "16x16"}
+    if ok and cfg.moe is not None and cfg.moe.dropless:
+        ok, why = False, moe.NO_SHARDED_DISPATCH
     if not ok:
         rec["status"] = "skip"
         rec["why"] = why

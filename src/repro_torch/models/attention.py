@@ -1,5 +1,6 @@
-"""Attention: GQA, RoPE / M-RoPE, sliding window, the chunked online-softmax
-path with its flash-style backward, and KV-cache decode.
+"""Attention: GQA, RoPE / M-RoPE or no positional encoding (``use_rope``
+off), sliding window, the chunked online-softmax path with its flash-style
+backward, and KV-cache decode.
 
 Train and prefill go through the hand-written flash-attention kernel
 (``repro_torch.kernels.flash_attention``) inside ``_FlashAttention``, an
@@ -494,13 +495,14 @@ def attn_apply(p: Attention, x: torch.Tensor, cfg, *,
     k = logical(k, ("act_batch", None, "act_kv_heads", None))
     v = logical(v, ("act_batch", None, "act_kv_heads", None))
 
-    if cfg.m_rope:
-        cos, sin = _mrope_cos_sin(positions, dh // 2, cfg.rope_theta,
-                                  cfg.mrope_sections)
-    else:
-        cos, sin = _rope_cos_sin(positions, dh // 2, cfg.rope_theta)
-    q = _rotate(q, cos, sin)
-    k = _rotate(k, cos, sin)
+    if cfg.use_rope:
+        if cfg.m_rope:
+            cos, sin = _mrope_cos_sin(positions, dh // 2, cfg.rope_theta,
+                                      cfg.mrope_sections)
+        else:
+            cos, sin = _rope_cos_sin(positions, dh // 2, cfg.rope_theta)
+        q = _rotate(q, cos, sin)
+        k = _rotate(k, cos, sin)
 
     new_cache = None
     if cache is None:

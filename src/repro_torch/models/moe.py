@@ -15,38 +15,78 @@ no TPU kernel to port here.  ``moe_apply``'s four phases are the spans
 The parameters keep the reference's layout, so the contractions read the
 same: ``router`` (d, E), ``gate`` and ``up`` (E, d, ff), ``down`` (E, ff,
 d).
+
+A ``dropless`` MoE (``_dropless_apply``) drops no token and builds no
+(G, t, E, C) tensor: the picks are sorted by expert on the device, the
+rows gathered in that order (``dispatch``), every expert's relu² product
+computed at once over its rows (``expert_products``: PyTorch's grouped
+GEMM on the card), and the rows put back and summed with their weights
+(``combine``), in f32 as the router runs; a shared expert every token
+passes through is added (the span ``moe.shared``).  Its router is a
+sigmoid of each logit, the picks the top-k of the scores plus a
+correction bias, their weights the unbiased scores renormalised and
+scaled by ``routed_scale`` (the router and its bias held in f32).  Nothing
+is read back to the host.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import logical
 from repro_torch.models import layers
 from repro_torch.obs import trace as _obs_trace
+from repro_torch.runtime import flags
 
 GROUP_TOKENS = 2048  # dispatch group size (tokens)
+#: why a dropless layer runs on one card only
+NO_SHARDED_DISPATCH = ("the dropless MoE has no sharded dispatch (no expert "
+                       "or tensor parallelism): it runs on one card")
 
 
 class MoE(nn.Module):
-    """The router and the E experts' SwiGLU weights of one layer."""
+    """The router and the E experts' weights of one layer: SwiGLU (gate,
+    up, down) routed by a softmax for the GShard dispatch; relu² (up,
+    down) routed by a sigmoid for the dropless one, with the router in f32
+    and its correction bias (``router_bias``, f32, zero at init), and the
+    shared expert (``shared_up`` (d, shared_ff), ``shared_down``
+    (shared_ff, d)) where the configuration has one.  The bias steers the
+    picks only, so no gradient reaches it: it is not trained
+    (``requires_grad`` False), as the release moves it by the experts'
+    load and not by the loss."""
 
     def __init__(self, cfg, dtype, device, generator: torch.Generator):
         super().__init__()
-        d, ff, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
-        self.router = nn.Parameter(
-            layers.normal_((d, E), dtype, device, generator))
-        self.gate = nn.Parameter(
-            layers.normal_((E, d, ff), dtype, device, generator))
+        m = cfg.moe
+        d, ff, E = cfg.d_model, cfg.d_ff, m.n_experts
+        if not m.dropless and (m.shared_ff or m.routed_scale != 1.0):
+            raise ValueError(f"{cfg.name}: the GShard dispatch has no shared "
+                             f"expert and no routed scale")
+        self.router = nn.Parameter(layers.normal_(
+            (d, E), torch.float32 if m.dropless else dtype, device,
+            generator))
+        if m.dropless:
+            self.router_bias = nn.Parameter(
+                torch.zeros(E, dtype=torch.float32, device=device),
+                requires_grad=False)
+        else:
+            self.gate = nn.Parameter(
+                layers.normal_((E, d, ff), dtype, device, generator))
         self.up = nn.Parameter(
             layers.normal_((E, d, ff), dtype, device, generator))
         self.down = nn.Parameter(
             layers.normal_((E, ff, d), dtype, device, generator))
+        if m.shared_ff:
+            self.shared_up = nn.Parameter(layers.normal_(
+                (d, m.shared_ff), dtype, device, generator))
+            self.shared_down = nn.Parameter(layers.normal_(
+                (m.shared_ff, d), dtype, device, generator))
 
 
 def _capacity(tokens_per_group: int, E: int, top_k: int,
@@ -72,11 +112,23 @@ def _groups(T: int) -> Tuple[int, int]:
     return T // tg, tg
 
 
+class Picks(NamedTuple):
+    """The routing of a dropless layer's T tokens."""
+    experts: torch.Tensor  # (T, K) int64, the k-th pick's expert
+    weights: torch.Tensor  # (T, K) f32, its weight in the combine
+
+
 def route(router: torch.Tensor, xg: torch.Tensor, top_k: int,
-          C: int) -> Routing:
+          C: Optional[int], bias: Optional[torch.Tensor] = None,
+          scale: float = 1.0):
     """Token-choice top-K with capacity ``C`` (GShard 'tokens choose'):
     xg (G, t, d) -> the routing, f32 math.  The k-th pick of every token is
-    placed before any (k+1)-th pick; within a pick, in token order."""
+    placed before any (k+1)-th pick; within a pick, in token order.
+
+    ``C`` None: no capacity (``route_dropless``; xg (T, d), ``bias`` and
+    ``scale`` its own)."""
+    if C is None:
+        return route_dropless(router, xg, top_k, bias, scale)
     logits = xg.float() @ router.float()                      # (G, t, E)
     probs = torch.softmax(logits, dim=-1)
     E = probs.shape[-1]
@@ -102,18 +154,111 @@ def route(router: torch.Tensor, xg: torch.Tensor, top_k: int,
                    torch.stack(slots, -1), torch.stack(keeps, -1))
 
 
-def routing(p: MoE, x: torch.Tensor, cfg) -> Routing:
+def route_dropless(router: torch.Tensor, x: torch.Tensor, top_k: int,
+                   bias: torch.Tensor, scale: float) -> Picks:
+    """x (T, d) -> the top-K of the scores s = sigmoid of the f32 logits,
+    plus ``bias``, weighted by their unbiased s renormalised over the K
+    picks and times ``scale``; f32 math."""
+    s = torch.sigmoid(x.float() @ router.float())             # (T, E)
+    experts = torch.topk(s + bias.float(), top_k, dim=-1).indices
+    w = torch.gather(s, -1, experts)
+    w = w / (w.sum(-1, keepdim=True) + 1e-20) * scale
+    return Picks(experts, w)
+
+
+def routing(p: MoE, x: torch.Tensor, cfg):
     """The routing ``moe_apply(p, x, cfg)`` computes, on its own."""
     B, S, d = x.shape
+    m = cfg.moe
+    if m.dropless:
+        return route(p.router, x.reshape(B * S, d), m.top_k, None,
+                     p.router_bias, m.routed_scale)
     G, tg = _groups(B * S)
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     return route(p.router, x.reshape(G, tg, d), K,
                  _capacity(tg, E, K, cfg.moe.capacity_factor))
 
 
+def dispatch(x: torch.Tensor, experts: torch.Tensor, E: int
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (T, d), experts (T, K) -> (the picks' rows sorted by expert (T·K,
+    d), ``order`` (T·K,): the flat (token, k) index of each sorted row,
+    ``offsets`` (E,) int32: where each expert's rows end).  A stable sort
+    on the device; nothing is read back."""
+    flat = experts.reshape(-1)
+    ids, order = torch.sort(flat, stable=True)
+    offsets = torch.searchsorted(
+        ids, torch.arange(E, device=ids.device, dtype=ids.dtype),
+        right=True).to(torch.int32)
+    return x.index_select(0, order // experts.shape[-1]), order, offsets
+
+
+def expert_products(x: torch.Tensor, offsets: torch.Tensor,
+                    up: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
+    """Every expert's down(relu(up x)²) over its rows: x (R, d) sorted by
+    expert, rows ``offsets[e-1]:offsets[e]`` expert e's; up (E, d, ff),
+    down (E, ff, d) -> (R, d) in x's type.  On the card, PyTorch's grouped
+    GEMM (``torch._grouped_mm``) twice; the plain version, one product an
+    expert, only for CPU tensors or under ``flags.use_kernels(False)``.
+    Fake tensors (a traced step) hold no offsets to loop over: they take
+    the grouped GEMMs, whose shapes do not depend on the offsets."""
+    if not is_fake(x) and (x.device.type == "cpu"
+                           or not flags.kernels_enabled()):
+        return _expert_products_plain(x, offsets, up, down)
+    h = torch._grouped_mm(x, up, offs=offsets)
+    return torch._grouped_mm(torch.square(F.relu(h)), down, offs=offsets)
+
+
+def _expert_products_plain(x, offsets, up, down) -> torch.Tensor:
+    out = torch.zeros_like(x)
+    start = 0
+    for e, end in enumerate(offsets.tolist()):
+        if end > start:
+            h = torch.square(F.relu(x[start:end] @ up[e]))
+            out[start:end] = h @ down[e]
+        start = end
+    return out
+
+
+def combine(y: torch.Tensor, order: torch.Tensor,
+            weights: torch.Tensor) -> torch.Tensor:
+    """The sorted rows' outputs y (T·K, d) back in (token, k) order, each
+    times its weight (T, K) and summed over k, in f32 -> (T, d) f32."""
+    T, K = weights.shape
+    back = torch.empty_like(y).index_copy_(0, order, y)
+    return (back.view(T, K, -1).float() * weights[..., None]).sum(1)
+
+
+def _dropless_apply(p: MoE, x: torch.Tensor,
+                    cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    if sharding.is_dtensor(x):
+        raise NotImplementedError(NO_SHARDED_DISPATCH)
+    B, S, d = x.shape
+    m = cfg.moe
+    tracer = _obs_trace.get_tracer()
+    with tracer.span("moe.route", E=m.n_experts, K=m.top_k, score="sigmoid",
+                     dropless=True):
+        r = routing(p, x, cfg)
+    xt = x.reshape(B * S, d)
+    with tracer.span("moe.dispatch"):
+        rows, order, offsets = dispatch(xt, r.experts, m.n_experts)
+    with tracer.span("moe.experts"):
+        y = expert_products(rows, offsets, p.up, p.down)
+    with tracer.span("moe.combine"):
+        out = combine(y, order, r.weights).to(x.dtype)
+    if m.shared_ff:
+        with tracer.span("moe.shared"):
+            out = out + torch.square(F.relu(xt @ p.shared_up)) \
+                @ p.shared_down
+    return out.reshape(B, S, d), x.new_zeros((), dtype=torch.float32)
+
+
 def moe_apply(p: MoE, x: torch.Tensor,
               cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d), aux_loss f32 scalar)."""
+    """x (B, S, d) -> (out (B, S, d), aux_loss f32 scalar; 0 for a
+    dropless layer, whose bias balances the load)."""
+    if cfg.moe.dropless:
+        return _dropless_apply(p, x, cfg)
     B, S, d = x.shape
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     x = layers.rows_whole(x)  # groups fold the batch and the sequence

@@ -267,8 +267,23 @@ def ssm_apply(p: SSM, x: torch.Tensor, cfg, *,
 
     y = y + xin * p.D[:, None].to(x.dtype)
     y = y.reshape(Bsz, S, din)
-    y = layers.rmsnorm(p.norm, y * F.silu(z), cfg.norm_eps)
-    return p.out_proj(y), new_state
+    return p.out_proj(gated_norm(p.norm, y, z, G, cfg.norm_eps)), new_state
+
+
+def gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+               groups: int, eps: float) -> torch.Tensor:
+    """Mamba2's gated RMSNorm, the gate before the norm: RMSNorm of
+    y · silu(z) over each of ``groups`` equal groups of channels (Mamba2's
+    ``RMSNormGated(group_size=d_inner // ngroups)``); one group is the norm
+    over all of them.  Sharded over more ranks than divide ``groups``, the
+    channels are gathered first (``sharding.split_dim``)."""
+    g = y * F.silu(z)
+    if groups == 1:
+        return layers.rmsnorm(scale, g, eps)
+    per = g.shape[-1] // groups
+    return sharding.merge_last(layers.rmsnorm(
+        sharding.split_dim(scale, 0, groups),
+        sharding.split_last(g, groups, per), eps))
 
 
 def init_ssm_state(cfg, B: int, dtype, device="cuda") -> SSMState:

@@ -16,6 +16,10 @@ Families:
   hybrid                    : Zamba2 — SSD blocks + one *shared*
                               attention+MLP block applied after every
                               ``attn_every``-th SSD layer
+  pattern                   : Nemotron-H — block i is the i-th letter of
+                              ``block_pattern``, each one pre-norm residual
+                              block of one mixer: "M" Mamba2, "E" the MoE,
+                              "*" attention (no FFN after it)
 
 Training: ``loss_fn`` differentiates ``forward`` with torch autograd; the
 kernels sit inside autograd Functions (``attention._FlashAttention``,
@@ -76,6 +80,29 @@ class SSMBlock(nn.Module):
         self.mixer = ssm.SSM(cfg, dtype, device, generator)
 
 
+class MoEBlock(nn.Module):
+    """Pre-norm mixture of experts (the pattern family's "E")."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device, generator):
+        super().__init__()
+        self.ln = layers.RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
+        self.moe = moe.MoE(cfg, dtype, device, generator)
+
+
+class AttnBlock(nn.Module):
+    """Pre-norm attention and no FFN after it (the pattern family's
+    "*")."""
+
+    def __init__(self, cfg: ArchConfig, dtype, device, generator):
+        super().__init__()
+        self.ln = layers.RMSNorm(cfg.d_model, dtype, device, cfg.norm_eps)
+        self.attn = attn.Attention(cfg, dtype, device, generator)
+
+
+#: the pattern family's block of each letter
+PATTERN_BLOCKS = {"M": SSMBlock, "E": MoEBlock, "*": AttnBlock}
+
+
 class Transformer(nn.Module):
     """``place(module, name)``, called on each top-level part (the
     embedding, each block, the shared block, the final norm, the head) as
@@ -92,10 +119,14 @@ class Transformer(nn.Module):
         self.embed = place(layers.Embedding(cfg.vocab_size, cfg.d_model,
                                             dtype, device, generator,
                                             cfg.n_input_codebooks), "embed")
-        block = SSMBlock if _has_ssm(cfg) else DenseBlock
+        if cfg.family == "pattern":
+            kinds = [PATTERN_BLOCKS[c] for c in cfg.blocks]
+        else:
+            kinds = [SSMBlock if _has_ssm(cfg) else DenseBlock] \
+                * cfg.n_layers
         self.blocks = nn.ModuleList(
             place(block(cfg, dtype, device, generator), f"blocks.{i}")
-            for i in range(cfg.n_layers))
+            for i, block in enumerate(kinds))
         if cfg.family == "hybrid":
             if cfg.n_layers % cfg.hybrid.attn_every:
                 raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not "
@@ -162,7 +193,8 @@ BLOCK_AXES = {
     "attn.wo.weight": ("embed", "heads"),
     "ffn.gate.weight": ("ff", "embed"), "ffn.up.weight": ("ff", "embed"),
     "ffn.down.weight": ("embed", "ff"),
-    "moe.router": ("embed", "expert"),
+    "moe.router": ("embed", "expert"), "moe.router_bias": ("expert",),
+    "moe.shared_up": ("embed", "ff"), "moe.shared_down": ("ff", "embed"),
     "moe.gate": ("expert", "embed", "ff"), "moe.up": ("expert", "embed", "ff"),
     "moe.down": ("expert", "ff", "embed"),
     "mixer.in_proj.weight": ("ssm_inner", "embed"),
@@ -212,7 +244,7 @@ def decode_state_axes(cfg: ArchConfig) -> Dict[str, Any]:
         conv=("act_layers", "act_batch", None, "act_ssm_inner"),
         h=("act_layers", "act_batch", "act_ssm_heads", None, None))
     axes: Dict[str, Any] = {"pos": ()}
-    if _has_ssm(cfg):
+    if _has_ssm(cfg) or cfg.family == "pattern":
         axes["ssm"] = ssm_axes
     if cfg.family != "ssm":
         axes["kv"] = kv_axes
@@ -294,6 +326,30 @@ def _ssm_block_apply(bp: SSMBlock, h, cfg, state=None):
     return _annotate_resid(h + m_out)
 
 
+def _pattern_block_apply(bp: nn.Module, h, cfg, kind: str, positions,
+                         cache=None, cache_pos=None, state=None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block of the pattern family, of ``kind`` M, E or * -> (h, the
+    block's auxiliary loss: the MoE's, else 0)."""
+    if kind == "M":
+        return _ssm_block_apply(bp, h, cfg, state), \
+            torch.zeros((), dtype=torch.float32, device=h.device)
+    x = bp.ln(h)
+    if kind == "E":
+        out, aux = moe.moe_apply(bp.moe, x, cfg)
+    else:
+        out, _ = attn.attn_apply(bp.attn, x, cfg, positions=positions,
+                                 cache=cache, cache_pos=cache_pos)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _annotate_resid(h + out), aux
+
+
+def _pattern_slot(cfg, i: int) -> int:
+    """Block i's index among the pattern's blocks of its letter (its KV
+    cache or SSM state)."""
+    return cfg.blocks[:i].count(cfg.blocks[i])
+
+
 def _is_site(cfg, i: int) -> bool:
     """Does the hybrid's shared block follow SSM layer ``i``?"""
     return cfg.family == "hybrid" and (i + 1) % cfg.hybrid.attn_every == 0
@@ -344,7 +400,13 @@ def forward(model: Transformer, cfg: ArchConfig,
     B, S = h.shape[0], h.shape[1]
     positions = attn._positions_for(cfg, B, S, device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if not _has_ssm(cfg):
+    if cfg.family == "pattern":
+        for bp, kind in zip(model.blocks, cfg.blocks):
+            h, a = _remat(functools.partial(
+                _pattern_block_apply, bp, cfg=cfg, kind=kind,
+                positions=positions), policy)(h)
+            aux = aux + a
+    elif not _has_ssm(cfg):
         for bp in model.blocks:
             h, a = _remat(functools.partial(_dense_block_apply, bp, cfg=cfg,
                                             positions=positions), policy)(h)
@@ -402,22 +464,28 @@ def init_decode_state(cfg: ArchConfig, B: int, max_len: int, dtype=None,
     """Decode caches stacked along a leading axis, and the position:
 
     * ``"kv"``: KV caches ``(n, B, Smax, KVH, dh)``, one per attention layer
-      (dense, moe, vlm, audio) or one per application site of the shared
-      block (hybrid, ``n_layers // attn_every`` sites);
+      (dense, moe, vlm, audio, the pattern's "*" blocks) or one per
+      application site of the shared block (hybrid, ``n_layers //
+      attn_every`` sites);
     * ``"ssm"``: ``SSMState(conv (L, B, d_conv-1, conv_dim), h (L, B, H, P,
-      N) f32)``, one per SSM layer (ssm, hybrid).
+      N) f32)``, one per SSM layer (ssm, hybrid, the pattern's "M"
+      blocks).
 
     As in the reference there is ONE position for all ``B`` rows.  It is kept
     as a host integer, so reading it never waits for the device."""
     dtype = dtype or layers.to_dtype(cfg.compute_dtype)
     state: Dict[str, Any] = {"pos": 0}
-    if _has_ssm(cfg):
+    pattern = cfg.family == "pattern"
+    if _has_ssm(cfg) or pattern:
         one = ssm.init_ssm_state(cfg, B, dtype, device=device)
+        n = cfg.blocks_of("M") if pattern else cfg.n_layers
         state["ssm"] = ssm.SSMState(
-            *(t.new_zeros((cfg.n_layers,) + tuple(t.shape)) for t in one))
+            *(t.new_zeros((n,) + tuple(t.shape)) for t in one))
     if cfg.family != "ssm":
         n = cfg.n_layers // cfg.hybrid.attn_every \
             if cfg.family == "hybrid" else cfg.n_layers
+        if pattern:
+            n = cfg.blocks_of("*")
         shape = (n,) + attn.cache_shape(cfg, B, max_len)
         state["kv"] = attn.KVCache(
             torch.zeros(shape, dtype=dtype, device=device),
@@ -444,6 +512,13 @@ def decode_step(model: Transformer, cfg: ArchConfig, state: Dict[str, Any],
         return attn.KVCache(kv.k[site], kv.v[site])
 
     for i, bp in enumerate(model.blocks):
+        if cfg.family == "pattern":
+            kind, j = cfg.blocks[i], _pattern_slot(cfg, i)
+            h, _ = _pattern_block_apply(
+                bp, h, cfg, kind, positions,
+                cache(j) if kind == "*" else None, pos,
+                ssm.SSMState(st.conv[j], st.h[j]) if kind == "M" else None)
+            continue
         if not _has_ssm(cfg):
             h, _ = _dense_block_apply(bp, h, cfg, positions, cache(i), pos)
             continue

@@ -51,6 +51,14 @@ def state_tree(state: TrainState) -> Dict[str, Any]:
             "opt_state": state.opt_state, "step": state.step}
 
 
+def trainable(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The parameters a training step differentiates and updates, by name:
+    all but those held fixed (``requires_grad`` False, as a dropless
+    MoE's correction bias, which steers the picks and gets no gradient).
+    The optimizer state and a checkpoint keep every parameter."""
+    return {n: p for n, p in model.named_parameters() if p.requires_grad}
+
+
 def _microbatch(v: torch.Tensor, i: int, M: int) -> torch.Tensor:
     """The ``i``-th of ``M`` equal chunks of ``v``'s rows.  A DTensor's
     rows split over the data axes are chunked on each rank, so that every
@@ -105,7 +113,7 @@ def make_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         tracer = _obs_trace.get_tracer()
         model = state.params
-        params = dict(model.named_parameters())
+        params = trainable(model)
         if M > 1:
             grads = _pin_grads({n: torch.zeros_like(p, dtype=torch.float32)
                                 for n, p in params.items()})
@@ -200,7 +208,7 @@ def make_manual_dp_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
 
     def train_step(state: TrainState, ef, batch: Dict[str, torch.Tensor]):
         model = state.params
-        params = dict(model.named_parameters())
+        params = trainable(model)
         loss, _ = transformer.loss_fn(model, cfg, local_rows(batch))
         grads = dict(zip(params, torch.autograd.grad(
             loss, list(params.values()))))
@@ -218,7 +226,7 @@ def make_manual_dp_train_step(cfg: ArchConfig, optimizer: opt.Optimizer,
     def init_ef(model) -> Dict[str, torch.Tensor]:
         if compression is None:
             return {}
-        params = dict(model.named_parameters()) \
+        params = trainable(model) \
             if isinstance(model, torch.nn.Module) else model
         return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                 for n, p in params.items()}

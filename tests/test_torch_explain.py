@@ -74,7 +74,7 @@ def test_score_explain_matches_fused_scores(arch, kernels):
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(JARCHS))
 def test_score_explain_equals_the_reference(arch, shape):
     cfg, spec, plan = _cell(arch, shape)
     jcfg = JARCHS[arch]

@@ -66,12 +66,13 @@ def test_package_layout():
                  "examples/kernel_autotune.py", "examples/serve_decode.py",
                  "examples/train_smollm.py", "examples/fault_tolerance.py",
                  "examples/fleet_churn.py",
-                 "examples/autoshard_search.py"):
+                 "examples/autoshard_search.py",
+                 "configs/nemotron3_nano_30b_a3b.py"):
         assert need in names, need
     for src in ("flash_attention.cu", "ssd_scan.cu", "matmul.cu",
                 "transpose.cu"):
         assert (PKG / "kernels" / "csrc" / src).exists(), src
-    assert len(list((PKG / "configs").glob("*.py"))) == 12
+    assert len(list((PKG / "configs").glob("*.py"))) == 13
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -18,11 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import base as jcfg
 from repro.configs.registry import ARCHS as JARCHS
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import transformer as jtransformer
 from repro.runtime import flags as jflags
+from repro_torch.configs import base as tcfg
 from repro_torch.configs.registry import ARCHS as TARCHS, get_arch
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
@@ -70,12 +72,31 @@ def _jax_path(pallas):
 # ---------------------------------------------------------------------------
 
 
+def _as_reference(cfg) -> dict:
+    """The port's config as the reference's fields: the fields the port
+    adds (the pattern family's) at their defaults, and left out."""
+    out, added = dataclasses.asdict(cfg), {}
+    for group, cls in (("", type(cfg)), ("moe", tcfg.MoEConfig),
+                       ("ssm", tcfg.SSMConfig)):
+        have = out.get(group) if group else out
+        ref = {f.name for f in dataclasses.fields(
+            getattr(jcfg, cls.__name__))}
+        for f in dataclasses.fields(cls):
+            if have is not None and f.name not in ref:
+                added[f"{group}.{f.name}"] = (have.pop(f.name), f.default)
+    assert all(v == default for v, default in added.values()), added
+    return out
+
+
 def test_configs_are_equal_copies():
-    assert sorted(TARCHS) == sorted(JARCHS)
+    """The reference's registry is the port's but Nemotron, which the
+    reference has not; its configs are the port's, the port's added
+    fields at their defaults."""
+    assert sorted(TARCHS) == sorted([*JARCHS, "nemotron-3-nano-30b-a3b"])
     for name in JARCHS:
-        assert dataclasses.asdict(TARCHS[name]) == \
+        assert _as_reference(TARCHS[name]) == \
             dataclasses.asdict(JARCHS[name])
-        assert dataclasses.asdict(TARCHS[name].reduced()) == \
+        assert _as_reference(TARCHS[name].reduced()) == \
             dataclasses.asdict(JARCHS[name].reduced())
         assert TARCHS[name].n_params() == JARCHS[name].n_params()
     with pytest.raises(KeyError):

@@ -176,7 +176,7 @@ def ref_specs(monkeypatch):
 
 @pytest.mark.parametrize("mesh_name", sorted(MESHES))
 @pytest.mark.parametrize("shape_name", sorted(SHAPES))
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(JARCHS))
 def test_step_and_specs_match_the_reference(arch, shape_name, mesh_name,
                                             ref_specs):
     multi = mesh_name == "2x16x16"

@@ -77,8 +77,10 @@ def validation(tmp_path_factory):
         m = seeds.ANALYTIC_SEEDS["gpu-h100"]()
         m.device = "cpu-tiny"
         m.save(str(d / "experiments" / "torch_model_cpu-tiny_tiny.json"))
+        # the reference's architectures (the port's registry also holds
+        # Nemotron, which the reference has not)
         out["port"] = tpv.run(scale="tiny", B=B, S=S, device="cpu",
-                              verbose=False)
+                              archs=sorted(JARCHS), verbose=False)
         out["dir"] = d
     finally:
         mp.undo()

@@ -49,7 +49,8 @@ torch.set_num_threads(1)
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "workload_train.json")
 MESH = {"data": 16, "model": 16}
-ALL_ARCHS = sorted(ARCHS)
+#: the archs both registries hold (the port's also has Nemotron)
+ALL_ARCHS = sorted(JARCHS)
 RTOL = 1e-12
 #: the reference's registry: the step programs held to the reference's
 #: compose its Pallas blocks (the card's are the default)
@@ -147,6 +148,7 @@ def test_as_spec_shapeconfig_is_silent_string_warns():
 
 def test_golden_covers_every_registry_arch():
     assert sorted(GOLD) == ALL_ARCHS
+    assert sorted(ARCHS) == sorted(ALL_ARCHS + ["nemotron-3-nano-30b-a3b"])
 
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
